@@ -1,0 +1,88 @@
+// Shared device helpers of the MGS exact-limb kernels.
+//
+// The packed-code layout and the limb scheme repeat the PyTorch twins in
+// repro_torch/core/formats.py (decode_sm_e) and
+// repro_torch/kernels/mgs_matmul.py (_limb_split) operation for operation:
+//
+//   code -> (sm, e) -> ix = sm << max(e, 1) -> 3 balanced base-128 limbs
+//
+// Limbs are signed bytes; four of them along the contraction axis pack one
+// 32-bit word for __dp4a. Every float step that must match the twins bit for
+// bit is written with the _rn intrinsics, and the library is compiled with
+// -fmad=false, so no a*b+c is ever contracted into one rounding.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace mgs {
+
+constexpr int kLimbBase = 7;
+constexpr int kClasses = 5;  // limb-weight classes a+b in [0, 4]
+
+// ix = sm << max(e, 1) of one packed code (formats.decode_sm_e).
+template <int EB, int MB>
+__device__ __forceinline__ int code_to_ix(int code) {
+  const int frac = code & ((1 << MB) - 1);
+  const int e = (code >> MB) & ((1 << EB) - 1);
+  const int mag = e > 0 ? frac + (1 << MB) : frac;
+  const int sm = ((code >> (EB + MB)) & 1) ? -mag : mag;
+  return sm * (1 << (e > 1 ? e : 1));
+}
+
+// Balanced base-128 limbs of ix (mgs_matmul._limb_split), one per byte.
+__device__ __forceinline__ uint32_t pack_limbs(int ix) {
+  const int c0 = ((ix + 64) & 127) - 64;
+  int rem = (ix - c0) >> kLimbBase;
+  const int c1 = ((rem + 64) & 127) - 64;
+  rem = (rem - c1) >> kLimbBase;
+  return (uint32_t(c0) & 0xffu) | ((uint32_t(c1) & 0xffu) << 8) |
+         ((uint32_t(rem) & 0xffu) << 16);
+}
+
+// Limb a of four consecutive contraction elements (byte i = element i).
+__device__ __forceinline__ int limb_word(uint32_t l0, uint32_t l1, uint32_t l2,
+                                         uint32_t l3, int a) {
+  const uint32_t sel = uint32_t(a) | (uint32_t(4 + a) << 4);
+  const uint32_t lo = __byte_perm(l0, l1, sel);
+  const uint32_t hi = __byte_perm(l2, l3, sel);
+  return int(__byte_perm(lo, hi, 0x5410));
+}
+
+// Exact float32 2**e for e in [-126, 127].
+__device__ __forceinline__ float pow2f(int e) {
+  return __int_as_float((e + 127) << 23);
+}
+
+// The wide-accumulator add: tot + sum_c float(acc[c]) * 2^(7c), ascending c.
+__device__ __forceinline__ float flush_classes(float tot, const int* acc) {
+#pragma unroll
+  for (int c = 0; c < kClasses; ++c)
+    tot = __fadd_rn(tot, __fmul_rn(__int2float_rn(acc[c]),
+                                   pow2f(kLimbBase * c)));
+  return tot;
+}
+
+// _combine_classes: float(acc[0]) + ... in the same ascending order.
+__device__ __forceinline__ float combine_classes(const int* acc) {
+  float tot = __int2float_rn(acc[0]);
+#pragma unroll
+  for (int c = 1; c < kClasses; ++c)
+    tot = __fadd_rn(tot, __fmul_rn(__int2float_rn(acc[c]),
+                                   pow2f(kLimbBase * c)));
+  return tot;
+}
+
+// 2^-2(bias+mbits): the fixed-point scale of an ix * ix product.
+template <int EB, int MB>
+__device__ __forceinline__ float out_scale() {
+  return pow2f(-2 * (((1 << (EB - 1)) - 1) + MB));
+}
+
+// 256-entry code -> packed limbs table, filled by the whole block.
+template <int EB, int MB>
+__device__ __forceinline__ void fill_lut(uint32_t* lut, int tid, int nthreads) {
+  for (int i = tid; i < 256; i += nthreads) lut[i] = pack_limbs(code_to_ix<EB, MB>(i));
+}
+
+}  // namespace mgs

@@ -1,0 +1,325 @@
+"""The exact limb-fused FP8 matmul: the B1 kernel wrapper and its twin.
+
+``mgs_matmul_exact_fused`` is the port of the TPU kernel
+``repro.kernels.mgs_matmul._exact_fused_kernel`` (``schedule="output"``):
+operands arrive as packed FP8 codes (1 byte per element), each code is
+decoded to the fixed-point integer ``ix = sm << max(e, 1)`` and split
+into 3 balanced base-128 int8 limbs, the 9 limb-pair products accumulate
+exactly into 5 int32 class sums (a + b), and every ``flush_period``
+K-steps of ``block_k`` the classes are added to a float32 wide
+accumulator in ascending class order. The epilogue is
+``act(acc * 2^-2(bias+mbits) * scale + bias)``, every step a separate
+rounding.
+
+On a CUDA tensor the wrapper launches the hand-written kernel
+``csrc/mgs_matmul.cu``; on a CPU tensor it runs the plain PyTorch twin
+:func:`mgs_matmul_exact_fused_plain`, which repeats the kernel's
+arithmetic op for op (``_accumulate_classes`` / ``_flush_classes``).
+The twin upcasts limbs to float64 for its integer products: every product
+and partial sum is an integer far below 2**53, so the float64 matmul is
+exact on the CPU and on the card alike (PyTorch has no int32 matmul on
+CUDA, and wraps int8 matmuls on the CPU).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.formats import (E4M3, FPFormat, decode_sm_e,
+                                      decompose, pow2)
+from . import _cuda
+
+__all__ = ["ACTIVATIONS", "limb_decompose", "worst_case_flush_period",
+           "flush_steps", "mgs_matmul_exact_fused",
+           "mgs_matmul_exact_fused_plain", "out_scale"]
+
+_LIMB_BASE = 7
+_N_LIMBS = 3
+_N_CLASSES = 2 * _N_LIMBS - 1
+_KERNEL_FMTS = {"e4m3": 0, "e3m4": 1}
+_ACT_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
+# float32(sqrt(2 / pi)), the tanh-gelu constant of jax.nn.gelu
+_SQRT_2_OVER_PI = float(np.float32(np.sqrt(2 / np.pi)))
+# twin output columns per pass (bounds its float64 limb planes)
+_PLAIN_N_CHUNK = 16384
+
+
+def _relu(r):
+    return torch.where(r > 0, r, torch.zeros_like(r))
+
+
+def _gelu(r):
+    r3 = r * r * r
+    return r * (0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI
+                                         * (r + 0.044715 * r3))))
+
+
+def _silu(r):
+    return r * (1.0 / (1.0 + torch.exp(-r)))
+
+
+# Epilogue activations, written op for op as the CUDA kernel computes them
+# (csrc/mgs_matmul.cu::activate), so fused and unfused agree on the card.
+ACTIVATIONS = {"none": lambda r: r, "relu": _relu, "gelu": _gelu,
+               "silu": _silu}
+
+
+def out_scale(fmt: FPFormat) -> float:
+    """``2^-2(bias+mbits)``: the fixed-point scale of an ix * ix product."""
+    return 2.0 ** (-2 * (fmt.bias + fmt.mbits))
+
+
+def _limb_split(ix: torch.Tensor) -> List[torch.Tensor]:
+    """Split int32 fixed-point values into 3 balanced base-128 int8 limbs."""
+    half, mod = 1 << (_LIMB_BASE - 1), 1 << _LIMB_BASE
+    limbs, rem = [], ix.to(torch.int32)
+    for _ in range(_N_LIMBS - 1):
+        c = ((rem + half) & (mod - 1)) - half
+        limbs.append(c.to(torch.int8))
+        rem = (rem - c) >> _LIMB_BASE
+    limbs.append(rem.to(torch.int8))
+    return limbs
+
+
+def _fixed_point(sm: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """``sm << max(e, 1)`` as int32."""
+    return sm * pow2(torch.clamp_min(e, 1)).to(torch.int32)
+
+
+def limb_decompose(v: torch.Tensor, fmt: FPFormat = E4M3) -> torch.Tensor:
+    """Format-exact values -> ``(3, ...)`` int8 balanced limbs of ix."""
+    sm, e = decompose(v, fmt)
+    return torch.stack(_limb_split(_fixed_point(sm, e)))
+
+
+def _decode_limbs(codes: torch.Tensor, fmt: FPFormat) -> List[torch.Tensor]:
+    """Packed codes (uint8) -> 3 balanced int8 limbs."""
+    sm, e = decode_sm_e(codes, fmt)
+    return _limb_split(_fixed_point(sm, e))
+
+
+def worst_case_flush_period(block_k: int) -> int:
+    """Deterministic no-overflow flush period for the int32 class sums."""
+    per_step = block_k * _N_LIMBS * (1 << (_LIMB_BASE - 1)) ** 2
+    return max(1, (2**31 - 1) // per_step)
+
+
+def flush_steps(flush_period: Optional[int], block_k: int,
+                nsteps: int) -> int:
+    """The runtime flush period, clamped to ``[1, nsteps]`` (``None`` =
+    :func:`worst_case_flush_period`). Bit-affecting: each flush rounds
+    the exact class sums into the float32 wide accumulator."""
+    if flush_period is None:
+        flush_period = worst_case_flush_period(block_k)
+    return int(min(max(int(flush_period), 1), max(nsteps, 1)))
+
+
+def _round_decompose_e4m3(p: torch.Tensor, fmt: FPFormat,
+                          gate_subnormal: bool):
+    """RNE round-to-``fmt`` + ``(sm, e)`` via exponent-field extraction
+    (``repro.kernels.mgs_matmul._round_decompose_e4m3``)."""
+    ap = p.abs()
+    eu = ((ap.view(torch.int32) >> 23) - 127).clamp(fmt.emin_unbiased,
+                                                    fmt.emax_unbiased)
+    q = pow2(eu - fmt.mbits)
+    r = torch.round(ap / q) * q
+    r = torch.clamp_max(r, fmt.max_finite)
+    if gate_subnormal:
+        r = torch.where(ap < fmt.min_subnormal, torch.zeros_like(r), r)
+    r = torch.where(ap == 0, torch.zeros_like(r), r) * torch.sign(p)
+    ar = r.abs()
+    eu2 = ((ar.view(torch.int32) >> 23) - 127).clamp(fmt.emin_unbiased,
+                                                     fmt.emax_unbiased)
+    is_sub = ar < 2.0 ** fmt.emin_unbiased
+    e = torch.where(is_sub, torch.zeros_like(eu2), eu2 + fmt.bias)
+    sc = pow2(-(torch.clamp_min(e, 1) - (fmt.bias + fmt.mbits)))
+    sm = torch.round(r * sc).to(torch.int32)
+    return sm, e
+
+
+# ---------------------------------------------------------------------------
+# the plain twin
+# ---------------------------------------------------------------------------
+
+
+def _accumulate_classes(acc, lx, lw):
+    """9 limb-pair products accumulated per weight class a+b (exact)."""
+    for a in range(_N_LIMBS):
+        for b in range(_N_LIMBS):
+            acc[a + b] = acc[a + b] + torch.matmul(lx[a], lw[b])
+
+
+def _class_int32(c: torch.Tensor) -> torch.Tensor:
+    """Exact float64 integer class sum -> int32, wrapping like the
+    kernel's int32 registers."""
+    return c.to(torch.int64).to(torch.int32)
+
+
+def _flush_classes(acc, acc_f: torch.Tensor) -> torch.Tensor:
+    """The wide-accumulator add, ascending class order."""
+    tot = acc_f
+    for c in range(_N_CLASSES):
+        tot = tot + _class_int32(acc[c]).to(torch.float32) * float(
+            2 ** (_LIMB_BASE * c))
+    return tot
+
+
+def _as_3d(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dim() == 3 else t.reshape((1,) + tuple(t.shape))
+
+
+def _epilogue(r, scale, bias, activation):
+    if scale is not None:
+        r = r * scale
+    if bias is not None:
+        r = r + bias
+    return ACTIVATIONS[activation](r)
+
+
+def _rows(v, Bt: int, N: int, device) -> Optional[torch.Tensor]:
+    """A scale or bias broadcastable to (Bt, 1, N), as a float32 view."""
+    if v is None:
+        return None
+    t = torch.as_tensor(v, dtype=torch.float32, device=device)
+    if t.dim() > 3:
+        raise ValueError(f"scale/bias rank {t.dim()} > 3")
+    t = t.reshape((1,) * (3 - t.dim()) + tuple(t.shape)).contiguous()
+    return t.expand(Bt, 1, N)
+
+
+def _check_operands(x_codes, w_codes, activation, block_k):
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"activation {activation!r} not in "
+                         f"{sorted(ACTIVATIONS)}")
+    if x_codes.dtype != torch.uint8 or w_codes.dtype != torch.uint8:
+        raise TypeError(f"codes must be uint8, got {x_codes.dtype}, "
+                        f"{w_codes.dtype}")
+    if x_codes.dim() not in (2, 3) or w_codes.dim() not in (2, 3):
+        raise ValueError(f"x (M, K) / (Bt, M, K) and w (K, N) / (Bt, K, N) "
+                         f"expected, got {tuple(x_codes.shape)}, "
+                         f"{tuple(w_codes.shape)}")
+    if x_codes.shape[-1] != w_codes.shape[-2]:
+        raise ValueError(f"contraction mismatch {tuple(x_codes.shape)} @ "
+                         f"{tuple(w_codes.shape)}")
+    if block_k <= 0:
+        raise ValueError(f"block_k must be positive, got {block_k}")
+
+
+def mgs_matmul_exact_fused_plain(x_codes, w_codes, fmt: FPFormat = E4M3, *,
+                                 scale=None, bias=None,
+                                 activation: str = "none",
+                                 block_k: int = 128,
+                                 flush_period: Optional[int] = None):
+    """Plain PyTorch twin of the B1 kernel (same arguments, same bits)."""
+    _check_operands(x_codes, w_codes, activation, block_k)
+    squeeze = x_codes.dim() == 2 and w_codes.dim() == 2
+    xc, wc = _as_3d(x_codes), _as_3d(w_codes)
+    Bt = max(xc.shape[0], wc.shape[0])
+    M, K = xc.shape[1:]
+    N = wc.shape[-1]
+    nsteps = -(-K // block_k)
+    fp = flush_steps(flush_period, block_k, nsteps)
+    lx = [l.to(torch.float64) for l in _decode_limbs(xc, fmt)]
+    acc_f = torch.zeros((Bt, M, N), dtype=torch.float32, device=xc.device)
+    for n0 in range(0, N, _PLAIN_N_CHUNK):
+        n1 = min(N, n0 + _PLAIN_N_CHUNK)
+        lw = [l.to(torch.float64) for l in _decode_limbs(wc[..., n0:n1], fmt)]
+        part = acc_f[..., n0:n1]
+        for s0 in range(0, nsteps, fp):
+            k0, k1 = s0 * block_k, min(K, (s0 + fp) * block_k)
+            acc = [torch.zeros((Bt, M, n1 - n0), dtype=torch.float64,
+                               device=xc.device)] * _N_CLASSES
+            _accumulate_classes(acc, [l[..., k0:k1] for l in lx],
+                                [l[..., k0:k1, :] for l in lw])
+            part = _flush_classes(acc, part)
+        acc_f[..., n0:n1] = part
+    out = _epilogue(acc_f * out_scale(fmt), _rows(scale, Bt, N, xc.device),
+                    _rows(bias, Bt, N, xc.device), activation)
+    return out[0] if squeeze else out
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8
+             + [ctypes.c_void_p])
+
+
+def _kernel():
+    fn = _cuda.load("mgs_matmul").mgs_matmul_exact_fused
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def mgs_matmul_exact_fused(x_codes, w_codes, fmt: FPFormat = E4M3, *,
+                           scale=None, bias=None, activation: str = "none",
+                           block_k: int = 128,
+                           flush_period: Optional[int] = None):
+    """Exact limb-fused matmul over packed FP8 codes.
+
+    Args:
+      x_codes: ``(M, K)`` or ``(Bt, M, K)`` uint8 codes
+        (:func:`repro_torch.core.formats.encode_bits`).
+      w_codes: ``(K, N)`` or ``(Bt, K, N)`` uint8 codes; a 2-D weight is
+        shared by every slice of a 3-D ``x``.
+      fmt: operand format (E4M3 or E3M4).
+      scale / bias: optional float32 epilogue rows broadcastable to
+        ``(Bt, 1, N)`` — one per slice or shared.
+      activation: one of :data:`ACTIVATIONS`.
+      block_k: the K-step the flush period counts (a multiple of 32 on
+        the card).
+      flush_period: runtime K-steps between flushes (``None`` = the
+        worst-case bound, one flush at the end for any practical K).
+
+    Returns:
+      float32 ``(M, N)`` / ``(Bt, M, N)``. A CPU tensor runs the twin; a
+      CUDA tensor launches ``csrc/mgs_matmul.cu`` or raises.
+    """
+    if x_codes.device.type == "cpu":
+        return mgs_matmul_exact_fused_plain(
+            x_codes, w_codes, fmt, scale=scale, bias=bias,
+            activation=activation, block_k=block_k,
+            flush_period=flush_period)
+    if x_codes.device.type != "cuda" or w_codes.device != x_codes.device:
+        raise ValueError(f"codes on {x_codes.device} / {w_codes.device}: "
+                         "the kernel runs on one CUDA device")
+    _check_operands(x_codes, w_codes, activation, block_k)
+    if fmt.name not in _KERNEL_FMTS:
+        raise ValueError(f"the exact kernel takes E4M3/E3M4, got {fmt.name}")
+    if block_k % 32:
+        raise ValueError(f"block_k={block_k} must be a multiple of 32 on "
+                         "the card (the kernel stages 32-deep K sub-tiles)")
+    squeeze = x_codes.dim() == 2 and w_codes.dim() == 2
+    xc, wc = _as_3d(x_codes).contiguous(), _as_3d(w_codes).contiguous()
+    if wc.shape[0] not in (1, xc.shape[0]):
+        raise ValueError(f"slice counts {xc.shape[0]} vs {wc.shape[0]}")
+    Bt, M, K = xc.shape
+    N = wc.shape[-1]
+    dev = xc.device
+    out = torch.empty((Bt, M, N), dtype=torch.float32, device=dev)
+    if Bt and M and N:
+        if K == 0:
+            out.zero_()
+            out = _epilogue(out, _rows(scale, Bt, N, dev),
+                            _rows(bias, Bt, N, dev), activation)
+        else:
+            sc, bi = _rows(scale, Bt, N, dev), _rows(bias, Bt, N, dev)
+            fp = flush_steps(flush_period, block_k, -(-K // block_k))
+            err = _kernel()(
+                xc.data_ptr(), wc.data_ptr(),
+                None if sc is None else sc.data_ptr(),
+                None if bi is None else bi.data_ptr(), out.data_ptr(),
+                Bt, M, K, N, M * K, K * N if wc.shape[0] == Bt else 0,
+                0 if sc is None else sc.stride(0),
+                0 if sc is None else sc.stride(2),
+                0 if bi is None else bi.stride(0),
+                0 if bi is None else bi.stride(2),
+                _KERNEL_FMTS[fmt.name], _ACT_CODES[activation], block_k, fp,
+                _cuda.stream_ptr(dev))
+            _cuda.check(err, "mgs_matmul_exact_fused")
+            _cuda.LAUNCHES["mgs_matmul_exact_fused"] += 1
+    return out[0] if squeeze else out

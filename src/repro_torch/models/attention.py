@@ -1,0 +1,239 @@
+"""Self-attention (MHA/GQA/MQA, causal / sliding window) with decode KV
+caches — float (:class:`KVCache`) or packed FP8
+(:class:`repro_torch.quant.QuantizedKVCache`, decode served by the B2
+flash kernel).
+
+The port's copy of the self-attention branches of
+``repro.models.attention``: dense scores (``_sdpa_dense``), the
+online-softmax chunked prefill (``_sdpa_chunked``), and the packed-cache
+decode (``_sdpa_packed_cache``). Under an fp8 config the score and value
+contractions of prefill route through ``qeinsum`` (the B1 kernel, batched
+over (batch, kv-head) slices). Caches are written in place.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.mgs_attention import mgs_flash_attention
+from repro_torch.quant import QuantizedKVCache, append_kv, qeinsum
+from repro_torch.quant.quantize import QTensor, quantize_fp8
+from .common import apply_rope, pairwise_sum_last
+from .linear import proj
+
+__all__ = ["attention_apply", "KVCache"]
+
+_NEG_INF = -1e30
+_POS_SENTINEL = 2**30
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S_max, KV, hd)
+    v: torch.Tensor  # (B, S_max, KV, hd)
+
+
+def _mask(q_pos, k_pos, *, causal: bool, window: int, is_global):
+    """(..., Tq, Tk) additive float32 mask from position vectors."""
+    dq = q_pos[..., :, None]
+    dk = k_pos[..., None, :]
+    ok = torch.ones(torch.broadcast_shapes(dq.shape, dk.shape),
+                    dtype=torch.bool, device=dq.device)
+    if causal:
+        ok = ok & (dk <= dq)
+    if window > 0 and not is_global:
+        ok = ok & (dq - dk < window)
+    zero = torch.zeros((), dtype=torch.float32, device=dq.device)
+    return torch.where(ok, zero, torch.full_like(zero, _NEG_INF))
+
+
+def _sdpa_dense(q, k, v, bias, quant=None):
+    """q: (B,T,KV,G,hd)  k/v: (B,S,KV,hd)  bias: (B,1,1,T,S)."""
+    scale = q.shape[-1] ** -0.5
+    if quant is None or not quant.is_fp8:
+        scores = torch.einsum("btkgh,bskh->bkgts", q.to(torch.float32),
+                              k.to(torch.float32)) * scale
+        scores = scores + bias
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.einsum("bkgts,bskh->btkgh", w, v)
+    scores = qeinsum("btkgh,bskh->bkgts", q, k, quant,
+                     out_dtype=torch.float32) * scale
+    scores = scores + bias
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    w = (e / pairwise_sum_last(e)[..., None]).to(q.dtype)
+    return qeinsum("bkgts,bskh->btkgh", w, v, quant,
+                   out_dtype=q.dtype)
+
+
+def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, is_global,
+                  chunk: int, quant=None):
+    """Online-softmax attention over KV chunks (chunk-aligned ``S``)."""
+    B, T, KV, G, hd = q.shape
+    S = k.shape[1]
+    if S % chunk:
+        raise ValueError(
+            f"chunked attention needs a chunk-aligned key length: "
+            f"S={S} % attn_chunk={chunk} != 0")
+    scale = hd ** -0.5
+    dq = q_pos[..., :, None]
+    hi = dq if causal else torch.full_like(dq, _POS_SENTINEL - 1)
+    if window > 0 and not is_global:
+        lo = dq - window + 1
+    else:
+        lo = torch.full_like(dq, -_POS_SENTINEL)
+    fp8 = quant is not None and quant.is_fp8
+    m = torch.full((B, KV, G, T), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, T), dtype=torch.float32, device=q.device)
+    o = torch.zeros((B, KV, G, T, hd), dtype=torch.float32, device=q.device)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    for c0 in range(0, S, chunk):
+        kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        pb = k_pos[:, c0:c0 + chunk]
+        if fp8:
+            s = qeinsum("btkgh,bskh->bkgts", q, kb, quant,
+                        out_dtype=torch.float32) * scale
+        else:
+            s = torch.einsum("btkgh,bskh->bkgts", q.to(torch.float32),
+                             kb.to(torch.float32)) * scale
+        dk = pb[:, None, :]
+        ok = (dk <= hi) & (dk >= lo)
+        s = s + torch.where(ok, zero, torch.full_like(zero, _NEG_INF)
+                            )[:, None, None]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_new = l * alpha + pairwise_sum_last(p)
+        if fp8:
+            pv = qeinsum("bkgts,bskh->bkgth", p.to(q.dtype), vb, quant,
+                         out_dtype=torch.float32)
+        else:
+            pv = torch.einsum("bkgts,bskh->bkgth", p.to(q.dtype),
+                              vb).to(torch.float32)
+        o = o * alpha[..., None] + pv
+        m, l = m_new, l_new
+    out = o / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def _pad_kv_to_chunk(k, v, k_pos, chunk: int):
+    """Pad keys/values to a chunk multiple with masked sentinel positions."""
+    pad = -k.shape[1] % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=_POS_SENTINEL)
+    return k, v, k_pos
+
+
+def _quantize_decode_q(q2, quant) -> QTensor:
+    """Per-row decode-query quantization (dynamic absmax). The calibrated
+    static scale is ROADMAP item A9."""
+    if quant.static_q_scale:
+        raise NotImplementedError("static_q_scale (calibrated decode-query "
+                                  "scale) is ROADMAP item A9")
+    return quantize_fp8(q2, quant.kv_fmt, axis=1)
+
+
+def _sdpa_packed_cache(q, cache: QuantizedKVCache, bias, quant,
+                       lengths=None):
+    """Decode attention over the packed cache: the MGS flash kernel.
+
+    q: (B, T=1, KV, G, hd); cache planes (B, KV, S, hd) codes + (B, KV, S)
+    scales; bias: (B, 1, S). The query is quantized once per (batch,
+    kv-head) slice and its scale folds with the entry scales and
+    ``head_dim**-0.5`` into the per-key score multiplier.
+    """
+    B, T, KV, G, hd = q.shape
+    S = cache.k_codes.shape[2]
+    fmt = quant.kv_fmt
+    q2 = q.permute(0, 2, 3, 1, 4).reshape(B * KV, G * T * hd)
+    qt = _quantize_decode_q(q2, quant)
+    qvals = qt.q.reshape(B * KV, G * T, hd)
+    ks = cache.k_scale.reshape(B * KV, S)
+    vs = cache.v_scale.reshape(B * KV, S)
+    qk = (qt.scale * ks) * (hd ** -0.5)
+    kc = cache.k_codes.reshape(B * KV, S, hd)
+    vc = cache.v_codes.reshape(B * KV, S, hd)
+    bias2 = bias.reshape(B, 1, S).expand(B, KV, S).reshape(B * KV, S)
+    live = (None if lengths is None
+            else torch.repeat_interleave(lengths.to(torch.int32), KV))
+    out = mgs_flash_attention(qvals, kc, vc, qk, vs, bias2, fmt,
+                              chunk=quant.block_k,
+                              use_kernel=quant.use_kernel, lengths=live)
+    return out.reshape(B, KV, G, T, hd).permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
+                    causal: bool = True, cache=None, cache_pos: int = 0):
+    """Self-attention. x: (B, T, d); positions: (B, T) int.
+
+    ``cache``: a float :class:`KVCache` or a packed
+    :class:`QuantizedKVCache` (one layer's planes), written in place at
+    ``cache_pos``. With the packed cache the decode step (T == 1) attends
+    the codes through the flash kernel; prefill (T > 1, ``cache_pos`` 0)
+    attends the fresh float K/V and only stores them quantized.
+    Returns (out (B, T, d), cache | None).
+    """
+    B, T, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+
+    q = proj(x, p["wq"], cfg.quant)
+    q = apply_rope(q, positions, cfg.rope_theta).reshape(B, T, KV, G, hd)
+    k = proj(x, p["wk"], cfg.quant)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    v = proj(x, p["wv"], cfg.quant)
+
+    packed_out = None
+    if isinstance(cache, QuantizedKVCache):
+        append_kv(cache, k, v, cache_pos, cfg.quant.kv_fmt)
+        if T == 1:
+            S = cache.k_codes.shape[2]
+            k_pos = torch.arange(S, device=x.device)[None].expand(B, S)
+            valid = k_pos <= positions[:, -1:]
+            k_pos = torch.where(valid, k_pos,
+                                torch.full_like(k_pos, _POS_SENTINEL))
+            bias3 = _mask(positions, k_pos, causal=causal, window=cfg.window,
+                          is_global=is_global)
+            packed_out = _sdpa_packed_cache(q, cache, bias3, cfg.quant,
+                                            lengths=positions[:, -1] + 1)
+        else:
+            if cache_pos != 0:
+                raise NotImplementedError(
+                    "packed-cache prefill (T > 1) supports cache_pos == 0 "
+                    "only")
+            k_pos = positions
+    elif cache is not None:
+        cache.k[:, cache_pos:cache_pos + T] = k.to(cache.k.dtype)
+        cache.v[:, cache_pos:cache_pos + T] = v.to(cache.v.dtype)
+        k, v = cache.k, cache.v
+        S = k.shape[1]
+        k_pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        valid = k_pos <= positions[:, -1:]
+        k_pos = torch.where(valid, k_pos,
+                            torch.full_like(k_pos, _POS_SENTINEL))
+    else:
+        k_pos = positions
+
+    if packed_out is not None:
+        out = packed_out
+    elif cfg.attn_chunk and T > 1:
+        kp, vp, k_pos_p = _pad_kv_to_chunk(k.to(q.dtype), v.to(q.dtype),
+                                           k_pos, cfg.attn_chunk)
+        out = _sdpa_chunked(q, kp, vp, positions, k_pos_p, causal=causal,
+                            window=cfg.window, is_global=is_global,
+                            chunk=cfg.attn_chunk, quant=cfg.quant)
+    else:
+        bias = _mask(positions, k_pos, causal=causal, window=cfg.window,
+                     is_global=is_global)[:, None, None]
+        out = _sdpa_dense(q, k.to(q.dtype), v.to(q.dtype), bias,
+                          quant=cfg.quant)
+
+    out = out.reshape(B, T, H, hd)
+    y = qeinsum("bthd,hdo->bto", out, p["wo"], cfg.quant)
+    return y, cache

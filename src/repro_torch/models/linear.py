@@ -1,0 +1,21 @@
+"""Quantized linear projection: ``(..., K) @ (K, *tail)`` through
+:func:`repro_torch.quant.qeinsum`. ``activation`` / ``bias`` form the
+layer epilogue (inside the kernel on the fused exact path)."""
+
+from __future__ import annotations
+
+from repro_torch.quant import PreparedWeight, QuantConfig, qeinsum
+
+__all__ = ["proj"]
+
+_TAIL_LETTERS = "nopqrstu"
+
+
+def proj(x, w, quant: QuantConfig, *, activation: str = "none", bias=None):
+    """x: (..., K) @ w: (K, *tail) -> (..., *tail); ``w`` raw or prepared."""
+    tail = w.tail if isinstance(w, PreparedWeight) else tuple(w.shape[1:])
+    t = _TAIL_LETTERS[:len(tail)]
+    K = x.shape[-1]
+    out = qeinsum(f"mk,k{t}->m{t}", x.reshape(-1, K), w, quant, bias=bias,
+                  activation=activation, out_dtype=x.dtype)
+    return out.reshape(tuple(x.shape[:-1]) + tuple(tail))

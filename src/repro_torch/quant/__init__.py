@@ -1,0 +1,21 @@
+"""Quantized execution of the port: config, quantizers, prepared weights,
+the ``qmatmul`` / ``qeinsum`` dispatch and the packed KV cache."""
+
+from .config import (FP8_MGS_EXACT, FP8_MGS_SERVE, FP8_MGS_SERVE_KV,
+                     FP8_MGS_SERVE_PAGED, NONE, QuantConfig)
+from .kvcache import (QuantizedKVCache, append_kv, init_quantized_kv,
+                      quantize_kv)
+from .prepared import (PREP_STATS, PreparedWeight, clear_prepared_cache,
+                       prepare_logits_head, prepare_params, prepare_unembed,
+                       prepare_weight)
+from .qeinsum import plan_qeinsum, qeinsum
+from .qmatmul import qmatmul
+from .quantize import QTensor, quantize_fp8, quantize_fp8_static
+
+__all__ = ["QuantConfig", "NONE", "FP8_MGS_EXACT", "FP8_MGS_SERVE",
+           "FP8_MGS_SERVE_KV", "FP8_MGS_SERVE_PAGED", "QTensor",
+           "quantize_fp8", "quantize_fp8_static", "PreparedWeight",
+           "prepare_weight", "prepare_params", "prepare_unembed",
+           "prepare_logits_head", "PREP_STATS", "clear_prepared_cache",
+           "qmatmul", "qeinsum", "plan_qeinsum", "QuantizedKVCache",
+           "quantize_kv", "init_quantized_kv", "append_kv"]

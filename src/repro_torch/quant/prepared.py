@@ -1,0 +1,194 @@
+"""Prepared weights: quantize + encode static parameters *once*.
+
+A static weight's absmax scale and packed FP8 codes are functions of the
+parameter alone, so they are computed once at engine construction and
+reused by every request. ``PREP_STATS`` counts builds and cache hits;
+serving must keep ``prepared`` flat.
+
+Stacked weights (a leading per-layer axis) get one scale per slice — the
+reference's ``vmap`` of the per-tensor quantizer, here a loop over slices
+so a full-width layer stack never holds more than one slice's float
+temporaries. Model code indexes a layer with :meth:`PreparedWeight.slice`.
+"""
+
+from __future__ import annotations
+
+import math
+import weakref
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.formats import FPFormat, decode_bits, encode_bits, \
+    get_format
+from .config import QuantConfig
+from .quantize import quantize_fp8
+
+__all__ = ["PreparedWeight", "prepare_weight", "prepare_params",
+           "prepare_unembed", "prepare_logits_head", "PREP_STATS",
+           "clear_prepared_cache"]
+
+PREP_STATS = {"prepared": 0, "cache_hits": 0}
+
+_CACHE: dict = {}
+
+
+class PreparedWeight:
+    """A weight quantized once, in kernel-ready planes.
+
+    * ``codes``: uint8 ``(*stack, K, N)`` packed FP8 codes.
+    * ``scale``: float32 dequantization scale, ``(*stack,)`` per tensor
+      or ``(*stack, 1, N)`` per channel.
+
+    ``tail`` is the logical shape of the flattened ``N``. The reference's
+    limb planes (for the pre-decomposed kernel, B4) and limb statistics
+    (for the calibration slice, A9) are not carried yet.
+    """
+
+    def __init__(self, codes, scale, fmt_name: str, tail: Tuple[int, ...]):
+        self.codes = codes
+        self.scale = scale
+        self.fmt_name = fmt_name
+        self.tail = tuple(tail)
+
+    @property
+    def fmt(self) -> FPFormat:
+        return get_format(self.fmt_name)
+
+    @property
+    def shape(self):
+        return self.codes.shape
+
+    def values(self, dtype=torch.float32):
+        """Format-exact weight values (for the plain path)."""
+        return decode_bits(self.codes, self.fmt, dtype)
+
+    def slice(self, i: int) -> "PreparedWeight":
+        """The planes of leading stack index ``i`` (one layer)."""
+        return PreparedWeight(self.codes[i], self.scale[i], self.fmt_name,
+                              self.tail)
+
+    def __repr__(self):
+        return (f"PreparedWeight(shape={tuple(self.codes.shape)}, "
+                f"fmt={self.fmt_name}, tail={self.tail})")
+
+
+def _build(w, cfg: QuantConfig, stack_ndim: int,
+           k_ndim: int) -> PreparedWeight:
+    fmt = cfg.fmt
+    if stack_ndim + k_ndim >= w.dim() and not (
+            stack_ndim + k_ndim == w.dim() and w.dim() >= 2):
+        raise ValueError(f"weight rank {w.dim()} too small for "
+                         f"stack_ndim={stack_ndim} + k_ndim={k_ndim}")
+    stack = tuple(int(s) for s in w.shape[:stack_ndim])
+    K = math.prod(w.shape[stack_ndim:stack_ndim + k_ndim])
+    tail = tuple(int(s) for s in w.shape[stack_ndim + k_ndim:])
+    n = math.prod(tail) if tail else 1
+    axis = 0 if cfg.per_channel else None
+    n_stack = math.prod(stack) if stack else 1
+    w3 = w.reshape((n_stack, K, n))
+    codes = torch.empty((n_stack, K, n), dtype=torch.uint8, device=w.device)
+    scales = []
+    for i in range(n_stack):
+        qt = quantize_fp8(w3[i], fmt, axis=axis, margin=cfg.fp8_margin)
+        codes[i] = encode_bits(qt.q, fmt)
+        scales.append(qt.scale)
+    scale = torch.stack(scales)
+    if stack:
+        codes = codes.reshape(stack + (K, n))
+        scale = scale.reshape(stack + tuple(scales[0].shape))
+    else:
+        codes, scale = codes[0], scale[0]
+    PREP_STATS["prepared"] += 1
+    return PreparedWeight(codes, scale, fmt.name, tail)
+
+
+def _cached(key, src, build):
+    hit = _CACHE.get(key)
+    if hit is not None and hit[0]() is src:
+        PREP_STATS["cache_hits"] += 1
+        return hit[1]
+    pw = build()
+    _CACHE[key] = (weakref.ref(src), pw)
+    return pw
+
+
+def prepare_weight(w: torch.Tensor, cfg: QuantConfig, *,
+                   stack_ndim: int = 0, k_ndim: int = 1) -> PreparedWeight:
+    """Quantize + encode ``w`` (``(*stack, *kdims, *tail)``) under ``cfg``,
+    cached per process on the tensor's identity (held weakly)."""
+    if not cfg.is_fp8:
+        raise ValueError(f"prepare_weight requires an fp8 dtype, got "
+                         f"{cfg.dtype!r}")
+    key = (id(w), cfg.dtype, cfg.accum, cfg.per_channel, int(stack_ndim),
+           int(k_ndim))
+    return _cached(key, w, lambda: _build(w, cfg, stack_ndim, k_ndim))
+
+
+def prepare_unembed(embed: torch.Tensor, cfg: QuantConfig) -> PreparedWeight:
+    """Prepared ``(d_model, vocab)`` view of a tied embedding table."""
+    if not cfg.is_fp8:
+        raise ValueError(f"prepare_unembed requires an fp8 dtype, got "
+                         f"{cfg.dtype!r}")
+    if embed.dim() != 2:
+        raise ValueError(f"embedding table must be 2D, got shape "
+                         f"{tuple(embed.shape)}")
+    key = ("unembed", id(embed), cfg.dtype, cfg.accum, cfg.per_channel)
+    return _cached(key, embed, lambda: _build(embed.transpose(0, 1), cfg, 0,
+                                              1))
+
+
+def prepare_logits_head(params, cfg: QuantConfig, *, tied: bool):
+    """``params`` with the logits-head weight prepared (``unembed_prepared``
+    for a tied table, a prepared ``unembed`` otherwise). Idempotent; a
+    no-op for non-MGS configs."""
+    if not (cfg.is_fp8 and cfg.accum in ("mgs_exact", "mgs_dmac")):
+        return params
+    if tied:
+        embed = params.get("embed")
+        if "unembed_prepared" in params or getattr(embed, "ndim", 0) != 2:
+            return params
+        out = dict(params)
+        out["unembed_prepared"] = prepare_unembed(embed, cfg)
+        return out
+    w = params.get("unembed")
+    if isinstance(w, PreparedWeight) or getattr(w, "ndim", 0) != 2:
+        return params
+    out = dict(params)
+    out["unembed"] = prepare_weight(w, cfg)
+    return out
+
+
+def clear_prepared_cache():
+    _CACHE.clear()
+
+
+# Weights consumed by proj / qeinsum call sites, keyed by parent module.
+_PROJ_WEIGHTS = {
+    "attn": {"wq", "wk", "wv", "wo"},
+    "ffn": {"wg", "wu", "wi", "wd"},
+}
+# the attention out-projection flattens (heads, head_dim) into K
+_K_NDIM = {("attn", "wo"): 2}
+_STACKED_ROOTS = {"layers"}
+
+
+def prepare_params(params, cfg: QuantConfig):
+    """``params`` with every projection weight prepared (per-layer scales
+    under ``layers``). Idempotent and cache-backed; non-MGS configs pass
+    through untouched."""
+    if not (cfg.is_fp8 and cfg.accum in ("mgs_exact", "mgs_dmac")):
+        return params
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if (len(path) >= 2 and path[-1] in _PROJ_WEIGHTS.get(path[-2], ())
+                and isinstance(node, torch.Tensor) and node.dim() >= 2):
+            k_ndim = _K_NDIM.get((path[-2], path[-1]), 1)
+            stack = 1 if any(p in _STACKED_ROOTS for p in path) else 0
+            stack = min(stack, node.dim() - k_ndim - 1)
+            return prepare_weight(node, cfg, stack_ndim=stack, k_ndim=k_ndim)
+        return node
+
+    return walk(params, ())

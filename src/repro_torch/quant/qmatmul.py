@@ -1,0 +1,114 @@
+"""Canonical ``(B?, M, K) @ (B?, K, N)`` quantized matmul dispatch.
+
+``qmatmul(x, w, cfg)`` quantizes the operands, runs the configured
+numerics and rescales:
+
+  dtype=none              -> float32 matmul (the reference's f32-accumulated
+                             dot; a plain product outside any kernel)
+  fp8_* + accum=mgs_exact -> exact fixed-point accumulation: the fused B1
+                             kernel over packed codes with the
+                             scale / bias / activation epilogue in-kernel
+                             (``use_kernel``), or the plain oracle
+
+With ``batched=True`` the leading axis of ``x`` (and of a raw or prepared
+``w``) indexes independent slices, each quantized with its own scale —
+the reference's ``vmap`` over ``qmatmul``, here one batched kernel
+launch. Per-row activation scales do not fit the kernel's ``(1, N)``
+epilogue row, so they are applied after it (the same float32 ops).
+
+The other accumulation modes are later slices of the port (ROADMAP A11)
+and raise. ``flush_period`` is the kernel's runtime argument, passed
+straight through (the calibration slice, A9, plans it).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from .config import QuantConfig
+from .prepared import PreparedWeight
+from .quantize import quantize_fp8
+
+__all__ = ["qmatmul"]
+
+
+def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
+            activation: str = "none", batched: bool = False,
+            flush_period: Optional[int] = None):
+    """``(..., K) @ (K, N)`` (or per-slice ``(B, M, K) @ (B, K, N)`` with
+    ``batched``) under the quantized numerics of ``cfg``."""
+    if out_dtype is None:
+        out_dtype = x.dtype
+    prepared = isinstance(w, PreparedWeight)
+    if cfg.dtype == "none":
+        if prepared:
+            raise ValueError("PreparedWeight requires an fp8 QuantConfig")
+        out = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+        out = kops.apply_epilogue(out, None, bias, activation)
+        return out.to(out_dtype)
+    if not (cfg.is_fp8 and cfg.accum == "mgs_exact"):
+        raise NotImplementedError(
+            f"dtype={cfg.dtype!r}, accum={cfg.accum!r}: only fp8 mgs_exact "
+            "(and dtype='none') are ported; the rest is ROADMAP item A11")
+    fmt = cfg.fmt
+    if prepared and w.fmt_name != fmt.name:
+        raise ValueError(f"PreparedWeight format {w.fmt_name!r} != "
+                         f"config format {fmt.name!r}")
+    margin = cfg.fp8_margin
+    if cfg.per_row_act:
+        x_axis = -1
+    else:
+        x_axis = tuple(range(1, x.dim())) if batched else None
+    qx = quantize_fp8(x, fmt, axis=x_axis, margin=margin)
+    if prepared:
+        w_scale = w.scale
+        if batched and w_scale.dim() == 1:      # per-slice scalars
+            w_scale = w_scale.reshape(-1, 1, 1)
+    else:
+        w_axis = (1 if batched else 0) if cfg.per_channel else (
+            (1, 2) if batched else None)
+        qw = quantize_fp8(w, fmt, axis=w_axis, margin=margin)
+        w_scale = qw.scale
+    scale = qx.scale * w_scale
+    in_kernel = not cfg.per_row_act
+    if cfg.use_kernel and cfg.fused and batched:
+        # one launch over every slice: the B1 kernel's batch axis
+        from repro_torch.core.formats import encode_bits
+        from repro_torch.kernels.mgs_matmul import mgs_matmul_exact_fused
+        if cfg.schedule != "output":
+            raise NotImplementedError(
+                f"schedule {cfg.schedule!r}: the stationary kernels are "
+                "ROADMAP item B3")
+        xc = encode_bits(qx.q, fmt)
+        wc = w.codes if prepared else encode_bits(qw.q, fmt)
+        out = mgs_matmul_exact_fused(
+            xc, wc, fmt, scale=scale if in_kernel else None,
+            bias=bias if in_kernel else None,
+            activation=activation if in_kernel else "none",
+            block_k=cfg.block_k, flush_period=flush_period)
+    elif batched:
+        # plain path: slice by slice, as the reference's vmap
+        outs = []
+        for b in range(x.shape[0]):
+            wb = w.slice(b) if prepared else qw.q[b]
+            outs.append(kops.mgs_matmul(
+                qx.q[b], wb, fmt, "exact", use_kernel=cfg.use_kernel,
+                fused=cfg.fused, block_k=cfg.block_k,
+                flush_period=flush_period, schedule=cfg.schedule))
+        out = torch.stack(outs)
+        in_kernel = False
+    else:
+        out = kops.mgs_matmul(
+            qx.q, w if prepared else qw.q, fmt, "exact",
+            use_kernel=cfg.use_kernel, fused=cfg.fused,
+            block_k=cfg.block_k, flush_period=flush_period,
+            schedule=cfg.schedule,
+            scale=scale if in_kernel else None,
+            bias=bias if in_kernel else None,
+            activation=activation if in_kernel else "none")
+    if not in_kernel:
+        out = kops.apply_epilogue(out, scale, bias, activation)
+    return out.to(out_dtype)

@@ -1,0 +1,72 @@
+"""The port's CUDA kernels against their plain twins, on the card.
+
+Marked ``cuda``: each test skips (with its reason) where there is no
+NVIDIA GPU. Run on a machine with one:
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.formats import E3M4, E4M3, encode_bits, \
+    round_to_format  # noqa: E402
+from repro_torch.kernels import LAUNCHES  # noqa: E402
+from repro_torch.kernels import mgs_attention as ta  # noqa: E402
+from repro_torch.kernels.mgs_matmul import (  # noqa: E402
+    mgs_matmul_exact_fused, mgs_matmul_exact_fused_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _codes(shape, fmt, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g) * 30
+    return encode_bits(round_to_format(x, fmt), fmt).to(dev)
+
+
+@pytest.mark.parametrize("M", [1, 4, 13, 70])
+@pytest.mark.parametrize("fmt", [E4M3, E3M4])
+def test_b1_kernel_equals_twin(dev, M, fmt):
+    K, N = 300, 197
+    xc, wc = _codes((2, M, K), fmt, 0, dev), _codes((2, K, N), fmt, 1, dev)
+    s = torch.rand(2, 1, N, device=dev) * 1e-2
+    b = torch.randn(N, device=dev)
+    for kw in ({}, {"scale": s, "bias": b}, {"flush_period": 1},
+               {"scale": s, "activation": "silu"},
+               {"scale": s, "activation": "gelu"}):
+        n0 = LAUNCHES["mgs_matmul_exact_fused"]
+        out = mgs_matmul_exact_fused(xc, wc, fmt, **kw)
+        assert LAUNCHES["mgs_matmul_exact_fused"] == n0 + 1
+        twin = mgs_matmul_exact_fused_plain(xc, wc, fmt, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, twin), kw
+
+
+def test_b2_kernel_equals_twin(dev):
+    N, T, D, chunk, nb = 6, 3, 64, 32, 5
+    q = round_to_format(torch.randn(N, T, D) * 20, E4M3)
+    qc = encode_bits(q, E4M3).to(dev)
+    kp = _codes((N * nb, chunk, D), E4M3, 2, dev)
+    vp = _codes((N * nb, chunk, D), E4M3, 3, dev)
+    bt = torch.randperm(N * nb, dtype=torch.int32).reshape(N, nb).to(dev)
+    live = torch.tensor([160, 1, 0, 33, 64, 100], dtype=torch.int32,
+                        device=dev)
+    qk = torch.rand(N, T, nb * chunk, device=dev) * 1e-3
+    vs = torch.rand(N, 1, nb * chunk, device=dev) * 1e-2
+    vs = vs.expand(N, T, nb * chunk).contiguous()
+    pos = torch.arange(nb * chunk, device=dev)
+    bias = torch.where(pos[None, None] < live[:, None, None], 0.0, -1e30)
+    bias = bias.expand(N, T, nb * chunk).contiguous()
+    out = ta.mgs_flash_blocks(qc, kp, vp, bt, live, qk, vs, bias, E4M3)
+    twin = ta._flash_plain(qc, kp, vp, bt, live, qk, vs, bias, E4M3)
+    torch.cuda.synchronize()
+    assert torch.equal(out, twin)
+    assert torch.equal(out[2], torch.zeros_like(out[2]))
