@@ -5,22 +5,37 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build both hand-written kernels from ``src/repro_torch/csrc`` (one
+1. build the hand-written kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, started together);
 2. B1 (exact limb-fused matmul) against its plain twin with
-   ``torch.equal`` at the main path's shapes, each with no epilogue, with
-   scale + bias and at ``flush_period=1``;
+   ``torch.equal`` at the group path's shapes, each with no epilogue,
+   with scale + bias and at ``flush_period=1``; then B3 (the stationary
+   schedules of the same matmul) against B1 and its twin at the
+   continuous path's shapes, in both schedules, logging each shape as
+   stationary or fallback;
 3. B2 (flash-decode attention) against its twin at 128 slices, head dim
-   128, chunk 128, ragged lengths up to 1024;
+   128, chunk 128, ragged lengths up to 1024; then its paged and verify
+   entries through a permuted block table with stale and trash blocks;
 4. serve 8 requests (batch 4, prompt 32, 16 new tokens) through
    ``repro_torch.launch.serve.ServeEngine`` with deepseek-7b at full width
    under ``FP8_MGS_SERVE_KV`` in bf16 (``--layers`` of its 30 layers, all
    by default), counting each kernel's launches; then a reduced model
    served on the GPU and on the CPU (twins) must give the same tokens;
-5. time each kernel (median of per-call CUDA-event times) beside its
-   twin, a PyTorch yardstick call and its bound; print the card's name
-   and power limit, a JSON line of kernel results, and last
-   ``{"ok": true, "device": {...}}``.
+5. time B1 and B2 (median of per-call CUDA-event times) beside the twin,
+   a PyTorch yardstick call and the bound, and profile a group decode
+   step;
+6. serve 8 ragged requests (prompts 16-160 tokens, 16 new tokens, four
+   at t = 0, the rest through ``arrivals``) through
+   ``ContinuousBatchingEngine.serve`` on the same weights under
+   ``FP8_MGS_SERVE_PAGED.replace(schedule="activation")`` (4 slots,
+   max_len 256, block 128; seed-0 weights with the residual output
+   projections scaled by 8, so that the tokens vary), counting launches; the same traffic under
+   ``schedule="output"``, under ``spec_k=4`` with 8 draft layers, and two
+   requests served alone must give bitwise equal logits; ``PREP_STATS``
+   and the kernel builds stay flat; then time the continuous decode step,
+   the speculative round and B3 at the decode shapes, and profile one
+   paged decode step. Last, print the card's name and power limit, a
+   JSON line of kernel results, and ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -30,9 +45,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -125,6 +142,80 @@ def check_b1(torch, dev, gen):
     return worst
 
 
+# the continuous path's B3 shapes: decode at 4 slots, the verify step's 16
+# rows, a batch-1 prefill at 64 tokens and its score / value contractions
+# (32 heads, chunked at 1024 keys), and the 192-token bucket's
+B3_DECODE = [  # (name, Bt, M, K, N)
+    ("decode wq/wk/wv/wo", 1, 4, 4096, 4096),
+    ("decode wg/wu", 1, 4, 4096, 11008),
+    ("decode wd", 1, 4, 11008, 4096),
+    ("decode logits", 1, 4, 4096, 102400),
+]
+B3_OTHER = [
+    ("verify wq/wk/wv/wo", 1, 16, 4096, 4096),
+    ("verify wd", 1, 16, 11008, 4096),
+    ("prefill-64 wq/wk/wv/wo", 1, 64, 4096, 4096),
+    ("prefill-64 wd", 1, 64, 11008, 4096),
+    ("prefill-64 scores", 32, 64, 128, 1024),
+    ("prefill-64 values", 32, 64, 1024, 128),
+    ("prefill-192 scores", 32, 192, 128, 1024),
+    ("prefill-192 values", 32, 192, 1024, 128),
+]
+
+
+def route_of(schedule: str, M: int, K: int) -> str:
+    """What the dispatch runs for this shape: the schedule itself (B3) or
+    the warned fallback to ``"output"`` (B1)."""
+    from repro_torch.kernels.ops import _fused_schedule
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return _fused_schedule(schedule, M, K, 128)
+
+
+def check_b3(torch, dev, gen):
+    from repro_torch.core.formats import E4M3
+    from repro_torch.kernels.mgs_matmul import (
+        mgs_matmul_exact_fused, mgs_matmul_stationary_plain)
+    worst = 0.0
+    for name, Bt, M, K, N in B3_DECODE + B3_OTHER:
+        x = fp8_codes(torch, (Bt, M, K), dev, gen)
+        w = fp8_codes(torch, (Bt, K, N), dev, gen)
+        scale = torch.rand((Bt, 1, 1), generator=gen, device=dev) * 1e-4
+        bias = torch.randn((N,), generator=gen, device=dev)
+        for schedule in ("activation", "weight"):
+            route = route_of(schedule, M, K)
+            stationary = route == schedule
+            log(f"B3 {name:22s} {Bt}x({M}x{K} @ {K}x{N}) {schedule:10s} -> "
+                f"{'stationary (B3)' if stationary else 'fallback (B1)'}")
+            if name.startswith("decode") and schedule == "activation" \
+                    and not stationary:
+                raise AssertionError(f"B3 must run at decode shape {name}")
+            if not stationary:
+                continue
+            for tag, kw in (("none", {}),
+                            ("scale+bias", {"scale": scale, "bias": bias}),
+                            ("scale+silu", {"scale": scale,
+                                            "activation": "silu"}),
+                            ("flush_period=1", {"flush_period": 1})):
+                out = mgs_matmul_exact_fused(x, w, E4M3, schedule=schedule,
+                                             **kw)
+                b1 = mgs_matmul_exact_fused(x, w, E4M3, **kw)
+                twin = mgs_matmul_stationary_plain(x, w, E4M3,
+                                                   schedule=schedule, **kw)
+                torch.cuda.synchronize()
+                err = (out - twin).abs().max().item()
+                worst = max(worst, err)
+                eq = torch.equal(out, b1) and torch.equal(out, twin)
+                log(f"   {tag:15s} B3 == B1 == twin: {eq} "
+                    f"max_abs_err={err:.3g}")
+                if not eq:
+                    raise AssertionError(f"B3 != B1/twin at {name} "
+                                         f"{schedule} {tag}")
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"B3 non-finite output at {name}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 3: B2
 # ---------------------------------------------------------------------------
@@ -177,6 +268,68 @@ def check_b2(torch, dev, gen):
     return err, a
 
 
+def check_b2_paged(torch, dev, gen):
+    """The paged and verify entries at the continuous path's width: 4 slots
+    x 32 heads, head dim 128, block 128, table width 2, through a permuted
+    table whose unused blocks hold random (stale) codes; one slot is free
+    (trash-block row, length 0); verify scores T = 4 rows per slice."""
+    from repro_torch.core.formats import E4M3, round_to_format
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import mgs_attention as ma
+    slots, KV, D, bs, nb, T = 4, 32, 128, 128, 2, 4
+    smem = ma._kernel().mgs_flash_attention_smem(T, D, bs)
+    log(f"B2 verify: T={T} rows x D={D}, chunk {bs} need {smem} B of shared "
+        f"memory (limit {_cuda.SMEM_LIMIT})")
+    if smem > _cuda.SMEM_LIMIT:
+        raise AssertionError("B2 verify does not fit shared memory")
+    P = slots * nb + 1
+    S = nb * bs
+    kp = fp8_codes(torch, (P * KV, bs, D), dev, gen)
+    vp = fp8_codes(torch, (P * KV, bs, D), dev, gen)
+    perm = 1 + torch.randperm(P - 1, generator=gen, device=dev)
+    bt = perm[:slots * nb].reshape(slots, nb).to(torch.int32)
+    base = torch.tensor([200, 0, 125, 1], dtype=torch.int32, device=dev)
+    bt[1] = 0                                   # the free slot: trash
+    bt[3, 1] = 0                                # unallocated tail
+    bt_nk = (bt[:, None, :] * KV + torch.arange(KV, device=dev)[None, :, None]
+             ).reshape(slots * KV, nb)
+    lengths = torch.where(base[:, None] > 0, base[:, None] + torch.arange(
+        T, device=dev)[None] + 1, 0).to(torch.int32)
+    lengths = lengths.repeat_interleave(KV, dim=0)
+    N = slots * KV
+    q = round_to_format(torch.randn((N, T, 1, D), generator=gen, device=dev)
+                        * 20, E4M3)
+    pos = torch.arange(S, device=dev)
+    live = pos[None, None] < lengths[:, :, None]
+    qk = torch.where(live, torch.rand((N, T, S), generator=gen, device=dev)
+                     * 1e-3, 0.0)
+    vs = torch.where(live, torch.rand((N, T, S), generator=gen, device=dev)
+                     * 1e-2, 0.0)
+    bias = torch.where(live, 0.0, -1e30)
+    outs = {}
+    for use_kernel in (True, False):
+        outs[use_kernel] = (
+            ma.mgs_paged_flash_attention(
+                q[:, 0], kp, vp, bt_nk, lengths[:, 0], qk[:, 0], vs[:, 0],
+                bias[:, 0], E4M3, use_kernel=use_kernel),
+            ma.mgs_paged_verify_attention(q, kp, vp, bt_nk, lengths, qk, vs,
+                                          bias, E4M3, use_kernel=use_kernel))
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item()
+              for a, b in zip(outs[True], outs[False]))
+    dec, ver = outs[True]
+    eq = all(torch.equal(a, b) for a, b in zip(outs[True], outs[False]))
+    log(f"B2 paged decode + verify (T={T}), {N} slices over a permuted "
+        f"pool: kernel == twin {eq}, verify token 0 == decode "
+        f"{torch.equal(ver[:, 0], dec)}, max_abs_err={err:.3g}")
+    if not eq or not torch.equal(ver[:, 0], dec):
+        raise AssertionError("B2 paged/verify entries != twin")
+    if ver[KV:2 * KV].abs().max().item() != 0.0 or not torch.isfinite(
+            ver).all():
+        raise AssertionError("B2 paged: the free slot is not exactly zero")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serving
 # ---------------------------------------------------------------------------
@@ -213,8 +366,8 @@ def serve_full(torch, layers: int):
     log(f"serve: launches during the run {launches}")
     for r in reqs[:2]:
         log(f"serve: req {r.rid} first tokens {r.out_tokens[:10]}")
-    for k, n in launches.items():
-        if n == 0:
+    for k in ("mgs_matmul_exact_fused", "mgs_flash_attention"):
+        if launches[k] == 0:
             raise AssertionError(f"kernel {k} was not launched by serving")
     if PREP_STATS != prep0:
         raise AssertionError("serving re-prepared weights")
@@ -327,42 +480,35 @@ def time_b1(torch, dev, gen):
     return rows
 
 
-def profile_decode_step(torch, eng):
-    """Where one decode step's time goes: host-clock step time (median of
-    5 unprofiled steps), then one step under ``torch.profiler`` with the
-    device time of its GPU events summed by kernel."""
+def profile_step(torch, step, label: str):
+    """Where one step's time goes: host-clock step time (median of 5
+    unprofiled steps after one more), then one step under
+    ``torch.profiler`` with the device time of its GPU events summed by
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import decode_step, init_cache, prefill
-    import numpy as np
-    rng = np.random.default_rng(SEED)
-    toks = torch.as_tensor(rng.integers(1, eng.cfg.vocab, (eng.batch, 32)),
-                           device=eng.device)
-    cache = init_cache(eng.cfg, eng.batch, eng.max_len, device=eng.device)
-    logits, cache = prefill(eng.params, eng.cfg, {"tokens": toks}, cache)
     walls = []
     for _ in range(6):
-        cur = logits.argmax(dim=-1)[:, None]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = decode_step(eng.params, eng.cfg, cur, cache)
+        step()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     step_ms = sorted(walls[1:])[2]
-    cur = logits.argmax(dim=-1)[:, None]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode_step(eng.params, eng.cfg, cur, cache)
+        step()
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
-    by = {"B1": [0.0, 0], "B2": [0.0, 0], "other": [0.0, 0]}
+    by = {"B1": [0.0, 0], "B3": [0.0, 0], "B2": [0.0, 0], "other": [0.0, 0]}
     for e in prof.key_averages():
         us = e.self_device_time_total
         if e.device_type != DeviceType.CUDA or us <= 0:
             continue
-        key = ("B1" if "exact_fused_kernel" in e.key else
+        key = ("B3" if "exact_fused_stationary_kernel" in e.key else
+               "B1" if "exact_fused_kernel" in e.key else
                "B2" if "flash_kernel" in e.key else "other")
         by[key][0] += us / 1e3
         by[key][1] += e.count
@@ -371,13 +517,27 @@ def profile_decode_step(torch, eng):
                idle_share=(1 - busy / prof_wall) if busy else None,
                **{f"{k}_ms": v[0] for k, v in by.items()},
                **{f"{k}_kernels": v[1] for k, v in by.items()})
-    log(f"profile decode step ({eng.cfg.n_layers} layers, batch "
-        f"{eng.batch}): {step_ms:.2f} ms unprofiled; profiled "
-        f"{prof_wall:.2f} ms with device busy {busy:.2f} ms "
-        f"(B1 {by['B1'][0]:.2f} ms in {by['B1'][1]} launches, B2 "
-        f"{by['B2'][0]:.2f} ms in {by['B2'][1]}, other {by['other'][0]:.2f}"
-        f" ms in {by['other'][1]} kernels)")
+    log(f"profile {label}: {step_ms:.2f} ms unprofiled; profiled "
+        f"{prof_wall:.2f} ms with device busy {busy:.2f} ms ("
+        + ", ".join(f"{k} {v[0]:.2f} ms in {v[1]} launches"
+                    for k, v in by.items()) + ")")
     return row
+
+
+def profile_decode_step(torch, eng):
+    """A group decode step at batch 4 after a 32-token prefill."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    toks = torch.as_tensor(rng.integers(1, eng.cfg.vocab, (eng.batch, 32)),
+                           device=eng.device)
+    cache = init_cache(eng.cfg, eng.batch, eng.max_len, device=eng.device)
+    logits, cache = prefill(eng.params, eng.cfg, {"tokens": toks}, cache)
+    cur = logits.argmax(dim=-1)[:, None]
+    return profile_step(torch, lambda: decode_step(eng.params, eng.cfg, cur,
+                                                   cache),
+                        f"group decode step ({eng.cfg.n_layers} layers, "
+                        f"batch {eng.batch})")
 
 
 def time_b2(torch, a):
@@ -414,6 +574,198 @@ def time_b2(torch, a):
                 bound_by=b_by)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: continuous serving, speculation, B3 timing
+# ---------------------------------------------------------------------------
+
+
+def _logits_equal(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.shape == y.shape and (x == y).all() for x, y in zip(a, b))
+
+
+def serve_continuous(torch, layers: int):
+    """Phase 6 (a)-(e). Returns the engine, the launches of run (a), its
+    stats and the speculative run's stats.
+
+    The weights are the seed-0 random init with the residual output
+    projections (``wo``, ``wd``) scaled by 8: at the plain init the tied
+    embeddings dominate the residual, every request repeats one token and
+    every draft is accepted, so neither the speculative rewind nor a
+    mid-flight admission would run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import ContinuousBatchingEngine, Request
+    from repro_torch.models import init_params
+    from repro_torch.quant import PREP_STATS
+    from repro_torch.quant.config import FP8_MGS_SERVE_PAGED
+    import numpy as np
+    quant = FP8_MGS_SERVE_PAGED.replace(schedule="activation")
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=layers,
+                              quant=quant)
+    params = init_params(cfg, SEED, device="cuda")
+    params["layers"]["attn"]["wo"] *= 8.0
+    params["layers"]["ffn"]["wd"] *= 8.0
+    buckets = [64, 128, 192]
+
+    def engine(q, params, **kw):
+        eng = ContinuousBatchingEngine(
+            dataclasses.replace(cfg, quant=q), slots=4, max_len=256,
+            params=params, **kw)
+        eng.warmup(buckets)
+        torch.cuda.synchronize()
+        return eng
+
+    log(f"continuous: deepseek-7b full width, depth {layers} of 30, "
+        f"{cfg.compute_dtype}, FP8_MGS_SERVE_PAGED schedule=activation, "
+        f"4 slots, max_len 256, block {quant.block_k}, buckets {buckets}")
+    t0 = time.time()
+    eng = engine(quant, params)
+    del params                      # the engine holds the prepared tree
+    log(f"continuous: engine + warmup {time.time() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    plens = rng.integers(16, 161, 8)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in plens]
+    arrivals = [0.0] * 4 + [0.5, 1.0, 1.5, 2.0]
+
+    def reqs():
+        return [Request(rid=i, prompt=p.copy(), max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+
+    prep0, builds0 = dict(PREP_STATS), dict(BUILDS)
+    reset_launch_counts()
+    ra = reqs()
+    a = eng.serve(ra, arrivals=arrivals, record_logits=True)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    log(f"continuous (a): prompts {plens.tolist()}, {a['steps']} steps, "
+        f"{a['decode_tokens']} tokens in {a['wall_s']:.2f} s, mid-flight "
+        f"admissions {a['mid_flight_admissions']}; launches {launches}")
+    if a["decode_tokens"] != 8 * 16 or any(len(r.out_tokens) != 16
+                                          for r in ra):
+        raise AssertionError("continuous run did not serve 8 x 16 tokens")
+    for name in ("mgs_matmul_exact_fused",
+                 "mgs_matmul_exact_fused_stationary", "mgs_flash_attention"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched by the "
+                                 "continuous run")
+    for r in ra:
+        rows = np.stack(a["logits"][r.rid])
+        if rows.shape != (16, cfg.vocab) or not np.isfinite(rows).all():
+            raise AssertionError(f"request {r.rid} logits not finite")
+
+    def same(stats, rr, what):
+        bad = [r.rid for r in rr if r.out_tokens != ra[r.rid].out_tokens
+               or not _logits_equal(stats["logits"][r.rid],
+                                    a["logits"][r.rid])]
+        log(f"continuous {what}: tokens and logits bitwise equal to (a) "
+            f"for {len(rr) - len(bad)} of {len(rr)} requests")
+        if bad:
+            raise AssertionError(f"{what}: requests {bad} differ from (a)")
+
+    eng_b = engine(quant.replace(schedule="output"), eng.params)
+    rb = reqs()
+    b = eng_b.serve(rb, arrivals=arrivals, record_logits=True)
+    same(b, rb, "(b) schedule=output")
+    del eng_b
+    eng_c = engine(quant.replace(draft_layers=8), eng.params, spec_k=4)
+    rc = reqs()
+    c = eng_c.serve(rc, arrivals=arrivals, record_logits=True)
+    spec = c["spec"]
+    log(f"continuous (c) spec_k=4, 8 draft layers: {c['steps']} rounds, "
+        f"acceptance rate {spec['acceptance_rate']:.3f}, "
+        f"{spec['tokens_per_round']:.2f} tokens per round, mid-flight "
+        f"admissions {c['mid_flight_admissions']}")
+    same(c, rc, "(c) spec_k=4")
+    del eng_c
+    alone = []
+    for i in (1, 6):
+        r = Request(rid=i, prompt=prompts[i].copy(), max_new_tokens=16)
+        alone.append((r, eng.serve([r], record_logits=True)))
+    for r, st in alone:
+        same(st, [r], f"(d) request {r.rid} alone")
+    log(f"continuous (e): PREP_STATS {PREP_STATS} (before {prep0}), nvcc "
+        f"builds {BUILDS} (before {builds0})")
+    if dict(PREP_STATS) != prep0 or dict(BUILDS) != builds0:
+        raise AssertionError("serving re-prepared weights or rebuilt a "
+                             "kernel")
+    return eng, launches, a, c
+
+
+def profile_paged_step(torch, eng):
+    """Four slots admitted, then the host-clock time of 5 paged decode
+    steps and one step under ``torch.profiler`` by kernel."""
+    from repro_torch.launch.serve import Request
+    from repro_torch.models import decode_step_paged
+    import numpy as np
+    rng = np.random.default_rng(SEED + 1)
+    active = {}
+    t0 = time.monotonic()
+    for i, plen in enumerate((40, 100, 150, 64)):
+        req = Request(rid=900 + i, prompt=rng.integers(
+            1, eng.cfg.vocab, plen).astype(np.int32), max_new_tokens=64)
+        eng._admit(req, 0.0, t0, active)
+    cur = np.zeros((eng.slots, 1), np.int64)
+    for slot, st in active.items():
+        cur[slot, 0] = st.cur
+    cur = eng._tokens(cur)
+    return profile_step(torch, lambda: decode_step_paged(
+        eng.params, eng.cfg, cur, eng.cache),
+        f"paged decode step ({eng.cfg.n_layers} layers, 4 slots)")
+
+
+def time_b3(torch, dev, gen):
+    """B3 (activation-stationary) at the decode shapes beside B1, the
+    twin, torch.matmul over the decoded values and the bound."""
+    from repro_torch.core.formats import E4M3, decode_bits
+    from repro_torch.kernels.mgs_matmul import (
+        mgs_matmul_exact_fused, mgs_matmul_stationary_plain)
+    rows = []
+    for name, Bt, M, K, N in B3_DECODE:
+        copies = max(1, min(8, -(-200_000_000 // (Bt * K * N))))
+        xs = fp8_codes(torch, (Bt, M, K), dev, gen)
+        ws = [fp8_codes(torch, (Bt, K, N), dev, gen) for _ in range(copies)]
+        scale = torch.full((Bt, 1, 1), 1e-4, device=dev)
+        it = iter(range(10**9))
+
+        def kern():
+            mgs_matmul_exact_fused(xs, ws[next(it) % copies], E4M3,
+                                   scale=scale, schedule="activation")
+
+        def b1():
+            mgs_matmul_exact_fused(xs, ws[next(it) % copies], E4M3,
+                                   scale=scale)
+
+        def plain():
+            mgs_matmul_stationary_plain(xs, ws[next(it) % copies], E4M3,
+                                        scale=scale, schedule="activation")
+        xv = decode_bits(xs, E4M3)
+        wv = [decode_bits(w, E4M3) for w in ws]
+
+        def lib():
+            torch.matmul(xv, wv[next(it) % copies])
+        b1_ms = time_ms(torch, b1, 20)
+        ms = time_ms(torch, kern, 20)
+        ms2 = time_ms(torch, kern, 20)
+        b1_ms2 = time_ms(torch, b1, 20)
+        plain_ms = time_ms(torch, plain, 3, warmup=1)
+        lib_ms = time_ms(torch, lib, 20)
+        nbytes = Bt * M * K + Bt * K * N + Bt * M * N * 4 + Bt * 4
+        ops = 9 * 2 * Bt * M * N * K
+        b_ms, b_by = bound(nbytes, ops)
+        rows.append(dict(shape=name, Bt=Bt, M=M, K=K, N=N,
+                         ms=statistics.median([ms, ms2]),
+                         b1_ms=statistics.median([b1_ms, b1_ms2]),
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        log(f"time B3 {name:22s} {Bt}x({M}x{K} @ {K}x{N}): kernel "
+            f"{ms:.4f}/{ms2:.4f} ms, B1 {b1_ms:.4f}/{b1_ms2:.4f} ms, twin "
+            f"{plain_ms:.4f} ms, torch.matmul f32 {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        del ws, wv
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=30,
@@ -448,13 +800,17 @@ def main() -> int:
     gen.manual_seed(SEED)
     t0 = time.time()
     b1_err = check_b1(torch, dev, gen)
-    log(f"phase 2: B1 == twin at every shape ({time.time() - t0:.1f} s)")
+    b3_err = check_b3(torch, dev, gen)
+    log(f"phase 2: B1 == twin, B3 == B1 == twin at every shape "
+        f"({time.time() - t0:.1f} s)")
     t0 = time.time()
     b2_err, b2_args = check_b2(torch, dev, gen)
-    log(f"phase 3: B2 == twin ({time.time() - t0:.1f} s)")
+    b2_err = max(b2_err, check_b2_paged(torch, dev, gen))
+    log(f"phase 3: B2 dense, paged and verify entries == twin "
+        f"({time.time() - t0:.1f} s)")
 
     t0 = time.time()
-    launches, stats, eng = serve_full(torch, args.layers)
+    group_launches, stats, eng = serve_full(torch, args.layers)
     serve_reduced_gpu_vs_cpu(torch)
     log(f"phase 4: served ({time.time() - t0:.1f} s)")
 
@@ -465,6 +821,28 @@ def main() -> int:
     del eng
     log(f"phase 5: timed ({time.time() - t0:.1f} s)")
 
+    t0 = time.time()
+    ceng, launches, run_a, run_c = serve_continuous(torch, args.layers)
+    cont = dict(
+        decode_step_ms_median=statistics.median(run_a["step_s"]) * 1e3,
+        spec_round_ms_median=statistics.median(run_c["step_s"]) * 1e3,
+        decode_tok_per_s=run_a["decode_tok_per_s"],
+        spec_decode_tok_per_s=run_c["decode_tok_per_s"],
+        wall_s=run_a["wall_s"], spec_wall_s=run_c["wall_s"],
+        steps=run_a["steps"], spec_rounds=run_c["steps"],
+        acceptance_rate=run_c["spec"]["acceptance_rate"],
+        tokens_per_round=run_c["spec"]["tokens_per_round"])
+    log(f"continuous timing: decode step {cont['decode_step_ms_median']:.1f}"
+        f" ms (median of {cont['steps']}), spec round "
+        f"{cont['spec_round_ms_median']:.1f} ms (median of "
+        f"{cont['spec_rounds']}), decode tokens/s {cont['decode_tok_per_s']:.2f}"
+        f" sequential, {cont['spec_decode_tok_per_s']:.2f} speculative")
+    paged_step = profile_paged_step(torch, ceng)
+    del ceng
+    b3_rows = time_b3(torch, dev, gen)
+    log(f"phase 6: continuous path served and timed "
+        f"({time.time() - t0:.1f} s)")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
@@ -472,6 +850,9 @@ def main() -> int:
         smi.stdout.strip() else f"{torch.cuda.get_device_name(0)}, n/a"
     log(f"card: {card}")
     main_b1 = next(r for r in b1_rows if r["shape"] == "decode wg/wu")
+    main_b3 = next(r for r in b3_rows if r["shape"] == "decode wg/wu")
+    by_path = {k: {"group": group_launches.get(k, 0),
+                   "continuous": launches[k]} for k in launches}
     kernels = [
         dict(name="mgs_matmul_exact_fused", route="cuda",
              source="src/repro_torch/csrc/mgs_matmul.cu",
@@ -480,15 +861,27 @@ def main() -> int:
              max_abs_err=b1_err, ms=main_b1["ms"],
              plain_ms=main_b1["plain_ms"], bound_ms=main_b1["bound_ms"],
              bound_by=main_b1["bound_by"],
-             library_ms=main_b1["library_ms"]),
+             library_ms=main_b1["library_ms"],
+             launches_by_path=by_path["mgs_matmul_exact_fused"]),
+        dict(name="mgs_matmul_exact_fused_stationary", route="cuda",
+             source="src/repro_torch/csrc/mgs_matmul.cu",
+             replaces="src/repro/kernels/mgs_matmul.py:321",
+             launches=launches["mgs_matmul_exact_fused_stationary"],
+             max_abs_err=b3_err, ms=main_b3["ms"],
+             plain_ms=main_b3["plain_ms"], bound_ms=main_b3["bound_ms"],
+             bound_by=main_b3["bound_by"],
+             library_ms=main_b3["library_ms"],
+             launches_by_path=by_path["mgs_matmul_exact_fused_stationary"]),
         dict(name="mgs_flash_attention", route="cuda",
              source="src/repro_torch/csrc/mgs_attention.cu",
              replaces="src/repro/kernels/mgs_attention.py:246",
              launches=launches["mgs_flash_attention"], max_abs_err=b2_err,
-             **b2_row),
+             **b2_row, launches_by_path=by_path["mgs_flash_attention"]),
     ]
-    log(json.dumps({"b1_shapes": b1_rows, "serve": stats,
-                    "decode_step": step, "layers": args.layers}))
+    log(json.dumps({"b1_shapes": b1_rows, "b3_shapes": b3_rows,
+                    "serve": stats, "decode_step": step,
+                    "continuous": cont, "paged_decode_step": paged_step,
+                    "layers": args.layers}))
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

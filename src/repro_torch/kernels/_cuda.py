@@ -23,10 +23,14 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-__all__ = ["SOURCES", "LAUNCHES", "reset_launch_counts", "build_all",
-           "load", "check", "stream_ptr", "build_dir"]
+__all__ = ["SMEM_LIMIT", "SOURCES", "LAUNCHES", "BUILDS",
+           "reset_launch_counts", "build_all", "load", "check", "stream_ptr",
+           "build_dir"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
+
+#: dynamic shared memory one block may opt into on an H100 (227 KB)
+SMEM_LIMIT = 232448
 
 #: kernel library -> its source under ``csrc/``
 SOURCES = {"mgs_matmul": "mgs_matmul.cu",
@@ -34,10 +38,14 @@ SOURCES = {"mgs_matmul": "mgs_matmul.cu",
 
 #: launches per kernel wrapper, counted where the wrapper launches
 LAUNCHES: Dict[str, int] = {"mgs_matmul_exact_fused": 0,
+                            "mgs_matmul_exact_fused_stationary": 0,
                             "mgs_flash_attention": 0}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false"]
+
+#: ``nvcc`` runs of this process (serving after warm-up must keep it flat)
+BUILDS = {"nvcc": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -97,6 +105,7 @@ def build_all(names: Optional[Iterable[str]] = None, *,
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
         cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
                "-I", str(CSRC), "-o", str(tmp), str(CSRC / SOURCES[name])]
+        BUILDS["nvcc"] += 1
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, so)

@@ -13,9 +13,13 @@ and the exact limb contraction for the values.
 
 On a CUDA tensor the wrapper launches ``csrc/mgs_attention.cu``; on a CPU
 tensor it runs the twin :func:`_flash_plain` (``_attn_tile_step`` in a
-loop over chunks). The dense entry point :func:`mgs_flash_attention`
-passes an identity table over the contiguous cache; the paged and verify
-entries of later slices reuse the same wrapper.
+loop over chunks). Three entry points share the wrapper: the dense
+:func:`mgs_flash_attention` passes an identity table over the contiguous
+cache; :func:`mgs_paged_flash_attention` passes each slot's block table
+into the shared paged pool; :func:`mgs_paged_verify_attention` batches
+the ``T`` candidate tokens (x ``R`` query rows) of a slot into one slice
+with per-row score scales and biases, so each chunk's limb decode is
+shared by all of them.
 
 Skipping a dead chunk is bitwise equal to walking an inert one: its
 probabilities are exactly ``exp(-1e30 - m) = +0.0``, so ``alpha == 1``
@@ -33,15 +37,15 @@ from repro_torch.core.formats import E4M3, FPFormat, encode_bits
 from repro_torch.quant.quantize import recip
 from . import _cuda
 from .mgs_matmul import (_KERNEL_FMTS, _LIMB_BASE, _N_CLASSES, _N_LIMBS,
-                         _class_int32, _decode_limbs, _fixed_point,
-                         _limb_split, _round_decompose_e4m3, out_scale)
+                         _class_int32, _fixed_point, _limb_split, _limbs64,
+                         _round_decompose_e4m3, out_scale)
 
-__all__ = ["mgs_flash_attention", "mgs_flash_blocks", "flash_chunk_limit"]
+__all__ = ["mgs_flash_attention", "mgs_paged_flash_attention",
+           "mgs_paged_verify_attention", "mgs_flash_blocks",
+           "flash_chunk_limit"]
 
 _TINY = 1e-30
 _MAX_PAIR = _N_LIMBS * (1 << (_LIMB_BASE - 1)) ** 2
-# dynamic shared memory a block may use on an H100
-_SMEM_LIMIT = 232448
 
 
 def flash_chunk_limit() -> int:
@@ -80,10 +84,6 @@ def _pairwise_sum_cols(x):
     while x.shape[-1] > 1:
         x = x[..., 0::2] + x[..., 1::2]
     return x
-
-
-def _limbs64(codes, fmt):
-    return [l.to(torch.float64) for l in _decode_limbs(codes, fmt)]
 
 
 def _attn_tile_step(lq, k_codes, v_codes, qk_row, v_row, bias, m, l, o,
@@ -209,9 +209,9 @@ def mgs_flash_blocks(q_codes, k_pool, v_pool, bt, live, qk_scale, v_scale,
         raise TypeError("q / k / v must be uint8 codes")
     lib = _kernel()
     smem = lib.mgs_flash_attention_smem(T, D, chunk)
-    if smem > _SMEM_LIMIT:
+    if smem > _cuda.SMEM_LIMIT:
         raise ValueError(f"T={T}, D={D}, chunk={chunk} needs {smem} B of "
-                         f"shared memory (> {_SMEM_LIMIT})")
+                         f"shared memory (> {_cuda.SMEM_LIMIT})")
     args = [q_codes.contiguous(), k_pool.contiguous(), v_pool.contiguous(),
             bt.to(torch.int32).contiguous(), live.to(torch.int32).contiguous(),
             qk_scale.to(torch.float32).contiguous(),
@@ -298,3 +298,84 @@ def mgs_flash_attention(q, k_codes, v_codes, qk_scale, v_scale, bias,
         live = torch.clamp(lengths.to(torch.int32), 0, Sp)
     return _dispatch(q_codes, k_pool, v_pool, bt, live, qk_scale, v_scale,
                      bias, fmt, use_kernel)
+
+
+def _check_pool(q, k_pool, v_pool, block_table, lengths, want_lengths,
+                rows, want_rows):
+    P, bs, D = k_pool.shape
+    if (q.shape[-1] != D or v_pool.shape != k_pool.shape
+            or block_table.shape != (q.shape[0], want_rows[-1] // bs)
+            or tuple(lengths.shape) != want_lengths
+            or any(tuple(t.shape) != want_rows for t in rows)):
+        raise ValueError(
+            f"q {tuple(q.shape)}, pools {tuple(k_pool.shape)}/"
+            f"{tuple(v_pool.shape)}, table {tuple(block_table.shape)}, "
+            f"lengths {tuple(lengths.shape)} (want {want_lengths}), rows "
+            f"{[tuple(t.shape) for t in rows]} (want {want_rows})")
+
+
+def mgs_paged_flash_attention(q, k_pool, v_pool, block_table, lengths,
+                              qk_scale, v_scale, bias, fmt: FPFormat = E4M3,
+                              *, use_kernel: bool = True):
+    """Exact-MGS decode attention over a **paged** packed-code pool.
+
+    Args:
+      q: ``(N, T, D)`` format-exact FP8 query values.
+      k_pool / v_pool: ``(P, bs, D)`` uint8 physical pools; the block size
+        ``bs`` is the kernel's chunk.
+      block_table: ``(N, nb)`` int physical tile ids; ``pool[bt[n, j]]``
+        holds keys ``[j * bs, (j + 1) * bs)`` of slice ``n``. Entries past
+        ``ceil(lengths[n] / bs)`` are never read, so free slots may leave
+        their rows zeroed (the trash block).
+      lengths: ``(N,)`` live key counts (0 = dead slice: an exact-zero row).
+      qk_scale / v_scale / bias: ``(N, nb * bs)`` float32 logical rows.
+
+    Returns:
+      ``(N, T, D)`` float32, bitwise equal to the dense entry over the
+      gathered cache with the same ``lengths``.
+    """
+    N, T, D = q.shape
+    S = block_table.shape[1] * k_pool.shape[1]
+    _check_pool(q, k_pool, v_pool, block_table, lengths, (N,),
+                (qk_scale, v_scale, bias), (N, S))
+    live = torch.clamp(lengths.to(torch.int32), 0, S)
+    return _dispatch(encode_bits(q, fmt), k_pool, v_pool,
+                     block_table.to(torch.int32), live, qk_scale, v_scale,
+                     bias, fmt, use_kernel)
+
+
+def mgs_paged_verify_attention(q, k_pool, v_pool, block_table, lengths,
+                               qk_scale, v_scale, bias,
+                               fmt: FPFormat = E4M3, *,
+                               use_kernel: bool = True):
+    """Multi-query verify attention over the paged pool.
+
+    All ``T * R`` query rows of a slice (``T`` candidate tokens x their
+    GQA group of ``R`` rows) form one kernel slice that walks the slot's
+    blocks once; score scale and mask bias stay per row (``rs = T * R``).
+    Rows are independent in the tile step, and every key past a token's
+    horizon carries the ``-1e30`` bias, so token ``t``'s row is bitwise
+    equal to a sequential decode step at its position.
+
+    Args:
+      q: ``(N, T, R, D)`` format-exact FP8 query values.
+      k_pool / v_pool / block_table: as :func:`mgs_paged_flash_attention`.
+      lengths: ``(N, T)`` per-token live key counts (0 for dead slots);
+        the slice walks to the largest.
+      qk_scale / v_scale / bias: ``(N, T, nb * bs)`` float32 rows.
+
+    Returns:
+      ``(N, T, R, D)`` float32.
+    """
+    N, T, R, D = q.shape
+    S = block_table.shape[1] * k_pool.shape[1]
+    _check_pool(q, k_pool, v_pool, block_table, lengths, (N, T),
+                (qk_scale, v_scale, bias), (N, T, S))
+    q_codes = encode_bits(q, fmt).reshape(N, T * R, D)
+    qk = torch.repeat_interleave(qk_scale, R, dim=1)
+    vs = torch.repeat_interleave(v_scale, R, dim=1)
+    bias_r = torch.repeat_interleave(bias, R, dim=1)
+    live = torch.clamp(lengths.to(torch.int32), 0, S).amax(dim=1)
+    out = _dispatch(q_codes, k_pool, v_pool, block_table.to(torch.int32),
+                    live, qk, vs, bias_r, fmt, use_kernel)
+    return out.reshape(N, T, R, D)

@@ -1,8 +1,11 @@
-"""The exact limb-fused FP8 matmul: the B1 kernel wrapper and its twin.
+"""The exact limb-fused FP8 matmul: the B1 and B3 kernel wrappers and
+their twins.
 
-``mgs_matmul_exact_fused`` is the port of the TPU kernel
-``repro.kernels.mgs_matmul._exact_fused_kernel`` (``schedule="output"``):
-operands arrive as packed FP8 codes (1 byte per element), each code is
+``mgs_matmul_exact_fused`` is the port of the TPU kernels
+``repro.kernels.mgs_matmul._exact_fused_kernel`` (B1,
+``schedule="output"``) and ``_exact_fused_stationary_kernel`` (B3,
+``schedule="weight"`` / ``"activation"``): operands arrive as packed FP8
+codes (1 byte per element), each code is
 decoded to the fixed-point integer ``ix = sm << max(e, 1)`` and split
 into 3 balanced base-128 int8 limbs, the 9 limb-pair products accumulate
 exactly into 5 int32 class sums (a + b), and every ``flush_period``
@@ -11,10 +14,18 @@ accumulator in ascending class order. The epilogue is
 ``act(acc * 2^-2(bias+mbits) * scale + bias)``, every step a separate
 rounding.
 
-On a CUDA tensor the wrapper launches the hand-written kernel
-``csrc/mgs_matmul.cu``; on a CPU tensor it runs the plain PyTorch twin
-:func:`mgs_matmul_exact_fused_plain`, which repeats the kernel's
-arithmetic op for op (``_accumulate_classes`` / ``_flush_classes``).
+The stationary schedules only change the loop order: one operand's
+decoded limb stripe over the whole padded K (``ws_stripe_bytes``) stays
+resident in shared memory while the other operand's tiles sweep past it,
+so every schedule gives the same bits. A stripe over
+``WS_STRIPE_BUDGET_BYTES`` does not fit the card and raises here;
+``kernels.ops`` falls back to ``"output"`` with a warning first.
+
+On a CUDA tensor the wrapper launches the hand-written kernels in
+``csrc/mgs_matmul.cu``; on a CPU tensor it runs the plain PyTorch twins
+:func:`mgs_matmul_exact_fused_plain` and
+:func:`mgs_matmul_stationary_plain`, which repeat the kernels' arithmetic
+op for op (``_accumulate_classes`` / ``_flush_classes``).
 The twin upcasts limbs to float64 for its integer products: every product
 and partial sum is an integer far below 2**53, so the float64 matmul is
 exact on the CPU and on the card alike (PyTorch has no int32 matmul on
@@ -24,7 +35,7 @@ CUDA, and wraps int8 matmuls on the CPU).
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +44,12 @@ from repro_torch.core.formats import (E4M3, FPFormat, decode_sm_e,
                                       decompose, pow2)
 from . import _cuda
 
-__all__ = ["ACTIVATIONS", "limb_decompose", "worst_case_flush_period",
-           "flush_steps", "mgs_matmul_exact_fused",
-           "mgs_matmul_exact_fused_plain", "out_scale"]
+__all__ = ["ACTIVATIONS", "SCHEDULES", "WS_STRIPE_BUDGET_BYTES",
+           "limb_decompose", "worst_case_flush_period", "flush_steps",
+           "tile_shape", "stationary_block", "ws_stripe_bytes",
+           "check_stripe", "mgs_matmul_exact_fused",
+           "mgs_matmul_exact_fused_plain", "mgs_matmul_stationary_plain",
+           "out_scale"]
 
 _LIMB_BASE = 7
 _N_LIMBS = 3
@@ -44,8 +58,16 @@ _KERNEL_FMTS = {"e4m3": 0, "e3m4": 1}
 _ACT_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
 # float32(sqrt(2 / pi)), the tanh-gelu constant of jax.nn.gelu
 _SQRT_2_OVER_PI = float(np.float32(np.sqrt(2 / np.pi)))
-# twin output columns per pass (bounds its float64 limb planes)
+# twin rows / columns per pass (bounds its float64 limb planes)
 _PLAIN_N_CHUNK = 16384
+SCHEDULES = ("output", "weight", "activation")
+# the widest tile edge of the card's kernels (csrc/mgs_matmul.cu kMaxEdge)
+_MAX_EDGE = 64
+#: Shared-memory bytes a B3 K-resident limb stripe may take on the card:
+#: the opt-in limit per block, less the 256-entry code->limbs table and the
+#: streamed operand's staged 32-deep sub-tile (3 limbs x 32 x 64 bytes).
+#: The reference's 8 MB is a TPU VMEM figure.
+WS_STRIPE_BUDGET_BYTES = _cuda.SMEM_LIMIT - 256 * 4 - 3 * 32 * _MAX_EDGE
 
 
 def _relu(r):
@@ -118,6 +140,45 @@ def flush_steps(flush_period: Optional[int], block_k: int,
     return int(min(max(int(flush_period), 1), max(nsteps, 1)))
 
 
+def tile_shape(M: int) -> Tuple[int, int]:
+    """The card's ``(rows, columns)`` output tile for ``M`` rows
+    (``csrc/mgs_matmul.cu::launch_fmt``): 4 rows at decode, 16, else 64."""
+    return (4, 64) if M <= 4 else (16, 64) if M <= 16 else (64, 64)
+
+
+def stationary_block(schedule: str, M: int) -> int:
+    """The non-K edge of the cached stripe on the card: the tile's columns
+    for ``"weight"``, its rows for ``"activation"``."""
+    rows, cols = tile_shape(M)
+    return cols if schedule == "weight" else rows
+
+
+def ws_stripe_bytes(K: int, block: int, block_k: int) -> int:
+    """Bytes of a K-resident decoded limb stripe: 3 int8 limb planes x the
+    padded ``Kp`` x ``block`` (the reference's formula, shared by the
+    hard check and the ops-side fallback so the two never disagree)."""
+    Kp = -(-K // block_k) * block_k
+    return _N_LIMBS * Kp * block
+
+
+def check_stripe(schedule: str, M: int, K: int, block_k: int) -> None:
+    """Raise ``ValueError`` when a stationary schedule's stripe exceeds
+    :data:`WS_STRIPE_BUDGET_BYTES` (read at call time)."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule {schedule!r} not in {SCHEDULES}")
+    if schedule == "output":
+        return
+    block = stationary_block(schedule, M)
+    stripe = ws_stripe_bytes(K, block, block_k)
+    budget = WS_STRIPE_BUDGET_BYTES
+    if stripe > budget:
+        raise ValueError(
+            f"{schedule}-stationary schedule needs a {stripe} B K-resident "
+            f"limb stripe (3 x Kp={-(-K // block_k) * block_k} x {block}) > "
+            f"{budget} B shared-memory budget; use schedule='output' for "
+            "this shape")
+
+
 def _round_decompose_e4m3(p: torch.Tensor, fmt: FPFormat,
                           gate_subnormal: bool):
     """RNE round-to-``fmt`` + ``(sm, e)`` via exponent-field extraction
@@ -166,6 +227,26 @@ def _flush_classes(acc, acc_f: torch.Tensor) -> torch.Tensor:
         tot = tot + _class_int32(acc[c]).to(torch.float32) * float(
             2 ** (_LIMB_BASE * c))
     return tot
+
+
+def _limbs64(codes: torch.Tensor, fmt: FPFormat) -> List[torch.Tensor]:
+    return [l.to(torch.float64) for l in _decode_limbs(codes, fmt)]
+
+
+def _walk(lx, lw, block_k: int, fp: int, acc_f: torch.Tensor):
+    """The K loop over decoded limb planes ``lx`` (3 x (B, M, K)) and
+    ``lw`` (3 x (B, K, N)): exact class sums over ``fp`` K-steps of
+    ``block_k``, each group flushed into ``acc_f`` in ascending class
+    order. Returns the new ``acc_f``."""
+    K = lx[0].shape[-1]
+    for s0 in range(0, -(-K // block_k), fp):
+        k0, k1 = s0 * block_k, min(K, (s0 + fp) * block_k)
+        acc = [torch.zeros(acc_f.shape, dtype=torch.float64,
+                           device=acc_f.device)] * _N_CLASSES
+        _accumulate_classes(acc, [l[..., k0:k1] for l in lx],
+                            [l[..., k0:k1, :] for l in lw])
+        acc_f = _flush_classes(acc, acc_f)
+    return acc_f
 
 
 def _as_3d(t: torch.Tensor) -> torch.Tensor:
@@ -221,36 +302,73 @@ def mgs_matmul_exact_fused_plain(x_codes, w_codes, fmt: FPFormat = E4M3, *,
     Bt = max(xc.shape[0], wc.shape[0])
     M, K = xc.shape[1:]
     N = wc.shape[-1]
-    nsteps = -(-K // block_k)
-    fp = flush_steps(flush_period, block_k, nsteps)
-    lx = [l.to(torch.float64) for l in _decode_limbs(xc, fmt)]
+    fp = flush_steps(flush_period, block_k, -(-K // block_k))
+    lx = _limbs64(xc, fmt)
     acc_f = torch.zeros((Bt, M, N), dtype=torch.float32, device=xc.device)
     for n0 in range(0, N, _PLAIN_N_CHUNK):
         n1 = min(N, n0 + _PLAIN_N_CHUNK)
-        lw = [l.to(torch.float64) for l in _decode_limbs(wc[..., n0:n1], fmt)]
-        part = acc_f[..., n0:n1]
-        for s0 in range(0, nsteps, fp):
-            k0, k1 = s0 * block_k, min(K, (s0 + fp) * block_k)
-            acc = [torch.zeros((Bt, M, n1 - n0), dtype=torch.float64,
-                               device=xc.device)] * _N_CLASSES
-            _accumulate_classes(acc, [l[..., k0:k1] for l in lx],
-                                [l[..., k0:k1, :] for l in lw])
-            part = _flush_classes(acc, part)
-        acc_f[..., n0:n1] = part
+        acc_f[..., n0:n1] = _walk(lx, _limbs64(wc[..., n0:n1], fmt), block_k,
+                                  fp, acc_f[..., n0:n1])
+    out = _epilogue(acc_f * out_scale(fmt), _rows(scale, Bt, N, xc.device),
+                    _rows(bias, Bt, N, xc.device), activation)
+    return out[0] if squeeze else out
+
+
+def mgs_matmul_stationary_plain(x_codes, w_codes, fmt: FPFormat = E4M3, *,
+                                schedule: str, scale=None, bias=None,
+                                activation: str = "none",
+                                block_k: int = 128,
+                                flush_period: Optional[int] = None):
+    """Plain twin of the B3 kernel under a stationary ``schedule``.
+
+    Walks the stationary order: each chunk of the cached operand (columns
+    of ``w`` for ``"weight"``, rows of ``x`` for ``"activation"``) is
+    decoded once into its K-resident limb planes, then the other
+    operand's chunks sweep over it. Raises like the kernel on a stripe
+    over :data:`WS_STRIPE_BUDGET_BYTES`. The same bits as the B1 twin.
+    """
+    _check_operands(x_codes, w_codes, activation, block_k)
+    if schedule not in ("weight", "activation"):
+        raise ValueError(f"stationary schedule expected, got {schedule!r}")
+    squeeze = x_codes.dim() == 2 and w_codes.dim() == 2
+    xc, wc = _as_3d(x_codes), _as_3d(w_codes)
+    Bt = max(xc.shape[0], wc.shape[0])
+    M, K = xc.shape[1:]
+    N = wc.shape[-1]
+    check_stripe(schedule, M, K, block_k)
+    fp = flush_steps(flush_period, block_k, -(-K // block_k))
+    acc_f = torch.zeros((Bt, M, N), dtype=torch.float32, device=xc.device)
+    C = _PLAIN_N_CHUNK
+    if schedule == "weight":
+        for n0 in range(0, N, C):
+            lw = _limbs64(wc[..., n0:n0 + C], fmt)
+            for m0 in range(0, M, C):
+                part = acc_f[:, m0:m0 + C, n0:n0 + C]
+                part[...] = _walk(_limbs64(xc[:, m0:m0 + C], fmt), lw,
+                                  block_k, fp, part)
+    else:
+        for m0 in range(0, M, C):
+            lx = _limbs64(xc[:, m0:m0 + C], fmt)
+            for n0 in range(0, N, C):
+                part = acc_f[:, m0:m0 + C, n0:n0 + C]
+                part[...] = _walk(lx, _limbs64(wc[..., n0:n0 + C], fmt),
+                                  block_k, fp, part)
     out = _epilogue(acc_f * out_scale(fmt), _rows(scale, Bt, N, xc.device),
                     _rows(bias, Bt, N, xc.device), activation)
     return out[0] if squeeze else out
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8
-             + [ctypes.c_void_p])
+             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8)
 
 
-def _kernel():
-    fn = _cuda.load("mgs_matmul").mgs_matmul_exact_fused
+def _kernel(stationary: bool):
+    lib = _cuda.load("mgs_matmul")
+    fn = (lib.mgs_matmul_exact_fused_stationary if stationary
+          else lib.mgs_matmul_exact_fused)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES + [ctypes.c_int] * stationary + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -258,8 +376,10 @@ def _kernel():
 def mgs_matmul_exact_fused(x_codes, w_codes, fmt: FPFormat = E4M3, *,
                            scale=None, bias=None, activation: str = "none",
                            block_k: int = 128,
-                           flush_period: Optional[int] = None):
-    """Exact limb-fused matmul over packed FP8 codes.
+                           flush_period: Optional[int] = None,
+                           schedule: str = "output"):
+    """Exact limb-fused matmul over packed FP8 codes (B1, or B3 under a
+    stationary ``schedule``).
 
     Args:
       x_codes: ``(M, K)`` or ``(Bt, M, K)`` uint8 codes
@@ -274,15 +394,26 @@ def mgs_matmul_exact_fused(x_codes, w_codes, fmt: FPFormat = E4M3, *,
         the card).
       flush_period: runtime K-steps between flushes (``None`` = the
         worst-case bound, one flush at the end for any practical K).
+      schedule: ``"output"`` (B1), ``"weight"`` or ``"activation"`` (B3,
+        one operand's K-resident limb stripe cached while the other's
+        tiles sweep past it). The same bits under every schedule; a
+        stationary stripe over :data:`WS_STRIPE_BUDGET_BYTES` raises
+        ``ValueError``.
 
     Returns:
       float32 ``(M, N)`` / ``(Bt, M, N)``. A CPU tensor runs the twin; a
       CUDA tensor launches ``csrc/mgs_matmul.cu`` or raises.
     """
+    check_stripe(schedule, x_codes.shape[-2], x_codes.shape[-1], block_k)
     if x_codes.device.type == "cpu":
-        return mgs_matmul_exact_fused_plain(
-            x_codes, w_codes, fmt, scale=scale, bias=bias,
-            activation=activation, block_k=block_k,
+        if schedule == "output":
+            return mgs_matmul_exact_fused_plain(
+                x_codes, w_codes, fmt, scale=scale, bias=bias,
+                activation=activation, block_k=block_k,
+                flush_period=flush_period)
+        return mgs_matmul_stationary_plain(
+            x_codes, w_codes, fmt, schedule=schedule, scale=scale,
+            bias=bias, activation=activation, block_k=block_k,
             flush_period=flush_period)
     if x_codes.device.type != "cuda" or w_codes.device != x_codes.device:
         raise ValueError(f"codes on {x_codes.device} / {w_codes.device}: "
@@ -309,7 +440,10 @@ def mgs_matmul_exact_fused(x_codes, w_codes, fmt: FPFormat = E4M3, *,
         else:
             sc, bi = _rows(scale, Bt, N, dev), _rows(bias, Bt, N, dev)
             fp = flush_steps(flush_period, block_k, -(-K // block_k))
-            err = _kernel()(
+            stationary = schedule != "output"
+            name = ("mgs_matmul_exact_fused_stationary" if stationary
+                    else "mgs_matmul_exact_fused")
+            err = _kernel(stationary)(
                 xc.data_ptr(), wc.data_ptr(),
                 None if sc is None else sc.data_ptr(),
                 None if bi is None else bi.data_ptr(), out.data_ptr(),
@@ -319,7 +453,8 @@ def mgs_matmul_exact_fused(x_codes, w_codes, fmt: FPFormat = E4M3, *,
                 0 if bi is None else bi.stride(0),
                 0 if bi is None else bi.stride(2),
                 _KERNEL_FMTS[fmt.name], _ACT_CODES[activation], block_k, fp,
+                *([int(schedule == "weight")] if stationary else []),
                 _cuda.stream_ptr(dev))
-            _cuda.check(err, "mgs_matmul_exact_fused")
-            _cuda.LAUNCHES["mgs_matmul_exact_fused"] += 1
+            _cuda.check(err, name)
+            _cuda.LAUNCHES[name] += 1
     return out[0] if squeeze else out

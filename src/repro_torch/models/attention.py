@@ -1,14 +1,17 @@
 """Self-attention (MHA/GQA/MQA, causal / sliding window) with decode KV
-caches — float (:class:`KVCache`) or packed FP8
-(:class:`repro_torch.quant.QuantizedKVCache`, decode served by the B2
-flash kernel).
+caches — float (:class:`KVCache`), packed FP8
+(:class:`repro_torch.quant.QuantizedKVCache`) or the paged pool
+(:class:`repro_torch.quant.PagedKVCache`), the last two decoded by the B2
+flash kernel.
 
 The port's copy of the self-attention branches of
 ``repro.models.attention``: dense scores (``_sdpa_dense``), the
-online-softmax chunked prefill (``_sdpa_chunked``), and the packed-cache
-decode (``_sdpa_packed_cache``). Under an fp8 config the score and value
-contractions of prefill route through ``qeinsum`` (the B1 kernel, batched
-over (batch, kv-head) slices). Caches are written in place.
+online-softmax chunked prefill (``_sdpa_chunked``), the packed-cache
+decode (``_sdpa_packed_cache``) and the paged decode and speculative
+verify (``_sdpa_paged_cache``, ``_sdpa_paged_verify``). Under an fp8
+config the score and value contractions of prefill route through
+``qeinsum`` (B1 or B3, batched over (batch, kv-head) slices). Caches are
+written in place.
 """
 
 from __future__ import annotations
@@ -19,8 +22,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.mgs_attention import mgs_flash_attention
-from repro_torch.quant import QuantizedKVCache, append_kv, qeinsum
+from repro_torch.kernels.mgs_attention import (mgs_flash_attention,
+                                               mgs_paged_flash_attention,
+                                               mgs_paged_verify_attention)
+from repro_torch.quant import (PagedKVCache, QuantizedKVCache, append_kv,
+                               paged_append_kv, qeinsum)
 from repro_torch.quant.quantize import QTensor, quantize_fp8
 from .common import apply_rope, pairwise_sum_last
 from .linear import proj
@@ -168,15 +174,100 @@ def _sdpa_packed_cache(q, cache: QuantizedKVCache, bias, quant,
     return out.reshape(B, KV, G, T, hd).permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
+def _paged_rows(cache: PagedKVCache, bt, B: int):
+    """The per-entry scale rows of every slot in logical ``(B * KV, S)``
+    order, and the ``(B * KV, nb)`` table into the ``(P * KV, bs, hd)``
+    pool view (slot b / head h / chunk j is tile ``bt[b, j] * KV + h``)."""
+    P, KV, bs = cache.k_scale.shape
+    nb = bt.shape[1]
+    S = nb * bs
+
+    def rows(plane):
+        g = plane[bt.reshape(-1)].reshape(B, nb, KV, bs)
+        return g.transpose(1, 2).reshape(B * KV, S)
+
+    bt_nk = (bt[:, None, :] * KV + torch.arange(
+        KV, device=bt.device)[None, :, None]).reshape(B * KV, nb)
+    return rows(cache.k_scale), rows(cache.v_scale), bt_nk
+
+
+def _pools(cache: PagedKVCache):
+    P, KV, bs, hd = cache.k_codes.shape
+    return (cache.k_codes.reshape(P * KV, bs, hd),
+            cache.v_codes.reshape(P * KV, bs, hd))
+
+
+def _sdpa_paged_cache(q, cache: PagedKVCache, block_table, bias, lengths,
+                      quant):
+    """Decode attention over the paged pool: the block-table B2 kernel.
+
+    q: (B, 1, KV, G, hd); bias: (B, 1, S); ``lengths``: (B,) live key
+    counts (0 = free slot, an exact-zero row). Codes never move; only the
+    per-entry scale rows are gathered into logical order, where they fold
+    with the query scale and ``head_dim**-0.5`` into the score multiplier.
+    """
+    B, T, KV, G, hd = q.shape
+    fmt = quant.kv_fmt
+    q2 = q.permute(0, 2, 3, 1, 4).reshape(B * KV, G * T * hd)
+    qt = _quantize_decode_q(q2, quant)
+    qvals = qt.q.reshape(B * KV, G * T, hd)
+    bt = block_table.to(torch.int64)
+    ks, vs, bt_nk = _paged_rows(cache, bt, B)
+    S = ks.shape[1]
+    qk = (qt.scale * ks) * (hd ** -0.5)
+    kp, vp = _pools(cache)
+    live = torch.repeat_interleave(lengths.to(torch.int32), KV)
+    bias2 = bias.reshape(B, 1, S).expand(B, KV, S).reshape(B * KV, S)
+    out = mgs_paged_flash_attention(qvals, kp, vp, bt_nk, live, qk, vs,
+                                    bias2, fmt, use_kernel=quant.use_kernel)
+    return out.reshape(B, KV, G, T, hd).permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def _sdpa_paged_verify(q, cache: PagedKVCache, block_table, bias,
+                       positions, lengths, quant):
+    """Multi-query (T > 1) verify attention over the paged pool.
+
+    Every (slot, kv-head) pair is one kernel slice of ``T`` tokens. The
+    query is quantized per ``(G * hd)`` token row — the granularity of
+    the sequential ``T == 1`` step — and token ``t`` attends up to its
+    own position, so its row is bitwise the sequential step's at
+    ``pos + t``. ``positions``: (B, T); ``lengths`` 0 marks a dead slot.
+    """
+    B, T, KV, G, hd = q.shape
+    fmt = quant.kv_fmt
+    q2 = q.permute(0, 2, 1, 3, 4).reshape(B * KV * T, G * hd)
+    qt = _quantize_decode_q(q2, quant)
+    qvals = qt.q.reshape(B * KV, T, G, hd)
+    bt = block_table.to(torch.int64)
+    ks, vs, bt_nk = _paged_rows(cache, bt, B)
+    S = ks.shape[1]
+    qk = qt.scale.reshape(B * KV, T, 1) * ks[:, None, :] * (hd ** -0.5)
+    vs3 = vs[:, None, :].expand(B * KV, T, S)
+    kp, vp = _pools(cache)
+    live_t = torch.where(lengths[:, None] > 0, positions + 1,
+                         torch.zeros_like(positions))
+    live = torch.repeat_interleave(live_t.to(torch.int32), KV, dim=0)
+    bias3 = bias.reshape(B, 1, T, S).expand(B, KV, T, S).reshape(
+        B * KV, T, S)
+    out = mgs_paged_verify_attention(qvals, kp, vp, bt_nk, live, qk, vs3,
+                                     bias3, fmt, use_kernel=quant.use_kernel)
+    return out.reshape(B, KV, T, G, hd).permute(0, 2, 1, 3, 4).to(q.dtype)
+
+
 def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
-                    causal: bool = True, cache=None, cache_pos: int = 0):
+                    causal: bool = True, cache=None, cache_pos=0,
+                    block_table=None, lengths=None):
     """Self-attention. x: (B, T, d); positions: (B, T) int.
 
-    ``cache``: a float :class:`KVCache` or a packed
-    :class:`QuantizedKVCache` (one layer's planes), written in place at
-    ``cache_pos``. With the packed cache the decode step (T == 1) attends
-    the codes through the flash kernel; prefill (T > 1, ``cache_pos`` 0)
-    attends the fresh float K/V and only stores them quantized.
+    ``cache``: a float :class:`KVCache`, a packed
+    :class:`QuantizedKVCache` or a paged :class:`PagedKVCache` (one
+    layer's planes), written in place at ``cache_pos``. With the packed
+    cache the decode step (T == 1) attends the codes through the flash
+    kernel; prefill (T > 1, ``cache_pos`` 0) attends the fresh float K/V
+    and only stores them quantized. With the paged pool ``cache_pos`` is
+    a per-slot ``(B,)`` position, ``block_table`` ``(B, nb)`` names each
+    slot's blocks and ``lengths`` ``(B,)`` its live key count (0 = free
+    slot); ``T == 1`` decodes, ``T > 1`` is the speculative verify.
     Returns (out (B, T, d), cache | None).
     """
     B, T, d = x.shape
@@ -190,7 +281,23 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
     v = proj(x, p["wv"], cfg.quant)
 
     packed_out = None
-    if isinstance(cache, QuantizedKVCache):
+    if isinstance(cache, PagedKVCache):
+        paged_append_kv(cache, k, v, cache_pos, block_table,
+                        cfg.quant.kv_fmt)
+        S = block_table.shape[1] * cache.k_codes.shape[2]
+        k_pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        valid = k_pos <= positions[:, -1:]
+        k_pos = torch.where(valid, k_pos,
+                            torch.full_like(k_pos, _POS_SENTINEL))
+        bias3 = _mask(positions, k_pos, causal=causal, window=cfg.window,
+                      is_global=is_global)
+        if T == 1:
+            packed_out = _sdpa_paged_cache(q, cache, block_table, bias3,
+                                           lengths, cfg.quant)
+        else:
+            packed_out = _sdpa_paged_verify(q, cache, block_table, bias3,
+                                            positions, lengths, cfg.quant)
+    elif isinstance(cache, QuantizedKVCache):
         append_kv(cache, k, v, cache_pos, cfg.quant.kv_fmt)
         if T == 1:
             S = cache.k_codes.shape[2]

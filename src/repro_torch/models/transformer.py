@@ -1,11 +1,14 @@
-"""The dense decoder stack of the port: init, serving cache, prefill and
-decode (``repro.models.transformer``, dense family).
+"""The dense decoder stack of the port: init, serving caches, prefill,
+decode, and the paged slot pool of continuous batching with its
+speculative draft / verify / rewind steps (``repro.models.transformer``,
+dense family).
 
 Layers run in a Python loop over the stacked parameters (the reference's
 ``lax.scan``): :func:`layer_params` indexes one layer of every stacked
-tensor and :class:`~repro_torch.quant.PreparedWeight`. The serving cache
-is updated in place; ``cache["pos"]`` is a host integer (every row of a
-group decodes the same position).
+tensor and :class:`~repro_torch.quant.PreparedWeight`. Serving caches are
+updated in place. In the group cache ``cache["pos"]`` is a host integer
+(every row of a group decodes the same position); in the paged cache it
+is a ``(slots,)`` device tensor beside the ``(slots, nb)`` block table.
 
 The other families (MoE, hybrid, SSM, encoder-decoder, VLM) are ROADMAP
 item A10 and raise ``NotImplementedError``.
@@ -19,14 +22,18 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.quant import PreparedWeight, QuantizedKVCache, qeinsum
-from repro_torch.quant.kvcache import init_quantized_kv
+from repro_torch.quant import (PagedKVCache, PreparedWeight,
+                               QuantizedKVCache, qeinsum)
+from repro_torch.quant.kvcache import (init_paged_kv, init_quantized_kv,
+                                       paged_rollback_kv)
 from .attention import KVCache, attention_apply
 from .common import dtype_of, normal_param, rms_norm
 from .ffn import ffn_apply
 
 __all__ = ["init_params", "init_cache", "prefill", "decode_step",
-           "layer_params", "cast_params"]
+           "layer_params", "cast_params", "init_paged_cache", "adopt_slot",
+           "release_slot", "decode_step_paged", "verify_step_paged",
+           "draft_step_paged", "rewind_slots"]
 
 
 def _require_dense(cfg: ModelConfig):
@@ -126,10 +133,11 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def _dense_body(pl, x, positions, cfg: ModelConfig, is_global, cache,
-                cache_pos: int):
+                cache_pos, block_table=None, lengths=None):
     h, _ = attention_apply(pl["attn"], rms_norm(x, pl["ln1"], cfg.norm_eps),
                            cfg, positions=positions, is_global=is_global,
-                           cache=cache, cache_pos=cache_pos)
+                           cache=cache, cache_pos=cache_pos,
+                           block_table=block_table, lengths=lengths)
     x = x + h
     x = x + ffn_apply(pl["ffn"], rms_norm(x, pl["ln2"], cfg.norm_eps), cfg)
     return x
@@ -203,3 +211,185 @@ def decode_step(params, cfg: ModelConfig, tokens, cache):
     cache["pos"] = pos + 1
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, x)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Serving: paged KV pool (continuous batching)
+# ---------------------------------------------------------------------------
+
+
+def _require_paged_arch(cfg: ModelConfig):
+    """The paged decode path covers plain dense decoder-only stacks with
+    the packed cache (the reference's guard)."""
+    _require_dense(cfg)
+    if not cfg.quant.quantized_kv:
+        raise ValueError("paged decode requires quant.kv_cache='packed' "
+                         "(the pool stores packed FP8 codes)")
+
+
+def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
+                     n_blocks: int, *, device=None):
+    """The paged decode state: one pool of ``n_blocks`` KV blocks (block
+    size ``cfg.quant.block_k``, the flash kernel's chunk) shared by
+    ``slots`` decode slots, each with a ``block_table`` row of width
+    ``ceil(max_len / block_k)`` and a ``pos`` (next write position;
+    ``pos == 0`` marks a free slot). Block 0 is the trash block.
+    """
+    _require_paged_arch(cfg)
+    bs = cfg.quant.block_k
+    nb = -(-max_len // bs)
+    pool = init_paged_kv((cfg.n_layers,), n_blocks, cfg.n_kv_heads, bs,
+                         cfg.head_dim, device=device)
+    return {"k": pool.k_codes, "v": pool.v_codes,
+            "k_scale": pool.k_scale, "v_scale": pool.v_scale,
+            "block_table": torch.zeros((slots, nb), dtype=torch.int32,
+                                       device=device),
+            "pos": torch.zeros((slots,), dtype=torch.int32, device=device)}
+
+
+def _paged_kv_stack(cache) -> PagedKVCache:
+    return PagedKVCache(cache["k"], cache["v"], cache["k_scale"],
+                        cache["v_scale"])
+
+
+def _paged_layer(cache, i: int) -> PagedKVCache:
+    return PagedKVCache(cache["k"][i], cache["v"][i], cache["k_scale"][i],
+                        cache["v_scale"][i])
+
+
+def adopt_slot(cache, prefill_cache, slot: int, phys):
+    """Copy a batch-1 packed prefill cache into pool blocks and activate
+    ``slot``, in place.
+
+    ``prefill_cache`` comes from :func:`prefill` at batch 1 (planes
+    ``(L, 1, KV, S, hd)``, ``S`` a multiple of the block size). ``phys``
+    is the slot's whole table row ``(nb,)``: the first ``S // bs``
+    entries receive the prefill, the rest of the allocated entries are
+    decode headroom, unallocated entries are the trash block.
+    """
+    k = cache["k"]
+    L, P, KV, bs, hd = k.shape
+    S = prefill_cache["k"].shape[3]
+    if S % bs:
+        raise ValueError(f"prefill length {S} not a multiple of block {bs}")
+    ns = S // bs
+    phys = torch.as_tensor(phys, dtype=torch.int32, device=k.device)
+    pb = phys[:ns].to(torch.int64)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        plane = prefill_cache[name]
+        tail = tuple(plane.shape[4:])
+        cache[name][:, pb] = plane.reshape((L, KV, ns, bs) + tail
+                                           ).transpose(1, 2)
+    cache["block_table"][slot] = phys
+    cache["pos"][slot] = int(prefill_cache["pos"])
+    return cache
+
+
+def release_slot(cache, slot: int):
+    """Free ``slot``: zero its table row (-> trash block) and its pos. Its
+    blocks keep their bits until an adoption overwrites them, so no
+    co-resident slot can be perturbed."""
+    cache["block_table"][slot] = 0
+    cache["pos"][slot] = 0
+    return cache
+
+
+def _paged_layers(params, cfg: ModelConfig, x, positions, cache, cache_pos,
+                  lengths, n_layers: int):
+    bt = cache["block_table"]
+    for i in range(n_layers):
+        x = _dense_body(layer_params(params["layers"], i), x, positions, cfg,
+                        cfg.layer_is_global_attn(i), _paged_layer(cache, i),
+                        cache_pos, block_table=bt, lengths=lengths)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, cfg, x)
+
+
+def decode_step_paged(params, cfg: ModelConfig, tokens, cache):
+    """One decode step over the paged slot pool. tokens: (slots, 1).
+
+    Returns (logits (slots, V), cache). A free slot (``pos == 0``) walks
+    no KV chunk and appends into the trash block, so it cannot change a
+    live slot's bits; with ``quant.per_row_act`` the whole step is
+    row-independent (the continuous engine's determinism contract).
+    """
+    _require_paged_arch(cfg)
+    params = cast_params(params, cfg)
+    pos = cache["pos"]
+    live = pos > 0
+    lengths = torch.where(live, pos + 1, 0)
+    x = _embed_tokens(params, cfg, tokens)
+    logits = _paged_layers(params, cfg, x, pos[:, None].to(torch.int64),
+                           cache, pos, lengths, cfg.n_layers)
+    cache["pos"] = torch.where(live, pos + 1, pos)
+    return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Serving: speculative decoding over the paged pool (draft -> verify ->
+# rewind). Only rewind_slots advances ``pos``, by the accepted count.
+# ---------------------------------------------------------------------------
+
+
+def verify_step_paged(params, cfg: ModelConfig, tokens, cache):
+    """Score ``k`` candidate tokens per slot in one multi-query step.
+
+    tokens: ``(slots, k)`` — each slot's current token and its ``k - 1``
+    drafts at positions ``pos .. pos + k - 1``. All ``k`` entries are
+    appended, then each (slot, token) attends its own causal horizon, so
+    ``logits[:, j]`` is bitwise the sequential step's at ``pos + j``.
+    ``pos`` is not advanced. Returns ``(logits (slots, k, V), cache)``.
+    """
+    _require_paged_arch(cfg)
+    params = cast_params(params, cfg)
+    T = tokens.shape[1]
+    pos = cache["pos"]
+    lengths = torch.where(pos > 0, pos + 1, 0)
+    x = _embed_tokens(params, cfg, tokens)
+    positions = pos[:, None].to(torch.int64) + torch.arange(
+        T, device=x.device)[None, :]
+    logits = _paged_layers(params, cfg, x, positions, cache, pos, lengths,
+                           cfg.n_layers)
+    return logits, cache
+
+
+def draft_step_paged(params, cfg: ModelConfig, tokens, cache, offset: int):
+    """One self-draft step at position ``pos + offset`` through the first
+    ``cfg.quant.draft_layers`` layers (plus final norm and logits head).
+
+    The draft's K/V appends in those layers are overwritten by the verify
+    append before any verify read, so draft numerics move only the
+    acceptance rate. ``pos`` is not advanced.
+    tokens: ``(slots, 1)``. Returns ``(logits (slots, V), cache)``.
+    """
+    _require_paged_arch(cfg)
+    L = min(cfg.quant.draft_layers or cfg.n_layers, cfg.n_layers)
+    params = cast_params(params, cfg)
+    pos = cache["pos"]
+    live = pos > 0
+    dpos = torch.where(live, pos + offset, pos)
+    lengths = torch.where(live, dpos + 1, 0)
+    x = _embed_tokens(params, cfg, tokens)
+    logits = _paged_layers(params, cfg, x, dpos[:, None].to(torch.int64),
+                           cache, dpos, lengths, L)
+    return logits[:, 0], cache
+
+
+def rewind_slots(cache, keep, max_tokens: int):
+    """Commit ``keep`` verified entries per slot and zero the rejected tail.
+
+    After a verify appended ``max_tokens`` entries at ``pos ..`` and
+    acceptance kept ``keep``, entries ``pos + keep ..`` are physically
+    zeroed (codes and scales) and ``pos`` advances by ``keep``, so the pool
+    is exactly what sequential decode would have left. Free slots pass
+    through. keep: ``(slots,)`` int in ``[1, max_tokens]`` for live slots.
+    """
+    pos = cache["pos"]
+    live = pos > 0
+    keep = torch.as_tensor(keep, dtype=torch.int32, device=pos.device)
+    start = torch.where(live, pos + keep, 0)
+    count = torch.where(live, max_tokens - keep, 0)
+    paged_rollback_kv(_paged_kv_stack(cache), cache["block_table"], start,
+                      count, max_tokens)
+    cache["pos"] = torch.where(live, pos + keep, pos)
+    return cache

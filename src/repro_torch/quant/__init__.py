@@ -3,8 +3,10 @@ the ``qmatmul`` / ``qeinsum`` dispatch and the packed KV cache."""
 
 from .config import (FP8_MGS_EXACT, FP8_MGS_SERVE, FP8_MGS_SERVE_KV,
                      FP8_MGS_SERVE_PAGED, NONE, QuantConfig)
-from .kvcache import (QuantizedKVCache, append_kv, init_quantized_kv,
-                      quantize_kv)
+from .kvcache import (TRASH_BLOCK, BlockAllocator, PagedKVCache,
+                      QuantizedKVCache, append_kv, gather_paged_kv,
+                      init_paged_kv, init_quantized_kv, kv_cache_bytes,
+                      paged_append_kv, paged_rollback_kv, quantize_kv)
 from .prepared import (PREP_STATS, PreparedWeight, clear_prepared_cache,
                        prepare_logits_head, prepare_params, prepare_unembed,
                        prepare_weight)
@@ -18,4 +20,7 @@ __all__ = ["QuantConfig", "NONE", "FP8_MGS_EXACT", "FP8_MGS_SERVE",
            "prepare_weight", "prepare_params", "prepare_unembed",
            "prepare_logits_head", "PREP_STATS", "clear_prepared_cache",
            "qmatmul", "qeinsum", "plan_qeinsum", "QuantizedKVCache",
-           "quantize_kv", "init_quantized_kv", "append_kv"]
+           "quantize_kv", "init_quantized_kv", "append_kv", "TRASH_BLOCK",
+           "PagedKVCache", "BlockAllocator", "init_paged_kv",
+           "paged_append_kv", "paged_rollback_kv", "gather_paged_kv",
+           "kv_cache_bytes"]

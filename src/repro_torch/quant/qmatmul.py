@@ -13,7 +13,7 @@ numerics and rescales:
 With ``batched=True`` the leading axis of ``x`` (and of a raw or prepared
 ``w``) indexes independent slices, each quantized with its own scale —
 the reference's ``vmap`` over ``qmatmul``, here one batched kernel
-launch. Per-row activation scales do not fit the kernel's ``(1, N)``
+launch (B1, or B3 under ``cfg.schedule``). Per-row activation scales do not fit the kernel's ``(1, N)``
 epilogue row, so they are applied after it (the same float32 ops).
 
 The other accumulation modes are later slices of the port (ROADMAP A11)
@@ -27,7 +27,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.formats import encode_bits
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.mgs_matmul import mgs_matmul_exact_fused
 from .config import QuantConfig
 from .prepared import PreparedWeight
 from .quantize import quantize_fp8
@@ -76,19 +78,15 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
     in_kernel = not cfg.per_row_act
     if cfg.use_kernel and cfg.fused and batched:
         # one launch over every slice: the B1 kernel's batch axis
-        from repro_torch.core.formats import encode_bits
-        from repro_torch.kernels.mgs_matmul import mgs_matmul_exact_fused
-        if cfg.schedule != "output":
-            raise NotImplementedError(
-                f"schedule {cfg.schedule!r}: the stationary kernels are "
-                "ROADMAP item B3")
         xc = encode_bits(qx.q, fmt)
         wc = w.codes if prepared else encode_bits(qw.q, fmt)
         out = mgs_matmul_exact_fused(
             xc, wc, fmt, scale=scale if in_kernel else None,
             bias=bias if in_kernel else None,
             activation=activation if in_kernel else "none",
-            block_k=cfg.block_k, flush_period=flush_period)
+            block_k=cfg.block_k, flush_period=flush_period,
+            schedule=kops._fused_schedule(cfg.schedule, xc.shape[1],
+                                          xc.shape[2], cfg.block_k))
     elif batched:
         # plain path: slice by slice, as the reference's vmap
         outs = []

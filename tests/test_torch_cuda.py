@@ -14,7 +14,8 @@ from repro_torch.core.formats import E3M4, E4M3, encode_bits, \
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels import mgs_attention as ta  # noqa: E402
 from repro_torch.kernels.mgs_matmul import (  # noqa: E402
-    mgs_matmul_exact_fused, mgs_matmul_exact_fused_plain)
+    mgs_matmul_exact_fused, mgs_matmul_exact_fused_plain,
+    mgs_matmul_stationary_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -70,3 +71,64 @@ def test_b2_kernel_equals_twin(dev):
     torch.cuda.synchronize()
     assert torch.equal(out, twin)
     assert torch.equal(out[2], torch.zeros_like(out[2]))
+
+
+@pytest.mark.parametrize("M", [1, 4, 13, 70])
+@pytest.mark.parametrize("schedule", ["weight", "activation"])
+def test_b3_kernel_equals_b1_and_twin(dev, M, schedule):
+    K, N = 300, 197
+    xc, wc = _codes((2, M, K), E4M3, 4, dev), _codes((2, K, N), E4M3, 5, dev)
+    s = torch.rand(2, 1, N, device=dev) * 1e-2
+    b = torch.randn(N, device=dev)
+    for kw in ({}, {"scale": s, "bias": b}, {"flush_period": 1},
+               {"scale": s, "activation": "silu"}):
+        n0 = LAUNCHES["mgs_matmul_exact_fused_stationary"]
+        out = mgs_matmul_exact_fused(xc, wc, E4M3, schedule=schedule, **kw)
+        assert LAUNCHES["mgs_matmul_exact_fused_stationary"] == n0 + 1
+        b1 = mgs_matmul_exact_fused(xc, wc, E4M3, **kw)
+        twin = mgs_matmul_stationary_plain(xc, wc, E4M3, schedule=schedule,
+                                           **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, b1) and torch.equal(out, twin), kw
+
+
+def test_b3_refuses_an_over_budget_stripe(dev):
+    xc = _codes((64, 4096), E4M3, 6, dev)
+    wc = _codes((4096, 64), E4M3, 7, dev)
+    with pytest.raises(ValueError, match="shared-memory budget"):
+        mgs_matmul_exact_fused(xc, wc, E4M3, schedule="activation")
+
+
+def test_b2_paged_and_verify_entries_equal_twin(dev):
+    N, T, R, D, bs, nb = 5, 4, 1, 64, 32, 4
+    S = nb * bs
+    P = N * nb + 1
+    kp = _codes((P, bs, D), E4M3, 8, dev)
+    vp = _codes((P, bs, D), E4M3, 9, dev)
+    bt = (1 + torch.randperm(P - 1)[:N * nb]).to(torch.int32).reshape(
+        N, nb).to(dev)
+    bt[1, 2:] = 0                       # trash-block tail
+    base = torch.tensor([100, 0, 33, 64, 1], dtype=torch.int32, device=dev)
+    q = round_to_format(torch.randn(N, T, R, D) * 20, E4M3).to(dev)
+    lengths = torch.where(base[:, None] > 0, base[:, None] + torch.arange(
+        T, device=dev)[None] + 1, 0).to(torch.int32)
+    pos = torch.arange(S, device=dev)
+    live = pos[None, None] < lengths[:, :, None]
+    qk = torch.where(live, torch.rand(N, T, S, device=dev) * 1e-3, 0.0)
+    vs = torch.where(live, torch.rand(N, T, S, device=dev) * 1e-2, 0.0)
+    bias = torch.where(live, 0.0, -1e30)
+    n0 = LAUNCHES["mgs_flash_attention"]
+    ver = ta.mgs_paged_verify_attention(q, kp, vp, bt, lengths, qk, vs, bias,
+                                        E4M3)
+    ver_plain = ta.mgs_paged_verify_attention(q, kp, vp, bt, lengths, qk, vs,
+                                              bias, E4M3, use_kernel=False)
+    dec = ta.mgs_paged_flash_attention(q[:, 0], kp, vp, bt, lengths[:, 0],
+                                       qk[:, 0], vs[:, 0], bias[:, 0], E4M3)
+    dec_plain = ta.mgs_paged_flash_attention(
+        q[:, 0], kp, vp, bt, lengths[:, 0], qk[:, 0], vs[:, 0], bias[:, 0],
+        E4M3, use_kernel=False)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mgs_flash_attention"] == n0 + 2
+    assert torch.equal(ver, ver_plain) and torch.equal(dec, dec_plain)
+    assert torch.equal(ver[:, 0], dec)
+    assert not ver[1].any()

@@ -16,7 +16,11 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
 MODULES = ["repro_torch", "repro_torch.core", "repro_torch.quant",
            "repro_torch.kernels", "repro_torch.configs", "repro_torch.models",
-           "repro_torch.launch.serve", "repro_torch.convert"]
+           "repro_torch.launch.serve", "repro_torch.convert",
+           "repro_torch.kernels.mgs_matmul", "repro_torch.kernels.ops",
+           "repro_torch.kernels.mgs_attention", "repro_torch.kernels._cuda",
+           "repro_torch.quant.kvcache", "repro_torch.quant.qmatmul",
+           "repro_torch.models.attention", "repro_torch.models.transformer"]
 
 
 def test_import_leaves_jax_and_repro_unloaded():

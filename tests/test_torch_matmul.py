@@ -132,8 +132,9 @@ def test_plain_ref_and_dispatch_bitwise(operands):
         ref, mgs_matmul(xv[None], wv, use_kernel=False).numpy()[0])
     with pytest.raises(NotImplementedError, match="B4"):
         mgs_matmul(xv, wv, fused=False)
-    with pytest.raises(NotImplementedError, match="B3"):
-        mgs_matmul(xv, wv, fused=True, schedule="weight")
+    for schedule in ("weight", "activation"):      # B3: the same bits
+        np.testing.assert_array_equal(
+            ref, mgs_matmul(xv, wv, fused=True, schedule=schedule).numpy())
 
 
 def test_limb_decompose_bitwise(operands):

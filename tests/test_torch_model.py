@@ -126,9 +126,10 @@ def test_other_families_and_later_slices_raise():
     with pytest.raises(NotImplementedError, match="A10"):
         ServeEngine(reduced_config("granite-moe-1b-a400m"), batch=1,
                     max_len=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_engine(reduced_config("deepseek-7b"), batch=1, max_len=8,
-                    device="cpu", continuous=True)
+    moe = dataclasses.replace(reduced_config("granite-moe-1b-a400m"),
+                              quant=tq.FP8_MGS_SERVE_PAGED)
+    with pytest.raises(NotImplementedError, match="A10"):
+        make_engine(moe, batch=1, max_len=8, device="cpu", continuous=True)
 
 
 def test_warmup_and_bucketed_run_on_cpu():
