@@ -34,8 +34,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    requests served alone must give bitwise equal logits; ``PREP_STATS``
    and the kernel builds stay flat; then time the continuous decode step,
    the speculative round and B3 at the decode shapes, and profile one
-   paged decode step. Last, print the card's name and power limit, a
-   JSON line of kernel results, and ``{"ok": true, "device": {...}}``.
+   paged decode step;
+7. the paper's numerics: B4 (exact matmul over pre-decomposed limb
+   planes) == B1 == twin and B5 (per-product-rounded dMAC matmul) == twin
+   with ``torch.equal`` at the group path's shapes (decode, prefill, the
+   batched score / value contractions; B4 also at ``flush_period=1``, B5
+   also at E5M2 and E3M4 with the subnormal gate on and off); a reduced
+   model under ``FP8_MGS`` and ``FP8_MGS_EXACT`` (kernel tier) on the GPU
+   and the CPU; then the group traffic of phase 4 on one bf16 parameter
+   set (seed 0, full width) under the unquantized model and (a)
+   ``FP8_MGS`` (B5), (b) ``FP8_MGS_EXACT`` (B4), (c) ``FP8_WIDE``, (d)
+   ``FP8_MGS_SERVE`` (B1), all with the float KV cache: launch counts
+   equal the prediction, ``PREP_STATS`` and the builds stay flat, (b)
+   gives (d)'s greedy tokens with logits within 5% of their scale, and
+   each configuration's logit error and token agreement against the
+   unquantized model is printed; a decode step of (a)-(d) is profiled and
+   B4 / B5 are timed at the shapes above. Last, print the card's name and
+   power limit, a JSON line of kernel results, and
+   ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -391,7 +407,7 @@ def serve_full(torch, layers: int):
     return launches, stats, eng
 
 
-def serve_reduced_gpu_vs_cpu(torch):
+def serve_reduced_gpu_vs_cpu(torch, quant=None, label="FP8_MGS_SERVE_KV"):
     """The same reduced model on the card (kernels) and the CPU (twins)."""
     from repro_torch.configs import reduced_config
     from repro_torch.launch.serve import Request, ServeEngine
@@ -400,7 +416,7 @@ def serve_reduced_gpu_vs_cpu(torch):
     import numpy as np
     cfg = dataclasses.replace(reduced_config("deepseek-7b"),
                               compute_dtype="float32",
-                              quant=FP8_MGS_SERVE_KV)
+                              quant=quant or FP8_MGS_SERVE_KV)
     params = init_params(cfg, SEED)
     out = {}
     for dev in ("cuda", "cpu"):
@@ -424,8 +440,8 @@ def serve_reduced_gpu_vs_cpu(torch):
                                  f"{err.max() / scale:.3g} of scale")
     worst = max(np.abs(np.stack(lg[r.rid]) - np.stack(lc[r.rid])).max()
                 for r in rg)
-    log(f"reduced deepseek-7b (4 layers, f32): GPU kernels and CPU twins "
-        f"give equal tokens; max logit diff {worst:.3g}")
+    log(f"reduced deepseek-7b (4 layers, f32, {label}): GPU kernels and "
+        f"CPU twins give equal tokens; max logit diff {worst:.3g}")
 
 
 def _tree_to(tree, dev):
@@ -502,12 +518,14 @@ def profile_step(torch, step, label: str):
         step()
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
-    by = {"B1": [0.0, 0], "B3": [0.0, 0], "B2": [0.0, 0], "other": [0.0, 0]}
+    by = {k: [0.0, 0] for k in ("B1", "B3", "B2", "B4", "B5", "other")}
     for e in prof.key_averages():
         us = e.self_device_time_total
         if e.device_type != DeviceType.CUDA or us <= 0:
             continue
-        key = ("B3" if "exact_fused_stationary_kernel" in e.key else
+        key = ("B5" if "dmac_kernel" in e.key else
+               "B3" if "exact_fused_stationary_kernel" in e.key else
+               "B4" if "exact_fused_kernel<true" in e.key else
                "B1" if "exact_fused_kernel" in e.key else
                "B2" if "flash_kernel" in e.key else "other")
         by[key][0] += us / 1e3
@@ -766,6 +784,284 @@ def time_b3(torch, dev, gen):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the paper's numerics (B4, B5) on the group serving path
+# ---------------------------------------------------------------------------
+
+# H100 SXM CUDA-core int32 rate: 132 SMs x 64 int32 lanes x 1.98 GHz boost
+# (the 67 TFLOP/s float32 peak is 128 lanes x 2 flops at the same clock)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# operations per product of the dMAC's minimal form: the product (its
+# mantissas multiplied, exponents added), one table lookup of the rounded
+# (sm, e), one add into bin e
+DMAC_OPS_PER_PRODUCT = 4
+# the group path's shapes for B4 and B5: decode (4 rows), prefill (4 x 32
+# rows), the score / value contractions over 32 heads x 4 requests against
+# the float cache (max_len 49) at decode and, padded to the 1024-key chunk,
+# at prefill
+B45_SHAPES = B1_SHAPES[:7] + [
+    ("decode scores", 128, 1, 128, 49),
+    ("decode values", 128, 1, 49, 128),
+    ("prefill scores", 128, 32, 128, 1024),
+    ("prefill values", 128, 32, 1024, 128),
+]
+
+
+def dmac_bound(Bt, M, K, N):
+    """B5's bound: f32 values in and out once vs the minimal form's
+    operations at the CUDA-core int32 rate."""
+    t_mem = 4 * Bt * (M * K + K * N + M * N) / HBM_BYTES_PER_S * 1e3
+    t_ops = (Bt * M * N * K * DMAC_OPS_PER_PRODUCT / INT32_OPS_PER_S * 1e3)
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def b4_bound(Bt, M, K, N):
+    """B4's bound: 3 limb bytes per operand element, f32 out, vs 9 int8
+    limb products per MAC at the tensor-core int8 rate."""
+    return bound(3 * Bt * (M * K + K * N) + 4 * Bt * M * N,
+                 9 * 2 * Bt * M * N * K)
+
+
+def _margin_values(torch, shape, dev, gen, fmt=None):
+    """Values quantized as the dmac path quantizes its operands (absmax
+    into sqrt(max_finite)), so products reach the saturation clamp."""
+    from repro_torch.core.formats import E4M3
+    from repro_torch.quant.quantize import quantize_fp8
+    fmt = fmt or E4M3
+    x = torch.randn(shape, generator=gen, device=dev)
+    return quantize_fp8(x, fmt, axis=tuple(range(1, len(shape))),
+                        margin=fmt.max_finite ** -0.5).q
+
+
+def check_b4_b5(torch, dev, gen):
+    """B4 == B1 == twin and B5 == twin (torch.equal) at the group path's
+    shapes; B4 also at flush_period=1, B5 at E5M2 / E3M4, gate on/off."""
+    from repro_torch.core.formats import E3M4, E4M3, E5M2, decode_bits
+    from repro_torch.kernels.mgs_matmul import (
+        limb_decompose, mgs_matmul_dmac, mgs_matmul_dmac_plain,
+        mgs_matmul_exact, mgs_matmul_exact_fused, mgs_matmul_exact_plain)
+    worst4 = worst5 = 0.0
+    for name, Bt, M, K, N in B45_SHAPES:
+        xc = fp8_codes(torch, (Bt, M, K), dev, gen)
+        wc = fp8_codes(torch, (Bt, K, N), dev, gen)
+        xl = limb_decompose(decode_bits(xc, E4M3)).movedim(0, 1)
+        wl = limb_decompose(decode_bits(wc, E4M3)).movedim(0, 1)
+        for fp in (None, 1):
+            out = mgs_matmul_exact(xl, wl, E4M3, flush_period=fp)
+            b1 = mgs_matmul_exact_fused(xc, wc, E4M3, flush_period=fp)
+            twin = mgs_matmul_exact_plain(xl, wl, E4M3, flush_period=fp)
+            torch.cuda.synchronize()
+            err = (out - twin).abs().max().item()
+            worst4 = max(worst4, err)
+            eq = torch.equal(out, b1) and torch.equal(out, twin)
+            log(f"B4 {name:22s} {Bt}x({M}x{K} @ {K}x{N}) flush_period="
+                f"{fp}: B4 == B1 == twin {eq} max_abs_err={err:.3g}")
+            if not eq or not torch.isfinite(out).all():
+                raise AssertionError(f"B4 != B1/twin at {name} fp={fp}")
+        del xl, wl, xc, wc
+        x = _margin_values(torch, (Bt, M, K), dev, gen)
+        w = _margin_values(torch, (Bt, K, N), dev, gen)
+        out = mgs_matmul_dmac(x, w, E4M3)
+        twin = mgs_matmul_dmac_plain(x, w, E4M3)
+        torch.cuda.synchronize()
+        err = (out - twin).abs().max().item()
+        worst5 = max(worst5, err)
+        eq = torch.equal(out, twin)
+        log(f"B5 {name:22s} {Bt}x({M}x{K} @ {K}x{N}) e4m3: B5 == twin {eq} "
+            f"max_abs_err={err:.3g}")
+        if not eq or not torch.isfinite(out).all():
+            raise AssertionError(f"B5 != twin at {name}")
+        del x, w, out, twin
+    for fmt in (E5M2, E3M4, E4M3):
+        x = _margin_values(torch, (3, 13, 300), dev, gen, fmt)
+        w = _margin_values(torch, (3, 300, 75), dev, gen, fmt)
+        for gate in (True, False):
+            out = mgs_matmul_dmac(x, w, fmt, gate)
+            twin = mgs_matmul_dmac_plain(x, w, fmt, gate)
+            torch.cuda.synchronize()
+            err = (out - twin).abs().max().item()
+            worst5 = max(worst5, err)
+            eq = torch.equal(out, twin)
+            log(f"B5 3x(13x300 @ 300x75) {fmt.name} gate={gate}: B5 == twin "
+                f"{eq} max_abs_err={err:.3g}")
+            if not eq:
+                raise AssertionError(f"B5 != twin at {fmt.name} gate={gate}")
+    return worst4, worst5
+
+
+def paper_configs():
+    """The paper phase's configurations in run order: key -> (name,
+    quant config)."""
+    from repro_torch.quant import config as q
+    return {"none": ("unquantized bf16", q.NONE),
+            "a": ("FP8_MGS (B5)", q.FP8_MGS.replace(use_kernel=True)),
+            "b": ("FP8_MGS_EXACT (B4)",
+                  q.FP8_MGS_EXACT.replace(use_kernel=True)),
+            "c": ("FP8_WIDE", q.FP8_WIDE),
+            "d": ("FP8_MGS_SERVE (B1)", q.FP8_MGS_SERVE)}
+
+
+def serve_paper(torch, layers: int):
+    """Group serving of deepseek-7b at full width under the unquantized
+    model and configurations (a)-(d) on one bf16 parameter set: launches,
+    tokens, logits, PREP_STATS / nvcc flat, and a profiled decode step of
+    (a)-(d). Prepared planes are dropped between runs."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models import cast_params, init_params
+    from repro_torch.quant import PREP_STATS, clear_prepared_cache
+    import numpy as np
+
+    def release():
+        clear_prepared_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    release()
+    base = dataclasses.replace(get_config("deepseek-7b"), n_layers=layers)
+    params = cast_params(init_params(base, SEED, device="cuda"), base)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, base.vocab, 32).astype(np.int32)
+               for _ in range(8)]
+    # 2 groups x (prefill: 9 per layer + 1 logits head; 15 decode steps:
+    # 9 per layer (7 projections + the score / value contractions against
+    # the float cache) + 1 logits head)
+    per_run = 2 * ((9 * layers + 1) + 15 * (9 * layers + 1))
+    want = {"none": {}, "a": {"mgs_matmul_dmac": per_run},
+            "b": {"mgs_matmul_exact": per_run}, "c": {},
+            "d": {"mgs_matmul_exact_fused": per_run}}
+    runs, steps = {}, {}
+    for key, (name, quant) in paper_configs().items():
+        cfg = dataclasses.replace(base, quant=quant)
+        t0 = time.time()
+        eng = ServeEngine(cfg, batch=4, max_len=32 + 16 + 1, params=params)
+        eng.warmup([32], max_new=1)
+        t_build = time.time() - t0
+        reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+        prep0, builds0 = dict(PREP_STATS), dict(BUILDS)
+        reset_launch_counts()
+        stats = eng.run(reqs, record_logits=True)
+        launches = dict(LAUNCHES)
+        logits = stats.pop("logits")
+        log(f"paper ({key}) {name}: engine + warmup "
+            f"{t_build:.1f} s; {stats['decode_tokens']} tokens in "
+            f"{stats['wall_s']:.2f} s; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        expect = {k: want[key].get(k, 0) for k in launches}
+        if launches != expect:
+            raise AssertionError(f"({key}) launch counts {launches} != "
+                                 f"predicted {expect}")
+        if dict(PREP_STATS) != prep0 or dict(BUILDS) != builds0:
+            raise AssertionError(f"({key}) serving re-prepared weights or "
+                                 "rebuilt a kernel")
+        rows = {r.rid: np.stack(logits[r.rid]) for r in reqs}
+        if stats["decode_tokens"] != 8 * 16 or any(
+                v.shape != (16, base.vocab) or not np.isfinite(v).all()
+                for v in rows.values()):
+            raise AssertionError(f"({key}) did not serve 8 x 16 finite rows")
+        runs[key] = dict(tokens={r.rid: list(r.out_tokens) for r in reqs},
+                         logits=rows, launches=launches, stats=stats)
+        if key != "none":
+            steps[key] = profile_decode_step(torch, eng)
+        del eng
+        release()
+    del params
+    release()
+    return runs, steps
+
+
+def paper_accuracy(runs):
+    """(b) against (d), and every configuration against the unquantized
+    model: greedy-token agreement and logit error relative to the
+    reference's logit scale."""
+    import numpy as np
+    names = {k: v[0] for k, v in paper_configs().items()}
+    ref = runs["none"]
+    acc = {}
+    for key in ("a", "b", "c", "d"):
+        r = runs[key]
+        agree = [a == b for rid in ref["tokens"]
+                 for a, b in zip(r["tokens"][rid], ref["tokens"][rid])]
+        first = [r["tokens"][rid][0] == ref["tokens"][rid][0]
+                 for rid in ref["tokens"]]
+        diff = np.stack([r["logits"][i] - ref["logits"][i]
+                         for i in ref["logits"]]).astype(np.float64)
+        scale = max(np.abs(v).max() for v in ref["logits"].values())
+        acc[key] = dict(token_agreement=float(np.mean(agree)),
+                        first_token_agreement=float(np.mean(first)),
+                        max_logit_err=float(np.abs(diff).max() / scale),
+                        rms_logit_err=float(np.sqrt((diff ** 2).mean())
+                                            / scale),
+                        first_step_max_logit_err=float(
+                            np.abs(diff[:, 0]).max() / scale))
+        log(f"paper accuracy {names[key]} vs the unquantized bf16 "
+            f"model: greedy tokens agree {acc[key]['token_agreement']:.3f} "
+            f"(first token {acc[key]['first_token_agreement']:.3f}); logit "
+            f"error max {acc[key]['max_logit_err']:.4g}, rms "
+            f"{acc[key]['rms_logit_err']:.4g} of the logit scale (first "
+            f"step max {acc[key]['first_step_max_logit_err']:.4g})")
+    b, d = runs["b"], runs["d"]
+    same = all(b["tokens"][i] == d["tokens"][i] for i in d["tokens"])
+    scale = max(np.abs(v).max() for v in d["logits"].values())
+    worst = max(np.abs(b["logits"][i] - d["logits"][i]).max()
+                for i in d["logits"]) / scale
+    log(f"paper (b) vs (d): greedy tokens equal {same}; largest logit "
+        f"difference {worst:.4g} of the logit scale (bound 0.05)")
+    if not same or worst > 0.05:
+        raise AssertionError("FP8_MGS_EXACT (B4) and FP8_MGS_SERVE (B1) "
+                             "disagree beyond the bound")
+    acc["b_vs_d_max_logit_diff"] = float(worst)
+    return acc
+
+
+def time_b45(torch, dev, gen):
+    """B4 and B5 at the group path's shapes beside their bounds, twins and
+    torch.matmul in float32 over the decoded values; weights cycle through
+    enough copies to leave L2."""
+    from repro_torch.core.formats import E4M3, decode_bits
+    from repro_torch.kernels.mgs_matmul import (
+        limb_decompose, mgs_matmul_dmac, mgs_matmul_dmac_plain,
+        mgs_matmul_exact, mgs_matmul_exact_plain)
+    rows = []
+    for name, Bt, M, K, N in B45_SHAPES:
+        copies = max(1, min(8, -(-200_000_000 // (Bt * K * N))))
+        x = _margin_values(torch, (Bt, M, K), dev, gen)
+        ws = [_margin_values(torch, (Bt, K, N), dev, gen)
+              for _ in range(copies)]
+        xl = limb_decompose(x).movedim(0, 1).contiguous()
+        wls = [limb_decompose(w).movedim(0, 1).contiguous() for w in ws]
+        it = iter(range(10**9))
+
+        def nxt():
+            return next(it) % copies
+        b4 = time_ms(torch, lambda: mgs_matmul_exact(xl, wls[nxt()]), 20)
+        b4_plain = time_ms(torch, lambda: mgs_matmul_exact_plain(
+            xl, wls[nxt()]), 3, warmup=1)
+        b5 = time_ms(torch, lambda: mgs_matmul_dmac(x, ws[nxt()]), 5,
+                     warmup=1)
+        b5_plain = time_ms(torch, lambda: mgs_matmul_dmac_plain(
+            x, ws[nxt()]), 2, warmup=1)
+        lib = time_ms(torch, lambda: torch.matmul(x, ws[nxt()]), 20)
+        b4_b, b4_by = b4_bound(Bt, M, K, N)
+        b5_b, b5_by = dmac_bound(Bt, M, K, N)
+        rows.append(dict(shape=name, Bt=Bt, M=M, K=K, N=N, b4_ms=b4,
+                         b4_plain_ms=b4_plain, b4_bound_ms=b4_b,
+                         b4_bound_by=b4_by, b5_ms=b5, b5_plain_ms=b5_plain,
+                         b5_bound_ms=b5_b, b5_bound_by=b5_by,
+                         library_ms=lib))
+        log(f"time {name:22s} {Bt}x({M}x{K} @ {K}x{N}): B4 {b4:.4f} ms "
+            f"(twin {b4_plain:.4f}, bound {b4_b:.4f} {b4_by}); B5 {b5:.4f} "
+            f"ms (twin {b5_plain:.4f}, bound {b5_b:.4f} {b5_by}); "
+            f"torch.matmul f32 {lib:.4f} ms")
+        del x, ws, xl, wls
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=30,
@@ -843,6 +1139,17 @@ def main() -> int:
     log(f"phase 6: continuous path served and timed "
         f"({time.time() - t0:.1f} s)")
 
+    t0 = time.time()
+    b4_err, b5_err = check_b4_b5(torch, dev, gen)
+    for key in ("a", "b"):
+        name, quant = paper_configs()[key]
+        serve_reduced_gpu_vs_cpu(torch, quant, name)
+    runs, paper_steps = serve_paper(torch, args.layers)
+    accuracy = paper_accuracy(runs)
+    b45_rows = time_b45(torch, dev, gen)
+    log(f"phase 7: paper numerics checked, served and timed "
+        f"({time.time() - t0:.1f} s)")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
@@ -851,8 +1158,11 @@ def main() -> int:
     log(f"card: {card}")
     main_b1 = next(r for r in b1_rows if r["shape"] == "decode wg/wu")
     main_b3 = next(r for r in b3_rows if r["shape"] == "decode wg/wu")
+    main_b45 = next(r for r in b45_rows if r["shape"] == "decode wg/wu")
     by_path = {k: {"group": group_launches.get(k, 0),
-                   "continuous": launches[k]} for k in launches}
+                   "continuous": launches[k],
+                   **{f"group_{c}": runs[c]["launches"][k]
+                      for c in ("a", "b", "d")}} for k in launches}
     kernels = [
         dict(name="mgs_matmul_exact_fused", route="cuda",
              source="src/repro_torch/csrc/mgs_matmul.cu",
@@ -877,11 +1187,34 @@ def main() -> int:
              replaces="src/repro/kernels/mgs_attention.py:246",
              launches=launches["mgs_flash_attention"], max_abs_err=b2_err,
              **b2_row, launches_by_path=by_path["mgs_flash_attention"]),
+        dict(name="mgs_matmul_exact", route="cuda",
+             source="src/repro_torch/csrc/mgs_matmul.cu",
+             replaces="src/repro/kernels/mgs_matmul.py:162",
+             launches=runs["b"]["launches"]["mgs_matmul_exact"],
+             max_abs_err=b4_err, ms=main_b45["b4_ms"],
+             plain_ms=main_b45["b4_plain_ms"],
+             bound_ms=main_b45["b4_bound_ms"],
+             bound_by=main_b45["b4_bound_by"],
+             library_ms=main_b45["library_ms"],
+             launches_by_path=by_path["mgs_matmul_exact"]),
+        dict(name="mgs_matmul_dmac", route="cuda",
+             source="src/repro_torch/csrc/mgs_dmac.cu",
+             replaces="src/repro/kernels/mgs_matmul.py:595",
+             launches=runs["a"]["launches"]["mgs_matmul_dmac"],
+             max_abs_err=b5_err, ms=main_b45["b5_ms"],
+             plain_ms=main_b45["b5_plain_ms"],
+             bound_ms=main_b45["b5_bound_ms"],
+             bound_by=main_b45["b5_bound_by"],
+             library_ms=main_b45["library_ms"],
+             launches_by_path=by_path["mgs_matmul_dmac"]),
     ]
     log(json.dumps({"b1_shapes": b1_rows, "b3_shapes": b3_rows,
-                    "serve": stats, "decode_step": step,
-                    "continuous": cont, "paged_decode_step": paged_step,
-                    "layers": args.layers}))
+                    "b45_shapes": b45_rows, "serve": stats,
+                    "decode_step": step, "continuous": cont,
+                    "paged_decode_step": paged_step,
+                    "paper_decode_steps": paper_steps,
+                    "paper_serve": {k: runs[k]["stats"] for k in runs},
+                    "paper_accuracy": accuracy, "layers": args.layers}))
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-"""Bit-level number formats of the port."""
+"""Bit-level number formats of the port, and the dMAC numerics of MGS."""
 
 from .formats import (E3M4, E4M3, E5M2, FPFormat, decode_bits, decode_sm_e,
                       decompose, encode_bits, get_format, pow2, recompose,
                       round_to_format)
+from .mgs import bin_sums, combine_bins, round_product
 
 __all__ = ["FPFormat", "E4M3", "E5M2", "E3M4", "get_format", "pow2",
            "round_to_format", "decompose", "recompose", "encode_bits",
-           "decode_bits", "decode_sm_e"]
+           "decode_bits", "decode_sm_e", "round_product", "bin_sums",
+           "combine_bins"]

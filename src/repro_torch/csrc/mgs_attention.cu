@@ -37,41 +37,12 @@ namespace {
 constexpr int kThreads = 128;
 constexpr float kTiny = 1e-30f;
 
-template <int EB, int MB>
-struct Fmt {
-  static constexpr int bias = (1 << (EB - 1)) - 1;
-  static constexpr int emin = 1 - bias;
-  static constexpr int emax = (1 << EB) - 1 - bias;   // no reserved exponent
-  static constexpr int max_mant = (1 << (MB + 1)) - 2;  // one NaN code at top
-};
-
-template <int EB, int MB>
-__device__ __forceinline__ float max_finite() {
-  using F = Fmt<EB, MB>;
-  return __fmul_rn(float(F::max_mant), pow2f(F::emax - MB));
-}
-
 // _round_decompose_e4m3(y, fmt, gate_subnormal=False) -> sm << max(e, 1)
 template <int EB, int MB>
 __device__ __forceinline__ int round_decompose_ix(float y) {
-  using F = Fmt<EB, MB>;
-  const float ap = fabsf(y);
-  int eu = (__float_as_int(ap) >> 23) - 127;
-  eu = min(max(eu, F::emin), F::emax);
-  const float q = pow2f(eu - MB);
-  float r = __fmul_rn(rintf(__fdiv_rn(ap, q)), q);
-  r = fminf(r, max_finite<EB, MB>());
-  r = ap == 0.f ? 0.f : r;
-  const float sgn = y > 0.f ? 1.f : (y < 0.f ? -1.f : 0.f);
-  r = __fmul_rn(r, sgn);
-  const float ar = fabsf(r);
-  int eu2 = (__float_as_int(ar) >> 23) - 127;
-  eu2 = min(max(eu2, F::emin), F::emax);
-  const int e = ar < pow2f(F::emin) ? 0 : eu2 + F::bias;
-  const int e1 = e > 1 ? e : 1;
-  const float sc = pow2f(-(e1 - (F::bias + MB)));
-  const int sm = int(rintf(__fmul_rn(r, sc)));
-  return sm * (1 << e1);
+  int e;
+  const int sm = round_decompose<Fmt<EB, MB>>(y, false, e);
+  return sm * (1 << (e > 1 ? e : 1));
 }
 
 __device__ __forceinline__ float block_max(float v, float* red) {
@@ -142,7 +113,7 @@ flash_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ kp,
 
   const int n = blockIdx.x, tid = threadIdx.x;
   const float osc = out_scale<EB, MB>();
-  const float rmax = __fdiv_rn(1.f, max_finite<EB, MB>());
+  const float rmax = __fdiv_rn(1.f, max_finite<Fmt<EB, MB>>());
   fill_lut<EB, MB>(S.lut, tid, kThreads);
   __syncthreads();
 

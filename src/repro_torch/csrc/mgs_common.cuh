@@ -1,4 +1,4 @@
-// Shared device helpers of the MGS exact-limb kernels.
+// Shared device helpers of the MGS kernels.
 //
 // The packed-code layout and the limb scheme repeat the PyTorch twins in
 // repro_torch/core/formats.py (decode_sm_e) and
@@ -77,6 +77,50 @@ __device__ __forceinline__ float combine_classes(const int* acc) {
 template <int EB, int MB>
 __device__ __forceinline__ float out_scale() {
   return pow2f(-2 * (((1 << (EB - 1)) - 1) + MB));
+}
+
+// Format traits of an OCP FP8 format (formats.FPFormat). RES: the top
+// exponent field is reserved for inf/NaN (E5M2); otherwise only the all-ones
+// code of the top binade is NaN (E4M3, E3M4).
+template <int EB_, int MB_, bool RES = false>
+struct Fmt {
+  static constexpr int EB = EB_, MB = MB_;
+  static constexpr int bias = (1 << (EB - 1)) - 1;
+  static constexpr int emin = 1 - bias;                      // unbiased
+  static constexpr int emax = (1 << EB) - (RES ? 2 : 1) - bias;
+  static constexpr int max_mant = (1 << (MB + 1)) - (RES ? 1 : 2);
+  static constexpr int n_bins = 1 << EB;
+};
+
+template <class F>
+__device__ __forceinline__ float max_finite() {
+  return __fmul_rn(float(F::max_mant), pow2f(F::emax - F::MB));
+}
+
+// kernels/mgs_matmul.py::_round_decompose_e4m3, operation for operation:
+// RNE-round y to the format through its exponent field (saturating at the
+// max finite value; with `gate`, magnitudes below the smallest subnormal go
+// to zero), then the rounded value's signed mantissa (returned) and exponent
+// bin e. The divide by the binade's quantum 2^(eu - MB) is a multiply by its
+// exact reciprocal: both are the correctly rounded value of one real number.
+template <class F>
+__device__ __forceinline__ int round_decompose(float y, bool gate, int& e) {
+  const float ap = fabsf(y);
+  int eu = (__float_as_int(ap) >> 23) - 127;
+  eu = min(max(eu, F::emin), F::emax);
+  float r = __fmul_rn(rintf(__fmul_rn(ap, pow2f(F::MB - eu))),
+                      pow2f(eu - F::MB));
+  r = fminf(r, max_finite<F>());
+  if (gate && ap < pow2f(F::emin - F::MB)) r = 0.f;
+  r = ap == 0.f ? 0.f : r;
+  const float sgn = y > 0.f ? 1.f : (y < 0.f ? -1.f : 0.f);
+  r = __fmul_rn(r, sgn);
+  const float ar = fabsf(r);
+  int eu2 = (__float_as_int(ar) >> 23) - 127;
+  eu2 = min(max(eu2, F::emin), F::emax);
+  e = ar < pow2f(F::emin) ? 0 : eu2 + F::bias;
+  const int e1 = e > 1 ? e : 1;
+  return int(rintf(__fmul_rn(r, pow2f(F::bias + F::MB - e1))));
 }
 
 // 256-entry code -> packed limbs table, filled by the whole block.

@@ -1,10 +1,12 @@
 // B1 and B3: the limb-fused exact FP8 matmul over packed codes, in its
-// output-stationary (B1) and operand-stationary (B3) loop orders.
+// output-stationary (B1) and operand-stationary (B3) loop orders; B4: the
+// same exact sum from pre-decomposed int8 limb planes.
 //
 // B1 replaces the TPU kernel
 // src/repro/kernels/mgs_matmul.py::_exact_fused_kernel (schedule="output");
 // B3 replaces ::_exact_fused_stationary_kernel (schedule="weight" /
-// "activation"). Both compute
+// "activation"); B4 replaces ::_exact_kernel (mgs_matmul_exact_pallas). All
+// compute
 //
 //   out[b] = act(((sum_k x[b] w[b]) * 2^-2(bias+mbits)) * scale + bias_row)
 //
@@ -37,7 +39,14 @@
 // activation-stationary each block decodes its 4-row x stripe once instead
 // of once per output tile. A stripe larger than the shared-memory budget is
 // refused (the wrapper falls back to B1 with a warning, or raises).
-// Neither kernel overlaps loads with compute or splits K across blocks;
+// B4 is B1's kernel instantiated with LIMBS = true: the staging step copies
+// the limb bytes of 3 planes (x: (3, M, K), w: (3, K, N), K-contiguous words
+// for x, 4x4 byte transposes for w) instead of decoding codes through the
+// table, and the caller passes no epilogue. Same tiles, same __dp4a class
+// sums, same flush cadence: at equal block_k and flush_period B4 gives B1's
+// bits. It reads 3 bytes per operand element where B1 reads 1, so at decode
+// its bytes bound is 3x B1's (the reference's A/B point).
+// None of them overlaps loads with compute or splits K across blocks;
 // wgmma s8, TMA pipelining and split-K are later work (see PERF.md).
 #include "mgs_common.cuh"
 
@@ -71,52 +80,80 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* base, int row,
   return v;
 }
 
-// Rows r0 .. r0+nrows of a row-major (rows, cols) code matrix, columns
+// Rows r0 .. r0+nrows of a row-major (rows, cols) operand, columns
 // k0 .. k0+4*nkw, as K-packed limb words: dst[(a * nkw + kw) * nrows + r]
-// holds limb a of codes [r0 + r][k0 + 4kw .. k0 + 4kw + 3].
+// holds limb a of elements [r0 + r][k0 + 4kw .. k0 + 4kw + 3]. The operand
+// is a code matrix decoded through `lut`, or (LIMBS) 3 int8 limb planes
+// `plane` bytes apart whose 4-byte runs are the words already.
+template <bool LIMBS>
 __device__ __forceinline__ void stage_rows(int* dst, int nkw, int nrows,
-                                           const uint8_t* base, int r0,
-                                           int k0, int rows, int cols,
-                                           bool vec, const uint32_t* lut,
-                                           int tid, int nt) {
+                                           const uint8_t* base,
+                                           long long plane, int r0, int k0,
+                                           int rows, int cols, bool vec,
+                                           const uint32_t* lut, int tid,
+                                           int nt) {
   for (int i = tid; i < nrows * nkw; i += nt) {
     const int m = i / nkw, kw = i % nkw;
-    const uint32_t c = load4(base, r0 + m, k0 + 4 * kw, rows, cols, vec);
-    const uint32_t l0 = lut[c & 255u], l1 = lut[(c >> 8) & 255u];
-    const uint32_t l2 = lut[(c >> 16) & 255u], l3 = lut[c >> 24];
+    if constexpr (LIMBS) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
-      dst[(a * nkw + kw) * nrows + m] = limb_word(l0, l1, l2, l3, a);
+      for (int a = 0; a < 3; ++a)
+        dst[(a * nkw + kw) * nrows + m] = int(
+            load4(base + a * plane, r0 + m, k0 + 4 * kw, rows, cols, vec));
+    } else {
+      const uint32_t c = load4(base, r0 + m, k0 + 4 * kw, rows, cols, vec);
+      const uint32_t l0 = lut[c & 255u], l1 = lut[(c >> 8) & 255u];
+      const uint32_t l2 = lut[(c >> 16) & 255u], l3 = lut[c >> 24];
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        dst[(a * nkw + kw) * nrows + m] = limb_word(l0, l1, l2, l3, a);
+    }
   }
 }
 
-// Columns c0 .. c0+ncols of a row-major (rows, cols) code matrix, rows
+// Columns c0 .. c0+ncols of a row-major (rows, cols) operand, rows
 // k0 .. k0+4*nkw, transposed so each stored word runs along K:
-// dst[(a * nkw + kw) * ncols + n] holds limb a of codes
-// [k0 + 4kw .. k0 + 4kw + 3][c0 + n]. Read as 4x4 code blocks.
+// dst[(a * nkw + kw) * ncols + n] holds limb a of elements
+// [k0 + 4kw .. k0 + 4kw + 3][c0 + n]. Read as 4x4 blocks of codes, or
+// (LIMBS) of each limb plane's bytes.
+template <bool LIMBS>
 __device__ __forceinline__ void stage_cols(int* dst, int nkw, int ncols,
-                                           const uint8_t* base, int k0,
-                                           int c0, int rows, int cols,
-                                           bool vec, const uint32_t* lut,
-                                           int tid, int nt) {
+                                           const uint8_t* base,
+                                           long long plane, int k0, int c0,
+                                           int rows, int cols, bool vec,
+                                           const uint32_t* lut, int tid,
+                                           int nt) {
   const int ng4 = ncols / 4;
   for (int i = tid; i < nkw * ng4; i += nt) {
     const int kw = i / ng4, ng = i % ng4;
     uint32_t r[4];
+    if constexpr (LIMBS) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      r[j] = load4(base, k0 + 4 * kw + j, c0 + 4 * ng, rows, cols, vec);
+      for (int a = 0; a < 3; ++a) {
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int sh = 8 * cc;
-      const uint32_t l0 = lut[(r[0] >> sh) & 255u];
-      const uint32_t l1 = lut[(r[1] >> sh) & 255u];
-      const uint32_t l2 = lut[(r[2] >> sh) & 255u];
-      const uint32_t l3 = lut[(r[3] >> sh) & 255u];
+        for (int j = 0; j < 4; ++j)
+          r[j] = load4(base + a * plane, k0 + 4 * kw + j, c0 + 4 * ng, rows,
+                       cols, vec);
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
-        dst[(a * nkw + kw) * ncols + 4 * ng + cc] =
-            limb_word(l0, l1, l2, l3, a);
+        for (int cc = 0; cc < 4; ++cc)
+          dst[(a * nkw + kw) * ncols + 4 * ng + cc] =
+              limb_word(r[0], r[1], r[2], r[3], cc);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        r[j] = load4(base, k0 + 4 * kw + j, c0 + 4 * ng, rows, cols, vec);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int sh = 8 * cc;
+        const uint32_t l0 = lut[(r[0] >> sh) & 255u];
+        const uint32_t l1 = lut[(r[1] >> sh) & 255u];
+        const uint32_t l2 = lut[(r[2] >> sh) & 255u];
+        const uint32_t l3 = lut[(r[3] >> sh) & 255u];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          dst[(a * nkw + kw) * ncols + 4 * ng + cc] =
+              limb_word(l0, l1, l2, l3, a);
+      }
     }
   }
 }
@@ -209,6 +246,7 @@ struct Args {
   long long x_bs, w_bs;
   int s_bs, s_ns, b_bs, b_ns;
   int act, block_k, flush_period;
+  long long x_plane, w_plane;   // bytes between limb planes (B4 only)
 };
 
 // The epilogue of one output tile: act(acc * out_scale * scale + bias).
@@ -239,8 +277,9 @@ __device__ __forceinline__ void store_tile(const Args& g,
   }
 }
 
-// B1: grid (N tiles, M tiles, slices); both operands staged per sub-step.
-template <int EB, int MB, int TM, int TN, int THM, int THN>
+// B1 (codes) and B4 (LIMBS: limb planes): grid (N tiles, M tiles,
+// slices); both operands staged per sub-step.
+template <bool LIMBS, int EB, int MB, int TM, int TN, int THM, int THN>
 __global__ void __launch_bounds__(THM * THN)
 exact_fused_kernel(Args g) {
   constexpr int BM = TM * THM, BN = TN * THN, NT = THM * THN;
@@ -258,7 +297,7 @@ exact_fused_kernel(Args g) {
       ((reinterpret_cast<uintptr_t>(xb) | uintptr_t(g.K)) & 3) == 0;
   const bool wvec =
       ((reinterpret_cast<uintptr_t>(wb) | uintptr_t(g.N)) & 3) == 0;
-  fill_lut<EB, MB>(lut, tid, NT);
+  if (!LIMBS) fill_lut<EB, MB>(lut, tid, NT);
 
   int acc[kClasses][TM][TN];
   float accf[TM][TN];
@@ -270,8 +309,10 @@ exact_fused_kernel(Args g) {
   for (int s = 0; s < nsteps; ++s) {
     for (int u = 0; u < subs; ++u) {
       const int k0 = s * g.block_k + u * kBKS;
-      stage_rows(sx, kKW, BM, xb, m0, k0, g.M, g.K, xvec, lut, tid, NT);
-      stage_cols(sw, kKW, BN, wb, k0, n0, g.K, g.N, wvec, lut, tid, NT);
+      stage_rows<LIMBS>(sx, kKW, BM, xb, g.x_plane, m0, k0, g.M, g.K, xvec,
+                        lut, tid, NT);
+      stage_cols<LIMBS>(sw, kKW, BN, wb, g.w_plane, k0, n0, g.K, g.N, wvec,
+                        lut, tid, NT);
       __syncthreads();
       dot_sub<TM, TN, THM, THN>(acc, sx, kKW * BM, sw, kKW * BN, ty, tx);
       __syncthreads();
@@ -315,9 +356,11 @@ exact_fused_stationary_kernel(Args g, int per) {
 
   // decode the cached tile's stripe once (zero past M, N and K)
   if (CACHE_W)
-    stage_cols(stripe, kwp, BN, wb, 0, c0, g.K, g.N, wvec, lut, tid, NT);
+    stage_cols<false>(stripe, kwp, BN, wb, 0, 0, c0, g.K, g.N, wvec, lut, tid,
+                      NT);
   else
-    stage_rows(stripe, kwp, BM, xb, c0, 0, g.M, g.K, xvec, lut, tid, NT);
+    stage_rows<false>(stripe, kwp, BM, xb, 0, c0, 0, g.M, g.K, xvec, lut, tid,
+                      NT);
 
   int acc[kClasses][TM][TN];
   float accf[TM][TN];
@@ -329,10 +372,11 @@ exact_fused_stationary_kernel(Args g, int per) {
       for (int u = 0; u < subs; ++u) {
         const int k0 = s * g.block_k + u * kBKS;
         if (CACHE_W)
-          stage_rows(stage, kKW, BM, xb, m0, k0, g.M, g.K, xvec, lut, tid, NT);
+          stage_rows<false>(stage, kKW, BM, xb, 0, m0, k0, g.M, g.K, xvec,
+                            lut, tid, NT);
         else
-          stage_cols(stage, kKW, BN, wb, k0, n0, g.K, g.N, wvec, lut, tid,
-                     NT);
+          stage_cols<false>(stage, kKW, BN, wb, 0, k0, n0, g.K, g.N, wvec,
+                            lut, tid, NT);
         __syncthreads();   // also publishes the stripe on the first pass
         if (CACHE_W)
           dot_sub<TM, TN, THM, THN>(acc, stage, kKW * BM,
@@ -349,12 +393,13 @@ exact_fused_stationary_kernel(Args g, int per) {
   }
 }
 
-template <int EB, int MB, int TM, int TN, int THM, int THN>
+template <bool LIMBS, int EB, int MB, int TM, int TN, int THM, int THN>
 int launch(const Args& g, int Bt, int cache_weight, cudaStream_t stream) {
   constexpr int BM = TM * THM, BN = TN * THN, NT = THM * THN;
-  if (cache_weight < 0) {   // B1
+  if (LIMBS || cache_weight < 0) {   // B1, B4
     dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM, Bt);
-    exact_fused_kernel<EB, MB, TM, TN, THM, THN><<<grid, NT, 0, stream>>>(g);
+    exact_fused_kernel<LIMBS, EB, MB, TM, TN, THM, THN>
+        <<<grid, NT, 0, stream>>>(g);
     return int(cudaGetLastError());
   }
   const bool cw = cache_weight != 0;
@@ -390,14 +435,14 @@ int launch(const Args& g, int Bt, int cache_weight, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-// The card's tile for M rows (rows_tile() in kernels/mgs_matmul.py).
-template <int EB, int MB>
+// The card's tile for M rows (tile_shape() in kernels/mgs_matmul.py).
+template <bool LIMBS, int EB, int MB>
 int launch_fmt(const Args& g, int Bt, int cache_weight, cudaStream_t stream) {
   if (g.M <= 4)        // decode: 4 rows, one output column per thread
-    return launch<EB, MB, 4, 1, 1, 64>(g, Bt, cache_weight, stream);
+    return launch<LIMBS, EB, MB, 4, 1, 1, 64>(g, Bt, cache_weight, stream);
   if (g.M <= 16)
-    return launch<EB, MB, 4, 2, 4, 32>(g, Bt, cache_weight, stream);
-  return launch<EB, MB, 4, 4, 16, 16>(g, Bt, cache_weight, stream);
+    return launch<LIMBS, EB, MB, 4, 2, 4, 32>(g, Bt, cache_weight, stream);
+  return launch<LIMBS, EB, MB, 4, 4, 16, 16>(g, Bt, cache_weight, stream);
 }
 
 int dispatch(const void* x, const void* w, const void* scale, const void* bias,
@@ -408,10 +453,10 @@ int dispatch(const void* x, const void* w, const void* scale, const void* bias,
   Args g{static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
          static_cast<const float*>(scale), static_cast<const float*>(bias),
          static_cast<float*>(out), M, K, N, x_bs, w_bs, s_bs, s_ns, b_bs,
-         b_ns, act, block_k, flush_period};
+         b_ns, act, block_k, flush_period, 0, 0};
   auto st = static_cast<cudaStream_t>(stream);
-  return fmt == 0 ? launch_fmt<4, 3>(g, Bt, cache_weight, st)
-                  : launch_fmt<3, 4>(g, Bt, cache_weight, st);
+  return fmt == 0 ? launch_fmt<false, 4, 3>(g, Bt, cache_weight, st)
+                  : launch_fmt<false, 3, 4>(g, Bt, cache_weight, st);
 }
 
 }  // namespace
@@ -445,3 +490,20 @@ extern "C" int mgs_matmul_exact_fused_stationary(
 }
 
 extern "C" long long mgs_matmul_stripe_budget() { return kStripeBudget; }
+
+// B4. x: (Bt, 3, M, K) int8 limb planes (x_bs = 3 * M * K), w: (Bt, 3, K, N)
+// (or one shared (3, K, N) with w_bs = 0), out: (Bt, M, N) f32 =
+// (sum_k x w) * 2^-2(bias+mbits), no epilogue. fmt, block_k and
+// flush_period as above.
+extern "C" int mgs_matmul_exact(const void* x, const void* w, void* out,
+                                int Bt, int M, int K, int N, long long x_bs,
+                                long long w_bs, int fmt, int block_k,
+                                int flush_period, void* stream) {
+  Args g{static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
+         nullptr, nullptr, static_cast<float*>(out), M, K, N, x_bs, w_bs, 0,
+         0, 0, 0, 0, block_k, flush_period, (long long)M * K,
+         (long long)K * N};
+  auto st = static_cast<cudaStream_t>(stream);
+  return fmt == 0 ? launch_fmt<true, 4, 3>(g, Bt, -1, st)
+                  : launch_fmt<true, 3, 4>(g, Bt, -1, st);
+}

@@ -34,11 +34,14 @@ SMEM_LIMIT = 232448
 
 #: kernel library -> its source under ``csrc/``
 SOURCES = {"mgs_matmul": "mgs_matmul.cu",
-           "mgs_attention": "mgs_attention.cu"}
+           "mgs_attention": "mgs_attention.cu",
+           "mgs_dmac": "mgs_dmac.cu"}
 
 #: launches per kernel wrapper, counted where the wrapper launches
 LAUNCHES: Dict[str, int] = {"mgs_matmul_exact_fused": 0,
                             "mgs_matmul_exact_fused_stationary": 0,
+                            "mgs_matmul_exact": 0,
+                            "mgs_matmul_dmac": 0,
                             "mgs_flash_attention": 0}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

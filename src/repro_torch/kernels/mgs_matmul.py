@@ -30,6 +30,22 @@ The twin upcasts limbs to float64 for its integer products: every product
 and partial sum is an integer far below 2**53, so the float64 matmul is
 exact on the CPU and on the card alike (PyTorch has no int32 matmul on
 CUDA, and wraps int8 matmuls on the CPU).
+
+Two more kernels share this module:
+
+* ``mgs_matmul_exact`` (B4, the port of ``_exact_kernel``): the same exact
+  sum from *pre-decomposed* int8 limb planes, 3 bytes per element (a
+  prepared weight's ``limbs``). It runs B1's body with a staging step that
+  copies limb bytes instead of decoding codes, so at equal ``block_k`` and
+  ``flush_period`` it gives B1's bits. No epilogue in the kernel.
+* ``mgs_matmul_dmac`` (B5, the port of ``_dmac_kernel``): the paper's
+  Fig. 8 numerics over format-exact float values. Each exact product is
+  rounded back into the format (:func:`_round_decompose_e4m3`, subnormal
+  gating optional), its signed mantissa added to one of ``fmt.n_bins``
+  int32 exponent-bin sums, and each output combined once from zero in
+  ascending bin order (``csrc/mgs_dmac.cu``). Its twin
+  :func:`mgs_matmul_dmac_plain` repeats that arithmetic in chunks of K and
+  N, so no full ``M x K x N`` product tensor is ever held.
 """
 
 from __future__ import annotations
@@ -42,6 +58,7 @@ import torch
 
 from repro_torch.core.formats import (E4M3, FPFormat, decode_sm_e,
                                       decompose, pow2)
+from repro_torch.core.mgs import combine_bins
 from . import _cuda
 
 __all__ = ["ACTIVATIONS", "SCHEDULES", "WS_STRIPE_BUDGET_BYTES",
@@ -49,17 +66,23 @@ __all__ = ["ACTIVATIONS", "SCHEDULES", "WS_STRIPE_BUDGET_BYTES",
            "tile_shape", "stationary_block", "ws_stripe_bytes",
            "check_stripe", "mgs_matmul_exact_fused",
            "mgs_matmul_exact_fused_plain", "mgs_matmul_stationary_plain",
-           "out_scale"]
+           "mgs_matmul_exact", "mgs_matmul_exact_plain", "mgs_matmul_dmac",
+           "mgs_matmul_dmac_plain", "out_scale"]
 
 _LIMB_BASE = 7
 _N_LIMBS = 3
 _N_CLASSES = 2 * _N_LIMBS - 1
 _KERNEL_FMTS = {"e4m3": 0, "e3m4": 1}
+_DMAC_FMTS = {"e4m3": 0, "e5m2": 1, "e3m4": 2}
 _ACT_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
 # float32(sqrt(2 / pi)), the tanh-gelu constant of jax.nn.gelu
 _SQRT_2_OVER_PI = float(np.float32(np.sqrt(2 / np.pi)))
 # twin rows / columns per pass (bounds its float64 limb planes)
 _PLAIN_N_CHUNK = 16384
+# dmac twin: output columns per pass and products per pass (bounds its
+# float32 temporaries)
+_DMAC_N_CHUNK = 4096
+_DMAC_PRODUCTS = 1 << 24
 SCHEDULES = ("output", "weight", "activation")
 # the widest tile edge of the card's kernels (csrc/mgs_matmul.cu kMaxEdge)
 _MAX_EDGE = 64
@@ -457,4 +480,217 @@ def mgs_matmul_exact_fused(x_codes, w_codes, fmt: FPFormat = E4M3, *,
                 _cuda.stream_ptr(dev))
             _cuda.check(err, name)
             _cuda.LAUNCHES[name] += 1
+    return out[0] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
+# B4: the exact matmul over pre-decomposed limb planes
+# ---------------------------------------------------------------------------
+
+
+def _limb_planes(t: torch.Tensor, what: str) -> torch.Tensor:
+    """``(3, R, C)`` or ``(Bt, 3, R, C)`` int8 limb planes as 4-D."""
+    if t.dtype != torch.int8 or t.dim() not in (3, 4) or \
+            t.shape[-3] != _N_LIMBS:
+        raise ValueError(f"{what}: (3, R, C) or (Bt, 3, R, C) int8 limb "
+                         f"planes expected, got {tuple(t.shape)} {t.dtype}")
+    return t if t.dim() == 4 else t[None]
+
+
+def _check_limbs(x_limbs, w_limbs, block_k: int):
+    xl = _limb_planes(x_limbs, "x_limbs")
+    wl = _limb_planes(w_limbs, "w_limbs")
+    if xl.shape[-1] != wl.shape[-2]:
+        raise ValueError(f"contraction mismatch {tuple(x_limbs.shape)} @ "
+                         f"{tuple(w_limbs.shape)}")
+    if block_k <= 0:
+        raise ValueError(f"block_k must be positive, got {block_k}")
+    return xl, wl
+
+
+def mgs_matmul_exact_plain(x_limbs, w_limbs, fmt: FPFormat = E4M3, *,
+                           block_k: int = 128,
+                           flush_period: Optional[int] = None):
+    """Plain PyTorch twin of the B4 kernel: the B1 twin's K walk
+    (:func:`_walk`) over limb planes given instead of decoded."""
+    xl, wl = _check_limbs(x_limbs, w_limbs, block_k)
+    squeeze = x_limbs.dim() == 3 and w_limbs.dim() == 3
+    Bt = max(xl.shape[0], wl.shape[0])
+    M, K = xl.shape[-2:]
+    N = wl.shape[-1]
+    fp = flush_steps(flush_period, block_k, -(-K // block_k))
+    lx = [xl[:, a].to(torch.float64) for a in range(_N_LIMBS)]
+    acc_f = torch.zeros((Bt, M, N), dtype=torch.float32, device=xl.device)
+    for n0 in range(0, N, _PLAIN_N_CHUNK):
+        n1 = min(N, n0 + _PLAIN_N_CHUNK)
+        lw = [wl[:, a, :, n0:n1].to(torch.float64) for a in range(_N_LIMBS)]
+        acc_f[..., n0:n1] = _walk(lx, lw, block_k, fp, acc_f[..., n0:n1])
+    out = acc_f * out_scale(fmt)
+    return out[0] if squeeze else out
+
+
+def _exact_kernel():
+    fn = _cuda.load("mgs_matmul").mgs_matmul_exact
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def mgs_matmul_exact(x_limbs, w_limbs, fmt: FPFormat = E4M3, *,
+                     block_k: int = 128, flush_period: Optional[int] = None):
+    """Exact FP8 matmul from pre-decomposed limb planes (B4).
+
+    Args:
+      x_limbs: ``(3, M, K)`` or ``(Bt, 3, M, K)`` int8 balanced limbs
+        (:func:`limb_decompose`; the caller decomposes the activation).
+      w_limbs: ``(3, K, N)`` or ``(Bt, 3, K, N)`` int8 limbs (a prepared
+        weight's ``limbs``); one 3-D plane set is shared by every slice.
+      fmt: the operands' format (E4M3 or E3M4): the output scale.
+      block_k / flush_period: the K-step and the flush cadence, as for B1
+        (bit-affecting; equal settings give B1's bits).
+
+    Returns:
+      float32 ``(M, N)`` / ``(Bt, M, N)`` ``x @ w``, exact up to the
+      flushes. A CPU tensor runs :func:`mgs_matmul_exact_plain`; a CUDA
+      tensor launches ``csrc/mgs_matmul.cu`` or raises.
+    """
+    if x_limbs.device.type == "cpu":
+        return mgs_matmul_exact_plain(x_limbs, w_limbs, fmt, block_k=block_k,
+                                      flush_period=flush_period)
+    if x_limbs.device.type != "cuda" or w_limbs.device != x_limbs.device:
+        raise ValueError(f"limbs on {x_limbs.device} / {w_limbs.device}: "
+                         "the kernel runs on one CUDA device")
+    xl, wl = _check_limbs(x_limbs, w_limbs, block_k)
+    if fmt.name not in _KERNEL_FMTS:
+        raise ValueError(f"the exact kernel takes E4M3/E3M4, got {fmt.name}")
+    if block_k % 32:
+        raise ValueError(f"block_k={block_k} must be a multiple of 32 on "
+                         "the card (the kernel stages 32-deep K sub-tiles)")
+    squeeze = x_limbs.dim() == 3 and w_limbs.dim() == 3
+    xl, wl = xl.contiguous(), wl.contiguous()
+    if wl.shape[0] not in (1, xl.shape[0]):
+        raise ValueError(f"slice counts {xl.shape[0]} vs {wl.shape[0]}")
+    Bt, _, M, K = xl.shape
+    N = wl.shape[-1]
+    out = torch.empty((Bt, M, N), dtype=torch.float32, device=xl.device)
+    if Bt and M and N:
+        if K == 0:
+            out.zero_()
+        else:
+            fp = flush_steps(flush_period, block_k, -(-K // block_k))
+            err = _exact_kernel()(
+                xl.data_ptr(), wl.data_ptr(), out.data_ptr(), Bt, M, K, N,
+                _N_LIMBS * M * K,
+                _N_LIMBS * K * N if wl.shape[0] == Bt else 0,
+                _KERNEL_FMTS[fmt.name], block_k, fp,
+                _cuda.stream_ptr(xl.device))
+            _cuda.check(err, "mgs_matmul_exact")
+            _cuda.LAUNCHES["mgs_matmul_exact"] += 1
+    return out[0] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
+# B5: the paper's dMAC numerics
+# ---------------------------------------------------------------------------
+
+
+def _check_dmac(x, w, fmt: FPFormat):
+    if x.dim() not in (2, 3) or w.dim() not in (2, 3):
+        raise ValueError(f"x (M, K) / (Bt, M, K) and w (K, N) / (Bt, K, N) "
+                         f"expected, got {tuple(x.shape)}, {tuple(w.shape)}")
+    if x.shape[-1] != w.shape[-2]:
+        raise ValueError(f"contraction mismatch {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    if not (x.is_floating_point() and w.is_floating_point()):
+        raise TypeError(f"format-exact float values expected, got "
+                        f"{x.dtype}, {w.dtype}")
+    if fmt.name not in _DMAC_FMTS:
+        raise ValueError(f"the dmac kernel takes {sorted(_DMAC_FMTS)}, got "
+                         f"{fmt.name}")
+
+
+def mgs_matmul_dmac_plain(x, w, fmt: FPFormat = E4M3,
+                          gate_subnormal: bool = True):
+    """Plain PyTorch twin of the B5 kernel (same arguments, same bits).
+
+    Walks N in chunks of ``_DMAC_N_CHUNK`` columns and K in chunks of at
+    most ``_DMAC_PRODUCTS`` products: each chunk's exact products are
+    rounded and decomposed by :func:`_round_decompose_e4m3` and scattered
+    into int64 bin sums (integers: the chunking cannot change them), which
+    wrap to int32 like the kernel's registers before the one combine.
+    """
+    _check_dmac(x, w, fmt)
+    squeeze = x.dim() == 2 and w.dim() == 2
+    x3 = _as_3d(x).to(torch.float32)
+    w3 = _as_3d(w).to(torch.float32)
+    Bt = max(x3.shape[0], w3.shape[0])
+    M, K = x3.shape[1:]
+    N = w3.shape[-1]
+    bins = torch.zeros((Bt, M, fmt.n_bins, N), dtype=torch.int64,
+                       device=x3.device)
+    for n0 in range(0, N, _DMAC_N_CHUNK):
+        n1 = min(N, n0 + _DMAC_N_CHUNK)
+        kc = max(1, min(K, _DMAC_PRODUCTS // max(1, Bt * M * (n1 - n0))))
+        part = bins[..., n0:n1]
+        for k0 in range(0, K, kc):
+            p = (x3[:, :, k0:k0 + kc, None]
+                 * w3[:, None, k0:k0 + kc, n0:n1])      # (Bt, M, kc, nc)
+            sm, e = _round_decompose_e4m3(p, fmt, gate_subnormal)
+            part.scatter_add_(2, e.to(torch.int64), sm.to(torch.int64))
+    out = combine_bins(bins.to(torch.int32).movedim(-2, -1), fmt)
+    return out[0] if squeeze else out
+
+
+def _dmac_kernel():
+    fn = _cuda.load("mgs_dmac").mgs_matmul_dmac
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def mgs_matmul_dmac(x, w, fmt: FPFormat = E4M3, gate_subnormal: bool = True):
+    """Paper-faithful MGS matmul (per-product rounding, Fig. 8) — B5.
+
+    Args:
+      x: ``(M, K)`` or ``(Bt, M, K)`` format-exact values.
+      w: ``(K, N)`` or ``(Bt, K, N)`` format-exact values; a 2-D ``w`` is
+        shared by every slice.
+      fmt: E4M3 (16 bins), E5M2 (32) or E3M4 (8).
+      gate_subnormal: skip products below the smallest subnormal (§5.3).
+
+    Returns:
+      float32 ``(M, N)`` / ``(Bt, M, N)``. A CPU tensor runs
+      :func:`mgs_matmul_dmac_plain`; a CUDA tensor launches
+      ``csrc/mgs_dmac.cu`` or raises.
+    """
+    if x.device.type == "cpu":
+        return mgs_matmul_dmac_plain(x, w, fmt, gate_subnormal)
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"operands on {x.device} / {w.device}: the kernel "
+                         "runs on one CUDA device")
+    _check_dmac(x, w, fmt)
+    squeeze = x.dim() == 2 and w.dim() == 2
+    x3 = _as_3d(x).to(torch.float32).contiguous()
+    w3 = _as_3d(w).to(torch.float32).contiguous()
+    Bt = max(x3.shape[0], w3.shape[0])
+    if x3.shape[0] not in (1, Bt) or w3.shape[0] not in (1, Bt):
+        raise ValueError(f"slice counts {x3.shape[0]} vs {w3.shape[0]}")
+    M, K = x3.shape[1:]
+    N = w3.shape[-1]
+    out = torch.empty((Bt, M, N), dtype=torch.float32, device=x3.device)
+    if Bt and M and N:
+        err = _dmac_kernel()(
+            x3.data_ptr(), w3.data_ptr(), out.data_ptr(), Bt, M, K, N,
+            M * K if x3.shape[0] == Bt else 0,
+            K * N if w3.shape[0] == Bt else 0,
+            _DMAC_FMTS[fmt.name], int(gate_subnormal),
+            _cuda.stream_ptr(x3.device))
+        _cuda.check(err, "mgs_matmul_dmac")
+        _cuda.LAUNCHES["mgs_matmul_dmac"] += 1
     return out[0] if squeeze else out

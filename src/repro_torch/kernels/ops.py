@@ -1,19 +1,32 @@
-"""Public dispatch around the MGS matmul kernel (``repro.kernels.ops``).
+"""Public dispatch around the MGS matmul kernels (``repro.kernels.ops``).
 
-``mgs_matmul`` routes exact-mode products to the fused B1 kernel wrapper
-(``use_kernel=True, fused=True``: packed codes in, the scale / bias /
-activation epilogue inside the kernel) or to the plain oracle
-(``use_kernel=False``: epilogue applied afterwards, the same float32
-operations). Batched LHS ``(..., K)`` is flattened to ``(M, K)``.
+``mgs_matmul`` routes a product by ``mode`` and the kernel tier:
+
+* ``use_kernel=False``: the plain oracle (``kernels.ref``), epilogue
+  applied afterwards;
+* ``mode="exact", fused=True``: B1 (or B3 under a stationary
+  ``schedule``) over packed codes, the scale / bias / activation epilogue
+  inside the kernel;
+* ``mode="exact", fused=False``: B4 over pre-decomposed limb planes — a
+  prepared weight's ``limbs`` when it keeps them, else limbs decomposed
+  from the weight's values (the reference's rule); the activation is
+  always decomposed here, outside the kernel. The epilogue follows as
+  separate float32 operations;
+* ``mode="dmac"``: B5, the paper's per-product-rounded numerics. It takes
+  no epilogue: the caller rescales.
+
+Batched LHS ``(..., K)`` is flattened to ``(M, K)``.
 
 ``schedule`` picks the fused kernel's loop order: ``"output"`` (B1) or a
 stationary one (B3, bit-identical). :func:`_fused_schedule` sends a shape
 whose K-resident stripe does not fit the card's shared memory back to
 ``"output"`` with a warning, never silently (the reference's contract).
 
-The other kernels of the reference are not ported yet and raise, naming
-their ROADMAP items: the pre-decomposed limb kernel (``fused=False``, B4)
-and the dmac numerics (B5).
+The reference also clamps the dmac kernel's block shapes to a 2 MB VMEM
+product tile and warns. Nothing of that carries over: B5's tiles are the
+card's own (``csrc/mgs_dmac.cu``), it never materializes a product tile,
+and dmac results do not depend on tiling (integer bin sums), so
+``block_m`` / ``block_n`` are not arguments here.
 """
 
 from __future__ import annotations
@@ -26,9 +39,10 @@ import torch
 from repro_torch.core.formats import E4M3, FPFormat, encode_bits
 from . import mgs_matmul as _mm
 from . import ref as _ref
-from .mgs_matmul import ACTIVATIONS, mgs_matmul_exact_fused
+from .mgs_matmul import (ACTIVATIONS, limb_decompose, mgs_matmul_dmac,
+                         mgs_matmul_exact, mgs_matmul_exact_fused)
 
-__all__ = ["mgs_matmul", "apply_epilogue"]
+__all__ = ["mgs_matmul", "apply_epilogue", "weight_limbs"]
 
 
 def apply_epilogue(out, scale, bias, activation: str):
@@ -73,45 +87,68 @@ def _fused_schedule(schedule: str, M: int, K: int, block_k: int) -> str:
 
 def mgs_matmul(x, w, fmt: FPFormat = E4M3, mode: str = "exact", *,
                use_kernel: bool = True, fused: bool = False,
-               block_k: int = 128, flush_period: Optional[int] = None,
-               schedule: str = "output", scale=None, bias=None,
-               activation: str = "none"):
-    """MGS quantized matmul: ``(..., K) @ (K, N)`` with exact numerics.
+               gate_subnormal: bool = True, block_k: int = 128,
+               flush_period: Optional[int] = None, schedule: str = "output",
+               scale=None, bias=None, activation: str = "none"):
+    """MGS quantized matmul: ``(..., K) @ (K, N)`` with MGS numerics.
 
-    ``x`` holds format-exact FP8 values (or uint8 codes); ``w`` is a
-    ``(K, N)`` tensor of format-exact values or a
+    ``x`` holds format-exact FP8 values (or uint8 codes, fused path only);
+    ``w`` is a ``(K, N)`` tensor of format-exact values or a
     :class:`repro_torch.quant.prepared.PreparedWeight` (anything with
-    ``codes`` / ``values()``). The CUDA kernel picks its own M/N tiles;
-    ``schedule`` selects B1 or B3 (see :func:`_fused_schedule`).
+    ``codes`` / ``values()``, and ``limbs`` when kept). ``scale`` /
+    ``bias`` / ``activation`` are exact-mode only. The CUDA kernels pick
+    their own M/N tiles; ``schedule`` selects B1 or B3 (see
+    :func:`_fused_schedule`).
     """
-    if mode != "exact":
-        raise NotImplementedError(
-            f"mode {mode!r}: the dmac kernel is ROADMAP item B5")
+    if mode not in ("exact", "dmac"):
+        raise ValueError(f"unknown mode {mode!r}")
     ix_bits = fmt.mbits + 1 + fmt.emax
-    if ix_bits > 21:
+    if mode == "exact" and ix_bits > 21:
         raise ValueError(
             f"exact mode supports narrow-exponent formats only (E4M3/"
             f"E3M4); {fmt.name} (ix={ix_bits}b) needs dmac mode")
+    if mode != "exact" and (scale is not None or bias is not None
+                            or activation != "none"):
+        raise ValueError("epilogue (scale/bias/activation) is exact-mode "
+                         "only; rescale dmac outputs in the caller")
     prepared = hasattr(w, "codes") and hasattr(w, "values")
     lead = x.shape[:-1]
     K = x.shape[-1]
     x2 = x.reshape(-1, K)
     n_out = w.codes.shape[-1] if prepared else w.shape[-1]
+    if x2.dtype == torch.uint8 and not (use_kernel and fused
+                                        and mode == "exact"):
+        raise ValueError("only the fused exact kernel takes codes; pass "
+                         "format-exact values")
     if not use_kernel:
-        if x2.dtype == torch.uint8:
-            raise ValueError("the plain path takes values, not codes")
         out = _ref.mgs_matmul_ref(x2, w.values() if prepared else w, fmt,
-                                  mode)
+                                  mode, gate_subnormal)
         out = apply_epilogue(out, scale, bias, activation)
-    elif not fused:
-        raise NotImplementedError(
-            "the pre-decomposed limb kernel (fused=False) is ROADMAP item "
-            "B4; use the fused kernel or use_kernel=False")
-    else:
+    elif mode == "dmac":
+        out = mgs_matmul_dmac(x2, w.values() if prepared else w, fmt,
+                              gate_subnormal)
+    elif fused:
         xc = x2 if x2.dtype == torch.uint8 else encode_bits(x2, fmt)
         wc = w.codes if prepared else encode_bits(w, fmt)
         out = mgs_matmul_exact_fused(
             xc, wc, fmt, scale=scale, bias=bias, activation=activation,
             block_k=block_k, flush_period=flush_period,
             schedule=_fused_schedule(schedule, xc.shape[0], K, block_k))
+    else:
+        out = mgs_matmul_exact(
+            limb_decompose(x2, fmt), weight_limbs(w, fmt), fmt,
+            block_k=block_k, flush_period=flush_period)
+        out = apply_epilogue(out, scale, bias, activation)
     return out.reshape(tuple(lead) + (n_out,))
+
+
+def weight_limbs(w, fmt: FPFormat) -> torch.Tensor:
+    """B4's weight operand: a prepared weight's resident ``limbs`` or,
+    for a raw weight or a prepared one built without them, limbs
+    decomposed from its values (``(*stack, 3, K, N)`` int8)."""
+    prepared = hasattr(w, "codes") and hasattr(w, "values")
+    limbs = getattr(w, "limbs", None) if prepared else None
+    if limbs is not None:
+        return limbs
+    planes = limb_decompose(w.values() if prepared else w, fmt)
+    return planes.movedim(0, -3)

@@ -1,9 +1,18 @@
-"""Plain oracle of the exact MGS matmul (``repro.kernels.ref``, exact mode).
+"""Plain oracles of the MGS matmul numerics (``repro.kernels.ref``).
 
-``out[i, j] = sum_k x[i, k] * w[k, j]`` exactly, through 20-bit fixed-point
-limbs, then one float32 combine in ascending class order — bit-identical
-to the kernel in the single-flush regime (the default worst-case period
-never flushes mid-K at practical depths).
+Straightforward and memory-hungry (the dmac oracle holds an ``M x K x N``
+product tensor): test sizes only. Operands are format-exact FP8 values.
+
+* ``mode="exact"``: ``out[i, j] = sum_k x[i, k] * w[k, j]`` exactly,
+  through 20-bit fixed-point limbs, then one float32 combine in ascending
+  class order — bit-identical to the exact kernels in the single-flush
+  regime (the default worst-case period never flushes mid-K at practical
+  depths).
+* ``mode="dmac"`` (the paper's Fig. 8): every product rounded to the
+  format (``core.mgs.round_product``), exponent-binned exact integer sums,
+  one ascending combine per output.
+* :func:`wide_matmul_ref`: the FP32-accumulation baseline the paper
+  compares against.
 """
 
 from __future__ import annotations
@@ -11,17 +20,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import E4M3, FPFormat, decompose
+from repro_torch.core.mgs import bin_sums, combine_bins, round_product
 from .mgs_matmul import _limb_split, _fixed_point, _class_int32
 
-__all__ = ["mgs_matmul_ref"]
+__all__ = ["mgs_matmul_ref", "wide_matmul_ref"]
 
 
-def mgs_matmul_ref(x, w, fmt: FPFormat = E4M3, mode: str = "exact"):
+def mgs_matmul_ref(x, w, fmt: FPFormat = E4M3, mode: str = "exact",
+                   gate_subnormal: bool = True):
     """Oracle matmul with MGS numerics. x: (M, K), w: (K, N) format-exact."""
+    if mode == "dmac":
+        p = x.to(torch.float32)[:, :, None] * w.to(torch.float32)[None]
+        p, _ = round_product(p, fmt, gate_subnormal)
+        sm, e = decompose(p, fmt)
+        return combine_bins(bin_sums(sm, e, fmt, axis=1), fmt)
     if mode != "exact":
-        raise NotImplementedError(
-            f"mode {mode!r}: the paper-faithful dmac numerics are ROADMAP "
-            "item A11 (kernel B5)")
+        raise ValueError(f"unknown mode {mode!r}")
     base, nlimb = 7, 3
     k_limit = (2**31 - 1) // (nlimb * (1 << (base - 1)) ** 2)
     if x.shape[-1] > k_limit:
@@ -44,3 +58,11 @@ def mgs_matmul_ref(x, w, fmt: FPFormat = E4M3, mode: str = "exact"):
         out = out + _class_int32(accs[c]).to(torch.float32) * float(
             2 ** (base * c))
     return out * 2.0 ** (-2 * (fmt.bias + fmt.mbits))
+
+
+def wide_matmul_ref(x, w, dtype=torch.float32):
+    """FP32-accumulation baseline (what tensor-core hardware does): a
+    plain float32 product, outside any kernel as in the reference. TF32 is
+    switched off for it, so the card multiplies in full float32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(dtype)

@@ -1,8 +1,9 @@
 """Quantized execution of the port: config, quantizers, prepared weights,
 the ``qmatmul`` / ``qeinsum`` dispatch and the packed KV cache."""
 
-from .config import (FP8_MGS_EXACT, FP8_MGS_SERVE, FP8_MGS_SERVE_KV,
-                     FP8_MGS_SERVE_PAGED, NONE, QuantConfig)
+from .config import (FP8_MGS, FP8_MGS_EXACT, FP8_MGS_SERVE,
+                     FP8_MGS_SERVE_KV, FP8_MGS_SERVE_PAGED, FP8_WIDE, NONE,
+                     QuantConfig)
 from .kvcache import (TRASH_BLOCK, BlockAllocator, PagedKVCache,
                       QuantizedKVCache, append_kv, gather_paged_kv,
                       init_paged_kv, init_quantized_kv, kv_cache_bytes,
@@ -14,8 +15,9 @@ from .qeinsum import plan_qeinsum, qeinsum
 from .qmatmul import qmatmul
 from .quantize import QTensor, quantize_fp8, quantize_fp8_static
 
-__all__ = ["QuantConfig", "NONE", "FP8_MGS_EXACT", "FP8_MGS_SERVE",
-           "FP8_MGS_SERVE_KV", "FP8_MGS_SERVE_PAGED", "QTensor",
+__all__ = ["QuantConfig", "NONE", "FP8_MGS", "FP8_MGS_EXACT",
+           "FP8_MGS_SERVE", "FP8_MGS_SERVE_KV", "FP8_MGS_SERVE_PAGED",
+           "FP8_WIDE", "QTensor",
            "quantize_fp8", "quantize_fp8_static", "PreparedWeight",
            "prepare_weight", "prepare_params", "prepare_unembed",
            "prepare_logits_head", "PREP_STATS", "clear_prepared_cache",

@@ -1,6 +1,7 @@
 """Prepared weights: quantize + encode static parameters *once*.
 
-A static weight's absmax scale and packed FP8 codes are functions of the
+A static weight's absmax scale, packed FP8 codes and (for the
+pre-decomposed kernel, B4) int8 limb planes are functions of the
 parameter alone, so they are computed once at engine construction and
 reused by every request. ``PREP_STATS`` counts builds and cache hits;
 serving must keep ``prepared`` flat.
@@ -15,12 +16,13 @@ from __future__ import annotations
 
 import math
 import weakref
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.formats import FPFormat, decode_bits, encode_bits, \
     get_format
+from repro_torch.kernels.mgs_matmul import limb_decompose
 from .config import QuantConfig
 from .quantize import quantize_fp8
 
@@ -39,17 +41,22 @@ class PreparedWeight:
     * ``codes``: uint8 ``(*stack, K, N)`` packed FP8 codes.
     * ``scale``: float32 dequantization scale, ``(*stack,)`` per tensor
       or ``(*stack, 1, N)`` per channel.
+    * ``limbs``: int8 ``(*stack, 3, K, N)`` balanced limb planes, the B4
+      kernel's weight operand; ``None`` unless the config streams them
+      (``use_kernel and not fused``): at 3 bytes per element they would
+      otherwise be dead device memory beside the codes.
 
     ``tail`` is the logical shape of the flattened ``N``. The reference's
-    limb planes (for the pre-decomposed kernel, B4) and limb statistics
-    (for the calibration slice, A9) are not carried yet.
+    limb statistics (for the calibration slice, A9) are not carried yet.
     """
 
-    def __init__(self, codes, scale, fmt_name: str, tail: Tuple[int, ...]):
+    def __init__(self, codes, scale, fmt_name: str, tail: Tuple[int, ...],
+                 limbs=None):
         self.codes = codes
         self.scale = scale
         self.fmt_name = fmt_name
         self.tail = tuple(tail)
+        self.limbs = limbs
 
     @property
     def fmt(self) -> FPFormat:
@@ -65,16 +72,25 @@ class PreparedWeight:
 
     def slice(self, i: int) -> "PreparedWeight":
         """The planes of leading stack index ``i`` (one layer)."""
-        return PreparedWeight(self.codes[i], self.scale[i], self.fmt_name,
-                              self.tail)
+        return PreparedWeight(
+            self.codes[i], self.scale[i], self.fmt_name, self.tail,
+            None if self.limbs is None else self.limbs[i])
 
     def __repr__(self):
         return (f"PreparedWeight(shape={tuple(self.codes.shape)}, "
-                f"fmt={self.fmt_name}, tail={self.tail})")
+                f"fmt={self.fmt_name}, tail={self.tail}, "
+                f"limbs={self.limbs is not None})")
 
 
-def _build(w, cfg: QuantConfig, stack_ndim: int,
-           k_ndim: int) -> PreparedWeight:
+def _keep_limbs(cfg: QuantConfig, keep_limbs: Optional[bool]) -> bool:
+    """Keep the limb planes only where the config streams them."""
+    if keep_limbs is None:
+        return bool(cfg.use_kernel and not cfg.fused)
+    return bool(keep_limbs)
+
+
+def _build(w, cfg: QuantConfig, stack_ndim: int, k_ndim: int,
+           keep_limbs: bool) -> PreparedWeight:
     fmt = cfg.fmt
     if stack_ndim + k_ndim >= w.dim() and not (
             stack_ndim + k_ndim == w.dim() and w.dim() >= 2):
@@ -88,19 +104,27 @@ def _build(w, cfg: QuantConfig, stack_ndim: int,
     n_stack = math.prod(stack) if stack else 1
     w3 = w.reshape((n_stack, K, n))
     codes = torch.empty((n_stack, K, n), dtype=torch.uint8, device=w.device)
+    limbs = torch.empty((n_stack, 3, K, n), dtype=torch.int8,
+                        device=w.device) if keep_limbs else None
     scales = []
     for i in range(n_stack):
         qt = quantize_fp8(w3[i], fmt, axis=axis, margin=cfg.fp8_margin)
         codes[i] = encode_bits(qt.q, fmt)
+        if keep_limbs:
+            limbs[i] = limb_decompose(qt.q, fmt)
         scales.append(qt.scale)
     scale = torch.stack(scales)
     if stack:
         codes = codes.reshape(stack + (K, n))
         scale = scale.reshape(stack + tuple(scales[0].shape))
+        if keep_limbs:
+            limbs = limbs.reshape(stack + (3, K, n))
     else:
         codes, scale = codes[0], scale[0]
+        if keep_limbs:
+            limbs = limbs[0]
     PREP_STATS["prepared"] += 1
-    return PreparedWeight(codes, scale, fmt.name, tail)
+    return PreparedWeight(codes, scale, fmt.name, tail, limbs)
 
 
 def _cached(key, src, build):
@@ -114,28 +138,34 @@ def _cached(key, src, build):
 
 
 def prepare_weight(w: torch.Tensor, cfg: QuantConfig, *,
-                   stack_ndim: int = 0, k_ndim: int = 1) -> PreparedWeight:
+                   stack_ndim: int = 0, k_ndim: int = 1,
+                   keep_limbs: Optional[bool] = None) -> PreparedWeight:
     """Quantize + encode ``w`` (``(*stack, *kdims, *tail)``) under ``cfg``,
-    cached per process on the tensor's identity (held weakly)."""
+    cached per process on the tensor's identity (held weakly).
+    ``keep_limbs`` (default: ``cfg.use_kernel and not cfg.fused``) also
+    keeps the limb planes resident."""
     if not cfg.is_fp8:
         raise ValueError(f"prepare_weight requires an fp8 dtype, got "
                          f"{cfg.dtype!r}")
+    keep = _keep_limbs(cfg, keep_limbs)
     key = (id(w), cfg.dtype, cfg.accum, cfg.per_channel, int(stack_ndim),
-           int(k_ndim))
-    return _cached(key, w, lambda: _build(w, cfg, stack_ndim, k_ndim))
+           int(k_ndim), keep)
+    return _cached(key, w, lambda: _build(w, cfg, stack_ndim, k_ndim, keep))
 
 
 def prepare_unembed(embed: torch.Tensor, cfg: QuantConfig) -> PreparedWeight:
-    """Prepared ``(d_model, vocab)`` view of a tied embedding table."""
+    """Prepared ``(d_model, vocab)`` view of a tied embedding table (with
+    limb planes when ``cfg`` streams them)."""
     if not cfg.is_fp8:
         raise ValueError(f"prepare_unembed requires an fp8 dtype, got "
                          f"{cfg.dtype!r}")
     if embed.dim() != 2:
         raise ValueError(f"embedding table must be 2D, got shape "
                          f"{tuple(embed.shape)}")
-    key = ("unembed", id(embed), cfg.dtype, cfg.accum, cfg.per_channel)
+    keep = _keep_limbs(cfg, None)
+    key = ("unembed", id(embed), cfg.dtype, cfg.accum, cfg.per_channel, keep)
     return _cached(key, embed, lambda: _build(embed.transpose(0, 1), cfg, 0,
-                                              1))
+                                              1, keep))
 
 
 def prepare_logits_head(params, cfg: QuantConfig, *, tied: bool):

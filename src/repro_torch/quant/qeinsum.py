@@ -183,7 +183,9 @@ def qeinsum(spec: str, x, w, cfg: QuantConfig, *, bias=None,
             s_tail = tuple(w.scale.shape[len(batch_shape):])
             wb = PreparedWeight(
                 w.codes.reshape((B,) + tuple(w.codes.shape[-2:])),
-                w.scale.reshape((B,) + s_tail), w.fmt_name, w.tail)
+                w.scale.reshape((B,) + s_tail), w.fmt_name, w.tail,
+                None if w.limbs is None else
+                w.limbs.reshape((B,) + tuple(w.limbs.shape[-3:])))
         else:
             wb = w.permute(plan.w_perm).reshape(B, K, N)
         out2 = qmatmul(xt.reshape(B, M, K), wb, cfg, out_dtype=out_dtype,

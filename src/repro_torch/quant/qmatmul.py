@@ -5,19 +5,31 @@ numerics and rescales:
 
   dtype=none              -> float32 matmul (the reference's f32-accumulated
                              dot; a plain product outside any kernel)
+  fp8_* + accum=wide      -> FP8 operands, float32 accumulation
+                             (``kernels.ref.wide_matmul_ref``, the
+                             baseline the paper compares against)
   fp8_* + accum=mgs_exact -> exact fixed-point accumulation: the fused B1
                              kernel over packed codes with the
                              scale / bias / activation epilogue in-kernel
-                             (``use_kernel``), or the plain oracle
+                             (``use_kernel`` and ``fused``), the B4 kernel
+                             over limb planes (``use_kernel``, not
+                             ``fused``; epilogue afterwards), or the plain
+                             oracle
+  fp8_* + accum=mgs_dmac  -> the paper's Fig. 8 numerics: the B5 kernel
+                             (``use_kernel``) or the plain oracle; operands
+                             quantized with ``cfg.fp8_margin`` so no
+                             product saturates, then ``out * scale`` and
+                             the epilogue
 
 With ``batched=True`` the leading axis of ``x`` (and of a raw or prepared
 ``w``) indexes independent slices, each quantized with its own scale —
 the reference's ``vmap`` over ``qmatmul``, here one batched kernel
-launch (B1, or B3 under ``cfg.schedule``). Per-row activation scales do not fit the kernel's ``(1, N)``
-epilogue row, so they are applied after it (the same float32 ops).
+launch (B1, or B3 under ``cfg.schedule``, B4 or B5). Per-row activation
+scales do not fit the fused kernel's ``(1, N)`` epilogue row, so they are
+applied after it (the same float32 ops).
 
-The other accumulation modes are later slices of the port (ROADMAP A11)
-and raise. ``flush_period`` is the kernel's runtime argument, passed
+The swamp and integer accumulations are later slices of the port and
+raise. ``flush_period`` is the exact kernels' runtime argument, passed
 straight through (the calibration slice, A9, plans it).
 """
 
@@ -29,7 +41,10 @@ import torch
 
 from repro_torch.core.formats import encode_bits
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.mgs_matmul import mgs_matmul_exact_fused
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.mgs_matmul import (limb_decompose, mgs_matmul_dmac,
+                                            mgs_matmul_exact,
+                                            mgs_matmul_exact_fused)
 from .config import QuantConfig
 from .prepared import PreparedWeight
 from .quantize import quantize_fp8
@@ -51,10 +66,11 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
         out = torch.matmul(x.to(torch.float32), w.to(torch.float32))
         out = kops.apply_epilogue(out, None, bias, activation)
         return out.to(out_dtype)
-    if not (cfg.is_fp8 and cfg.accum == "mgs_exact"):
+    if not (cfg.is_fp8 and cfg.accum in ("mgs_exact", "mgs_dmac", "wide")):
         raise NotImplementedError(
-            f"dtype={cfg.dtype!r}, accum={cfg.accum!r}: only fp8 mgs_exact "
-            "(and dtype='none') are ported; the rest is ROADMAP item A11")
+            f"dtype={cfg.dtype!r}, accum={cfg.accum!r}: the swamp and "
+            "integer accumulations are a later slice of the port (ROADMAP "
+            "A11); fp8 wide / mgs_exact / mgs_dmac and dtype='none' run")
     fmt = cfg.fmt
     if prepared and w.fmt_name != fmt.name:
         raise ValueError(f"PreparedWeight format {w.fmt_name!r} != "
@@ -75,6 +91,24 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
         qw = quantize_fp8(w, fmt, axis=w_axis, margin=margin)
         w_scale = qw.scale
     scale = qx.scale * w_scale
+    if cfg.accum != "mgs_exact":
+        w_vals = w.values() if prepared else qw.q
+        if cfg.accum == "wide":
+            out = kref.wide_matmul_ref(qx.q, w_vals)
+        elif batched and cfg.use_kernel:
+            # one launch over every slice: the B5 kernel's batch axis
+            out = mgs_matmul_dmac(qx.q, w_vals, fmt, cfg.gate_subnormal)
+        elif batched:
+            out = torch.stack([kops.mgs_matmul(
+                qx.q[b], w_vals[b], fmt, "dmac", use_kernel=False,
+                gate_subnormal=cfg.gate_subnormal)
+                for b in range(x.shape[0])])
+        else:
+            out = kops.mgs_matmul(qx.q, w_vals, fmt, "dmac",
+                                  use_kernel=cfg.use_kernel,
+                                  gate_subnormal=cfg.gate_subnormal)
+        out = kops.apply_epilogue(out * scale, None, bias, activation)
+        return out.to(out_dtype)
     in_kernel = not cfg.per_row_act
     if cfg.use_kernel and cfg.fused and batched:
         # one launch over every slice: the B1 kernel's batch axis
@@ -87,15 +121,21 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
             block_k=cfg.block_k, flush_period=flush_period,
             schedule=kops._fused_schedule(cfg.schedule, xc.shape[1],
                                           xc.shape[2], cfg.block_k))
+    elif cfg.use_kernel and batched:
+        # one launch over every slice: the B4 kernel's batch axis
+        out = mgs_matmul_exact(
+            limb_decompose(qx.q, fmt).movedim(0, 1),
+            kops.weight_limbs(w if prepared else qw.q, fmt), fmt,
+            block_k=cfg.block_k, flush_period=flush_period)
+        in_kernel = False
     elif batched:
         # plain path: slice by slice, as the reference's vmap
         outs = []
         for b in range(x.shape[0]):
             wb = w.slice(b) if prepared else qw.q[b]
             outs.append(kops.mgs_matmul(
-                qx.q[b], wb, fmt, "exact", use_kernel=cfg.use_kernel,
-                fused=cfg.fused, block_k=cfg.block_k,
-                flush_period=flush_period, schedule=cfg.schedule))
+                qx.q[b], wb, fmt, "exact", use_kernel=False,
+                block_k=cfg.block_k, flush_period=flush_period))
         out = torch.stack(outs)
         in_kernel = False
     else:

@@ -9,13 +9,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.formats import E3M4, E4M3, encode_bits, \
-    round_to_format  # noqa: E402
+from repro_torch.core.formats import E3M4, E4M3, decode_bits, \
+    encode_bits, get_format, round_to_format  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels import mgs_attention as ta  # noqa: E402
 from repro_torch.kernels.mgs_matmul import (  # noqa: E402
+    limb_decompose, mgs_matmul_dmac, mgs_matmul_dmac_plain, mgs_matmul_exact,
     mgs_matmul_exact_fused, mgs_matmul_exact_fused_plain,
-    mgs_matmul_stationary_plain)
+    mgs_matmul_exact_plain, mgs_matmul_stationary_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +133,44 @@ def test_b2_paged_and_verify_entries_equal_twin(dev):
     assert torch.equal(ver, ver_plain) and torch.equal(dec, dec_plain)
     assert torch.equal(ver[:, 0], dec)
     assert not ver[1].any()
+
+
+@pytest.mark.parametrize("M", [1, 4, 13, 70])
+@pytest.mark.parametrize("fmt", [E4M3, E3M4])
+def test_b4_kernel_equals_b1_and_twin(dev, M, fmt):
+    K, N = 300, 197
+    xc, wc = _codes((2, M, K), fmt, 10, dev), _codes((2, K, N), fmt, 11, dev)
+    xl = limb_decompose(decode_bits(xc, fmt), fmt).movedim(0, 1)
+    wl = limb_decompose(decode_bits(wc, fmt), fmt).movedim(0, 1)
+    for kw in ({}, {"flush_period": 1}, {"block_k": 64, "flush_period": 2}):
+        n0 = LAUNCHES["mgs_matmul_exact"]
+        out = mgs_matmul_exact(xl, wl, fmt, **kw)
+        assert LAUNCHES["mgs_matmul_exact"] == n0 + 1
+        b1 = mgs_matmul_exact_fused(xc, wc, fmt, **kw)
+        twin = mgs_matmul_exact_plain(xl, wl, fmt, **kw)
+        shared = mgs_matmul_exact(xl, wl[0], fmt, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, b1) and torch.equal(out, twin), kw
+        assert torch.equal(shared, mgs_matmul_exact_plain(xl, wl[0], fmt,
+                                                          **kw))
+
+
+@pytest.mark.parametrize("M", [1, 4, 7, 13, 70])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "e3m4"])
+def test_b5_kernel_equals_twin(dev, M, fmt):
+    f = get_format(fmt)
+    K, N = 300, 75
+    g = torch.Generator().manual_seed(12)
+    scale = {"e4m3": 0.3, "e5m2": 0.05, "e3m4": 1.0}[fmt]
+    x = round_to_format(torch.randn(3, M, K, generator=g) * scale, f).to(dev)
+    w = round_to_format(torch.randn(3, K, N, generator=g) * scale, f).to(dev)
+    for gate in (True, False):
+        n0 = LAUNCHES["mgs_matmul_dmac"]
+        out = mgs_matmul_dmac(x, w, f, gate)
+        assert LAUNCHES["mgs_matmul_dmac"] == n0 + 1
+        twin = mgs_matmul_dmac_plain(x, w, f, gate)
+        shared = mgs_matmul_dmac(x, w[1], f, gate)
+        torch.cuda.synchronize()
+        assert torch.equal(out, twin), gate
+        assert torch.equal(shared, mgs_matmul_dmac_plain(x, w[1], f, gate))
+        assert torch.isfinite(out).all()

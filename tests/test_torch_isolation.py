@@ -20,7 +20,9 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.quant",
            "repro_torch.kernels.mgs_matmul", "repro_torch.kernels.ops",
            "repro_torch.kernels.mgs_attention", "repro_torch.kernels._cuda",
            "repro_torch.quant.kvcache", "repro_torch.quant.qmatmul",
-           "repro_torch.models.attention", "repro_torch.models.transformer"]
+           "repro_torch.models.attention", "repro_torch.models.transformer",
+           "repro_torch.core.mgs", "repro_torch.kernels.ref",
+           "repro_torch.quant.prepared", "repro_torch.quant.qeinsum"]
 
 
 def test_import_leaves_jax_and_repro_unloaded():
