@@ -36,10 +36,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    the speculative round and B3 at the decode shapes, and profile one
    paged decode step;
 7. the paper's numerics: B4 (exact matmul over pre-decomposed limb
-   planes) == B1 == twin and B5 (per-product-rounded dMAC matmul) == twin
-   with ``torch.equal`` at the group path's shapes (decode, prefill, the
-   batched score / value contractions; B4 also at ``flush_period=1``, B5
-   also at E5M2 and E3M4 with the subnormal gate on and off); a reduced
+   planes) == B1 == twin and B5 (per-product-rounded dMAC matmul over
+   packed codes) == twin == B5's float entry with ``torch.equal`` at the
+   group path's shapes (decode, prefill, the batched score / value
+   contractions; B4 also at ``flush_period=1``, B5 also at E5M2, E3M4 and
+   E4M3 with the subnormal gate on and off, and B5's device rounding
+   tables against the twin's); a reduced
    model under ``FP8_MGS`` and ``FP8_MGS_EXACT`` (kernel tier) on the GPU
    and the CPU; then the group traffic of phase 4 on one bf16 parameter
    set (seed 0, full width) under the unquantized model and (a)
@@ -49,7 +51,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    gives (d)'s greedy tokens with logits within 5% of their scale, and
    each configuration's logit error and token agreement against the
    unquantized model is printed; a decode step of (a)-(d) is profiled and
-   B4 / B5 are timed at the shapes above. Last, print the card's name and
+   B4 / B5 are timed at the shapes above (B5 through both entries and
+   with both of its bin updates). Last, print the card's name and
    power limit, a JSON line of kernel results, and
    ``{"ok": true, "device": {...}}``.
 
@@ -808,9 +811,9 @@ B45_SHAPES = B1_SHAPES[:7] + [
 
 
 def dmac_bound(Bt, M, K, N):
-    """B5's bound: f32 values in and out once vs the minimal form's
+    """B5's bound: one-byte codes in and f32 out once vs the minimal form's
     operations at the CUDA-core int32 rate."""
-    t_mem = 4 * Bt * (M * K + K * N + M * N) / HBM_BYTES_PER_S * 1e3
+    t_mem = Bt * (M * K + K * N + 4 * M * N) / HBM_BYTES_PER_S * 1e3
     t_ops = (Bt * M * N * K * DMAC_OPS_PER_PRODUCT / INT32_OPS_PER_S * 1e3)
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
@@ -833,13 +836,42 @@ def _margin_values(torch, shape, dev, gen, fmt=None):
                         margin=fmt.max_finite ** -0.5).q
 
 
+def _b5_equal(torch, x, w, fmt, gate, what):
+    """B5's codes entry == its twin == the float entry (torch.equal)."""
+    from repro_torch.core.formats import encode_bits
+    from repro_torch.kernels.mgs_matmul import (
+        mgs_matmul_dmac, mgs_matmul_dmac_codes, mgs_matmul_dmac_codes_plain)
+    xc, wc = encode_bits(x, fmt), encode_bits(w, fmt)
+    out = mgs_matmul_dmac_codes(xc, wc, fmt, gate)
+    flt = mgs_matmul_dmac(x, w, fmt, gate)
+    twin = mgs_matmul_dmac_codes_plain(xc, wc, fmt, gate)
+    torch.cuda.synchronize()
+    err = (out - twin).abs().max().item()
+    eq = torch.equal(out, twin) and torch.equal(flt, out)
+    log(f"B5 {what} {fmt.name} gate={gate}: codes == twin == float entry "
+        f"{eq} max_abs_err={err:.3g}")
+    if not eq or not torch.isfinite(out).all():
+        raise AssertionError(f"B5 != twin at {what} {fmt.name} gate={gate}")
+    return err
+
+
 def check_b4_b5(torch, dev, gen):
     """B4 == B1 == twin and B5 == twin (torch.equal) at the group path's
-    shapes; B4 also at flush_period=1, B5 at E5M2 / E3M4, gate on/off."""
+    shapes; B4 also at flush_period=1; B5's codes and float entries, and at
+    E5M2 / E3M4 / E4M3 with the gate on and off; B5's device rounding
+    tables == the twin's."""
     from repro_torch.core.formats import E3M4, E4M3, E5M2, decode_bits
     from repro_torch.kernels.mgs_matmul import (
-        limb_decompose, mgs_matmul_dmac, mgs_matmul_dmac_plain,
-        mgs_matmul_exact, mgs_matmul_exact_fused, mgs_matmul_exact_plain)
+        dmac_table, dmac_table_plain, limb_decompose, mgs_matmul_exact,
+        mgs_matmul_exact_fused, mgs_matmul_exact_plain)
+    for fmt in (E4M3, E5M2, E3M4):
+        for gate in (True, False):
+            same = torch.equal(dmac_table(dev, fmt, gate).cpu(),
+                               dmac_table_plain(fmt, gate))
+            log(f"B5 rounding table {fmt.name} gate={gate}: device == twin "
+                f"{same}")
+            if not same:
+                raise AssertionError(f"B5 table != twin at {fmt.name}")
     worst4 = worst5 = 0.0
     for name, Bt, M, K, N in B45_SHAPES:
         xc = fp8_codes(torch, (Bt, M, K), dev, gen)
@@ -861,31 +893,15 @@ def check_b4_b5(torch, dev, gen):
         del xl, wl, xc, wc
         x = _margin_values(torch, (Bt, M, K), dev, gen)
         w = _margin_values(torch, (Bt, K, N), dev, gen)
-        out = mgs_matmul_dmac(x, w, E4M3)
-        twin = mgs_matmul_dmac_plain(x, w, E4M3)
-        torch.cuda.synchronize()
-        err = (out - twin).abs().max().item()
-        worst5 = max(worst5, err)
-        eq = torch.equal(out, twin)
-        log(f"B5 {name:22s} {Bt}x({M}x{K} @ {K}x{N}) e4m3: B5 == twin {eq} "
-            f"max_abs_err={err:.3g}")
-        if not eq or not torch.isfinite(out).all():
-            raise AssertionError(f"B5 != twin at {name}")
-        del x, w, out, twin
+        worst5 = max(worst5, _b5_equal(
+            torch, x, w, E4M3, True, f"{name:22s} {Bt}x({M}x{K} @ {K}x{N})"))
+        del x, w
     for fmt in (E5M2, E3M4, E4M3):
         x = _margin_values(torch, (3, 13, 300), dev, gen, fmt)
         w = _margin_values(torch, (3, 300, 75), dev, gen, fmt)
         for gate in (True, False):
-            out = mgs_matmul_dmac(x, w, fmt, gate)
-            twin = mgs_matmul_dmac_plain(x, w, fmt, gate)
-            torch.cuda.synchronize()
-            err = (out - twin).abs().max().item()
-            worst5 = max(worst5, err)
-            eq = torch.equal(out, twin)
-            log(f"B5 3x(13x300 @ 300x75) {fmt.name} gate={gate}: B5 == twin "
-                f"{eq} max_abs_err={err:.3g}")
-            if not eq:
-                raise AssertionError(f"B5 != twin at {fmt.name} gate={gate}")
+            worst5 = max(worst5, _b5_equal(torch, x, w, fmt, gate,
+                                           "3x(13x300 @ 300x75)"))
     return worst4, worst5
 
 
@@ -1021,11 +1037,13 @@ def paper_accuracy(runs):
 def time_b45(torch, dev, gen):
     """B4 and B5 at the group path's shapes beside their bounds, twins and
     torch.matmul in float32 over the decoded values; weights cycle through
-    enough copies to leave L2."""
-    from repro_torch.core.formats import E4M3, decode_bits
+    enough copies to leave L2. B5 is timed through its codes entry (the
+    path's) and through its float entry (the encode included)."""
+    from repro_torch.core.formats import E4M3, encode_bits
     from repro_torch.kernels.mgs_matmul import (
-        limb_decompose, mgs_matmul_dmac, mgs_matmul_dmac_plain,
-        mgs_matmul_exact, mgs_matmul_exact_plain)
+        limb_decompose, mgs_matmul_dmac, mgs_matmul_dmac_codes,
+        mgs_matmul_dmac_codes_plain, mgs_matmul_exact,
+        mgs_matmul_exact_plain)
     rows = []
     for name, Bt, M, K, N in B45_SHAPES:
         copies = max(1, min(8, -(-200_000_000 // (Bt * K * N))))
@@ -1034,6 +1052,8 @@ def time_b45(torch, dev, gen):
               for _ in range(copies)]
         xl = limb_decompose(x).movedim(0, 1).contiguous()
         wls = [limb_decompose(w).movedim(0, 1).contiguous() for w in ws]
+        xc = encode_bits(x, E4M3)
+        wcs = [encode_bits(w, E4M3) for w in ws]
         it = iter(range(10**9))
 
         def nxt():
@@ -1041,23 +1061,25 @@ def time_b45(torch, dev, gen):
         b4 = time_ms(torch, lambda: mgs_matmul_exact(xl, wls[nxt()]), 20)
         b4_plain = time_ms(torch, lambda: mgs_matmul_exact_plain(
             xl, wls[nxt()]), 3, warmup=1)
-        b5 = time_ms(torch, lambda: mgs_matmul_dmac(x, ws[nxt()]), 5,
-                     warmup=1)
-        b5_plain = time_ms(torch, lambda: mgs_matmul_dmac_plain(
-            x, ws[nxt()]), 2, warmup=1)
+        b5 = time_ms(torch, lambda: mgs_matmul_dmac_codes(xc, wcs[nxt()]),
+                     20)
+        b5_float = time_ms(torch, lambda: mgs_matmul_dmac(x, ws[nxt()]), 20)
+        b5_plain = time_ms(torch, lambda: mgs_matmul_dmac_codes_plain(
+            xc, wcs[nxt()]), 2, warmup=1)
         lib = time_ms(torch, lambda: torch.matmul(x, ws[nxt()]), 20)
         b4_b, b4_by = b4_bound(Bt, M, K, N)
         b5_b, b5_by = dmac_bound(Bt, M, K, N)
         rows.append(dict(shape=name, Bt=Bt, M=M, K=K, N=N, b4_ms=b4,
                          b4_plain_ms=b4_plain, b4_bound_ms=b4_b,
-                         b4_bound_by=b4_by, b5_ms=b5, b5_plain_ms=b5_plain,
+                         b4_bound_by=b4_by, b5_ms=b5, b5_float_ms=b5_float,
+                         b5_plain_ms=b5_plain,
                          b5_bound_ms=b5_b, b5_bound_by=b5_by,
                          library_ms=lib))
         log(f"time {name:22s} {Bt}x({M}x{K} @ {K}x{N}): B4 {b4:.4f} ms "
             f"(twin {b4_plain:.4f}, bound {b4_b:.4f} {b4_by}); B5 {b5:.4f} "
-            f"ms (twin {b5_plain:.4f}, bound {b5_b:.4f} {b5_by}); "
-            f"torch.matmul f32 {lib:.4f} ms")
-        del x, ws, xl, wls
+            f"ms (float entry {b5_float:.4f}, twin {b5_plain:.4f}, bound "
+            f"{b5_b:.4f} {b5_by}); torch.matmul f32 {lib:.4f} ms")
+        del x, ws, xl, wls, xc, wcs
     torch.cuda.empty_cache()
     return rows
 
@@ -1202,6 +1224,7 @@ def main() -> int:
              replaces="src/repro/kernels/mgs_matmul.py:595",
              launches=runs["a"]["launches"]["mgs_matmul_dmac"],
              max_abs_err=b5_err, ms=main_b45["b5_ms"],
+             float_entry_ms=main_b45["b5_float_ms"],
              plain_ms=main_b45["b5_plain_ms"],
              bound_ms=main_b45["b5_bound_ms"],
              bound_by=main_b45["b5_bound_by"],

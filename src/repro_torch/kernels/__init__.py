@@ -8,7 +8,8 @@ PyTorch twin that CPU tensors run.
   — ``csrc/mgs_attention.cu``
 * B4 ``mgs_matmul.mgs_matmul_exact`` (pre-decomposed limb planes) —
   ``csrc/mgs_matmul.cu``
-* B5 ``mgs_matmul.mgs_matmul_dmac`` (the paper's dMAC numerics) —
+* B5 ``mgs_matmul.mgs_matmul_dmac_codes`` (the paper's dMAC numerics over
+  packed codes; ``mgs_matmul_dmac`` over float values) —
   ``csrc/mgs_dmac.cu``
 
 ``LAUNCHES`` counts the launches of each wrapper, ``BUILDS`` the ``nvcc``
@@ -20,7 +21,8 @@ from .mgs_attention import (mgs_flash_attention, mgs_flash_blocks,
                             mgs_paged_flash_attention,
                             mgs_paged_verify_attention)
 from .mgs_matmul import (ACTIVATIONS, WS_STRIPE_BUDGET_BYTES, limb_decompose,
-                         mgs_matmul_dmac, mgs_matmul_dmac_plain,
+                         mgs_matmul_dmac, mgs_matmul_dmac_codes,
+                         mgs_matmul_dmac_codes_plain, mgs_matmul_dmac_plain,
                          mgs_matmul_exact, mgs_matmul_exact_fused,
                          mgs_matmul_exact_fused_plain, mgs_matmul_exact_plain,
                          mgs_matmul_stationary_plain,
@@ -33,7 +35,8 @@ __all__ = ["LAUNCHES", "BUILDS", "reset_launch_counts", "build_all", "ACTIVATION
            "mgs_matmul_exact_fused", "mgs_matmul_exact_fused_plain",
            "mgs_matmul_stationary_plain", "mgs_matmul_exact",
            "mgs_matmul_exact_plain", "mgs_matmul_dmac",
-           "mgs_matmul_dmac_plain", "WS_STRIPE_BUDGET_BYTES",
+           "mgs_matmul_dmac_plain", "mgs_matmul_dmac_codes",
+           "mgs_matmul_dmac_codes_plain", "WS_STRIPE_BUDGET_BYTES",
            "ws_stripe_bytes", "mgs_flash_attention",
            "mgs_paged_flash_attention", "mgs_paged_verify_attention",
            "mgs_flash_blocks", "mgs_matmul",

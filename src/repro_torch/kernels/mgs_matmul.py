@@ -38,14 +38,17 @@ Two more kernels share this module:
   prepared weight's ``limbs``). It runs B1's body with a staging step that
   copies limb bytes instead of decoding codes, so at equal ``block_k`` and
   ``flush_period`` it gives B1's bits. No epilogue in the kernel.
-* ``mgs_matmul_dmac`` (B5, the port of ``_dmac_kernel``): the paper's
-  Fig. 8 numerics over format-exact float values. Each exact product is
+* ``mgs_matmul_dmac_codes`` (B5, the port of ``_dmac_kernel``): the
+  paper's Fig. 8 numerics over packed codes. Each exact product is
   rounded back into the format (:func:`_round_decompose_e4m3`, subnormal
   gating optional), its signed mantissa added to one of ``fmt.n_bins``
   int32 exponent-bin sums, and each output combined once from zero in
-  ascending bin order (``csrc/mgs_dmac.cu``). Its twin
-  :func:`mgs_matmul_dmac_plain` repeats that arithmetic in chunks of K and
-  N, so no full ``M x K x N`` product tensor is ever held.
+  ascending bin order (``csrc/mgs_dmac.cu``, one table lookup per
+  product). Its twin :func:`mgs_matmul_dmac_codes_plain` decodes the
+  codes and runs :func:`mgs_matmul_dmac_plain`, which walks K and N in
+  chunks, so no full ``M x K x N`` product tensor is ever held.
+  ``mgs_matmul_dmac`` is the same kernel over format-exact float values
+  (encoded first on the card).
 """
 
 from __future__ import annotations
@@ -56,8 +59,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.formats import (E4M3, FPFormat, decode_sm_e,
-                                      decompose, pow2)
+from repro_torch.core.formats import (E4M3, FPFormat, decode_bits,
+                                      decode_sm_e, decompose, encode_bits,
+                                      pow2)
 from repro_torch.core.mgs import combine_bins
 from . import _cuda
 
@@ -67,7 +71,9 @@ __all__ = ["ACTIVATIONS", "SCHEDULES", "WS_STRIPE_BUDGET_BYTES",
            "check_stripe", "mgs_matmul_exact_fused",
            "mgs_matmul_exact_fused_plain", "mgs_matmul_stationary_plain",
            "mgs_matmul_exact", "mgs_matmul_exact_plain", "mgs_matmul_dmac",
-           "mgs_matmul_dmac_plain", "out_scale"]
+           "mgs_matmul_dmac_plain", "mgs_matmul_dmac_codes",
+           "mgs_matmul_dmac_codes_plain", "dmac_table", "dmac_table_plain",
+           "out_scale"]
 
 _LIMB_BASE = 7
 _N_LIMBS = 3
@@ -83,6 +89,8 @@ _PLAIN_N_CHUNK = 16384
 # float32 temporaries)
 _DMAC_N_CHUNK = 4096
 _DMAC_PRODUCTS = 1 << 24
+# B5's device rounding tables, (device index, format, gate) -> (128, 128)
+_DMAC_TABLES: dict = {}
 SCHEDULES = ("output", "weight", "activation")
 # the widest tile edge of the card's kernels (csrc/mgs_matmul.cu kMaxEdge)
 _MAX_EDGE = 64
@@ -597,14 +605,16 @@ def mgs_matmul_exact(x_limbs, w_limbs, fmt: FPFormat = E4M3, *,
 # ---------------------------------------------------------------------------
 
 
-def _check_dmac(x, w, fmt: FPFormat):
+def _check_dmac(x, w, fmt: FPFormat, codes: bool = False):
     if x.dim() not in (2, 3) or w.dim() not in (2, 3):
         raise ValueError(f"x (M, K) / (Bt, M, K) and w (K, N) / (Bt, K, N) "
                          f"expected, got {tuple(x.shape)}, {tuple(w.shape)}")
     if x.shape[-1] != w.shape[-2]:
         raise ValueError(f"contraction mismatch {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
-    if not (x.is_floating_point() and w.is_floating_point()):
+    if codes and not (x.dtype == w.dtype == torch.uint8):
+        raise TypeError(f"uint8 codes expected, got {x.dtype}, {w.dtype}")
+    if not codes and not (x.is_floating_point() and w.is_floating_point()):
         raise TypeError(f"format-exact float values expected, got "
                         f"{x.dtype}, {w.dtype}")
     if fmt.name not in _DMAC_FMTS:
@@ -614,13 +624,14 @@ def _check_dmac(x, w, fmt: FPFormat):
 
 def mgs_matmul_dmac_plain(x, w, fmt: FPFormat = E4M3,
                           gate_subnormal: bool = True):
-    """Plain PyTorch twin of the B5 kernel (same arguments, same bits).
+    """Plain PyTorch dMAC matmul over format-exact values (the B5 twin's
+    arithmetic).
 
     Walks N in chunks of ``_DMAC_N_CHUNK`` columns and K in chunks of at
     most ``_DMAC_PRODUCTS`` products: each chunk's exact products are
     rounded and decomposed by :func:`_round_decompose_e4m3` and scattered
     into int64 bin sums (integers: the chunking cannot change them), which
-    wrap to int32 like the kernel's registers before the one combine.
+    wrap to int32 like the kernel's bins before the one combine.
     """
     _check_dmac(x, w, fmt)
     squeeze = x.dim() == 2 and w.dim() == 2
@@ -644,40 +655,67 @@ def mgs_matmul_dmac_plain(x, w, fmt: FPFormat = E4M3,
     return out[0] if squeeze else out
 
 
-def _dmac_kernel():
-    fn = _cuda.load("mgs_dmac").mgs_matmul_dmac
+def mgs_matmul_dmac_codes_plain(xc, wc, fmt: FPFormat = E4M3,
+                                gate_subnormal: bool = True):
+    """Plain PyTorch twin of the B5 kernel (same arguments, same bits):
+    :func:`mgs_matmul_dmac_plain` over the codes' decoded values."""
+    _check_dmac(xc, wc, fmt, codes=True)
+    return mgs_matmul_dmac_plain(decode_bits(xc, fmt), decode_bits(wc, fmt),
+                                 fmt, gate_subnormal)
+
+
+def dmac_table_plain(fmt: FPFormat = E4M3,
+                     gate_subnormal: bool = True) -> torch.Tensor:
+    """B5's rounding table, computed by the twin's rounding: uint8
+    ``(128, 128)``, entry ``(a, b)`` = ``(e << (mbits + 1)) | |sm|`` of the
+    product of magnitude codes ``a`` and ``b``."""
+    v = decode_bits(torch.arange(128, dtype=torch.uint8), fmt)
+    sm, e = _round_decompose_e4m3(v[:, None] * v[None, :], fmt,
+                                  gate_subnormal)
+    return ((e << (fmt.mbits + 1)) | sm).to(torch.uint8)
+
+
+def _dmac_lib(name: str, argtypes):
+    fn = getattr(_cuda.load("mgs_dmac"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def mgs_matmul_dmac(x, w, fmt: FPFormat = E4M3, gate_subnormal: bool = True):
-    """Paper-faithful MGS matmul (per-product rounding, Fig. 8) — B5.
+def dmac_table(device, fmt: FPFormat = E4M3,
+               gate_subnormal: bool = True) -> torch.Tensor:
+    """B5's rounding table on a CUDA device: built there once per
+    ``(device, format, gate)`` by ``csrc/mgs_dmac.cu::dmac_table_kernel``
+    (the kernels' own ``round_decompose``) and cached; equal to
+    :func:`dmac_table_plain`. A one-time set-up launch, not counted in
+    ``LAUNCHES``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the device table lives on a CUDA device, got "
+                         f"{device}")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (device.index, fmt.name, bool(gate_subnormal))
+    tbl = _DMAC_TABLES.get(key)
+    if tbl is None:
+        tbl = torch.empty((128, 128), dtype=torch.uint8, device=device)
+        fn = _dmac_lib("mgs_dmac_table", [ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_void_p])
+        _cuda.check(fn(tbl.data_ptr(), _DMAC_FMTS[fmt.name],
+                       int(gate_subnormal), _cuda.stream_ptr(device)),
+                    "mgs_dmac_table")
+        # later launches may run on other streams
+        torch.cuda.current_stream(device).synchronize()
+        _DMAC_TABLES[key] = tbl
+    return tbl
 
-    Args:
-      x: ``(M, K)`` or ``(Bt, M, K)`` format-exact values.
-      w: ``(K, N)`` or ``(Bt, K, N)`` format-exact values; a 2-D ``w`` is
-        shared by every slice.
-      fmt: E4M3 (16 bins), E5M2 (32) or E3M4 (8).
-      gate_subnormal: skip products below the smallest subnormal (§5.3).
 
-    Returns:
-      float32 ``(M, N)`` / ``(Bt, M, N)``. A CPU tensor runs
-      :func:`mgs_matmul_dmac_plain`; a CUDA tensor launches
-      ``csrc/mgs_dmac.cu`` or raises.
-    """
-    if x.device.type == "cpu":
-        return mgs_matmul_dmac_plain(x, w, fmt, gate_subnormal)
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"operands on {x.device} / {w.device}: the kernel "
-                         "runs on one CUDA device")
-    _check_dmac(x, w, fmt)
-    squeeze = x.dim() == 2 and w.dim() == 2
-    x3 = _as_3d(x).to(torch.float32).contiguous()
-    w3 = _as_3d(w).to(torch.float32).contiguous()
+def _dmac_launch(xc, wc, fmt: FPFormat, gate_subnormal: bool):
+    """One B5 launch over checked uint8 codes on one CUDA device."""
+    squeeze = xc.dim() == 2 and wc.dim() == 2
+    x3 = _as_3d(xc).contiguous()
+    w3 = _as_3d(wc).contiguous()
     Bt = max(x3.shape[0], w3.shape[0])
     if x3.shape[0] not in (1, Bt) or w3.shape[0] not in (1, Bt):
         raise ValueError(f"slice counts {x3.shape[0]} vs {w3.shape[0]}")
@@ -685,12 +723,67 @@ def mgs_matmul_dmac(x, w, fmt: FPFormat = E4M3, gate_subnormal: bool = True):
     N = w3.shape[-1]
     out = torch.empty((Bt, M, N), dtype=torch.float32, device=x3.device)
     if Bt and M and N:
-        err = _dmac_kernel()(
-            x3.data_ptr(), w3.data_ptr(), out.data_ptr(), Bt, M, K, N,
-            M * K if x3.shape[0] == Bt else 0,
-            K * N if w3.shape[0] == Bt else 0,
-            _DMAC_FMTS[fmt.name], int(gate_subnormal),
-            _cuda.stream_ptr(x3.device))
+        tbl = dmac_table(x3.device, fmt, gate_subnormal)
+        fn = _dmac_lib("mgs_matmul_dmac_codes",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p])
+        err = fn(x3.data_ptr(), w3.data_ptr(), tbl.data_ptr(), out.data_ptr(),
+                 Bt, M, K, N, M * K if x3.shape[0] == Bt else 0,
+                 K * N if w3.shape[0] == Bt else 0, _DMAC_FMTS[fmt.name],
+                 _cuda.stream_ptr(x3.device))
         _cuda.check(err, "mgs_matmul_dmac")
         _cuda.LAUNCHES["mgs_matmul_dmac"] += 1
     return out[0] if squeeze else out
+
+
+def _on_one_cuda_device(x, w):
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"operands on {x.device} / {w.device}: the kernel "
+                         "runs on one CUDA device")
+
+
+def mgs_matmul_dmac_codes(xc, wc, fmt: FPFormat = E4M3,
+                          gate_subnormal: bool = True):
+    """Paper-faithful MGS matmul (per-product rounding, Fig. 8) over packed
+    FP8 codes — B5.
+
+    Args:
+      xc: ``(M, K)`` or ``(Bt, M, K)`` uint8 codes.
+      wc: ``(K, N)`` or ``(Bt, K, N)`` uint8 codes; a 2-D ``wc`` is shared
+        by every slice.
+      fmt: E4M3 (16 bins), E5M2 (32) or E3M4 (8).
+      gate_subnormal: skip products below the smallest subnormal (§5.3).
+
+    Returns:
+      float32 ``(M, N)`` / ``(Bt, M, N)``. A CPU tensor runs
+      :func:`mgs_matmul_dmac_codes_plain`; a CUDA tensor launches
+      ``csrc/mgs_dmac.cu`` or raises.
+    """
+    if xc.device.type == "cpu":
+        return mgs_matmul_dmac_codes_plain(xc, wc, fmt, gate_subnormal)
+    _on_one_cuda_device(xc, wc)
+    _check_dmac(xc, wc, fmt, codes=True)
+    return _dmac_launch(xc, wc, fmt, gate_subnormal)
+
+
+def mgs_matmul_dmac(x, w, fmt: FPFormat = E4M3, gate_subnormal: bool = True):
+    """B5 over format-exact float values.
+
+    Args:
+      x: ``(M, K)`` or ``(Bt, M, K)`` format-exact values.
+      w: ``(K, N)`` or ``(Bt, K, N)`` format-exact values; a 2-D ``w`` is
+        shared by every slice.
+      fmt, gate_subnormal: as :func:`mgs_matmul_dmac_codes`.
+
+    Returns:
+      float32 ``(M, N)`` / ``(Bt, M, N)``. A CPU tensor runs
+      :func:`mgs_matmul_dmac_plain`; a CUDA tensor is encoded
+      (``encode_bits``) and launches the codes kernel or raises.
+    """
+    if x.device.type == "cpu":
+        return mgs_matmul_dmac_plain(x, w, fmt, gate_subnormal)
+    _on_one_cuda_device(x, w)
+    _check_dmac(x, w, fmt)
+    return _dmac_launch(encode_bits(x, fmt), encode_bits(w, fmt), fmt,
+                        gate_subnormal)

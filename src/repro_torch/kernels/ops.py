@@ -12,8 +12,9 @@
   from the weight's values (the reference's rule); the activation is
   always decomposed here, outside the kernel. The epilogue follows as
   separate float32 operations;
-* ``mode="dmac"``: B5, the paper's per-product-rounded numerics. It takes
-  no epilogue: the caller rescales.
+* ``mode="dmac"``: B5, the paper's per-product-rounded numerics, over
+  packed codes (the activation encoded here, a prepared weight's
+  ``codes``). It takes no epilogue: the caller rescales.
 
 Batched LHS ``(..., K)`` is flattened to ``(M, K)``.
 
@@ -39,8 +40,9 @@ import torch
 from repro_torch.core.formats import E4M3, FPFormat, encode_bits
 from . import mgs_matmul as _mm
 from . import ref as _ref
-from .mgs_matmul import (ACTIVATIONS, limb_decompose, mgs_matmul_dmac,
-                         mgs_matmul_exact, mgs_matmul_exact_fused)
+from .mgs_matmul import (ACTIVATIONS, limb_decompose,
+                         mgs_matmul_dmac_codes, mgs_matmul_exact,
+                         mgs_matmul_exact_fused)
 
 __all__ = ["mgs_matmul", "apply_epilogue", "weight_limbs"]
 
@@ -125,8 +127,10 @@ def mgs_matmul(x, w, fmt: FPFormat = E4M3, mode: str = "exact", *,
                                   mode, gate_subnormal)
         out = apply_epilogue(out, scale, bias, activation)
     elif mode == "dmac":
-        out = mgs_matmul_dmac(x2, w.values() if prepared else w, fmt,
-                              gate_subnormal)
+        # B5 over packed codes: a prepared weight's own, never its values
+        out = mgs_matmul_dmac_codes(
+            encode_bits(x2, fmt), w.codes if prepared else encode_bits(w, fmt),
+            fmt, gate_subnormal)
     elif fused:
         xc = x2 if x2.dtype == torch.uint8 else encode_bits(x2, fmt)
         wc = w.codes if prepared else encode_bits(w, fmt)

@@ -16,10 +16,11 @@ numerics and rescales:
                              ``fused``; epilogue afterwards), or the plain
                              oracle
   fp8_* + accum=mgs_dmac  -> the paper's Fig. 8 numerics: the B5 kernel
-                             (``use_kernel``) or the plain oracle; operands
-                             quantized with ``cfg.fp8_margin`` so no
-                             product saturates, then ``out * scale`` and
-                             the epilogue
+                             over packed codes (``use_kernel``; a prepared
+                             weight's codes, never decoded) or the plain
+                             oracle; operands quantized with
+                             ``cfg.fp8_margin`` so no product saturates,
+                             then ``out * scale`` and the epilogue
 
 With ``batched=True`` the leading axis of ``x`` (and of a raw or prepared
 ``w``) indexes independent slices, each quantized with its own scale —
@@ -29,8 +30,11 @@ scales do not fit the fused kernel's ``(1, N)`` epilogue row, so they are
 applied after it (the same float32 ops).
 
 The swamp and integer accumulations are later slices of the port and
-raise. ``flush_period`` is the exact kernels' runtime argument, passed
-straight through (the calibration slice, A9, plans it).
+raise (A14). ``flush_period`` is the exact kernels' runtime argument,
+passed straight through; ``cfg.flush_target``, from which the reference
+plans it, raises until the calibration slice (A9) lands. A config's
+``calibration`` alone changes no bits in the reference (it feeds only
+that plan and the static decode-query scale, which also raises).
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ import torch
 from repro_torch.core.formats import encode_bits
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.mgs_matmul import (limb_decompose, mgs_matmul_dmac,
+from repro_torch.kernels.mgs_matmul import (limb_decompose,
+                                            mgs_matmul_dmac_codes,
                                             mgs_matmul_exact,
                                             mgs_matmul_exact_fused)
 from .config import QuantConfig
@@ -70,7 +75,11 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
         raise NotImplementedError(
             f"dtype={cfg.dtype!r}, accum={cfg.accum!r}: the swamp and "
             "integer accumulations are a later slice of the port (ROADMAP "
-            "A11); fp8 wide / mgs_exact / mgs_dmac and dtype='none' run")
+            "A14); fp8 wide / mgs_exact / mgs_dmac and dtype='none' run")
+    if cfg.accum == "mgs_exact" and cfg.flush_target is not None:
+        raise NotImplementedError(
+            "flush_target (the Markov flush plan of the exact kernels) is "
+            "ROADMAP item A9; pass flush_period instead")
     fmt = cfg.fmt
     if prepared and w.fmt_name != fmt.name:
         raise ValueError(f"PreparedWeight format {w.fmt_name!r} != "
@@ -92,19 +101,23 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
         w_scale = qw.scale
     scale = qx.scale * w_scale
     if cfg.accum != "mgs_exact":
-        w_vals = w.values() if prepared else qw.q
         if cfg.accum == "wide":
-            out = kref.wide_matmul_ref(qx.q, w_vals)
+            out = kref.wide_matmul_ref(qx.q, w.values() if prepared else qw.q)
         elif batched and cfg.use_kernel:
-            # one launch over every slice: the B5 kernel's batch axis
-            out = mgs_matmul_dmac(qx.q, w_vals, fmt, cfg.gate_subnormal)
+            # one launch over every slice: the B5 kernel's batch axis, over
+            # packed codes (a prepared weight's own)
+            out = mgs_matmul_dmac_codes(
+                encode_bits(qx.q, fmt),
+                w.codes if prepared else encode_bits(qw.q, fmt), fmt,
+                cfg.gate_subnormal)
         elif batched:
+            w_vals = w.values() if prepared else qw.q
             out = torch.stack([kops.mgs_matmul(
                 qx.q[b], w_vals[b], fmt, "dmac", use_kernel=False,
                 gate_subnormal=cfg.gate_subnormal)
                 for b in range(x.shape[0])])
         else:
-            out = kops.mgs_matmul(qx.q, w_vals, fmt, "dmac",
+            out = kops.mgs_matmul(qx.q, w if prepared else qw.q, fmt, "dmac",
                                   use_kernel=cfg.use_kernel,
                                   gate_subnormal=cfg.gate_subnormal)
         out = kops.apply_epilogue(out * scale, None, bias, activation)

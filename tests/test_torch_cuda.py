@@ -14,7 +14,9 @@ from repro_torch.core.formats import E3M4, E4M3, decode_bits, \
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels import mgs_attention as ta  # noqa: E402
 from repro_torch.kernels.mgs_matmul import (  # noqa: E402
-    limb_decompose, mgs_matmul_dmac, mgs_matmul_dmac_plain, mgs_matmul_exact,
+    dmac_table, dmac_table_plain, limb_decompose, mgs_matmul_dmac,
+    mgs_matmul_dmac_codes, mgs_matmul_dmac_codes_plain,
+    mgs_matmul_dmac_plain, mgs_matmul_exact,
     mgs_matmul_exact_fused, mgs_matmul_exact_fused_plain,
     mgs_matmul_exact_plain, mgs_matmul_stationary_plain)
 
@@ -174,3 +176,38 @@ def test_b5_kernel_equals_twin(dev, M, fmt):
         assert torch.equal(out, twin), gate
         assert torch.equal(shared, mgs_matmul_dmac_plain(x, w[1], f, gate))
         assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("M", [1, 4, 7, 13, 70])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "e3m4"])
+def test_b5_codes_kernel_equals_twin_and_float_entry(dev, M, fmt):
+    f = get_format(fmt)
+    K, N = 300, 75
+    g = torch.Generator().manual_seed(13)
+    scale = {"e4m3": 0.3, "e5m2": 0.05, "e3m4": 1.0}[fmt]
+    x = round_to_format(torch.randn(3, M, K, generator=g) * scale, f).to(dev)
+    w = round_to_format(torch.randn(3, K, N, generator=g) * scale, f).to(dev)
+    xc, wc = encode_bits(x, f), encode_bits(w, f)
+    for gate in (True, False):
+        n0 = LAUNCHES["mgs_matmul_dmac"]
+        out = mgs_matmul_dmac_codes(xc, wc, f, gate)
+        assert LAUNCHES["mgs_matmul_dmac"] == n0 + 1
+        flt = mgs_matmul_dmac(x, w, f, gate)
+        assert LAUNCHES["mgs_matmul_dmac"] == n0 + 2
+        shared = mgs_matmul_dmac_codes(xc, wc[2], f, gate)
+        twin = mgs_matmul_dmac_codes_plain(xc, wc, f, gate)
+        torch.cuda.synchronize()
+        assert torch.equal(out, twin), gate
+        assert torch.equal(flt, out), gate
+        assert torch.equal(shared, mgs_matmul_dmac_codes_plain(
+            xc, wc[2], f, gate))
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "e3m4"])
+def test_b5_device_table_equals_twin(dev, fmt):
+    f = get_format(fmt)
+    for gate in (True, False):
+        tbl = dmac_table(dev, f, gate)
+        assert tbl.shape == (128, 128) and tbl.dtype == torch.uint8
+        assert torch.equal(tbl.cpu(), dmac_table_plain(f, gate)), gate
+        assert dmac_table(dev, f, gate) is tbl          # built once

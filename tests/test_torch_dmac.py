@@ -273,7 +273,7 @@ def test_dmac_dispatch(rng):
     with pytest.raises(ValueError, match="dmac mode"):
         ops.mgs_matmul(torch.from_numpy(x), torch.from_numpy(w), tf.E5M2,
                        "exact")
-    # a prepared weight feeds its decoded values
+    # a prepared weight (its codes) gives its decoded values' bits
     pw = tprep.prepare_weight(torch.from_numpy(w * 3), tq.FP8_MGS)
     got = ops.mgs_matmul(torch.from_numpy(x), pw, tf.E4M3, "dmac")
     np.testing.assert_array_equal(
@@ -371,6 +371,31 @@ def test_qmatmul_dmac_batched_one_launch_and_prepared(rng):
 
 
 def test_unported_accums_raise():
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A14"):
         qmatmul(torch.ones(2, 8), torch.ones(8, 4),
                 tq.QuantConfig(dtype="fp8_e4m3", accum="swamp"))
+
+
+def test_flush_target_raises_and_calibration_alone_changes_no_bits():
+    """The reference plans the exact kernels' flush period from
+    ``flush_target`` (A9, not ported): the port refuses it. A config's
+    ``calibration`` alone feeds only that plan (and the static decode-q
+    scale, which also raises), so it gives the reference's bits."""
+    x, w = _acts((6, 96), 21), _acts((96, 40), 22, scale=0.1)
+    for base in (tq.FP8_MGS_EXACT, tq.FP8_MGS_SERVE):
+        with pytest.raises(NotImplementedError, match="A9"):
+            qmatmul(torch.from_numpy(x), torch.from_numpy(w),
+                    base.replace(flush_target=1e-6))
+    calib = {"ffn.wg": 0.3, "attn.wq": 0.7}
+    want = np.asarray(r_qmatmul(jnp.asarray(x), jnp.asarray(w),
+                                rq.FP8_MGS_EXACT))
+    np.testing.assert_array_equal(
+        np.asarray(r_qmatmul(jnp.asarray(x), jnp.asarray(w),
+                             rq.FP8_MGS_EXACT.with_calibration(calib),
+                             site="ffn.wg")), want)
+    for base in (tq.FP8_MGS_EXACT, tq.FP8_MGS_SERVE):
+        cfg = base.with_calibration(calib)
+        assert cfg.calibration is not None
+        np.testing.assert_array_equal(
+            qmatmul(torch.from_numpy(x), torch.from_numpy(w), cfg).numpy(),
+            want)

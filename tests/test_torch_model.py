@@ -4,7 +4,9 @@ packages on the same weights and requests.
 Reduced deepseek-7b at float32 compute (weights drawn once, in numpy),
 under ``FP8_MGS_SERVE_KV`` (packed cache, decode through the flash
 kernel) and ``FP8_MGS_SERVE`` (float cache), each with ``attn_chunk`` 0
-(dense prefill scores) and 16 (the chunked online-softmax prefill). The reference runs its emulation tier
+(dense prefill scores) and 16 (the chunked online-softmax prefill); and
+the other dense archs the port serves (gemma3-27b, granite-20b,
+minicpm-2b, mgs-paper-eval) under both presets at ``attn_chunk`` 0. The reference runs its emulation tier
 (``use_kernel=False``, which its own tests pin bitwise to the kernels) on
 a (1, 1) mesh; the port runs the presets unchanged with ``device="cpu"``,
 so every kernel call goes through its twin.
@@ -44,21 +46,25 @@ from repro_torch.quant import PREP_STATS  # noqa: E402
 from repro_torch.quant import config as tq  # noqa: E402
 
 PRESETS = {"packed": "FP8_MGS_SERVE_KV", "float": "FP8_MGS_SERVE"}
+OTHER_DENSE = ["gemma3-27b", "granite-20b", "minicpm-2b", "mgs-paper-eval"]
 
 
-@pytest.fixture(scope="module")
-def weights():
+def _weights(arch):
     """One random tree in the shared layout, as numpy: the reference gets
     it as jax arrays, the port through ``params_from_numpy``."""
-    cfg = dataclasses.replace(reduced_config("deepseek-7b"),
-                              compute_dtype="float32")
+    cfg = dataclasses.replace(reduced_config(arch), compute_dtype="float32")
     np_params = _to_numpy(init_params(cfg, seed=0))
     r_shapes = jax.eval_shape(
-        lambda k: r_init_params(r_reduced("deepseek-7b"), k)[0],
+        lambda k: r_init_params(r_reduced(arch), k)[0],
         jax.random.PRNGKey(0))
     assert jax.tree.map(lambda a: a.shape, r_shapes) == jax.tree.map(
         lambda a: a.shape, np_params)
     return jax.tree.map(jnp.asarray, np_params), np_params
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return _weights("deepseek-7b")
 
 
 def _to_numpy(tree):
@@ -76,13 +82,26 @@ def _prompts():
 @pytest.mark.parametrize("attn_chunk", [0, 16])
 @pytest.mark.parametrize("cache", ["packed", "float"])
 def test_serve_engine_matches_reference(weights, cache, attn_chunk):
+    _check_group_parity("deepseek-7b", weights, cache, attn_chunk)
+
+
+@pytest.mark.parametrize("cache", ["packed", "float"])
+@pytest.mark.parametrize("arch", OTHER_DENSE)
+def test_serve_engine_matches_reference_other_dense_archs(arch, cache):
+    """The other dense archs of ``_require_dense``: gemma3-27b (local /
+    global window), granite-20b (MQA, gelu), minicpm-2b and the paper's
+    eval proxy, at the same bar."""
+    _check_group_parity(arch, _weights(arch), cache, 0)
+
+
+def _check_group_parity(arch, weights, cache, attn_chunk):
     params, np_params = weights
     rcfg = dataclasses.replace(
-        r_reduced("deepseek-7b"), compute_dtype="float32",
+        r_reduced(arch), compute_dtype="float32",
         attn_chunk=attn_chunk,
         quant=getattr(rq, PRESETS[cache]).replace(use_kernel=False))
     tcfg = dataclasses.replace(
-        reduced_config("deepseek-7b"), compute_dtype="float32",
+        reduced_config(arch), compute_dtype="float32",
         attn_chunk=attn_chunk, quant=getattr(tq, PRESETS[cache]))
     assert tcfg.quant.use_kernel and tcfg.quant.fused
     renv = RServeEngine(rcfg, make_mesh((1, 1), ("data", "model")), batch=2,
@@ -108,7 +127,7 @@ def test_serve_engine_matches_reference(weights, cache, attn_chunk):
         scale = np.abs(rl).max()
         err = np.abs(tl - rl)
         assert err.max() <= 5e-2 * scale and err.mean() <= 1e-2 * scale, (
-            cache, attn_chunk, err.max() / scale, err.mean() / scale)
+            arch, cache, attn_chunk, err.max() / scale, err.mean() / scale)
     assert tstats["decode_tokens"] == rstats["decode_tokens"] == 12
 
 
