@@ -8,8 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. build the hand-written kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, started together);
 2. B1 (exact limb-fused matmul) against its plain twin with
-   ``torch.equal`` at the group path's shapes, each with no epilogue,
-   with scale + bias and at ``flush_period=1``; then B3 (the stationary
+   ``torch.equal`` at the group path's shapes, the verify step's 16 rows
+   and an unaligned shape with a shared weight, each with no epilogue,
+   with scale + bias, at ``flush_period=1`` and at ``block_k=64,
+   flush_period=2``; then B3 (the stationary
    schedules of the same matmul) against B1 and its twin at the
    continuous path's shapes, in both schedules, logging each shape as
    stationary or fallback;
@@ -39,7 +41,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    planes) == B1 == twin and B5 (per-product-rounded dMAC matmul over
    packed codes) == twin == B5's float entry with ``torch.equal`` at the
    group path's shapes (decode, prefill, the batched score / value
-   contractions; B4 also at ``flush_period=1``, B5 also at E5M2, E3M4 and
+   contractions; B4 also at the verify and unaligned shapes of phase 2,
+   at ``flush_period=1`` and ``block_k=64, flush_period=2``; B5 also at
+   E5M2, E3M4 and
    E4M3 with the subnormal gate on and off, and B5's device rounding
    tables against the twin's); a reduced
    model under ``FP8_MGS`` and ``FP8_MGS_EXACT`` (kernel tier) on the GPU
@@ -88,13 +92,21 @@ def bound(nbytes: float, ops: float):
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
+# device cycles spun before a timed run (~10 ms at 1.98 GHz): longer than the
+# host takes to enqueue the run's calls
+SPIN_CYCLES = 20_000_000
+
+
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Median device time of one call (CUDA events around each call)."""
+    """Median device time of one call (CUDA events around each call). The
+    device spins first, so the host enqueues every call ahead of it and no
+    call's time holds the host's launch overhead."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(SPIN_CYCLES)
     for a, b in ev:
         a.record()
         fn()
@@ -129,19 +141,37 @@ B1_SHAPES = [  # (name, Bt, M, K, N)
 ]
 
 
+# B1 / B4 beyond the timed shapes: the verify step's 16 rows (K split across
+# blocks), and 2 slices of 13 x 300 @ 300 x 197 with one shared weight (rows
+# not 16-byte aligned: the plain-load staging path)
+EXACT_EXTRA = [  # (name, Bt, M, K, N)
+    ("verify wq/wk/wv/wo", 1, 16, 4096, 4096),
+    ("verify wd", 1, 16, 11008, 4096),
+    ("unaligned, shared w", 2, 13, 300, 197),
+]
+# the flush cadences every B1 / B4 shape is checked at
+EXACT_CADENCES = (("", {}), ("flush_period=1", {"flush_period": 1}),
+                  ("block_k=64,fp=2", {"block_k": 64, "flush_period": 2}))
+
+
+def _weight_shape(name, Bt, K, N):
+    """(K, N) shared by every slice for the unaligned shape, else per slice."""
+    return (K, N) if "shared w" in name else (Bt, K, N)
+
+
 def check_b1(torch, dev, gen):
     from repro_torch.core.formats import E4M3
     from repro_torch.kernels.mgs_matmul import (
         mgs_matmul_exact_fused, mgs_matmul_exact_fused_plain)
     worst = 0.0
-    for name, Bt, M, K, N in B1_SHAPES:
+    for name, Bt, M, K, N in B1_SHAPES + EXACT_EXTRA:
         x = fp8_codes(torch, (Bt, M, K), dev, gen)
-        w = fp8_codes(torch, (Bt, K, N), dev, gen)
+        w = fp8_codes(torch, _weight_shape(name, Bt, K, N), dev, gen)
         scale = torch.rand((Bt, 1, 1), generator=gen, device=dev) * 1e-4
         bias = torch.randn((N,), generator=gen, device=dev)
         for tag, kw in (("none", {}),
                         ("scale+bias", {"scale": scale, "bias": bias}),
-                        ("flush_period=1", {"flush_period": 1}),
+                        *EXACT_CADENCES[1:],
                         ("scale+silu", {"scale": scale,
                                         "activation": "silu"})):
             if tag == "scale+silu" and M != 4:
@@ -462,7 +492,7 @@ def time_b1(torch, dev, gen):
     """Per-shape times; weights cycle through enough copies to leave L2."""
     from repro_torch.core.formats import E4M3, decode_bits
     from repro_torch.kernels.mgs_matmul import (
-        mgs_matmul_exact_fused, mgs_matmul_exact_fused_plain)
+        mgs_matmul_exact_fused, mgs_matmul_exact_fused_plain, split_plan)
     rows = []
     for name, Bt, M, K, N in B1_SHAPES:
         copies = max(1, min(8, -(-200_000_000 // (Bt * K * N))))
@@ -491,7 +521,8 @@ def time_b1(torch, dev, gen):
         b_ms, b_by = bound(nbytes, ops)
         rows.append(dict(shape=name, Bt=Bt, M=M, K=K, N=N, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by))
+                         bound_by=b_by,
+                         splits=split_plan(Bt, M, K, N, 128, None).splits))
         log(f"time B1 {name:22s} {Bt}x({M}x{K} @ {K}x{N}): kernel {ms:.4f} "
             f"ms, twin {plain_ms:.4f} ms, torch.matmul f32 {lib_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
@@ -528,8 +559,8 @@ def profile_step(torch, step, label: str):
             continue
         key = ("B5" if "dmac_kernel" in e.key else
                "B3" if "exact_fused_stationary_kernel" in e.key else
-               "B4" if "exact_fused_kernel<true" in e.key else
-               "B1" if "exact_fused_kernel" in e.key else
+               "B4" if "exact_kernel<true" in e.key else
+               "B1" if "exact_kernel<false" in e.key else
                "B2" if "flash_kernel" in e.key else "other")
         by[key][0] += us / 1e3
         by[key][1] += e.count
@@ -873,24 +904,26 @@ def check_b4_b5(torch, dev, gen):
             if not same:
                 raise AssertionError(f"B5 table != twin at {fmt.name}")
     worst4 = worst5 = 0.0
-    for name, Bt, M, K, N in B45_SHAPES:
+    for name, Bt, M, K, N in B45_SHAPES + EXACT_EXTRA:
         xc = fp8_codes(torch, (Bt, M, K), dev, gen)
-        wc = fp8_codes(torch, (Bt, K, N), dev, gen)
+        wc = fp8_codes(torch, _weight_shape(name, Bt, K, N), dev, gen)
         xl = limb_decompose(decode_bits(xc, E4M3)).movedim(0, 1)
-        wl = limb_decompose(decode_bits(wc, E4M3)).movedim(0, 1)
-        for fp in (None, 1):
-            out = mgs_matmul_exact(xl, wl, E4M3, flush_period=fp)
-            b1 = mgs_matmul_exact_fused(xc, wc, E4M3, flush_period=fp)
-            twin = mgs_matmul_exact_plain(xl, wl, E4M3, flush_period=fp)
+        wl = limb_decompose(decode_bits(wc, E4M3)).movedim(0, -3)
+        for tag, kw in EXACT_CADENCES:
+            out = mgs_matmul_exact(xl, wl, E4M3, **kw)
+            b1 = mgs_matmul_exact_fused(xc, wc, E4M3, **kw)
+            twin = mgs_matmul_exact_plain(xl, wl, E4M3, **kw)
             torch.cuda.synchronize()
             err = (out - twin).abs().max().item()
             worst4 = max(worst4, err)
             eq = torch.equal(out, b1) and torch.equal(out, twin)
-            log(f"B4 {name:22s} {Bt}x({M}x{K} @ {K}x{N}) flush_period="
-                f"{fp}: B4 == B1 == twin {eq} max_abs_err={err:.3g}")
+            log(f"B4 {name:22s} {Bt}x({M}x{K} @ {K}x{N}) {tag or 'default':15s}"
+                f": B4 == B1 == twin {eq} max_abs_err={err:.3g}")
             if not eq or not torch.isfinite(out).all():
-                raise AssertionError(f"B4 != B1/twin at {name} fp={fp}")
+                raise AssertionError(f"B4 != B1/twin at {name} {tag}")
         del xl, wl, xc, wc
+        if (name, Bt, M, K, N) in EXACT_EXTRA:
+            continue
         x = _margin_values(torch, (Bt, M, K), dev, gen)
         w = _margin_values(torch, (Bt, K, N), dev, gen)
         worst5 = max(worst5, _b5_equal(
@@ -1043,7 +1076,7 @@ def time_b45(torch, dev, gen):
     from repro_torch.kernels.mgs_matmul import (
         limb_decompose, mgs_matmul_dmac, mgs_matmul_dmac_codes,
         mgs_matmul_dmac_codes_plain, mgs_matmul_exact,
-        mgs_matmul_exact_plain)
+        mgs_matmul_exact_plain, split_plan)
     rows = []
     for name, Bt, M, K, N in B45_SHAPES:
         copies = max(1, min(8, -(-200_000_000 // (Bt * K * N))))
@@ -1071,7 +1104,9 @@ def time_b45(torch, dev, gen):
         b5_b, b5_by = dmac_bound(Bt, M, K, N)
         rows.append(dict(shape=name, Bt=Bt, M=M, K=K, N=N, b4_ms=b4,
                          b4_plain_ms=b4_plain, b4_bound_ms=b4_b,
-                         b4_bound_by=b4_by, b5_ms=b5, b5_float_ms=b5_float,
+                         b4_bound_by=b4_by,
+                         b4_splits=split_plan(Bt, M, K, N, 128, None).splits,
+                         b5_ms=b5, b5_float_ms=b5_float,
                          b5_plain_ms=b5_plain,
                          b5_bound_ms=b5_b, b5_bound_by=b5_by,
                          library_ms=lib))
@@ -1111,7 +1146,8 @@ def main() -> int:
     log(f"phase 1: built {sorted(logs)} in {time.time() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill", "error")):
                 log(f"  {name}: {line.strip()}")
 
     gen = torch.Generator(device=dev)

@@ -289,9 +289,13 @@ int launch(const uint8_t* q, const uint8_t* kp, const uint8_t* vp,
   int p2 = 1;
   while (p2 < chunk) p2 <<= 1;
   const size_t bytes = smem_bytes(T, D, chunk, p2);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<EB, MB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(bytes));
+  // opt into the card's whole per-block limit once per instantiation and
+  // device; the wrapper refuses a call that needs more
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = current_device(dev);
+  if (err == cudaSuccess)
+    err = smem_opt_in_once(flash_kernel<EB, MB>, kSmemOptIn, attr_set, dev);
   if (err != cudaSuccess) return int(err);
   flash_kernel<EB, MB><<<N, kThreads, bytes, stream>>>(
       q, kp, vp, bt, live, qk, vs, bias, out, T, D, chunk, nb, rs, p2);

@@ -19,6 +19,29 @@ namespace mgs {
 
 constexpr int kLimbBase = 7;
 constexpr int kClasses = 5;  // limb-weight classes a+b in [0, 4]
+constexpr int kMaxDevices = 64;    // devices a launcher's one-time state covers
+constexpr int kSmemOptIn = 232448; // dynamic shared memory a block may opt into
+
+// The current device, refused past kMaxDevices.
+inline cudaError_t current_device(int& dev) {
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev < 0 || dev >= kMaxDevices))
+    err = cudaErrorInvalidDevice;
+  return err;
+}
+
+// Opt `kern` into `bytes` of dynamic shared memory, once per device: `done`
+// is the launcher's function-local flag array. The first call's error is
+// returned, and a failed call is retried by the next launch.
+template <class F>
+inline cudaError_t smem_opt_in_once(F kern, int bytes,
+                                    bool (&done)[kMaxDevices], int dev) {
+  if (done[dev]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
+}
 
 // ix = sm << max(e, 1) of one packed code (formats.decode_sm_e).
 template <int EB, int MB>

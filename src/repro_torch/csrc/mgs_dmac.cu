@@ -61,7 +61,6 @@ constexpr int kThreads = 256;
 constexpr int kCols = 32;          // output columns per block, one per lane
 constexpr int kBK = 128;           // K elements staged per step
 constexpr int kTable = 128 * 128;  // (x magnitude code, w magnitude code)
-constexpr int kMaxDevices = 64;
 
 // rows per thread: 4, or 2 where 32 bins would take 128 KB
 template <class F>
@@ -229,15 +228,9 @@ int run(const uint8_t* x, const uint8_t* w, const uint8_t* tbl, float* out,
   // beyond the 48 KB default: set once per instantiation and device
   static bool attr_set[kMaxDevices] = {};
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = current_device(dev);
+  if (err == cudaSuccess) err = smem_opt_in_once(kern, smem, attr_set, dev);
   if (err != cudaSuccess) return int(err);
-  if (dev >= kMaxDevices) return int(cudaErrorInvalidDevice);
-  if (!attr_set[dev]) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return int(err);
-    attr_set[dev] = true;
-  }
   const long long gy = (M + tile_rows<F>() * RG - 1) / (tile_rows<F>() * RG);
   if (gy > 65535 || Bt > 65535) return int(cudaErrorInvalidConfiguration);
   const dim3 grid((N + kCols - 1) / kCols, unsigned(gy), unsigned(Bt));

@@ -11,48 +11,118 @@
 //   out[b] = act(((sum_k x[b] w[b]) * 2^-2(bias+mbits)) * scale + bias_row)
 //
 // with the K-sum exact: each packed code decodes to a 20-bit fixed-point
-// integer split into 3 balanced base-128 limbs; the 9 limb-pair dot products
-// accumulate into 5 int32 class sums (a+b) with __dp4a, and every
-// flush_period K-steps of block_k the classes are added to a float32 wide
-// accumulator in ascending class order (the only rounding of the sum).
-// Integer sums do not depend on their order, so B1 and B3 agree bit for bit
-// whatever tiles they walk.
+// integer split into 3 balanced base-128 limbs (signed bytes in [-64, 63]);
+// the 9 limb-pair products accumulate into 5 int32 class sums (a+b), and
+// every flush_period K-steps of block_k the classes are added to a float32
+// wide accumulator in ascending class order (the only rounding of the sum).
+// Integer sums do not depend on their order (an int32 sum that overflows
+// wraps modulo 2^32 in every order alike), so B1, B3 and B4 agree bit for
+// bit whatever tiles, instructions or K splits they use, as long as each
+// flush adds exactly its own segment's terms.
 //
 // What bounds them on an H100: at decode (M = slots, a handful of rows) the
-// weight codes are read once and dominate the bytes, so the bound is memory
-// (K*N bytes at 3.35 TB/s); at prefill (M >= 64) the 9 limb dots make it
-// integer-throughput bound.
+// weight bytes, read once (K*N codes, 3 limb bytes each for B4, at
+// 3.35 TB/s); at prefill (M >= 64) the 9 int8 limb products per
+// multiply-add at the tensor-core rate.
 //
-// B1 is simple: each block owns an output tile of one slice, stages a
-// 32-deep K sub-tile of both operands in shared memory, decodes each code
-// once per block through a 256-entry code->limbs table into K-packed int8x4
-// words (w transposed to K-contiguous), and runs __dp4a from shared memory.
-// Three tile shapes keep decode (M <= 4) from wasting rows on padding.
+// B1 / B4 (exact_kernel) run the limb products on the int8 tensor cores:
+// mma.sync m16n8k32 s8 x s8 -> s32, without .satfinite, so the sums wrap
+// like the twin's int32 classes. A block
+// * keeps a ring of 64-deep K stages in dynamic shared memory, filled by
+//   16-byte cp.async (zero-filled past the edges) while earlier stages
+//   compute. Operands whose rows are not 16-byte aligned (K or N not a
+//   multiple of 16, a pointer off 16) are staged by plain loads at the same
+//   point of the loop: the same bytes land, so the same bits;
+// * converts each landed stage once into limb fragments in shared memory:
+//   B1 decodes every code through a 256-entry code->limbs table, replicated
+//   once per bank so that a warp's 32 lookups never conflict; B4 copies its
+//   limb bytes. The K-packed words of w are transposed out of its N-major
+//   rows with byte permutes. Fragments are stored in the order mma takes
+//   them, XOR-swizzled so that neither the converting writes nor the
+//   fragment reads conflict;
+// * runs the 9 limb-pair mma of every 16 x 8 x 32 product and flushes the
+//   class sums at every flush boundary.
+// At decode (M <= 16) the weight is mma's A operand (16 output columns a
+// product) and x its B operand (8 rows), so 4 rows pad half of a B tile
+// rather than 3/4 of an A tile; a block covers 8 or 16 rows x 128 columns.
+// At prefill a block covers 64 x 64. Where the decode tiles fill fewer than
+// two blocks per SM, K is split across blocks (split_plan, mirrored by
+// kernels/mgs_matmul.py::split_plan): no split crosses a flush boundary,
+// each split adds its int32 class partials into its segment's slice of a
+// workspace (atomicAdd), and the last split of an output tile to arrive (a
+// counter per tile) flushes the segments in ascending order, runs the
+// epilogue and returns workspace and counter to zero. One launch per call.
 //
 // B3 keeps one operand's whole padded-K limb stripe resident in dynamic
 // shared memory: a block decodes the stripe of its cached tile once
 // (activation-stationary: the tile's rows of x; weight-stationary: the
 // tile's columns of w), then sweeps a range of the other operand's tiles,
-// streaming them in the same 32-deep sub-tiles as B1 and running __dp4a
-// against the resident stripe. The grid is sized from the occupancy the
-// stripe allows, so the sweep fills the SMs; at decode under
-// activation-stationary each block decodes its 4-row x stripe once instead
-// of once per output tile. A stripe larger than the shared-memory budget is
-// refused (the wrapper falls back to B1 with a warning, or raises).
-// B4 is B1's kernel instantiated with LIMBS = true: the staging step copies
-// the limb bytes of 3 planes (x: (3, M, K), w: (3, K, N), K-contiguous words
-// for x, 4x4 byte transposes for w) instead of decoding codes through the
-// table, and the caller passes no epilogue. Same tiles, same __dp4a class
-// sums, same flush cadence: at equal block_k and flush_period B4 gives B1's
-// bits. It reads 3 bytes per operand element where B1 reads 1, so at decode
-// its bytes bound is 3x B1's (the reference's A/B point).
-// None of them overlaps loads with compute or splits K across blocks;
-// wgmma s8, TMA pipelining and split-K are later work (see PERF.md).
+// streaming them in 32-deep sub-tiles and running __dp4a against the
+// resident stripe. The grid is sized from the occupancy the stripe allows,
+// so the sweep fills the SMs; at decode under activation-stationary each
+// block decodes its 4-row x stripe once instead of once per output tile. A
+// stripe larger than the shared-memory budget is refused (the wrapper falls
+// back to B1 with a warning, or raises).
 #include "mgs_common.cuh"
 
 using namespace mgs;
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// shared by B1, B3 and B4
+// ---------------------------------------------------------------------------
+
+// Kernel arguments. scale / bias element [b, n] sits at b * *_bs + n * *_ns
+// (a stride of 0 broadcasts).
+struct Args {
+  const uint8_t* x = nullptr;
+  const uint8_t* w = nullptr;
+  const float* scale = nullptr;
+  const float* bias = nullptr;
+  float* out = nullptr;
+  int M = 0, K = 0, N = 0;
+  long long x_bs = 0, w_bs = 0;
+  int s_bs = 0, s_ns = 0, b_bs = 0, b_ns = 0;
+  int act = 0, block_k = 0, flush_period = 0;
+  long long x_plane = 0, w_plane = 0;  // bytes between limb planes (B4)
+  // B1 / B4: the K split (see Plan), its workspace, and the staging path
+  int* ws = nullptr;
+  int* cnt = nullptr;
+  int splits = 1, per = 1, run = 0, seg = 0;
+  bool async = false;
+};
+
+// ACTIVATIONS of the twin (kernels/mgs_matmul.py), op for op.
+__device__ __forceinline__ float activate(float r, int act) {
+  if (act == 1) return r > 0.f ? r : 0.f;  // relu
+  if (act == 2) {                           // tanh-approximate gelu
+    const float c = 0.7978845834732056f;    // float32(sqrt(2 / pi))
+    const float r3 = __fmul_rn(__fmul_rn(r, r), r);
+    const float inner = __fmul_rn(c, __fadd_rn(r, __fmul_rn(0.044715f, r3)));
+    return __fmul_rn(r, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(inner))));
+  }
+  if (act == 3)                             // silu: r * (1 / (1 + exp(-r)))
+    return __fmul_rn(r, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-r))));
+  return r;
+}
+
+// The epilogue of one output: act(acc * out_scale * scale + bias).
+template <int EB, int MB>
+__device__ __forceinline__ void finish(const Args& g, int bz, int m, int n,
+                                       float acc) {
+  float r = __fmul_rn(acc, out_scale<EB, MB>());
+  if (g.scale)
+    r = __fmul_rn(r, g.scale[(long long)bz * g.s_bs + (long long)n * g.s_ns]);
+  if (g.bias)
+    r = __fadd_rn(r, g.bias[(long long)bz * g.b_bs + (long long)n * g.b_ns]);
+  g.out[(long long)bz * g.M * g.N + (long long)m * g.N + n] =
+      activate(r, g.act);
+}
+
+// ---------------------------------------------------------------------------
+// B3: K-resident stripe, __dp4a from shared memory
+// ---------------------------------------------------------------------------
 
 constexpr int kBKS = 32;          // K elements staged per sub-step
 constexpr int kKW = kBKS / 4;     // packed int8x4 words per sub-step
@@ -60,9 +130,8 @@ constexpr int kMaxEdge = 64;      // widest tile edge of any configuration
 // Dynamic shared memory left for a B3 stripe: the card's opt-in limit per
 // block less the code->limbs table and the streamed operand's staged
 // sub-tile. Equals WS_STRIPE_BUDGET_BYTES in kernels/mgs_matmul.py.
-constexpr long long kSmemLimit = 232448;
 constexpr long long kStripeBudget =
-    kSmemLimit - 256 * 4 - 3 * kKW * kMaxEdge * 4;
+    kSmemOptIn - 256 * 4 - 3 * kKW * kMaxEdge * 4;
 
 // 4 consecutive codes of row `row` from column `col` (zero past the edges:
 // code 0 is +0.0, exactly the reference's padding).
@@ -80,80 +149,53 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* base, int row,
   return v;
 }
 
-// Rows r0 .. r0+nrows of a row-major (rows, cols) operand, columns
-// k0 .. k0+4*nkw, as K-packed limb words: dst[(a * nkw + kw) * nrows + r]
-// holds limb a of elements [r0 + r][k0 + 4kw .. k0 + 4kw + 3]. The operand
-// is a code matrix decoded through `lut`, or (LIMBS) 3 int8 limb planes
-// `plane` bytes apart whose 4-byte runs are the words already.
-template <bool LIMBS>
+// Rows r0 .. r0+nrows of a row-major (rows, cols) code matrix, columns
+// k0 .. k0+4*nkw, decoded through `lut` into K-packed limb words:
+// dst[(a * nkw + kw) * nrows + r] holds limb a of elements
+// [r0 + r][k0 + 4kw .. k0 + 4kw + 3].
 __device__ __forceinline__ void stage_rows(int* dst, int nkw, int nrows,
-                                           const uint8_t* base,
-                                           long long plane, int r0, int k0,
-                                           int rows, int cols, bool vec,
-                                           const uint32_t* lut, int tid,
-                                           int nt) {
+                                           const uint8_t* base, int r0,
+                                           int k0, int rows, int cols,
+                                           bool vec, const uint32_t* lut,
+                                           int tid, int nt) {
   for (int i = tid; i < nrows * nkw; i += nt) {
     const int m = i / nkw, kw = i % nkw;
-    if constexpr (LIMBS) {
+    const uint32_t c = load4(base, r0 + m, k0 + 4 * kw, rows, cols, vec);
+    const uint32_t l0 = lut[c & 255u], l1 = lut[(c >> 8) & 255u];
+    const uint32_t l2 = lut[(c >> 16) & 255u], l3 = lut[c >> 24];
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
-        dst[(a * nkw + kw) * nrows + m] = int(
-            load4(base + a * plane, r0 + m, k0 + 4 * kw, rows, cols, vec));
-    } else {
-      const uint32_t c = load4(base, r0 + m, k0 + 4 * kw, rows, cols, vec);
-      const uint32_t l0 = lut[c & 255u], l1 = lut[(c >> 8) & 255u];
-      const uint32_t l2 = lut[(c >> 16) & 255u], l3 = lut[c >> 24];
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-        dst[(a * nkw + kw) * nrows + m] = limb_word(l0, l1, l2, l3, a);
-    }
+    for (int a = 0; a < 3; ++a)
+      dst[(a * nkw + kw) * nrows + m] = limb_word(l0, l1, l2, l3, a);
   }
 }
 
-// Columns c0 .. c0+ncols of a row-major (rows, cols) operand, rows
-// k0 .. k0+4*nkw, transposed so each stored word runs along K:
-// dst[(a * nkw + kw) * ncols + n] holds limb a of elements
-// [k0 + 4kw .. k0 + 4kw + 3][c0 + n]. Read as 4x4 blocks of codes, or
-// (LIMBS) of each limb plane's bytes.
-template <bool LIMBS>
+// Columns c0 .. c0+ncols of a row-major (rows, cols) code matrix, rows
+// k0 .. k0+4*nkw, read as 4x4 blocks of codes and transposed so each stored
+// word runs along K: dst[(a * nkw + kw) * ncols + n] holds limb a of
+// elements [k0 + 4kw .. k0 + 4kw + 3][c0 + n].
 __device__ __forceinline__ void stage_cols(int* dst, int nkw, int ncols,
-                                           const uint8_t* base,
-                                           long long plane, int k0, int c0,
-                                           int rows, int cols, bool vec,
-                                           const uint32_t* lut, int tid,
-                                           int nt) {
+                                           const uint8_t* base, int k0,
+                                           int c0, int rows, int cols,
+                                           bool vec, const uint32_t* lut,
+                                           int tid, int nt) {
   const int ng4 = ncols / 4;
   for (int i = tid; i < nkw * ng4; i += nt) {
     const int kw = i / ng4, ng = i % ng4;
     uint32_t r[4];
-    if constexpr (LIMBS) {
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
+    for (int j = 0; j < 4; ++j)
+      r[j] = load4(base, k0 + 4 * kw + j, c0 + 4 * ng, rows, cols, vec);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          r[j] = load4(base + a * plane, k0 + 4 * kw + j, c0 + 4 * ng, rows,
-                       cols, vec);
+    for (int cc = 0; cc < 4; ++cc) {
+      const int sh = 8 * cc;
+      const uint32_t l0 = lut[(r[0] >> sh) & 255u];
+      const uint32_t l1 = lut[(r[1] >> sh) & 255u];
+      const uint32_t l2 = lut[(r[2] >> sh) & 255u];
+      const uint32_t l3 = lut[(r[3] >> sh) & 255u];
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc)
-          dst[(a * nkw + kw) * ncols + 4 * ng + cc] =
-              limb_word(r[0], r[1], r[2], r[3], cc);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        r[j] = load4(base, k0 + 4 * kw + j, c0 + 4 * ng, rows, cols, vec);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const int sh = 8 * cc;
-        const uint32_t l0 = lut[(r[0] >> sh) & 255u];
-        const uint32_t l1 = lut[(r[1] >> sh) & 255u];
-        const uint32_t l2 = lut[(r[2] >> sh) & 255u];
-        const uint32_t l3 = lut[(r[3] >> sh) & 255u];
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-          dst[(a * nkw + kw) * ncols + 4 * ng + cc] =
-              limb_word(l0, l1, l2, l3, a);
-      }
+      for (int a = 0; a < 3; ++a)
+        dst[(a * nkw + kw) * ncols + 4 * ng + cc] =
+            limb_word(l0, l1, l2, l3, a);
     }
   }
 }
@@ -220,43 +262,12 @@ __device__ __forceinline__ void flush_tile(int (&acc)[kClasses][TM][TN],
     }
 }
 
-// ACTIVATIONS of the twin (kernels/mgs_matmul.py), op for op.
-__device__ __forceinline__ float activate(float r, int act) {
-  if (act == 1) return r > 0.f ? r : 0.f;  // relu
-  if (act == 2) {                           // tanh-approximate gelu
-    const float c = 0.7978845834732056f;    // float32(sqrt(2 / pi))
-    const float r3 = __fmul_rn(__fmul_rn(r, r), r);
-    const float inner = __fmul_rn(c, __fadd_rn(r, __fmul_rn(0.044715f, r3)));
-    return __fmul_rn(r, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(inner))));
-  }
-  if (act == 3)                             // silu: r * (1 / (1 + exp(-r)))
-    return __fmul_rn(r, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-r))));
-  return r;
-}
-
-// Kernel arguments shared by B1 and B3. scale / bias element [b, n] sits at
-// b * *_bs + n * *_ns (a stride of 0 broadcasts).
-struct Args {
-  const uint8_t* x;
-  const uint8_t* w;
-  const float* scale;
-  const float* bias;
-  float* out;
-  int M, K, N;
-  long long x_bs, w_bs;
-  int s_bs, s_ns, b_bs, b_ns;
-  int act, block_k, flush_period;
-  long long x_plane, w_plane;   // bytes between limb planes (B4 only)
-};
-
-// The epilogue of one output tile: act(acc * out_scale * scale + bias).
+// The epilogue of one output tile.
 template <int EB, int MB, int TM, int TN, int THM, int THN>
 __device__ __forceinline__ void store_tile(const Args& g,
                                            const float (&accf)[TM][TN],
                                            int bz, int m0, int n0, int ty,
                                            int tx) {
-  const float osc = out_scale<EB, MB>();
-  float* ob = g.out + (long long)bz * g.M * g.N;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty + i * THM;
@@ -264,62 +275,9 @@ __device__ __forceinline__ void store_tile(const Args& g,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + j * THN;
-      if (n >= g.N) continue;
-      float r = __fmul_rn(accf[i][j], osc);
-      if (g.scale)
-        r = __fmul_rn(r, g.scale[(long long)bz * g.s_bs +
-                                 (long long)n * g.s_ns]);
-      if (g.bias)
-        r = __fadd_rn(r, g.bias[(long long)bz * g.b_bs +
-                                (long long)n * g.b_ns]);
-      ob[(long long)m * g.N + n] = activate(r, g.act);
+      if (n < g.N) finish<EB, MB>(g, bz, m, n, accf[i][j]);
     }
   }
-}
-
-// B1 (codes) and B4 (LIMBS: limb planes): grid (N tiles, M tiles,
-// slices); both operands staged per sub-step.
-template <bool LIMBS, int EB, int MB, int TM, int TN, int THM, int THN>
-__global__ void __launch_bounds__(THM * THN)
-exact_fused_kernel(Args g) {
-  constexpr int BM = TM * THM, BN = TN * THN, NT = THM * THN;
-  __shared__ uint32_t lut[256];
-  __shared__ int sx[3 * kKW * BM];
-  __shared__ int sw[3 * kKW * BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % THN, ty = tid / THN;
-  const int bz = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const uint8_t* xb = g.x + bz * g.x_bs;
-  const uint8_t* wb = g.w + bz * g.w_bs;
-  const bool xvec =
-      ((reinterpret_cast<uintptr_t>(xb) | uintptr_t(g.K)) & 3) == 0;
-  const bool wvec =
-      ((reinterpret_cast<uintptr_t>(wb) | uintptr_t(g.N)) & 3) == 0;
-  if (!LIMBS) fill_lut<EB, MB>(lut, tid, NT);
-
-  int acc[kClasses][TM][TN];
-  float accf[TM][TN];
-  zero_tile(acc, accf);
-
-  const int nsteps = (g.K + g.block_k - 1) / g.block_k;
-  const int subs = g.block_k / kBKS;
-  __syncthreads();
-  for (int s = 0; s < nsteps; ++s) {
-    for (int u = 0; u < subs; ++u) {
-      const int k0 = s * g.block_k + u * kBKS;
-      stage_rows<LIMBS>(sx, kKW, BM, xb, g.x_plane, m0, k0, g.M, g.K, xvec,
-                        lut, tid, NT);
-      stage_cols<LIMBS>(sw, kKW, BN, wb, g.w_plane, k0, n0, g.K, g.N, wvec,
-                        lut, tid, NT);
-      __syncthreads();
-      dot_sub<TM, TN, THM, THN>(acc, sx, kKW * BM, sw, kKW * BN, ty, tx);
-      __syncthreads();
-    }
-    if ((s + 1) % g.flush_period == 0 || s == nsteps - 1) flush_tile(acc, accf);
-  }
-  store_tile<EB, MB, TM, TN, THM, THN>(g, accf, bz, m0, n0, ty, tx);
 }
 
 // B3: grid (sweep groups, cached tiles, slices). CACHE_W selects the cached
@@ -356,11 +314,9 @@ exact_fused_stationary_kernel(Args g, int per) {
 
   // decode the cached tile's stripe once (zero past M, N and K)
   if (CACHE_W)
-    stage_cols<false>(stripe, kwp, BN, wb, 0, 0, c0, g.K, g.N, wvec, lut, tid,
-                      NT);
+    stage_cols(stripe, kwp, BN, wb, 0, c0, g.K, g.N, wvec, lut, tid, NT);
   else
-    stage_rows<false>(stripe, kwp, BM, xb, 0, c0, 0, g.M, g.K, xvec, lut, tid,
-                      NT);
+    stage_rows(stripe, kwp, BM, xb, c0, 0, g.M, g.K, xvec, lut, tid, NT);
 
   int acc[kClasses][TM][TN];
   float accf[TM][TN];
@@ -372,11 +328,11 @@ exact_fused_stationary_kernel(Args g, int per) {
       for (int u = 0; u < subs; ++u) {
         const int k0 = s * g.block_k + u * kBKS;
         if (CACHE_W)
-          stage_rows<false>(stage, kKW, BM, xb, 0, m0, k0, g.M, g.K, xvec,
-                            lut, tid, NT);
+          stage_rows(stage, kKW, BM, xb, m0, k0, g.M, g.K, xvec, lut, tid,
+                     NT);
         else
-          stage_cols<false>(stage, kKW, BN, wb, 0, k0, n0, g.K, g.N, wvec,
-                            lut, tid, NT);
+          stage_cols(stage, kKW, BN, wb, k0, n0, g.K, g.N, wvec, lut, tid,
+                     NT);
         __syncthreads();   // also publishes the stripe on the first pass
         if (CACHE_W)
           dot_sub<TM, TN, THM, THN>(acc, stage, kKW * BM,
@@ -393,38 +349,59 @@ exact_fused_stationary_kernel(Args g, int per) {
   }
 }
 
-template <bool LIMBS, int EB, int MB, int TM, int TN, int THM, int THN>
-int launch(const Args& g, int Bt, int cache_weight, cudaStream_t stream) {
+// Blocks per SM of a kernel at one dynamic shared-memory size, remembered for
+// the last few sizes a launcher asked about.
+struct OccCache {
+  long long smem[4];
+  int per[4];
+  int next;
+};
+
+template <class F>
+cudaError_t occupancy(F kern, int nt, long long smem, OccCache& c, int& per) {
+  for (int i = 0; i < 4; ++i)
+    if (c.smem[i] == smem) {
+      per = c.per[i];
+      return cudaSuccess;
+    }
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, nt,
+                                                    size_t(smem));
+  if (err != cudaSuccess) return err;
+  c.smem[c.next] = smem;
+  c.per[c.next] = per;
+  c.next = (c.next + 1) % 4;
+  return cudaSuccess;
+}
+
+template <int EB, int MB, int TM, int TN, int THM, int THN>
+int launch_stationary(const Args& g, int Bt, bool cw, cudaStream_t stream) {
   constexpr int BM = TM * THM, BN = TN * THN, NT = THM * THN;
-  if (LIMBS || cache_weight < 0) {   // B1, B4
-    dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM, Bt);
-    exact_fused_kernel<LIMBS, EB, MB, TM, TN, THM, THN>
-        <<<grid, NT, 0, stream>>>(g);
-    return int(cudaGetLastError());
-  }
-  const bool cw = cache_weight != 0;
   auto kern = cw ? exact_fused_stationary_kernel<EB, MB, TM, TN, THM, THN, true>
                  : exact_fused_stationary_kernel<EB, MB, TM, TN, THM, THN, false>;
   const long long kp = (long long)((g.K + g.block_k - 1) / g.block_k) * g.block_k;
   const long long smem = 3 * kp * (cw ? BN : BM);
   if (smem > kStripeBudget) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kStripeBudget));
+  // once per kernel and device: the shared-memory opt-in and the SM count;
+  // the occupancy once per stripe size (while it stays among the last few)
+  static bool attr_set[2][kMaxDevices] = {};
+  static int sm_count[kMaxDevices] = {};
+  static OccCache occ[2][kMaxDevices] = {};
+  int dev = 0, per_sm = 0;
+  cudaError_t err = current_device(dev);
+  if (err == cudaSuccess)
+    err = smem_opt_in_once(kern, int(kStripeBudget), attr_set[cw], dev);
+  if (err == cudaSuccess && sm_count[dev] == 0)
+    err = cudaDeviceGetAttribute(&sm_count[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = occupancy(kern, NT, smem, occ[cw][dev], per_sm);
   if (err != cudaSuccess) return int(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return int(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return int(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kern, NT, size_t(smem))) != cudaSuccess)
-    return int(err);
   const long long cached = cw ? (g.N + BN - 1) / BN : (g.M + BM - 1) / BM;
   const long long nsweep = cw ? (g.M + BM - 1) / BM : (g.N + BN - 1) / BN;
   if (cached > 65535 || Bt > 65535) return int(cudaErrorInvalidConfiguration);
   // as many sweep groups as keep every SM at its occupancy, each group a
   // contiguous range of `per` tiles
-  const long long slots = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const long long slots = (long long)(per_sm > 0 ? per_sm : 1) * sm_count[dev];
   long long groups = slots / (cached * Bt);
   groups = groups < 1 ? 1 : (groups > nsweep ? nsweep : groups);
   const long long per = (nsweep + groups - 1) / groups;
@@ -435,28 +412,585 @@ int launch(const Args& g, int Bt, int cache_weight, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-// The card's tile for M rows (tile_shape() in kernels/mgs_matmul.py).
-template <bool LIMBS, int EB, int MB>
-int launch_fmt(const Args& g, int Bt, int cache_weight, cudaStream_t stream) {
+// B3's tile for M rows (tile_shape() in kernels/mgs_matmul.py).
+template <int EB, int MB>
+int launch_stationary_fmt(const Args& g, int Bt, bool cw,
+                          cudaStream_t stream) {
   if (g.M <= 4)        // decode: 4 rows, one output column per thread
-    return launch<LIMBS, EB, MB, 4, 1, 1, 64>(g, Bt, cache_weight, stream);
+    return launch_stationary<EB, MB, 4, 1, 1, 64>(g, Bt, cw, stream);
   if (g.M <= 16)
-    return launch<LIMBS, EB, MB, 4, 2, 4, 32>(g, Bt, cache_weight, stream);
-  return launch<LIMBS, EB, MB, 4, 4, 16, 16>(g, Bt, cache_weight, stream);
+    return launch_stationary<EB, MB, 4, 2, 4, 32>(g, Bt, cw, stream);
+  return launch_stationary<EB, MB, 4, 4, 16, 16>(g, Bt, cw, stream);
 }
 
-int dispatch(const void* x, const void* w, const void* scale, const void* bias,
-             void* out, int Bt, int M, int K, int N, long long x_bs,
-             long long w_bs, int s_bs, int s_ns, int b_bs, int b_ns, int fmt,
-             int act, int block_k, int flush_period, int cache_weight,
-             void* stream) {
-  Args g{static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
-         static_cast<const float*>(scale), static_cast<const float*>(bias),
-         static_cast<float*>(out), M, K, N, x_bs, w_bs, s_bs, s_ns, b_bs,
-         b_ns, act, block_k, flush_period, 0, 0};
-  auto st = static_cast<cudaStream_t>(stream);
-  return fmt == 0 ? launch_fmt<false, 4, 3>(g, Bt, cache_weight, st)
-                  : launch_fmt<false, 3, 4>(g, Bt, cache_weight, st);
+// ---------------------------------------------------------------------------
+// B1 / B4: int8 tensor cores, a cp.async ring, exact split-K
+// ---------------------------------------------------------------------------
+
+constexpr int kRK = 64;            // K elements per ring stage
+constexpr int kRW = kRK / 4;       // K-packed words per line and stage
+constexpr int kPad = 16;           // bytes past each staged row (banks)
+constexpr int kDecodeRows = 16;    // M up to which decode tiles and split-K
+constexpr int kDecodeCols = 128;   // output columns of a decode tile
+constexpr int kSplitTarget = 2 * 132;  // blocks in one wave: 2 per H100 SM
+constexpr int kMinRun = 4;         // least 32-element K units a split takes
+
+// A block tile of exact_kernel. Its warps form a WA x WB grid, each holding
+// TA mma A tiles (16 lines) by TB B tiles (8 lines). SWAP: A is w^T (its
+// lines are output columns) and B is x (rows); else A is x and B is w^T.
+template <bool SWAP_, int WA_, int WB_, int TA_, int TB_>
+struct Tile {
+  static constexpr bool SWAP = SWAP_;
+  static constexpr int WA = WA_, WB = WB_, TA = TA_, TB = TB_;
+  static constexpr int LA = 16 * TA * WA, LB = 8 * TB * WB;
+  static constexpr int BM = SWAP ? LB : LA, BN = SWAP ? LA : LB;
+  static constexpr int NT = 32 * WA * WB;
+};
+using Decode8 = Tile<true, 8, 1, 1, 1>;    // M <= 8: 8 x 128
+using Decode16 = Tile<true, 8, 1, 1, 2>;   // M <= 16: 16 x 128
+using Prefill = Tile<false, 2, 4, 2, 2>;   // 64 x 64
+static_assert(Decode8::BN == kDecodeCols && Decode16::BN == kDecodeCols &&
+                  Decode16::BM == kDecodeRows,
+              "split_plan counts decode tiles of kDecodeCols columns");
+
+// exact_kernel's dynamic shared memory (bytes): the ring (per stage, each
+// staged plane's x rows then its w rows, every row kPad bytes longer than
+// its data), one stage of A and B limb fragments (3 planes of kRW words per
+// line), and B1's code->limbs table (256 words, then 32 replicas of it laid
+// out [code][lane]). STAGES: the deepest ring that leaves room for two
+// blocks on an SM (B4's 16-row decode tile still fits only one); MINB: the
+// blocks an SM must hold (registers capped to fit), 1 for B1's prefill
+// tile, which would spill under the cap.
+template <bool LIMBS, class T>
+struct Layout {
+  static constexpr int P = LIMBS ? 3 : 1;
+  static constexpr int STAGES = LIMBS ? (T::SWAP ? 3 : 2) : (T::SWAP ? 5 : 4);
+  static constexpr int MINB = LIMBS || T::SWAP ? 2 : 1;
+  static constexpr int XS = kRK + kPad, WS = T::BN + kPad;
+  static constexpr int XP = T::BM * XS, WP = kRK * WS;
+  static constexpr int STAGE = P * (XP + WP);
+  static constexpr int FA = 3 * kRW * T::LA, FB = 3 * kRW * T::LB;  // words
+  static constexpr int LUT = LIMBS ? 0 : 256 * 33;                  // words
+  static constexpr int BYTES = STAGES * STAGE + 4 * (FA + FB + LUT);
+};
+
+// How K is cut across blocks (kernels/mgs_matmul.py::split_plan, line for
+// line). Units of 32 K elements.
+struct Plan {
+  int splits;  // blocks along K per output tile; 1: one block walks all K
+  int per;     // splits inside each flush segment
+  int run;     // units a split takes
+  int seg;     // units of one flush segment (flush_period * block_k / 32)
+};
+
+Plan split_plan(int Bt, int M, int K, int N, int block_k, int fp) {
+  const int units = (K + 31) / 32, seg = fp * (block_k / 32);
+  const Plan direct{1, 1, units, seg};
+  const long long tiles =
+      (long long)Bt * ((N + kDecodeCols - 1) / kDecodeCols);
+  if (M > kDecodeRows || tiles >= kSplitTarget) return direct;
+  const long long nseg = (units + seg - 1) / seg;
+  const long long span = units < seg ? units : seg;
+  long long per = kSplitTarget / (tiles * nseg);
+  if (per < 1) per = 1;
+  long long run = (span + per - 1) / per;
+  if (run < kMinRun) run = kMinRun;
+  per = (span + run - 1) / run;
+  if (nseg * per == 1) return direct;
+  return {int(nseg * per), int(per), int(run), seg};
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  // bytes of the 16 past src_bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d += a * b: one 16 x 8 x 32 int8 product, s32 sums that wrap.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A 4 x 4 byte transpose: byte j of c[i] is byte i of r[j]. Turns 4 staged
+// rows (4 columns each) into 4 K-packed column words, or 4 codes' packed
+// limbs into one word per limb.
+__device__ __forceinline__ void transpose4(const uint32_t (&r)[4],
+                                           uint32_t (&c)[4]) {
+  const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t hi01 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t hi23 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(lo01, lo23, 0x5410);
+  c[1] = __byte_perm(lo01, lo23, 0x7632);
+  c[2] = __byte_perm(hi01, hi23, 0x5410);
+  c[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// The limb words of 4 codes along K (o[a] byte j: limb a of code[j]), from
+// the replicated table: lane l reads replica l, which sits in bank l.
+__device__ __forceinline__ void code_limbs(const uint32_t* rep, int lane,
+                                           const uint32_t (&code)[4],
+                                           uint32_t (&o)[4]) {
+  uint32_t l[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) l[j] = rep[(code[j] << 5) | uint32_t(lane)];
+  transpose4(l, o);
+}
+
+// Limb fragments of one stage, ordered [mma step][tile][register][lane] as
+// mma.m16n8k32 takes them (A: 16-line tiles, registers (row g, quad q),
+// (g + 8, q), (g, q + 4), (g + 8, q + 4) of lane 4g + q; B: 8-line tiles,
+// registers quad q, q + 4 of line g). The lane is XOR-swizzled per tile (and
+// per A register half), so that a warp writing 32 lines of one quad, or
+// reading one register of its tiles, meets 32 banks.
+__device__ __forceinline__ int swz_a(int tile, int reg) {
+  return ((tile << 1) | (reg & 1)) & 15;
+}
+__device__ __forceinline__ int swz_b(int tile) { return (tile << 1) & 15; }
+
+// Word offset, in one limb plane of A (LA lines), of line l's K-packed word
+// kw (0 .. kRW - 1).
+template <int LA>
+__device__ __forceinline__ int frag_a(int l, int kw) {
+  const int tile = l >> 4, q = kw & 7;
+  const int reg = ((l >> 3) & 1) | ((q >> 2) << 1);
+  return (((kw >> 3) * (LA / 16) + tile) * 4 + reg) * 32 +
+         (((l & 7) * 4 + (q & 3)) ^ swz_a(tile, reg));
+}
+
+template <int LB>
+__device__ __forceinline__ int frag_b(int l, int kw) {
+  const int tile = l >> 3, q = kw & 7;
+  return (((kw >> 3) * (LB / 8) + tile) * 2 + (q >> 2)) * 32 +
+         (((l & 7) * 4 + (q & 3)) ^ swz_b(tile));
+}
+
+// 4 bytes of a row from column col, zero at and past lim (the plain-load
+// staging path): one 32-bit load where the address allows.
+__device__ __forceinline__ uint32_t load_word(const uint8_t* row, int col,
+                                              int lim) {
+  const uint8_t* p = row + col;
+  if (col + 3 < lim && (reinterpret_cast<uintptr_t>(p) & 3) == 0)
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  uint32_t v = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (col + j < lim) v |= uint32_t(__ldg(p + j)) << (8 * j);
+  return v;
+}
+
+// Stage K elements [k, k + kRK) of the block's x rows and w columns (zero
+// past M, N and k1) into ring slot st.
+template <bool LIMBS, class T>
+__device__ __forceinline__ void load_stage(uint8_t* st, const Args& g,
+                                           const uint8_t* xb,
+                                           const uint8_t* wb, int m0, int n0,
+                                           int k, int k1, int tid) {
+  using L = Layout<LIMBS, T>;
+  uint8_t* sw = st + L::P * L::XP;
+  if (g.async) {
+    constexpr int XC = kRK / 16, WC = T::BN / 16;   // 16-byte chunks a row
+    for (int i = tid; i < L::P * T::BM * XC; i += T::NT) {
+      const int c = i % XC, m = (i / XC) % T::BM, a = i / (XC * T::BM);
+      const int kk = k + 16 * c;
+      const int n = m0 + m < g.M ? min(max(k1 - kk, 0), 16) : 0;
+      const uint8_t* src =
+          n ? xb + a * g.x_plane + (long long)(m0 + m) * g.K + kk : xb;
+      cp_async16(st + a * L::XP + m * L::XS + 16 * c, src, n);
+    }
+    for (int i = tid; i < L::P * kRK * WC; i += T::NT) {
+      const int c = i % WC, r = (i / WC) % kRK, a = i / (WC * kRK);
+      const int nn = n0 + 16 * c;
+      const int n = k + r < k1 ? min(max(g.N - nn, 0), 16) : 0;
+      const uint8_t* src =
+          n ? wb + a * g.w_plane + (long long)(k + r) * g.N + nn : wb;
+      cp_async16(sw + a * L::WP + r * L::WS + 16 * c, src, n);
+    }
+    return;
+  }
+  constexpr int XW = kRK / 4, WW = T::BN / 4;       // words a row
+  for (int i = tid; i < L::P * T::BM * XW; i += T::NT) {
+    const int j = i % XW, m = (i / XW) % T::BM, a = i / (XW * T::BM);
+    const uint32_t v =
+        m0 + m < g.M
+            ? load_word(xb + a * g.x_plane + (long long)(m0 + m) * g.K,
+                        k + 4 * j, k1)
+            : 0u;
+    *reinterpret_cast<uint32_t*>(st + a * L::XP + m * L::XS + 4 * j) = v;
+  }
+  for (int i = tid; i < L::P * kRK * WW; i += T::NT) {
+    const int j = i % WW, r = (i / WW) % kRK, a = i / (WW * kRK);
+    const uint32_t v =
+        k + r < k1 ? load_word(wb + a * g.w_plane + (long long)(k + r) * g.N,
+                               n0 + 4 * j, g.N)
+                   : 0u;
+    *reinterpret_cast<uint32_t*>(sw + a * L::WP + r * L::WS + 4 * j) = v;
+  }
+}
+
+// Convert ring slot st into the limb fragments fa (A) and fb (B).
+template <bool LIMBS, class T>
+__device__ __forceinline__ void convert(const uint8_t* st, uint32_t* fa,
+                                        uint32_t* fb, const uint32_t* rep,
+                                        int tid) {
+  using L = Layout<LIMBS, T>;
+  const int lane = tid & 31;
+  uint32_t* fx = T::SWAP ? fb : fa;
+  uint32_t* fw = T::SWAP ? fa : fb;
+  constexpr int XPL = kRW * T::BM, WPL = kRW * T::BN;  // words a limb plane
+  // x rows: a warp takes 8 lines x 4 words, which meets 32 banks in the
+  // staged rows and writes 32 consecutive fragment words
+  constexpr int XI = T::BM * kRW, WI = T::BN / 4 * kRW;   // items
+#pragma unroll
+  for (int u = 0; u < (XI + T::NT - 1) / T::NT; ++u) {
+    const int i = tid + u * T::NT;
+    if (XI % T::NT != 0 && i >= XI) break;
+    const int r = i >> 5;
+    const int kw = ((r & 3) << 2) | (i & 3), l = ((r >> 2) << 3) | ((i >> 2) & 7);
+    const uint8_t* src = st + l * L::XS + 4 * kw;
+    uint32_t o[4];
+    if constexpr (LIMBS) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        o[a] = *reinterpret_cast<const uint32_t*>(src + a * L::XP);
+    } else {
+      const uint32_t c = *reinterpret_cast<const uint32_t*>(src);
+      const uint32_t code[4] = {c & 255u, (c >> 8) & 255u, (c >> 16) & 255u,
+                                c >> 24};
+      code_limbs(rep, lane, code, o);
+    }
+    const int off = T::SWAP ? frag_b<T::BM>(l, kw) : frag_a<T::BM>(l, kw);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) fx[a * XPL + off] = o[a];
+  }
+  // w columns: 4 rows x 4 columns an item, transposed into K-packed words
+  constexpr int NG = T::BN / 4;
+  const uint8_t* sw = st + L::P * L::XP;
+#pragma unroll
+  for (int u = 0; u < (WI + T::NT - 1) / T::NT; ++u) {
+    const int i = tid + u * T::NT;
+    if (WI % T::NT != 0 && i >= WI) break;
+    const int ng = i % NG, kw = i / NG;
+    const uint8_t* src = sw + 4 * kw * L::WS + 4 * ng;
+    int off[4];
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc)
+      off[cc] = T::SWAP ? frag_a<T::BN>(4 * ng + cc, kw)
+                        : frag_b<T::BN>(4 * ng + cc, kw);
+#pragma unroll
+    for (int a = 0; a < L::P; ++a) {
+      uint32_t r[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        r[j] = *reinterpret_cast<const uint32_t*>(src + a * L::WP + j * L::WS);
+      if constexpr (LIMBS) {
+        uint32_t t[4];
+        transpose4(r, t);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) fw[a * WPL + off[cc]] = t[cc];
+      } else {
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const uint32_t code[4] = {
+              (r[0] >> (8 * cc)) & 255u, (r[1] >> (8 * cc)) & 255u,
+              (r[2] >> (8 * cc)) & 255u, (r[3] >> (8 * cc)) & 255u};
+          uint32_t o[4];
+          code_limbs(rep, lane, code, o);
+#pragma unroll
+          for (int b = 0; b < 3; ++b) fw[b * WPL + off[cc]] = o[b];
+        }
+      }
+    }
+  }
+}
+
+// One 32-deep mma step (ks: 0 or 1 of the stage) of a warp's tiles: the 9
+// limb pairs (a, b) into class a + b.
+template <class T>
+__device__ __forceinline__ void mma_step(
+    int (&acc)[kClasses][T::TA][T::TB][4], const uint32_t* fa,
+    const uint32_t* fb, int ks, int wa, int wb, int lane) {
+  constexpr int PA = kRW * T::LA, PB = kRW * T::LB;   // words a limb plane
+  uint32_t bf[3][T::TB][2];
+#pragma unroll
+  for (int b = 0; b < 3; ++b)
+#pragma unroll
+    for (int tb = 0; tb < T::TB; ++tb) {
+      const int tile = wb * T::TB + tb;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        bf[b][tb][r] = fb[b * PB + ((ks * (T::LB / 8) + tile) * 2 + r) * 32 +
+                          (lane ^ swz_b(tile))];
+    }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    uint32_t af[T::TA][4];
+#pragma unroll
+    for (int ta = 0; ta < T::TA; ++ta) {
+      const int tile = wa * T::TA + ta;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        af[ta][r] = fa[a * PA + ((ks * (T::LA / 16) + tile) * 4 + r) * 32 +
+                       (lane ^ swz_a(tile, r))];
+    }
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+#pragma unroll
+      for (int ta = 0; ta < T::TA; ++ta)
+#pragma unroll
+        for (int tb = 0; tb < T::TB; ++tb)
+          mma_s8(acc[a + b][ta][tb], af[ta], bf[b][tb]);
+  }
+}
+
+// B1 (codes) and B4 (LIMBS: limb planes). Grid: (column tiles, row tiles or
+// K splits, slices).
+template <bool LIMBS, int EB, int MB, class T>
+__global__ void __launch_bounds__(T::NT, (Layout<LIMBS, T>::MINB))
+    exact_kernel(Args g) {
+  using L = Layout<LIMBS, T>;
+  constexpr int TA = T::TA, TB = T::TB;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* fa = reinterpret_cast<uint32_t*>(smem + L::STAGES * L::STAGE);
+  uint32_t* fb = fa + L::FA;
+  uint32_t* lut = fb + L::FB;
+  uint32_t* rep = lut + 256;
+  __shared__ int last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ya = warp % T::WA, yb = warp / T::WA;  // the warp's place
+  const int bz = blockIdx.z, n0 = blockIdx.x * T::BN;
+  const bool split = g.splits > 1;
+  const int m0 = split ? 0 : blockIdx.y * T::BM;
+  const int seg_len = 32 * g.seg;
+  // this block's K range: all of K, or one split inside one flush segment
+  int seg = 0, k0 = 0, k1 = g.K;
+  if (split) {
+    seg = blockIdx.y / g.per;
+    k0 = seg * seg_len + (blockIdx.y % g.per) * 32 * g.run;
+    k1 = min(min(k0 + 32 * g.run, seg_len * (seg + 1)), g.K);
+  }
+  const uint8_t* xb = g.x + bz * g.x_bs;
+  const uint8_t* wb = g.w + bz * g.w_bs;
+  int acc[kClasses][TA][TB][4];
+  float tot[TA][TB][4];
+#pragma unroll
+  for (int ta = 0; ta < TA; ++ta)
+#pragma unroll
+    for (int tb = 0; tb < TB; ++tb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        tot[ta][tb][i] = 0.f;
+#pragma unroll
+        for (int c = 0; c < kClasses; ++c) acc[c][ta][tb][i] = 0;
+      }
+
+  const int nst = k1 > k0 ? (k1 - k0 + kRK - 1) / kRK : 0;
+  for (int s = 0; s < L::STAGES - 1; ++s) {
+    if (s < nst)
+      load_stage<LIMBS, T>(smem + s * L::STAGE, g, xb, wb, m0, n0,
+                           k0 + s * kRK, k1, tid);
+    cp_async_commit();
+  }
+  if constexpr (!LIMBS) {   // while the first stages load
+    fill_lut<EB, MB>(lut, tid, T::NT);
+    __syncthreads();
+    for (int i = tid; i < 256 * 32; i += T::NT) rep[i] = lut[i >> 5];
+  }   // published by the first barrier of the loop
+  for (int t = 0; t < nst; ++t) {
+    cp_async_wait<L::STAGES - 2>();   // stage t has landed (own copies)
+    __syncthreads();                  // everyone's; the last mma pass is done
+    const int s = t + L::STAGES - 1;  // refill the slot converted at t - 1
+    if (s < nst)
+      load_stage<LIMBS, T>(smem + (s % L::STAGES) * L::STAGE, g, xb, wb, m0,
+                           n0, k0 + s * kRK, k1, tid);
+    cp_async_commit();
+    convert<LIMBS, T>(smem + (t % L::STAGES) * L::STAGE, fa, fb, rep, tid);
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int kend = k0 + t * kRK + 32 * (ks + 1);
+      if (kend - 32 >= k1) break;
+      mma_step<T>(acc, fa, fb, ks, ya, yb, lane);
+      if (!split && (kend % seg_len == 0 || kend >= k1)) {
+#pragma unroll
+        for (int ta = 0; ta < TA; ++ta)
+#pragma unroll
+          for (int tb = 0; tb < TB; ++tb)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              int cl[kClasses];
+#pragma unroll
+              for (int c = 0; c < kClasses; ++c) {
+                cl[c] = acc[c][ta][tb][i];
+                acc[c][ta][tb][i] = 0;
+              }
+              tot[ta][tb][i] = flush_classes(tot[ta][tb][i], cl);
+            }
+      }
+    }
+  }
+
+  // accumulator (ta, tb, i) holds mma row 16 tile + g + 8 (i / 2) and column
+  // 8 tile + 2 q + i % 2 of lane 4 g + q
+  const int g8 = lane >> 2, q = lane & 3;
+  auto element = [&](int ta, int tb, int i, int& m, int& n) {
+    const int la = (ya * TA + ta) * 16 + g8 + 8 * (i >> 1);
+    const int lb = (yb * TB + tb) * 8 + 2 * q + (i & 1);
+    m = m0 + (T::SWAP ? lb : la);
+    n = n0 + (T::SWAP ? la : lb);
+  };
+  if (!split) {
+#pragma unroll
+    for (int ta = 0; ta < TA; ++ta)
+#pragma unroll
+      for (int tb = 0; tb < TB; ++tb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          int m, n;
+          element(ta, tb, i, m, n);
+          if (m < g.M && n < g.N) finish<EB, MB>(g, bz, m, n, tot[ta][tb][i]);
+        }
+    return;
+  }
+
+  // split: add the partials into the workspace, [segment][class][slice][M][N]
+  const long long mn = (long long)g.M * g.N, cs = mn * gridDim.z;
+  int* wsb = g.ws + (long long)seg * kClasses * cs + bz * mn;
+#pragma unroll
+  for (int ta = 0; ta < TA; ++ta)
+#pragma unroll
+    for (int tb = 0; tb < TB; ++tb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int m, n;
+        element(ta, tb, i, m, n);
+        if (m >= g.M || n >= g.N) continue;
+#pragma unroll
+        for (int c = 0; c < kClasses; ++c)
+          if (acc[c][ta][tb][i])
+            atomicAdd(wsb + c * cs + (long long)m * g.N + n, acc[c][ta][tb][i]);
+      }
+  // the barrier orders the block's partials before thread 0's fence, which
+  // releases them with the arrival (and acquires the other splits' for the
+  // last arrival): the grid-barrier pattern of cooperative groups
+  __syncthreads();
+  int* cnt = g.cnt + (long long)bz * gridDim.x + blockIdx.x;
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(cnt, 1) == g.splits - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  // the tile's last split: flush every segment in ascending order
+  const int nseg = g.splits / g.per;
+  static_assert(T::BM * T::BN % T::NT == 0, "whole rounds of outputs");
+#pragma unroll
+  for (int u = 0; u < T::BM * T::BN / T::NT; ++u) {
+    const int o = tid + u * T::NT;
+    const int m = o / T::BN, n = n0 + o % T::BN;
+    if (m >= g.M || n >= g.N) continue;
+    float r = 0.f;
+    for (int s = 0; s < nseg; ++s) {
+      int cl[kClasses];
+#pragma unroll
+      for (int c = 0; c < kClasses; ++c) {
+        int* p = g.ws + (long long)(s * kClasses + c) * cs + bz * mn +
+                 (long long)m * g.N + n;
+        cl[c] = __ldcg(p);
+        __stcg(p, 0);
+      }
+      r = flush_classes(r, cl);
+    }
+    finish<EB, MB>(g, bz, m, n, r);
+  }
+  if (tid == 0) *cnt = 0;
+}
+
+template <bool LIMBS, int EB, int MB, class T>
+int launch_exact(const Args& g, int Bt, cudaStream_t stream) {
+  using L = Layout<LIMBS, T>;
+  auto kern = exact_kernel<LIMBS, EB, MB, T>;
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = current_device(dev);
+  if (err == cudaSuccess) err = smem_opt_in_once(kern, L::BYTES, attr_set, dev);
+  if (err != cudaSuccess) return int(err);
+  const long long gx = (g.N + T::BN - 1) / T::BN;
+  const long long gy = g.splits > 1 ? g.splits : (g.M + T::BM - 1) / T::BM;
+  if (gx > 2147483647LL || gy > 65535 || Bt > 65535)
+    return int(cudaErrorInvalidConfiguration);
+  kern<<<dim3(unsigned(gx), unsigned(gy), unsigned(Bt)), T::NT, L::BYTES,
+         stream>>>(g);
+  return int(cudaGetLastError());
+}
+
+// Plan the split, check the workspace, pick the staging path and the tile.
+template <bool LIMBS, int EB, int MB>
+int launch_exact_fmt(Args g, int Bt, long long ws_len, long long cnt_len,
+                     cudaStream_t stream) {
+  const Plan p = split_plan(Bt, g.M, g.K, g.N, g.block_k, g.flush_period);
+  g.splits = p.splits;
+  g.per = p.per;
+  g.run = p.run;
+  g.seg = p.seg;
+  if (p.splits > 1) {
+    const long long ws_need =
+        (long long)(p.splits / p.per) * kClasses * Bt * g.M * g.N;
+    const long long cnt_need =
+        (long long)Bt * ((g.N + kDecodeCols - 1) / kDecodeCols);
+    if (!g.ws || !g.cnt || ws_len < ws_need || cnt_len < cnt_need)
+      return int(cudaErrorInvalidValue);
+  }
+  g.async = ((reinterpret_cast<uintptr_t>(g.x) |
+              reinterpret_cast<uintptr_t>(g.w)) & 15) == 0 &&
+            g.K % 16 == 0 && g.N % 16 == 0;
+  if (g.M <= 8) return launch_exact<LIMBS, EB, MB, Decode8>(g, Bt, stream);
+  if (g.M <= kDecodeRows)
+    return launch_exact<LIMBS, EB, MB, Decode16>(g, Bt, stream);
+  return launch_exact<LIMBS, EB, MB, Prefill>(g, Bt, stream);
+}
+
+Args codes_args(const void* x, const void* w, const void* scale,
+                const void* bias, void* out, int M, int K, int N,
+                long long x_bs, long long w_bs, int s_bs, int s_ns, int b_bs,
+                int b_ns, int act, int block_k, int flush_period) {
+  Args g;
+  g.x = static_cast<const uint8_t*>(x);
+  g.w = static_cast<const uint8_t*>(w);
+  g.scale = static_cast<const float*>(scale);
+  g.bias = static_cast<const float*>(bias);
+  g.out = static_cast<float*>(out);
+  g.M = M;
+  g.K = K;
+  g.N = N;
+  g.x_bs = x_bs;
+  g.w_bs = w_bs;
+  g.s_bs = s_bs;
+  g.s_ns = s_ns;
+  g.b_bs = b_bs;
+  g.b_ns = b_ns;
+  g.act = act;
+  g.block_k = block_k;
+  g.flush_period = flush_period;
+  return g;
 }
 
 }  // namespace
@@ -467,43 +1001,70 @@ int dispatch(const void* x, const void* w, const void* scale, const void* bias,
 // broadcasts). fmt: 0 = E4M3, 1 = E3M4. act: 0 none, 1 relu, 2 gelu, 3 silu.
 // block_k must be a multiple of 32; flush_period is already clamped to
 // [1, ceil(K / block_k)]. Each returns cudaGetLastError() after the launch.
+
+// B1. ws / cnt: the split-K workspace (ws_len int32, zero) and tile counters
+// (cnt_len int32, zero), left zero again; null when mgs_matmul_split_plan
+// gives one split. Refuses (cudaErrorInvalidValue) a workspace too small.
 extern "C" int mgs_matmul_exact_fused(
     const void* x, const void* w, const void* scale, const void* bias,
     void* out, int Bt, int M, int K, int N, long long x_bs, long long w_bs,
     int s_bs, int s_ns, int b_bs, int b_ns, int fmt, int act, int block_k,
-    int flush_period, void* stream) {
-  return dispatch(x, w, scale, bias, out, Bt, M, K, N, x_bs, w_bs, s_bs, s_ns,
-                  b_bs, b_ns, fmt, act, block_k, flush_period, -1, stream);
+    int flush_period, void* ws, long long ws_len, void* cnt,
+    long long cnt_len, void* stream) {
+  Args g = codes_args(x, w, scale, bias, out, M, K, N, x_bs, w_bs, s_bs, s_ns,
+                      b_bs, b_ns, act, block_k, flush_period);
+  g.ws = static_cast<int*>(ws);
+  g.cnt = static_cast<int*>(cnt);
+  auto st = static_cast<cudaStream_t>(stream);
+  return fmt == 0 ? launch_exact_fmt<false, 4, 3>(g, Bt, ws_len, cnt_len, st)
+                  : launch_exact_fmt<false, 3, 4>(g, Bt, ws_len, cnt_len, st);
 }
 
-// B3, the same arguments plus cache_weight (1 = weight-stationary, 0 =
-// activation-stationary). Refuses (cudaErrorInvalidValue) a stripe over
-// mgs_matmul_stripe_budget() bytes.
+// B3, the arguments of B1 without the workspace, plus cache_weight (1 =
+// weight-stationary, 0 = activation-stationary). Refuses
+// (cudaErrorInvalidValue) a stripe over mgs_matmul_stripe_budget() bytes.
 extern "C" int mgs_matmul_exact_fused_stationary(
     const void* x, const void* w, const void* scale, const void* bias,
     void* out, int Bt, int M, int K, int N, long long x_bs, long long w_bs,
     int s_bs, int s_ns, int b_bs, int b_ns, int fmt, int act, int block_k,
     int flush_period, int cache_weight, void* stream) {
-  return dispatch(x, w, scale, bias, out, Bt, M, K, N, x_bs, w_bs, s_bs, s_ns,
-                  b_bs, b_ns, fmt, act, block_k, flush_period,
-                  cache_weight ? 1 : 0, stream);
+  const Args g = codes_args(x, w, scale, bias, out, M, K, N, x_bs, w_bs, s_bs,
+                            s_ns, b_bs, b_ns, act, block_k, flush_period);
+  auto st = static_cast<cudaStream_t>(stream);
+  return fmt == 0 ? launch_stationary_fmt<4, 3>(g, Bt, cache_weight != 0, st)
+                  : launch_stationary_fmt<3, 4>(g, Bt, cache_weight != 0, st);
 }
 
 extern "C" long long mgs_matmul_stripe_budget() { return kStripeBudget; }
 
+// The launchers' K split for these arguments (flush_period clamped as
+// above): plan = {splits, per segment, run, segment}, in 32-element units.
+extern "C" void mgs_matmul_split_plan(int Bt, int M, int K, int N,
+                                      int block_k, int flush_period,
+                                      int* plan) {
+  const Plan p = split_plan(Bt, M, K, N, block_k, flush_period);
+  plan[0] = p.splits;
+  plan[1] = p.per;
+  plan[2] = p.run;
+  plan[3] = p.seg;
+}
+
 // B4. x: (Bt, 3, M, K) int8 limb planes (x_bs = 3 * M * K), w: (Bt, 3, K, N)
 // (or one shared (3, K, N) with w_bs = 0), out: (Bt, M, N) f32 =
-// (sum_k x w) * 2^-2(bias+mbits), no epilogue. fmt, block_k and
-// flush_period as above.
+// (sum_k x w) * 2^-2(bias+mbits), no epilogue. fmt, block_k, flush_period
+// and the workspace as for B1.
 extern "C" int mgs_matmul_exact(const void* x, const void* w, void* out,
                                 int Bt, int M, int K, int N, long long x_bs,
                                 long long w_bs, int fmt, int block_k,
-                                int flush_period, void* stream) {
-  Args g{static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
-         nullptr, nullptr, static_cast<float*>(out), M, K, N, x_bs, w_bs, 0,
-         0, 0, 0, 0, block_k, flush_period, (long long)M * K,
-         (long long)K * N};
+                                int flush_period, void* ws, long long ws_len,
+                                void* cnt, long long cnt_len, void* stream) {
+  Args g = codes_args(x, w, nullptr, nullptr, out, M, K, N, x_bs, w_bs, 0, 0,
+                      0, 0, 0, block_k, flush_period);
+  g.x_plane = (long long)M * K;
+  g.w_plane = (long long)K * N;
+  g.ws = static_cast<int*>(ws);
+  g.cnt = static_cast<int*>(cnt);
   auto st = static_cast<cudaStream_t>(stream);
-  return fmt == 0 ? launch_fmt<true, 4, 3>(g, Bt, -1, st)
-                  : launch_fmt<true, 3, 4>(g, Bt, -1, st);
+  return fmt == 0 ? launch_exact_fmt<true, 4, 3>(g, Bt, ws_len, cnt_len, st)
+                  : launch_exact_fmt<true, 3, 4>(g, Bt, ws_len, cnt_len, st);
 }

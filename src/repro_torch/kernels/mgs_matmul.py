@@ -26,6 +26,13 @@ On a CUDA tensor the wrapper launches the hand-written kernels in
 :func:`mgs_matmul_exact_fused_plain` and
 :func:`mgs_matmul_stationary_plain`, which repeat the kernels' arithmetic
 op for op (``_accumulate_classes`` / ``_flush_classes``).
+On the card B1 and B4 run their limb products on the int8 tensor cores,
+staged through an asynchronous copy ring; at decode (``M <= 16``) they may
+cut K across blocks (:func:`split_plan`): no split crosses a flush
+boundary, the splits add their int32 class partials into a workspace kept
+per device and stream, and the last split of each output tile flushes the
+segments in ascending order. Integer sums do not depend on their order, so
+this gives the twins' bits.
 The twin upcasts limbs to float64 for its integer products: every product
 and partial sum is an integer far below 2**53, so the float64 matmul is
 exact on the CPU and on the card alike (PyTorch has no int32 matmul on
@@ -54,7 +61,7 @@ Two more kernels share this module:
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +74,8 @@ from . import _cuda
 
 __all__ = ["ACTIVATIONS", "SCHEDULES", "WS_STRIPE_BUDGET_BYTES",
            "limb_decompose", "worst_case_flush_period", "flush_steps",
-           "tile_shape", "stationary_block", "ws_stripe_bytes",
+           "tile_shape", "exact_tile", "SplitPlan", "split_plan",
+           "split_ranges", "stationary_block", "ws_stripe_bytes",
            "check_stripe", "mgs_matmul_exact_fused",
            "mgs_matmul_exact_fused_plain", "mgs_matmul_stationary_plain",
            "mgs_matmul_exact", "mgs_matmul_exact_plain", "mgs_matmul_dmac",
@@ -99,6 +107,14 @@ _MAX_EDGE = 64
 #: streamed operand's staged 32-deep sub-tile (3 limbs x 32 x 64 bytes).
 #: The reference's 8 MB is a TPU VMEM figure.
 WS_STRIPE_BUDGET_BYTES = _cuda.SMEM_LIMIT - 256 * 4 - 3 * 32 * _MAX_EDGE
+# B1 / B4 on the card (csrc/mgs_matmul.cu): rows up to which the decode
+# tiles and split-K apply; the blocks of one wave split-K fills (2 per SM of
+# an H100); the least 32-element K units a split takes
+_DECODE_ROWS = 16
+_SPLIT_TARGET = 2 * 132
+_SPLIT_MIN_RUN = 4
+# split-K workspace and tile counters, (device index, stream) -> tensors
+_SPLIT_WS: dict = {}
 
 
 def _relu(r):
@@ -172,9 +188,67 @@ def flush_steps(flush_period: Optional[int], block_k: int,
 
 
 def tile_shape(M: int) -> Tuple[int, int]:
-    """The card's ``(rows, columns)`` output tile for ``M`` rows
-    (``csrc/mgs_matmul.cu::launch_fmt``): 4 rows at decode, 16, else 64."""
+    """B3's ``(rows, columns)`` output tile on the card for ``M`` rows
+    (``csrc/mgs_matmul.cu::launch_stationary_fmt``): 4 rows at decode, 16,
+    else 64."""
     return (4, 64) if M <= 4 else (16, 64) if M <= 16 else (64, 64)
+
+
+def exact_tile(M: int) -> Tuple[int, int]:
+    """B1's and B4's ``(rows, columns)`` output tile on the card
+    (``csrc/mgs_matmul.cu::launch_exact_fmt``): 8 or 16 rows by 128
+    columns at decode, else 64 x 64."""
+    return (8, 128) if M <= 8 else (16, 128) if M <= 16 else (64, 64)
+
+
+class SplitPlan(NamedTuple):
+    """How B1 / B4 cut K across blocks; units of 32 K elements."""
+    splits: int       # blocks along K per output tile (1: one walks all K)
+    per_segment: int  # splits inside each flush segment
+    run: int          # units a split takes
+    segment: int      # units of one flush segment (fp * block_k / 32)
+
+
+def split_plan(Bt: int, M: int, K: int, N: int, block_k: int,
+               flush_period: Optional[int]) -> SplitPlan:
+    """The card's K split for one B1 / B4 call
+    (``csrc/mgs_matmul.cu::split_plan``, line for line).
+
+    At decode (``M <= 16``), where the output tiles of 128 columns number
+    fewer than two per SM (132 SMs), every flush segment of
+    ``flush_period * block_k`` elements is cut into ``per_segment`` runs of
+    ``run`` units (at least 4): as many blocks as one wave of two per SM
+    holds, none crossing a flush boundary. Otherwise one block walks all
+    of K."""
+    fp = flush_steps(flush_period, block_k, -(-K // block_k))
+    units, seg = -(-K // 32), fp * (block_k // 32)
+    direct = SplitPlan(1, 1, units, seg)
+    tiles = Bt * -(-N // exact_tile(M)[1])
+    if M > _DECODE_ROWS or tiles >= _SPLIT_TARGET:
+        return direct
+    nseg = -(-units // seg)
+    span = min(units, seg)
+    per = max(1, _SPLIT_TARGET // (tiles * nseg))
+    run = max(-(-span // per), _SPLIT_MIN_RUN)
+    per = -(-span // run)
+    if nseg * per == 1:
+        return direct
+    return SplitPlan(nseg * per, per, run, seg)
+
+
+def split_ranges(plan: SplitPlan, K: int) -> List[Tuple[int, int]]:
+    """``(k0, k1)`` of each split in launch order (empty where a ragged
+    last segment runs out)."""
+    if plan.splits == 1:
+        return [(0, K)]
+    out = []
+    for s in range(plan.splits):
+        seg, p = divmod(s, plan.per_segment)
+        k0 = min(K, 32 * (seg * plan.segment + p * plan.run))
+        k1 = min(K, 32 * (seg * plan.segment + p * plan.run + plan.run),
+                 32 * (seg + 1) * plan.segment)
+        out.append((k0, max(k0, k1)))
+    return out
 
 
 def stationary_block(schedule: str, M: int) -> int:
@@ -391,6 +465,8 @@ def mgs_matmul_stationary_plain(x_codes, w_codes, fmt: FPFormat = E4M3, *,
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8)
+# the split-K workspace, its length, the tile counters, their length
+_WS_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong] * 2
 
 
 def _kernel(stationary: bool):
@@ -398,10 +474,31 @@ def _kernel(stationary: bool):
     fn = (lib.mgs_matmul_exact_fused_stationary if stationary
           else lib.mgs_matmul_exact_fused)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES + [ctypes.c_int] * stationary + [
-            ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES + ([ctypes.c_int] if stationary
+                                   else _WS_ARGTYPES) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _split_workspace(dev, Bt: int, M: int, K: int, N: int, block_k: int,
+                     fp: int) -> list:
+    """The split-K workspace arguments of one B1 / B4 launch: null for one
+    split, else int32 workspace (segments x 5 classes x Bt x M x N) and
+    tile counters, zeroed once, kept per (device, stream) and grown as
+    needed; the kernel leaves both zero again."""
+    plan = split_plan(Bt, M, K, N, block_k, fp)
+    if plan.splits == 1:
+        return [None, 0, None, 0]
+    ws_len = plan.splits // plan.per_segment * _N_CLASSES * Bt * M * N
+    cnt_len = Bt * -(-N // exact_tile(M)[1])
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    ws, cnt = _SPLIT_WS.get(key, (None, None))
+    if ws is None or ws.numel() < ws_len:
+        ws = torch.zeros(ws_len, dtype=torch.int32, device=dev)
+    if cnt is None or cnt.numel() < cnt_len:
+        cnt = torch.zeros(cnt_len, dtype=torch.int32, device=dev)
+    _SPLIT_WS[key] = (ws, cnt)
+    return [ws.data_ptr(), ws.numel(), cnt.data_ptr(), cnt.numel()]
 
 
 def mgs_matmul_exact_fused(x_codes, w_codes, fmt: FPFormat = E4M3, *,
@@ -454,7 +551,7 @@ def mgs_matmul_exact_fused(x_codes, w_codes, fmt: FPFormat = E4M3, *,
         raise ValueError(f"the exact kernel takes E4M3/E3M4, got {fmt.name}")
     if block_k % 32:
         raise ValueError(f"block_k={block_k} must be a multiple of 32 on "
-                         "the card (the kernel stages 32-deep K sub-tiles)")
+                         "the card (the kernels step through K 32 deep)")
     squeeze = x_codes.dim() == 2 and w_codes.dim() == 2
     xc, wc = _as_3d(x_codes).contiguous(), _as_3d(w_codes).contiguous()
     if wc.shape[0] not in (1, xc.shape[0]):
@@ -484,7 +581,8 @@ def mgs_matmul_exact_fused(x_codes, w_codes, fmt: FPFormat = E4M3, *,
                 0 if bi is None else bi.stride(0),
                 0 if bi is None else bi.stride(2),
                 _KERNEL_FMTS[fmt.name], _ACT_CODES[activation], block_k, fp,
-                *([int(schedule == "weight")] if stationary else []),
+                *([int(schedule == "weight")] if stationary else
+                  _split_workspace(dev, Bt, M, K, N, block_k, fp)),
                 _cuda.stream_ptr(dev))
             _cuda.check(err, name)
             _cuda.LAUNCHES[name] += 1
@@ -542,7 +640,7 @@ def _exact_kernel():
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
+                       + _WS_ARGTYPES + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -576,7 +674,7 @@ def mgs_matmul_exact(x_limbs, w_limbs, fmt: FPFormat = E4M3, *,
         raise ValueError(f"the exact kernel takes E4M3/E3M4, got {fmt.name}")
     if block_k % 32:
         raise ValueError(f"block_k={block_k} must be a multiple of 32 on "
-                         "the card (the kernel stages 32-deep K sub-tiles)")
+                         "the card (the kernels step through K 32 deep)")
     squeeze = x_limbs.dim() == 3 and w_limbs.dim() == 3
     xl, wl = xl.contiguous(), wl.contiguous()
     if wl.shape[0] not in (1, xl.shape[0]):
@@ -594,6 +692,7 @@ def mgs_matmul_exact(x_limbs, w_limbs, fmt: FPFormat = E4M3, *,
                 _N_LIMBS * M * K,
                 _N_LIMBS * K * N if wl.shape[0] == Bt else 0,
                 _KERNEL_FMTS[fmt.name], block_k, fp,
+                *_split_workspace(xl.device, Bt, M, K, N, block_k, fp),
                 _cuda.stream_ptr(xl.device))
             _cuda.check(err, "mgs_matmul_exact")
             _cuda.LAUNCHES["mgs_matmul_exact"] += 1

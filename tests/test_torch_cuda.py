@@ -18,7 +18,7 @@ from repro_torch.kernels.mgs_matmul import (  # noqa: E402
     mgs_matmul_dmac_codes, mgs_matmul_dmac_codes_plain,
     mgs_matmul_dmac_plain, mgs_matmul_exact,
     mgs_matmul_exact_fused, mgs_matmul_exact_fused_plain,
-    mgs_matmul_exact_plain, mgs_matmul_stationary_plain)
+    mgs_matmul_exact_plain, mgs_matmul_stationary_plain, split_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -36,7 +36,7 @@ def _codes(shape, fmt, seed, dev):
     return encode_bits(round_to_format(x, fmt), fmt).to(dev)
 
 
-@pytest.mark.parametrize("M", [1, 4, 13, 70])
+@pytest.mark.parametrize("M", [1, 4, 13, 16, 70])
 @pytest.mark.parametrize("fmt", [E4M3, E3M4])
 def test_b1_kernel_equals_twin(dev, M, fmt):
     K, N = 300, 197
@@ -137,7 +137,7 @@ def test_b2_paged_and_verify_entries_equal_twin(dev):
     assert not ver[1].any()
 
 
-@pytest.mark.parametrize("M", [1, 4, 13, 70])
+@pytest.mark.parametrize("M", [1, 4, 13, 16, 70])
 @pytest.mark.parametrize("fmt", [E4M3, E3M4])
 def test_b4_kernel_equals_b1_and_twin(dev, M, fmt):
     K, N = 300, 197
@@ -155,6 +155,56 @@ def test_b4_kernel_equals_b1_and_twin(dev, M, fmt):
         assert torch.equal(out, b1) and torch.equal(out, twin), kw
         assert torch.equal(shared, mgs_matmul_exact_plain(xl, wl[0], fmt,
                                                           **kw))
+
+
+@pytest.mark.parametrize("flush_period", [None, 1])
+def test_b1_b4_split_k_at_serving_width(dev, flush_period):
+    """4 x 4096 @ 4096 x 11008, 16-byte aligned: the cp.async path with K
+    split across blocks (one segment, or 32 at flush_period=1)."""
+    M, K, N = 4, 4096, 11008
+    plan = split_plan(1, M, K, N, 128, flush_period)
+    assert plan.splits > 1
+    xc, wc = _codes((M, K), E4M3, 14, dev), _codes((K, N), E4M3, 15, dev)
+    xl = limb_decompose(decode_bits(xc, E4M3))
+    wl = limb_decompose(decode_bits(wc, E4M3))
+    s = torch.rand(N, device=dev) * 1e-2
+    n1, n4 = LAUNCHES["mgs_matmul_exact_fused"], LAUNCHES["mgs_matmul_exact"]
+    b1 = mgs_matmul_exact_fused(xc, wc, E4M3, scale=s,
+                                flush_period=flush_period)
+    b1_raw = mgs_matmul_exact_fused(xc, wc, E4M3, flush_period=flush_period)
+    b4 = mgs_matmul_exact(xl, wl, E4M3, flush_period=flush_period)
+    assert LAUNCHES["mgs_matmul_exact_fused"] == n1 + 2
+    assert LAUNCHES["mgs_matmul_exact"] == n4 + 1
+    twin = mgs_matmul_exact_fused_plain(xc, wc, E4M3, scale=s,
+                                        flush_period=flush_period)
+    torch.cuda.synchronize()
+    assert torch.equal(b1, twin)
+    assert torch.equal(b4, b1_raw)
+    assert torch.equal(b4, mgs_matmul_exact_plain(xl, wl, E4M3,
+                                                  flush_period=flush_period))
+    # the workspace came back zero: a second call gives the same bits
+    assert torch.equal(mgs_matmul_exact_fused(
+        xc, wc, E4M3, scale=s, flush_period=flush_period), b1)
+
+
+def test_split_plan_matches_the_launcher(dev):
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+    fn = _cuda.load("mgs_matmul").mgs_matmul_split_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = None
+    plan = (ctypes.c_int * 4)()
+    for Bt, M, K, N, bk, fp in [(1, 4, 4096, 11008, 128, 1),
+                                (1, 4, 11008, 4096, 128, 86),
+                                (1, 16, 4096, 4096, 128, 32),
+                                (1, 4, 4096, 102400, 128, 32),
+                                (2, 13, 300, 197, 64, 2),
+                                (128, 1, 128, 49, 128, 1),
+                                (1, 70, 300, 197, 128, 3),
+                                (3, 1, 4100, 70, 64, 1)]:
+        fn(Bt, M, K, N, bk, fp, plan)
+        assert tuple(plan) == tuple(split_plan(Bt, M, K, N, bk, fp))
 
 
 @pytest.mark.parametrize("M", [1, 4, 7, 13, 70])
