@@ -14,7 +14,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    flush_period=2``; then B3 (the stationary
    schedules of the same matmul) against B1 and its twin at the
    continuous path's shapes, in both schedules, logging each shape as
-   stationary or fallback;
+   stationary or fallback with the K splits of the kernel that runs it;
 3. B2 (flash-decode attention) against its twin at 128 slices, head dim
    128, chunk 128, ragged lengths up to 1024; then its paged and verify
    entries through a permuted block table with stale and trash blocks;
@@ -23,9 +23,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    under ``FP8_MGS_SERVE_KV`` in bf16 (``--layers`` of its 30 layers, all
    by default), counting each kernel's launches; then a reduced model
    served on the GPU and on the CPU (twins) must give the same tokens;
-5. time B1 and B2 (median of per-call CUDA-event times) beside the twin,
-   a PyTorch yardstick call and the bound, and profile a group decode
-   step;
+5. time B1 and B2 (median of per-call CUDA-event times; B2 also through
+   its paged decode and verify entries at the continuous path's width)
+   beside the twin, a PyTorch yardstick call and the bound, and profile a
+   group decode step;
 6. serve 8 ragged requests (prompts 16-160 tokens, 16 new tokens, four
    at t = 0, the rest through ``arrivals``) through
    ``ContinuousBatchingEngine.serve`` on the same weights under
@@ -90,6 +91,13 @@ def log(*a):
 def bound(nbytes: float, ops: float):
     t_mem, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def b1_bound(Bt, M, K, N):
+    """B1's and B3's bound: one byte per code in, a float32 out and a scale
+    per slice, or the 9 int8 limb products per multiply-add."""
+    return bound(Bt * M * K + Bt * K * N + Bt * M * N * 4 + Bt * 4,
+                 9 * 2 * Bt * M * N * K)
 
 
 # device cycles spun before a timed run (~10 ms at 1.98 GHz): longer than the
@@ -224,7 +232,8 @@ def route_of(schedule: str, M: int, K: int) -> str:
 def check_b3(torch, dev, gen):
     from repro_torch.core.formats import E4M3
     from repro_torch.kernels.mgs_matmul import (
-        mgs_matmul_exact_fused, mgs_matmul_stationary_plain)
+        mgs_matmul_exact_fused, mgs_matmul_stationary_plain, split_plan,
+        stationary_plan)
     worst = 0.0
     for name, Bt, M, K, N in B3_DECODE + B3_OTHER:
         x = fp8_codes(torch, (Bt, M, K), dev, gen)
@@ -234,8 +243,11 @@ def check_b3(torch, dev, gen):
         for schedule in ("activation", "weight"):
             route = route_of(schedule, M, K)
             stationary = route == schedule
+            plan = (stationary_plan(Bt, M, K, N, 128, None, schedule)
+                    if stationary else split_plan(Bt, M, K, N, 128, None))
             log(f"B3 {name:22s} {Bt}x({M}x{K} @ {K}x{N}) {schedule:10s} -> "
-                f"{'stationary (B3)' if stationary else 'fallback (B1)'}")
+                f"{'stationary (B3)' if stationary else 'fallback (B1)'}, "
+                f"splits {plan.splits}")
             if name.startswith("decode") and schedule == "activation" \
                     and not stationary:
                 raise AssertionError(f"B3 must run at decode shape {name}")
@@ -376,7 +388,8 @@ def check_b2_paged(torch, dev, gen):
     if ver[KV:2 * KV].abs().max().item() != 0.0 or not torch.isfinite(
             ver).all():
         raise AssertionError("B2 paged: the free slot is not exactly zero")
-    return err
+    return err, dict(q=q, kp=kp, vp=vp, bt=bt_nk, lengths=lengths, qk=qk,
+                     vs=vs, bias=bias)
 
 
 # ---------------------------------------------------------------------------
@@ -516,9 +529,7 @@ def time_b1(torch, dev, gen):
         ms = time_ms(torch, kern, 20)
         plain_ms = time_ms(torch, plain, 3, warmup=1)
         lib_ms = time_ms(torch, lib, 20)
-        nbytes = Bt * M * K + Bt * K * N + Bt * M * N * 4 + Bt * 4
-        ops = 9 * 2 * Bt * M * N * K
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = b1_bound(Bt, M, K, N)
         rows.append(dict(shape=name, Bt=Bt, M=M, K=K, N=N, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                          bound_by=b_by,
@@ -624,6 +635,52 @@ def time_b2(torch, a):
         f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def time_b2_paged(torch, p):
+    """B2 as its paged decode and verify entries launch it, at the
+    continuous path's width (``check_b2_paged``'s inputs: 4 slots x 32
+    heads, block 128, verify T = 4): the kernel call on the arguments the
+    entries pass it (query codes, per-row scale and bias rows, the block
+    table), beside the twin on the same arguments, SDPA over the gathered,
+    dequantized cache (the gather outside the timed call; not the same
+    function bit for bit) and the bound over the live blocks. The entries'
+    own host-side preparation is left out: with it, each call's host time
+    exceeds its device time and the queue drains."""
+    from repro_torch.core.formats import E4M3, decode_bits, encode_bits
+    from repro_torch.kernels import mgs_attention as ma
+    import torch.nn.functional as F
+    q, kp, vp, bt, lengths = (p[k] for k in ("q", "kp", "vp", "bt",
+                                             "lengths"))
+    N, T, _, D = q.shape
+    bs = kp.shape[1]
+    S = bt.shape[1] * bs
+    kg = decode_bits(kp[bt.long()].reshape(N, S, D), E4M3)[:, None]
+    vg = decode_bits(vp[bt.long()].reshape(N, S, D), E4M3)
+    rows = {}
+    for entry, t in (("paged", 1), ("verify", T)):
+        live = lengths[:, :t].amax(dim=1).to(torch.int32)
+        args = [encode_bits(q[:, :t, 0], E4M3), kp, vp, bt, live,
+                *(p[k][:, :t].contiguous() for k in ("qk", "vs", "bias"))]
+        ms = time_ms(torch, lambda: ma.mgs_flash_blocks(*args, E4M3), 50)
+        plain_ms = time_ms(torch, lambda: ma._flash_plain(*args, E4M3), 3,
+                           1)
+        qf = q[:, :t, 0][:, None]
+        v = (vg * p["vs"][:, 0, :, None])[:, None]
+        mask = p["bias"][:, :t][:, None]
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qf, kg, v, attn_mask=mask), 50)
+        keys = int(((live.to(torch.int64) + bs - 1) // bs * bs).sum())
+        nbytes = (N * t * D + 2 * keys * D + 3 * t * keys * 4
+                  + N * t * D * 4 + bt.numel() * 4 + N * 4)
+        ops = 2 * 9 * 2 * t * D * keys
+        b_ms, b_by = bound(nbytes, ops)
+        log(f"time B2 {entry:6s} {N} slices x ({t} x {D}), {keys} live keys "
+            f"(block {bs}): kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, SDPA "
+            f"f32 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        rows[entry] = dict(rows=t, live_keys=keys, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -771,7 +828,8 @@ def time_b3(torch, dev, gen):
     twin, torch.matmul over the decoded values and the bound."""
     from repro_torch.core.formats import E4M3, decode_bits
     from repro_torch.kernels.mgs_matmul import (
-        mgs_matmul_exact_fused, mgs_matmul_stationary_plain)
+        mgs_matmul_exact_fused, mgs_matmul_stationary_plain,
+        stationary_plan)
     rows = []
     for name, Bt, M, K, N in B3_DECODE:
         copies = max(1, min(8, -(-200_000_000 // (Bt * K * N))))
@@ -802,15 +860,16 @@ def time_b3(torch, dev, gen):
         b1_ms2 = time_ms(torch, b1, 20)
         plain_ms = time_ms(torch, plain, 3, warmup=1)
         lib_ms = time_ms(torch, lib, 20)
-        nbytes = Bt * M * K + Bt * K * N + Bt * M * N * 4 + Bt * 4
-        ops = 9 * 2 * Bt * M * N * K
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = b1_bound(Bt, M, K, N)
+        plan = stationary_plan(Bt, M, K, N, 128, None, "activation")
         rows.append(dict(shape=name, Bt=Bt, M=M, K=K, N=N,
                          ms=statistics.median([ms, ms2]),
                          b1_ms=statistics.median([b1_ms, b1_ms2]),
                          plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by))
-        log(f"time B3 {name:22s} {Bt}x({M}x{K} @ {K}x{N}): kernel "
+                         bound_ms=b_ms, bound_by=b_by, splits=plan.splits,
+                         tiles_per_block=plan.tiles_per_group))
+        log(f"time B3 {name:22s} {Bt}x({M}x{K} @ {K}x{N}), splits "
+            f"{plan.splits} x {plan.tiles_per_group} tiles a block: kernel "
             f"{ms:.4f}/{ms2:.4f} ms, B1 {b1_ms:.4f}/{b1_ms2:.4f} ms, twin "
             f"{plain_ms:.4f} ms, torch.matmul f32 {lib_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by})")
@@ -1102,7 +1161,9 @@ def time_b45(torch, dev, gen):
         lib = time_ms(torch, lambda: torch.matmul(x, ws[nxt()]), 20)
         b4_b, b4_by = b4_bound(Bt, M, K, N)
         b5_b, b5_by = dmac_bound(Bt, M, K, N)
-        rows.append(dict(shape=name, Bt=Bt, M=M, K=K, N=N, b4_ms=b4,
+        b1_b, b1_by = b1_bound(Bt, M, K, N)
+        rows.append(dict(shape=name, Bt=Bt, M=M, K=K, N=N, b1_bound_ms=b1_b,
+                         b1_bound_by=b1_by, b4_ms=b4,
                          b4_plain_ms=b4_plain, b4_bound_ms=b4_b,
                          b4_bound_by=b4_by,
                          b4_splits=split_plan(Bt, M, K, N, 128, None).splits,
@@ -1113,7 +1174,8 @@ def time_b45(torch, dev, gen):
         log(f"time {name:22s} {Bt}x({M}x{K} @ {K}x{N}): B4 {b4:.4f} ms "
             f"(twin {b4_plain:.4f}, bound {b4_b:.4f} {b4_by}); B5 {b5:.4f} "
             f"ms (float entry {b5_float:.4f}, twin {b5_plain:.4f}, bound "
-            f"{b5_b:.4f} {b5_by}); torch.matmul f32 {lib:.4f} ms")
+            f"{b5_b:.4f} {b5_by}); torch.matmul f32 {lib:.4f} ms; B1 bound "
+            f"{b1_b:.4f} {b1_by}")
         del x, ws, xl, wls, xc, wcs
     torch.cuda.empty_cache()
     return rows
@@ -1159,7 +1221,8 @@ def main() -> int:
         f"({time.time() - t0:.1f} s)")
     t0 = time.time()
     b2_err, b2_args = check_b2(torch, dev, gen)
-    b2_err = max(b2_err, check_b2_paged(torch, dev, gen))
+    b2p_err, b2p_args = check_b2_paged(torch, dev, gen)
+    b2_err = max(b2_err, b2p_err)
     log(f"phase 3: B2 dense, paged and verify entries == twin "
         f"({time.time() - t0:.1f} s)")
 
@@ -1171,6 +1234,7 @@ def main() -> int:
     t0 = time.time()
     b1_rows = time_b1(torch, dev, gen)
     b2_row = time_b2(torch, b2_args)
+    b2p_rows = time_b2_paged(torch, b2p_args)
     step = profile_decode_step(torch, eng)
     del eng
     log(f"phase 5: timed ({time.time() - t0:.1f} s)")
@@ -1244,7 +1308,8 @@ def main() -> int:
              source="src/repro_torch/csrc/mgs_attention.cu",
              replaces="src/repro/kernels/mgs_attention.py:246",
              launches=launches["mgs_flash_attention"], max_abs_err=b2_err,
-             **b2_row, launches_by_path=by_path["mgs_flash_attention"]),
+             **b2_row, **b2p_rows,
+             launches_by_path=by_path["mgs_flash_attention"]),
         dict(name="mgs_matmul_exact", route="cuda",
              source="src/repro_torch/csrc/mgs_matmul.cu",
              replaces="src/repro/kernels/mgs_matmul.py:162",

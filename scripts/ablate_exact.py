@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Where B1's and B4's time goes on one GPU: a phase ablation.
+"""Where B1's, B3's and B4's time goes on one GPU: a phase ablation.
 
     python3 scripts/ablate_exact.py
 
 Builds variants of ``src/repro_torch/csrc/mgs_matmul.cu`` in a temporary
-directory, each with one phase of ``exact_kernel`` taken out, and times B1
-(codes) and B4 (limb planes) through the C interface at decode and prefill
-shapes (``chip_smoke.time_ms``: median per-call device time, queue kept
+directory, each with one phase of ``exact_body`` taken out, and times B1
+(codes), B3 (activation-stationary, at the decode shapes) and B4 (limb
+planes) through the C interface at decode and prefill shapes (``chip_smoke.time_ms``: median per-call device time, queue kept
 full; two weight copies). The variants compute wrong values: only their
 times are read. Prints one JSON line ``{"card", "rows"}``.
 
@@ -29,10 +29,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CU = ROOT / "src" / "repro_torch" / "csrc" / "mgs_matmul.cu"
 
-CONVERT = ("    convert<LIMBS, T>(smem + (t % L::STAGES) * L::STAGE, fa, fb, "
-           "rep, tid);\n")
-MMA = "      mma_step<T>(acc, fa, fb, ks, ya, yb, lane);\n"
-LOAD = "load_stage<LIMBS, T>("
+CONVERT = ("      convert<LIMBS, T, CACHE>(smem + (u % L::STAGES) * L::STAGE, "
+           "fa, fb,\n                               rep, tid);\n")
+MMA = ("        mma_step<T, L::RES_B>(acc, src_a, pa, L::RES_A ? kr : ks, "
+       "src_b, pb,\n                              L::RES_B ? kr : ks, live, "
+       "ya, yb, lane);\n")
+LOAD = "load_stage<LIMBS, T, CACHE>("
 LUT = ("  for (int j = 0; j < 4; ++j) l[j] = rep[(code[j] << 5) | "
        "uint32_t(lane)];\n")
 NST = "  const int nst = k1 > k0 ? (k1 - k0 + kRK - 1) / kRK : 0;\n"
@@ -78,6 +80,10 @@ def build(tmp: Path) -> dict:
         lib.mgs_matmul_exact_fused.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8
+            + [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+        lib.mgs_matmul_exact_fused_stationary.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 9
             + [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_void_p])
         lib.mgs_matmul_exact.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
@@ -125,6 +131,13 @@ def main() -> int:
                         0, 0, 0, 128, 32, *tail)
                     assert err == 0, err
 
+                def b3():
+                    err = lib.mgs_matmul_exact_fused_stationary(
+                        x.data_ptr(), ws[next(it) % 2].data_ptr(), None,
+                        None, out.data_ptr(), 1, M, K, N, M * K, 0, 0, 0, 0,
+                        0, 0, 0, 128, 32, 0, *tail)
+                    assert err == 0, err
+
                 def b4():
                     err = lib.mgs_matmul_exact(
                         xl.data_ptr(), wl[next(it) % 2].data_ptr(),
@@ -133,10 +146,15 @@ def main() -> int:
                     assert err == 0, err
                 row = dict(shape=shape, M=M, K=K, N=N, variant=name,
                            b1_ms=cs.time_ms(torch, b1, 20),
+                           b3_ms=(cs.time_ms(torch, b3, 20) if M <= 16
+                                  else None),
                            b4_ms=cs.time_ms(torch, b4, 20))
                 rows.append(row)
+                b3_txt = "-" if row["b3_ms"] is None else \
+                    f"{row['b3_ms']:.4f}"
                 print(f"{shape:20s} {name:11s} B1 {row['b1_ms']:.4f} ms  "
-                      f"B4 {row['b4_ms']:.4f} ms", flush=True)
+                      f"B3 {b3_txt} ms  B4 {row['b4_ms']:.4f} ms",
+                      flush=True)
                 wsp.zero_()    # a variant may leave partials behind
                 cnt.zero_()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

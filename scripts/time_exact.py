@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time B1 and B4, the exact limb matmuls, of one source tree on one GPU.
+"""Time B1, B3 and B4, the exact limb matmuls, of one source tree on one GPU.
 
     python3 scripts/time_exact.py [--src DIR] [--label NAME]
 
 Times ``mgs_matmul_exact_fused`` (B1, packed codes) and ``mgs_matmul_exact``
-(B4, limb planes) at ``chip_smoke.py``'s B1 and B4 shapes: the median
+(B4, limb planes) at ``chip_smoke.py``'s B1 and B4 shapes, and B3
+(``mgs_matmul_exact_fused(schedule="activation")``) beside B1 at its decode
+shapes (``B3_DECODE``): the median
 per-call device time, weights cycled through copies larger than L2, the
 device queue kept full (``chip_smoke.time_ms``). Prints one JSON line
 ``{"label", "card", "rows"}``. ``--src`` is the ``src/`` of the tree to time
@@ -65,6 +67,22 @@ def main() -> int:
         rows.append(dict(shape=name, Bt=Bt, M=M, K=K, N=N, b1_ms=b1,
                          b4_ms=b4))
         del x, ws, xc, wcs, xl, wls
+        torch.cuda.empty_cache()
+    for name, Bt, M, K, N in cs.B3_DECODE:
+        copies = max(1, min(8, -(-200_000_000 // (Bt * K * N))))
+        xc = encode_bits(cs._margin_values(torch, (Bt, M, K), dev, gen), E4M3)
+        wcs = [encode_bits(cs._margin_values(torch, (Bt, K, N), dev, gen),
+                           E4M3) for _ in range(copies)]
+        it = iter(range(10**9))
+
+        def call(**kw):
+            return lambda: mgs_matmul_exact_fused(
+                xc, wcs[next(it) % copies], E4M3, **kw)
+        b1 = cs.time_ms(torch, call(), 20)
+        b3 = cs.time_ms(torch, call(schedule="activation"), 20)
+        rows.append(dict(shape=name, Bt=Bt, M=M, K=K, N=N, b1_ms=b1,
+                         b3_ms=b3))
+        del xc, wcs
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -25,7 +25,7 @@
 // 3.35 TB/s); at prefill (M >= 64) the 9 int8 limb products per
 // multiply-add at the tensor-core rate.
 //
-// B1 / B4 (exact_kernel) run the limb products on the int8 tensor cores:
+// B1, B3 and B4 run one body (exact_body) on the int8 tensor cores:
 // mma.sync m16n8k32 s8 x s8 -> s32, without .satfinite, so the sums wrap
 // like the twin's int32 classes. A block
 // * keeps a ring of 64-deep K stages in dynamic shared memory, filled by
@@ -34,11 +34,11 @@
 //   multiple of 16, a pointer off 16) are staged by plain loads at the same
 //   point of the loop: the same bytes land, so the same bits;
 // * converts each landed stage once into limb fragments in shared memory:
-//   B1 decodes every code through a 256-entry code->limbs table, replicated
-//   once per bank so that a warp's 32 lookups never conflict; B4 copies its
-//   limb bytes. The K-packed words of w are transposed out of its N-major
-//   rows with byte permutes. Fragments are stored in the order mma takes
-//   them, XOR-swizzled so that neither the converting writes nor the
+//   B1 and B3 decode every code through a 256-entry code->limbs table,
+//   replicated once per bank so that a warp's 32 lookups never conflict; B4
+//   copies its limb bytes. The K-packed words of w are transposed out of its
+//   N-major rows with byte permutes. Fragments are stored in the order mma
+//   takes them, XOR-swizzled so that neither the converting writes nor the
 //   fragment reads conflict;
 // * runs the 9 limb-pair mma of every 16 x 8 x 32 product and flushes the
 //   class sums at every flush boundary.
@@ -46,23 +46,28 @@
 // product) and x its B operand (8 rows), so 4 rows pad half of a B tile
 // rather than 3/4 of an A tile; a block covers 8 or 16 rows x 128 columns.
 // At prefill a block covers 64 x 64. Where the decode tiles fill fewer than
-// two blocks per SM, K is split across blocks (split_plan, mirrored by
-// kernels/mgs_matmul.py::split_plan): no split crosses a flush boundary,
+// two blocks per SM, B1 and B4 split K across blocks (split_plan, mirrored
+// by kernels/mgs_matmul.py::split_plan): no split crosses a flush boundary,
 // each split adds its int32 class partials into its segment's slice of a
 // workspace (atomicAdd), and the last split of an output tile to arrive (a
 // counter per tile) flushes the segments in ascending order, runs the
 // epilogue and returns workspace and counter to zero. One launch per call.
 //
-// B3 keeps one operand's whole padded-K limb stripe resident in dynamic
-// shared memory: a block decodes the stripe of its cached tile once
-// (activation-stationary: the tile's rows of x; weight-stationary: the
-// tile's columns of w), then sweeps a range of the other operand's tiles,
-// streaming them in 32-deep sub-tiles and running __dp4a against the
-// resident stripe. The grid is sized from the occupancy the stripe allows,
-// so the sweep fills the SMs; at decode under activation-stationary each
-// block decodes its 4-row x stripe once instead of once per output tile. A
-// stripe larger than the shared-memory budget is refused (the wrapper falls
-// back to B1 with a warning, or raises).
+// B3 is the same body with one operand cached: a block converts the cached
+// operand's limb fragments for its K range once, into a resident stripe of
+// dynamic shared memory in the order mma takes them (activation-stationary:
+// x's rows; weight-stationary: w's columns), then sweeps a contiguous run
+// of the other operand's tiles, streaming only that operand through the
+// ring; the ring runs on from one swept tile into the next. Where the
+// cached operand is mma's B side (x at decode, w at prefill), only its live
+// lines are stored and the fragments of the rest read as zero, so 4 decode
+// rows take 4 rows of shared memory, not 8. B3 always plans its K split
+// (stationary_plan, mirrored by kernels/mgs_matmul.py::stationary_plan):
+// each block's part of the stripe must fit beside its ring and the table
+// (in half an SM at decode, so that two blocks share one), and the blocks
+// must fill the SMs; the splits then reduce exactly as B1's. Which shapes
+// run B3 at all is the schedules' admission rule (kStripeBudget), not this
+// layout.
 #include "mgs_common.cuh"
 
 using namespace mgs;
@@ -86,11 +91,13 @@ struct Args {
   int s_bs = 0, s_ns = 0, b_bs = 0, b_ns = 0;
   int act = 0, block_k = 0, flush_period = 0;
   long long x_plane = 0, w_plane = 0;  // bytes between limb planes (B4)
-  // B1 / B4: the K split (see Plan), its workspace, and the staging path
+  // the K split (see Plan), its workspace, and the staging path
   int* ws = nullptr;
   int* cnt = nullptr;
   int splits = 1, per = 1, run = 0, seg = 0;
   bool async = false;
+  // B3: the resident stripe's lines and the swept tiles of a block
+  int lines = 0, pg = 1;
 };
 
 // ACTIVATIONS of the twin (kernels/mgs_matmul.py), op for op.
@@ -121,310 +128,7 @@ __device__ __forceinline__ void finish(const Args& g, int bz, int m, int n,
 }
 
 // ---------------------------------------------------------------------------
-// B3: K-resident stripe, __dp4a from shared memory
-// ---------------------------------------------------------------------------
-
-constexpr int kBKS = 32;          // K elements staged per sub-step
-constexpr int kKW = kBKS / 4;     // packed int8x4 words per sub-step
-constexpr int kMaxEdge = 64;      // widest tile edge of any configuration
-// Dynamic shared memory left for a B3 stripe: the card's opt-in limit per
-// block less the code->limbs table and the streamed operand's staged
-// sub-tile. Equals WS_STRIPE_BUDGET_BYTES in kernels/mgs_matmul.py.
-constexpr long long kStripeBudget =
-    kSmemOptIn - 256 * 4 - 3 * kKW * kMaxEdge * 4;
-
-// 4 consecutive codes of row `row` from column `col` (zero past the edges:
-// code 0 is +0.0, exactly the reference's padding).
-__device__ __forceinline__ uint32_t load4(const uint8_t* base, int row,
-                                          int col, int rows, int cols,
-                                          bool vec) {
-  if (row >= rows) return 0u;
-  const uint8_t* p = base + (long long)row * cols + col;
-  if (vec && col + 3 < cols)
-    return __ldg(reinterpret_cast<const unsigned int*>(p));
-  uint32_t v = 0u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (col + j < cols) v |= uint32_t(__ldg(p + j)) << (8 * j);
-  return v;
-}
-
-// Rows r0 .. r0+nrows of a row-major (rows, cols) code matrix, columns
-// k0 .. k0+4*nkw, decoded through `lut` into K-packed limb words:
-// dst[(a * nkw + kw) * nrows + r] holds limb a of elements
-// [r0 + r][k0 + 4kw .. k0 + 4kw + 3].
-__device__ __forceinline__ void stage_rows(int* dst, int nkw, int nrows,
-                                           const uint8_t* base, int r0,
-                                           int k0, int rows, int cols,
-                                           bool vec, const uint32_t* lut,
-                                           int tid, int nt) {
-  for (int i = tid; i < nrows * nkw; i += nt) {
-    const int m = i / nkw, kw = i % nkw;
-    const uint32_t c = load4(base, r0 + m, k0 + 4 * kw, rows, cols, vec);
-    const uint32_t l0 = lut[c & 255u], l1 = lut[(c >> 8) & 255u];
-    const uint32_t l2 = lut[(c >> 16) & 255u], l3 = lut[c >> 24];
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      dst[(a * nkw + kw) * nrows + m] = limb_word(l0, l1, l2, l3, a);
-  }
-}
-
-// Columns c0 .. c0+ncols of a row-major (rows, cols) code matrix, rows
-// k0 .. k0+4*nkw, read as 4x4 blocks of codes and transposed so each stored
-// word runs along K: dst[(a * nkw + kw) * ncols + n] holds limb a of
-// elements [k0 + 4kw .. k0 + 4kw + 3][c0 + n].
-__device__ __forceinline__ void stage_cols(int* dst, int nkw, int ncols,
-                                           const uint8_t* base, int k0,
-                                           int c0, int rows, int cols,
-                                           bool vec, const uint32_t* lut,
-                                           int tid, int nt) {
-  const int ng4 = ncols / 4;
-  for (int i = tid; i < nkw * ng4; i += nt) {
-    const int kw = i / ng4, ng = i % ng4;
-    uint32_t r[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      r[j] = load4(base, k0 + 4 * kw + j, c0 + 4 * ng, rows, cols, vec);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int sh = 8 * cc;
-      const uint32_t l0 = lut[(r[0] >> sh) & 255u];
-      const uint32_t l1 = lut[(r[1] >> sh) & 255u];
-      const uint32_t l2 = lut[(r[2] >> sh) & 255u];
-      const uint32_t l3 = lut[(r[3] >> sh) & 255u];
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-        dst[(a * nkw + kw) * ncols + 4 * ng + cc] =
-            limb_word(l0, l1, l2, l3, a);
-    }
-  }
-}
-
-// One 32-deep sub-step of limb dots. xs / ws point at the sub-step's first
-// word; limb plane a of x starts x_plane words later (w_plane for w).
-template <int TM, int TN, int THM, int THN>
-__device__ __forceinline__ void dot_sub(int (&acc)[kClasses][TM][TN],
-                                        const int* xs, int x_plane,
-                                        const int* ws, int w_plane, int ty,
-                                        int tx) {
-  constexpr int BM = TM * THM, BN = TN * THN;
-#pragma unroll
-  for (int kw = 0; kw < kKW; ++kw) {
-    int xa[3][TM], wv[3][TN];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        xa[a][i] = xs[a * x_plane + kw * BM + ty + i * THM];
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        wv[a][j] = ws[a * w_plane + kw * BN + tx + j * THN];
-    }
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int b = 0; b < 3; ++b)
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-            acc[a + b][i][j] = __dp4a(xa[a][i], wv[b][j], acc[a + b][i][j]);
-  }
-}
-
-template <int TM, int TN>
-__device__ __forceinline__ void zero_tile(int (&acc)[kClasses][TM][TN],
-                                          float (&accf)[TM][TN]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      accf[i][j] = 0.f;
-#pragma unroll
-      for (int c = 0; c < kClasses; ++c) acc[c][i][j] = 0;
-    }
-}
-
-template <int TM, int TN>
-__device__ __forceinline__ void flush_tile(int (&acc)[kClasses][TM][TN],
-                                           float (&accf)[TM][TN]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      int cl[kClasses];
-#pragma unroll
-      for (int c = 0; c < kClasses; ++c) {
-        cl[c] = acc[c][i][j];
-        acc[c][i][j] = 0;
-      }
-      accf[i][j] = flush_classes(accf[i][j], cl);
-    }
-}
-
-// The epilogue of one output tile.
-template <int EB, int MB, int TM, int TN, int THM, int THN>
-__device__ __forceinline__ void store_tile(const Args& g,
-                                           const float (&accf)[TM][TN],
-                                           int bz, int m0, int n0, int ty,
-                                           int tx) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + i * THM;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * THN;
-      if (n < g.N) finish<EB, MB>(g, bz, m, n, accf[i][j]);
-    }
-  }
-}
-
-// B3: grid (sweep groups, cached tiles, slices). CACHE_W selects the cached
-// operand: w's column tile (weight-stationary, sweeping M tiles) or x's row
-// tile (activation-stationary, sweeping N tiles). The stripe holds the
-// cached tile's whole padded K as limb words, [3][Kp / 4][tile edge].
-template <int EB, int MB, int TM, int TN, int THM, int THN, bool CACHE_W>
-__global__ void __launch_bounds__(THM * THN)
-exact_fused_stationary_kernel(Args g, int per) {
-  constexpr int BM = TM * THM, BN = TN * THN, NT = THM * THN;
-  constexpr int BS = CACHE_W ? BM : BN;   // the streamed operand's edge
-  __shared__ uint32_t lut[256];
-  __shared__ int stage[3 * kKW * BS];
-  extern __shared__ int stripe[];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % THN, ty = tid / THN;
-  const int bz = blockIdx.z;
-  const uint8_t* xb = g.x + bz * g.x_bs;
-  const uint8_t* wb = g.w + bz * g.w_bs;
-  const bool xvec =
-      ((reinterpret_cast<uintptr_t>(xb) | uintptr_t(g.K)) & 3) == 0;
-  const bool wvec =
-      ((reinterpret_cast<uintptr_t>(wb) | uintptr_t(g.N)) & 3) == 0;
-  const int nsteps = (g.K + g.block_k - 1) / g.block_k;
-  const int subs = g.block_k / kBKS;
-  const int kwp = nsteps * g.block_k / 4;   // stripe words along K
-  const int c0 = blockIdx.y * (CACHE_W ? BN : BM);
-  const int nsweep = CACHE_W ? (g.M + BM - 1) / BM : (g.N + BN - 1) / BN;
-  const int t0 = blockIdx.x * per;
-  const int t1 = min(nsweep, t0 + per);
-  fill_lut<EB, MB>(lut, tid, NT);
-  __syncthreads();
-
-  // decode the cached tile's stripe once (zero past M, N and K)
-  if (CACHE_W)
-    stage_cols(stripe, kwp, BN, wb, 0, c0, g.K, g.N, wvec, lut, tid, NT);
-  else
-    stage_rows(stripe, kwp, BM, xb, c0, 0, g.M, g.K, xvec, lut, tid, NT);
-
-  int acc[kClasses][TM][TN];
-  float accf[TM][TN];
-  for (int t = t0; t < t1; ++t) {
-    const int m0 = CACHE_W ? t * BM : c0;
-    const int n0 = CACHE_W ? c0 : t * BN;
-    zero_tile(acc, accf);
-    for (int s = 0; s < nsteps; ++s) {
-      for (int u = 0; u < subs; ++u) {
-        const int k0 = s * g.block_k + u * kBKS;
-        if (CACHE_W)
-          stage_rows(stage, kKW, BM, xb, m0, k0, g.M, g.K, xvec, lut, tid,
-                     NT);
-        else
-          stage_cols(stage, kKW, BN, wb, k0, n0, g.K, g.N, wvec, lut, tid,
-                     NT);
-        __syncthreads();   // also publishes the stripe on the first pass
-        if (CACHE_W)
-          dot_sub<TM, TN, THM, THN>(acc, stage, kKW * BM,
-                                    stripe + (k0 / 4) * BN, kwp * BN, ty, tx);
-        else
-          dot_sub<TM, TN, THM, THN>(acc, stripe + (k0 / 4) * BM, kwp * BM,
-                                    stage, kKW * BN, ty, tx);
-        __syncthreads();
-      }
-      if ((s + 1) % g.flush_period == 0 || s == nsteps - 1)
-        flush_tile(acc, accf);
-    }
-    store_tile<EB, MB, TM, TN, THM, THN>(g, accf, bz, m0, n0, ty, tx);
-  }
-}
-
-// Blocks per SM of a kernel at one dynamic shared-memory size, remembered for
-// the last few sizes a launcher asked about.
-struct OccCache {
-  long long smem[4];
-  int per[4];
-  int next;
-};
-
-template <class F>
-cudaError_t occupancy(F kern, int nt, long long smem, OccCache& c, int& per) {
-  for (int i = 0; i < 4; ++i)
-    if (c.smem[i] == smem) {
-      per = c.per[i];
-      return cudaSuccess;
-    }
-  const cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, nt,
-                                                    size_t(smem));
-  if (err != cudaSuccess) return err;
-  c.smem[c.next] = smem;
-  c.per[c.next] = per;
-  c.next = (c.next + 1) % 4;
-  return cudaSuccess;
-}
-
-template <int EB, int MB, int TM, int TN, int THM, int THN>
-int launch_stationary(const Args& g, int Bt, bool cw, cudaStream_t stream) {
-  constexpr int BM = TM * THM, BN = TN * THN, NT = THM * THN;
-  auto kern = cw ? exact_fused_stationary_kernel<EB, MB, TM, TN, THM, THN, true>
-                 : exact_fused_stationary_kernel<EB, MB, TM, TN, THM, THN, false>;
-  const long long kp = (long long)((g.K + g.block_k - 1) / g.block_k) * g.block_k;
-  const long long smem = 3 * kp * (cw ? BN : BM);
-  if (smem > kStripeBudget) return int(cudaErrorInvalidValue);
-  // once per kernel and device: the shared-memory opt-in and the SM count;
-  // the occupancy once per stripe size (while it stays among the last few)
-  static bool attr_set[2][kMaxDevices] = {};
-  static int sm_count[kMaxDevices] = {};
-  static OccCache occ[2][kMaxDevices] = {};
-  int dev = 0, per_sm = 0;
-  cudaError_t err = current_device(dev);
-  if (err == cudaSuccess)
-    err = smem_opt_in_once(kern, int(kStripeBudget), attr_set[cw], dev);
-  if (err == cudaSuccess && sm_count[dev] == 0)
-    err = cudaDeviceGetAttribute(&sm_count[dev],
-                                 cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = occupancy(kern, NT, smem, occ[cw][dev], per_sm);
-  if (err != cudaSuccess) return int(err);
-  const long long cached = cw ? (g.N + BN - 1) / BN : (g.M + BM - 1) / BM;
-  const long long nsweep = cw ? (g.M + BM - 1) / BM : (g.N + BN - 1) / BN;
-  if (cached > 65535 || Bt > 65535) return int(cudaErrorInvalidConfiguration);
-  // as many sweep groups as keep every SM at its occupancy, each group a
-  // contiguous range of `per` tiles
-  const long long slots = (long long)(per_sm > 0 ? per_sm : 1) * sm_count[dev];
-  long long groups = slots / (cached * Bt);
-  groups = groups < 1 ? 1 : (groups > nsweep ? nsweep : groups);
-  const long long per = (nsweep + groups - 1) / groups;
-  groups = (nsweep + per - 1) / per;
-  const dim3 grid{static_cast<unsigned>(groups), static_cast<unsigned>(cached),
-                  static_cast<unsigned>(Bt)};
-  kern<<<grid, NT, size_t(smem), stream>>>(g, int(per));
-  return int(cudaGetLastError());
-}
-
-// B3's tile for M rows (tile_shape() in kernels/mgs_matmul.py).
-template <int EB, int MB>
-int launch_stationary_fmt(const Args& g, int Bt, bool cw,
-                          cudaStream_t stream) {
-  if (g.M <= 4)        // decode: 4 rows, one output column per thread
-    return launch_stationary<EB, MB, 4, 1, 1, 64>(g, Bt, cw, stream);
-  if (g.M <= 16)
-    return launch_stationary<EB, MB, 4, 2, 4, 32>(g, Bt, cw, stream);
-  return launch_stationary<EB, MB, 4, 4, 16, 16>(g, Bt, cw, stream);
-}
-
-// ---------------------------------------------------------------------------
-// B1 / B4: int8 tensor cores, a cp.async ring, exact split-K
+// B1, B3 and B4: int8 tensor cores, a cp.async ring, exact split-K
 // ---------------------------------------------------------------------------
 
 constexpr int kRK = 64;            // K elements per ring stage
@@ -432,10 +136,26 @@ constexpr int kRW = kRK / 4;       // K-packed words per line and stage
 constexpr int kPad = 16;           // bytes past each staged row (banks)
 constexpr int kDecodeRows = 16;    // M up to which decode tiles and split-K
 constexpr int kDecodeCols = 128;   // output columns of a decode tile
-constexpr int kSplitTarget = 2 * 132;  // blocks in one wave: 2 per H100 SM
+constexpr int kSMs = 132;          // SMs of an H100
+constexpr int kSplitTarget = 2 * kSMs;  // blocks in one wave: 2 per SM
 constexpr int kMinRun = 4;         // least 32-element K units a split takes
+// Dynamic shared memory a B3 block may take: the opt-in less room for the
+// kernel's static shared memory (which the opt-in counts too), and the same
+// for each of two blocks on one SM (the SM's 228 KB less 1 KB reserved per
+// block, halved).
+constexpr int kStaticReserve = 256;
+constexpr int kStatBytes = kSmemOptIn - kStaticReserve;
+constexpr int kPairBytes = (233472 - 2 * 1024) / 2 - kStaticReserve;
+// The stationary schedules' admission rule (kernels/mgs_matmul.py
+// WS_STRIPE_BUDGET_BYTES, check_stripe): a 3 x Kp x edge limb stripe over
+// tile_shape()'s edge (4, 16 or 64) larger than this is refused, and the
+// dispatch falls back to B1 first. The rule of B3's first, __dp4a layout
+// (the opt-in less a table and a 32-deep staged tile), kept so that every
+// shape runs the schedule it ran before; the kernel's own layout is
+// stationary_plan's.
+constexpr long long kStripeBudget = kSmemOptIn - 256 * 4 - 3 * 32 * 64;
 
-// A block tile of exact_kernel. Its warps form a WA x WB grid, each holding
+// A block tile of exact_body. Its warps form a WA x WB grid, each holding
 // TA mma A tiles (16 lines) by TB B tiles (8 lines). SWAP: A is w^T (its
 // lines are output columns) and B is x (rows); else A is x and B is w^T.
 template <bool SWAP_, int WA_, int WB_, int TA_, int TB_>
@@ -453,24 +173,34 @@ static_assert(Decode8::BN == kDecodeCols && Decode16::BN == kDecodeCols &&
                   Decode16::BM == kDecodeRows,
               "split_plan counts decode tiles of kDecodeCols columns");
 
-// exact_kernel's dynamic shared memory (bytes): the ring (per stage, each
+// exact_body's dynamic shared memory (bytes): the ring (per stage, each
 // staged plane's x rows then its w rows, every row kPad bytes longer than
 // its data), one stage of A and B limb fragments (3 planes of kRW words per
-// line), and B1's code->limbs table (256 words, then 32 replicas of it laid
-// out [code][lane]). STAGES: the deepest ring that leaves room for two
-// blocks on an SM (B4's 16-row decode tile still fits only one); MINB: the
-// blocks an SM must hold (registers capped to fit), 1 for B1's prefill
-// tile, which would spill under the cap.
-template <bool LIMBS, class T>
+// line), B1's / B3's code->limbs table (256 words, then 32 replicas of it
+// laid out [code][lane]), and B3's resident stripe after it (sized by
+// stationary_plan). CACHE: the operand B3 keeps resident, 0 none (B1, B4),
+// 1 x (activation-stationary), 2 w (weight-stationary); it is not staged,
+// and has no stage fragments. STAGES: the deepest ring that leaves room for
+// two blocks on an SM (B4's 16-row decode tile still fits only one; B3's 4
+// leave room for its stripe); MINB: the blocks an SM must hold (registers
+// capped to fit), 1 for the prefill tile of B1 and B3, which would spill
+// under the cap.
+template <bool LIMBS, class T, int CACHE = 0>
 struct Layout {
   static constexpr int P = LIMBS ? 3 : 1;
-  static constexpr int STAGES = LIMBS ? (T::SWAP ? 3 : 2) : (T::SWAP ? 5 : 4);
+  // the cached operand is mma's A side (w at decode, x at prefill) or B side
+  static constexpr bool RES_A = CACHE == (T::SWAP ? 2 : 1);
+  static constexpr bool RES_B = CACHE == (T::SWAP ? 1 : 2);
+  static constexpr int STAGES =
+      CACHE ? 4 : LIMBS ? (T::SWAP ? 3 : 2) : (T::SWAP ? 5 : 4);
   static constexpr int MINB = LIMBS || T::SWAP ? 2 : 1;
   static constexpr int XS = kRK + kPad, WS = T::BN + kPad;
-  static constexpr int XP = T::BM * XS, WP = kRK * WS;
+  static constexpr int XP = CACHE == 1 ? 0 : T::BM * XS;
+  static constexpr int WP = CACHE == 2 ? 0 : kRK * WS;
   static constexpr int STAGE = P * (XP + WP);
-  static constexpr int FA = 3 * kRW * T::LA, FB = 3 * kRW * T::LB;  // words
-  static constexpr int LUT = LIMBS ? 0 : 256 * 33;                  // words
+  static constexpr int FA = RES_A ? 0 : 3 * kRW * T::LA;   // words
+  static constexpr int FB = RES_B ? 0 : 3 * kRW * T::LB;
+  static constexpr int LUT = LIMBS ? 0 : 256 * 33;
   static constexpr int BYTES = STAGES * STAGE + 4 * (FA + FB + LUT);
 };
 
@@ -498,6 +228,75 @@ Plan split_plan(int Bt, int M, int K, int N, int block_k, int fp) {
   per = (span + run - 1) / run;
   if (nseg * per == 1) return direct;
   return {int(nseg * per), int(per), int(run), seg};
+}
+
+// B3's plan (kernels/mgs_matmul.py::stationary_plan, line for line): the K
+// split, the sweep groups, the stripe's lines and a block's shared memory.
+struct StatPlan {
+  Plan k;      // the K split, as split_plan's
+  int groups;  // blocks along the swept operand's tiles
+  int pg;      // swept tiles a block takes
+  int lines;   // lines of the resident stripe (x rows or w columns)
+  int bytes;   // dynamic shared memory of a block
+};
+
+// B3's layout at tile T: the bytes of ring, fragments and table, the
+// resident lines (the A side whole, the B side only its live lines), the
+// blocks an SM must hold, and the tile.
+struct StatLayout {
+  int fixed, lines, minb, bm, bn;
+};
+
+template <class T, int CACHE>
+StatLayout stat_layout(int M, int N) {
+  using L = Layout<false, T, CACHE>;
+  const int live = CACHE == 1 ? M : N;
+  return {L::BYTES, L::RES_A ? T::LA : live < T::LB ? live : T::LB, L::MINB,
+          T::BM, T::BN};
+}
+
+StatPlan stationary_plan(int Bt, int M, int K, int N, int block_k, int fp,
+                         bool cw) {
+  const StatLayout s =
+      M <= 8 ? (cw ? stat_layout<Decode8, 2>(M, N)
+                   : stat_layout<Decode8, 1>(M, N))
+      : M <= kDecodeRows ? (cw ? stat_layout<Decode16, 2>(M, N)
+                               : stat_layout<Decode16, 1>(M, N))
+                         : (cw ? stat_layout<Prefill, 2>(M, N)
+                               : stat_layout<Prefill, 1>(M, N));
+  const int fixed = s.fixed, lines = s.lines, minb = s.minb, bm = s.bm,
+            bn = s.bn;
+  const long long mt = (M + bm - 1) / bm, nt = (N + bn - 1) / bn;
+  const long long cached = cw ? nt : mt, sweep = cw ? mt : nt;
+  const long long budget = minb == 2 ? kPairBytes : kStatBytes;
+  const long long target = (long long)minb * kSMs;
+  const int units = (K + 31) / 32, seg = fp * (block_k / 32);
+  // the units of K a block's part of the stripe may span
+  long long cap = (budget - fixed) / (96LL * lines);
+  if (cap < 1) cap = 1;
+  const long long nseg = (units + seg - 1) / seg;
+  const long long span = units < seg ? units : seg;
+  // enough splits that the stripe fits, and more while the blocks do not
+  // fill the SMs
+  long long per = (span + cap - 1) / cap;
+  const long long fill = target / ((long long)Bt * cached * sweep * nseg);
+  if (per < fill) per = fill;
+  long long run = (span + per - 1) / per;
+  const long long least = cap < kMinRun ? cap : kMinRun;
+  if (run < least) run = least;
+  per = (span + run - 1) / run;
+  StatPlan p;
+  p.k = nseg * per == 1 ? Plan{1, 1, units, seg}
+                        : Plan{int(nseg * per), int(per), int(run), seg};
+  const long long items = (long long)Bt * cached * p.k.splits;
+  long long groups = (target + items - 1) / items;
+  if (groups > sweep) groups = sweep;
+  const long long pg = (sweep + groups - 1) / groups;
+  p.pg = int(pg);
+  p.groups = int((sweep + pg - 1) / pg);
+  p.lines = lines;
+  p.bytes = int(fixed + 96LL * p.k.run * lines);
+  return p;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -565,7 +364,7 @@ __device__ __forceinline__ int swz_a(int tile, int reg) {
 __device__ __forceinline__ int swz_b(int tile) { return (tile << 1) & 15; }
 
 // Word offset, in one limb plane of A (LA lines), of line l's K-packed word
-// kw (0 .. kRW - 1).
+// kw (0 .. kRW - 1 of a stage; B3's resident A side: any kw of its range).
 template <int LA>
 __device__ __forceinline__ int frag_a(int l, int kw) {
   const int tile = l >> 4, q = kw & 7;
@@ -579,6 +378,16 @@ __device__ __forceinline__ int frag_b(int l, int kw) {
   const int tile = l >> 3, q = kw & 7;
   return (((kw >> 3) * (LB / 8) + tile) * 2 + (q >> 2)) * 32 +
          (((l & 7) * 4 + (q & 3)) ^ swz_b(tile));
+}
+
+// B3's resident B side holds only its `live` lines: per mma step and limb
+// plane, tile t's 2 registers of the lanes of its min(8, live - 8t) lines,
+// unswizzled (written once, read by lanes in order).
+__device__ __forceinline__ int frag_b_live(int l, int kw, int live) {
+  const int tile = l >> 3, q = kw & 7;
+  const int lt = min(8, live - 8 * tile);
+  return (kw >> 3) * 8 * live + tile * 64 + (q >> 2) * 4 * lt +
+         (l & 7) * 4 + (q & 3);
 }
 
 // 4 bytes of a row from column col, zero at and past lim (the plain-load
@@ -596,60 +405,65 @@ __device__ __forceinline__ uint32_t load_word(const uint8_t* row, int col,
 }
 
 // Stage K elements [k, k + kRK) of the block's x rows and w columns (zero
-// past M, N and k1) into ring slot st.
-template <bool LIMBS, class T>
+// past M, N and k1) into ring slot st; B3 stages only the streamed operand.
+template <bool LIMBS, class T, int CACHE>
 __device__ __forceinline__ void load_stage(uint8_t* st, const Args& g,
                                            const uint8_t* xb,
                                            const uint8_t* wb, int m0, int n0,
                                            int k, int k1, int tid) {
-  using L = Layout<LIMBS, T>;
+  using L = Layout<LIMBS, T, CACHE>;
   uint8_t* sw = st + L::P * L::XP;
   if (g.async) {
     constexpr int XC = kRK / 16, WC = T::BN / 16;   // 16-byte chunks a row
-    for (int i = tid; i < L::P * T::BM * XC; i += T::NT) {
-      const int c = i % XC, m = (i / XC) % T::BM, a = i / (XC * T::BM);
-      const int kk = k + 16 * c;
-      const int n = m0 + m < g.M ? min(max(k1 - kk, 0), 16) : 0;
-      const uint8_t* src =
-          n ? xb + a * g.x_plane + (long long)(m0 + m) * g.K + kk : xb;
-      cp_async16(st + a * L::XP + m * L::XS + 16 * c, src, n);
-    }
-    for (int i = tid; i < L::P * kRK * WC; i += T::NT) {
-      const int c = i % WC, r = (i / WC) % kRK, a = i / (WC * kRK);
-      const int nn = n0 + 16 * c;
-      const int n = k + r < k1 ? min(max(g.N - nn, 0), 16) : 0;
-      const uint8_t* src =
-          n ? wb + a * g.w_plane + (long long)(k + r) * g.N + nn : wb;
-      cp_async16(sw + a * L::WP + r * L::WS + 16 * c, src, n);
-    }
+    if constexpr (CACHE != 1)
+      for (int i = tid; i < L::P * T::BM * XC; i += T::NT) {
+        const int c = i % XC, m = (i / XC) % T::BM, a = i / (XC * T::BM);
+        const int kk = k + 16 * c;
+        const int n = m0 + m < g.M ? min(max(k1 - kk, 0), 16) : 0;
+        const uint8_t* src =
+            n ? xb + a * g.x_plane + (long long)(m0 + m) * g.K + kk : xb;
+        cp_async16(st + a * L::XP + m * L::XS + 16 * c, src, n);
+      }
+    if constexpr (CACHE != 2)
+      for (int i = tid; i < L::P * kRK * WC; i += T::NT) {
+        const int c = i % WC, r = (i / WC) % kRK, a = i / (WC * kRK);
+        const int nn = n0 + 16 * c;
+        const int n = k + r < k1 ? min(max(g.N - nn, 0), 16) : 0;
+        const uint8_t* src =
+            n ? wb + a * g.w_plane + (long long)(k + r) * g.N + nn : wb;
+        cp_async16(sw + a * L::WP + r * L::WS + 16 * c, src, n);
+      }
     return;
   }
   constexpr int XW = kRK / 4, WW = T::BN / 4;       // words a row
-  for (int i = tid; i < L::P * T::BM * XW; i += T::NT) {
-    const int j = i % XW, m = (i / XW) % T::BM, a = i / (XW * T::BM);
-    const uint32_t v =
-        m0 + m < g.M
-            ? load_word(xb + a * g.x_plane + (long long)(m0 + m) * g.K,
-                        k + 4 * j, k1)
-            : 0u;
-    *reinterpret_cast<uint32_t*>(st + a * L::XP + m * L::XS + 4 * j) = v;
-  }
-  for (int i = tid; i < L::P * kRK * WW; i += T::NT) {
-    const int j = i % WW, r = (i / WW) % kRK, a = i / (WW * kRK);
-    const uint32_t v =
-        k + r < k1 ? load_word(wb + a * g.w_plane + (long long)(k + r) * g.N,
-                               n0 + 4 * j, g.N)
-                   : 0u;
-    *reinterpret_cast<uint32_t*>(sw + a * L::WP + r * L::WS + 4 * j) = v;
-  }
+  if constexpr (CACHE != 1)
+    for (int i = tid; i < L::P * T::BM * XW; i += T::NT) {
+      const int j = i % XW, m = (i / XW) % T::BM, a = i / (XW * T::BM);
+      const uint32_t v =
+          m0 + m < g.M
+              ? load_word(xb + a * g.x_plane + (long long)(m0 + m) * g.K,
+                          k + 4 * j, k1)
+              : 0u;
+      *reinterpret_cast<uint32_t*>(st + a * L::XP + m * L::XS + 4 * j) = v;
+    }
+  if constexpr (CACHE != 2)
+    for (int i = tid; i < L::P * kRK * WW; i += T::NT) {
+      const int j = i % WW, r = (i / WW) % kRK, a = i / (WW * kRK);
+      const uint32_t v =
+          k + r < k1 ? load_word(wb + a * g.w_plane + (long long)(k + r) * g.N,
+                                 n0 + 4 * j, g.N)
+                     : 0u;
+      *reinterpret_cast<uint32_t*>(sw + a * L::WP + r * L::WS + 4 * j) = v;
+    }
 }
 
-// Convert ring slot st into the limb fragments fa (A) and fb (B).
-template <bool LIMBS, class T>
+// Convert ring slot st into the limb fragments fa (A) and fb (B); B3
+// converts only the streamed operand.
+template <bool LIMBS, class T, int CACHE>
 __device__ __forceinline__ void convert(const uint8_t* st, uint32_t* fa,
                                         uint32_t* fb, const uint32_t* rep,
                                         int tid) {
-  using L = Layout<LIMBS, T>;
+  using L = Layout<LIMBS, T, CACHE>;
   const int lane = tid & 31;
   uint32_t* fx = T::SWAP ? fb : fa;
   uint32_t* fw = T::SWAP ? fa : fb;
@@ -657,86 +471,160 @@ __device__ __forceinline__ void convert(const uint8_t* st, uint32_t* fa,
   // x rows: a warp takes 8 lines x 4 words, which meets 32 banks in the
   // staged rows and writes 32 consecutive fragment words
   constexpr int XI = T::BM * kRW, WI = T::BN / 4 * kRW;   // items
+  if constexpr (CACHE != 1) {
 #pragma unroll
-  for (int u = 0; u < (XI + T::NT - 1) / T::NT; ++u) {
-    const int i = tid + u * T::NT;
-    if (XI % T::NT != 0 && i >= XI) break;
-    const int r = i >> 5;
-    const int kw = ((r & 3) << 2) | (i & 3), l = ((r >> 2) << 3) | ((i >> 2) & 7);
-    const uint8_t* src = st + l * L::XS + 4 * kw;
-    uint32_t o[4];
-    if constexpr (LIMBS) {
+    for (int u = 0; u < (XI + T::NT - 1) / T::NT; ++u) {
+      const int i = tid + u * T::NT;
+      if (XI % T::NT != 0 && i >= XI) break;
+      const int r = i >> 5;
+      const int kw = ((r & 3) << 2) | (i & 3),
+                l = ((r >> 2) << 3) | ((i >> 2) & 7);
+      const uint8_t* src = st + l * L::XS + 4 * kw;
+      uint32_t o[4];
+      if constexpr (LIMBS) {
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
-        o[a] = *reinterpret_cast<const uint32_t*>(src + a * L::XP);
-    } else {
-      const uint32_t c = *reinterpret_cast<const uint32_t*>(src);
-      const uint32_t code[4] = {c & 255u, (c >> 8) & 255u, (c >> 16) & 255u,
-                                c >> 24};
-      code_limbs(rep, lane, code, o);
+        for (int a = 0; a < 3; ++a)
+          o[a] = *reinterpret_cast<const uint32_t*>(src + a * L::XP);
+      } else {
+        const uint32_t c = *reinterpret_cast<const uint32_t*>(src);
+        const uint32_t code[4] = {c & 255u, (c >> 8) & 255u,
+                                  (c >> 16) & 255u, c >> 24};
+        code_limbs(rep, lane, code, o);
+      }
+      const int off = T::SWAP ? frag_b<T::BM>(l, kw) : frag_a<T::BM>(l, kw);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) fx[a * XPL + off] = o[a];
     }
-    const int off = T::SWAP ? frag_b<T::BM>(l, kw) : frag_a<T::BM>(l, kw);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) fx[a * XPL + off] = o[a];
   }
   // w columns: 4 rows x 4 columns an item, transposed into K-packed words
-  constexpr int NG = T::BN / 4;
-  const uint8_t* sw = st + L::P * L::XP;
+  if constexpr (CACHE != 2) {
+    constexpr int NG = T::BN / 4;
+    const uint8_t* sw = st + L::P * L::XP;
 #pragma unroll
-  for (int u = 0; u < (WI + T::NT - 1) / T::NT; ++u) {
-    const int i = tid + u * T::NT;
-    if (WI % T::NT != 0 && i >= WI) break;
-    const int ng = i % NG, kw = i / NG;
-    const uint8_t* src = sw + 4 * kw * L::WS + 4 * ng;
-    int off[4];
+    for (int u = 0; u < (WI + T::NT - 1) / T::NT; ++u) {
+      const int i = tid + u * T::NT;
+      if (WI % T::NT != 0 && i >= WI) break;
+      const int ng = i % NG, kw = i / NG;
+      const uint8_t* src = sw + 4 * kw * L::WS + 4 * ng;
+      int off[4];
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc)
-      off[cc] = T::SWAP ? frag_a<T::BN>(4 * ng + cc, kw)
-                        : frag_b<T::BN>(4 * ng + cc, kw);
+      for (int cc = 0; cc < 4; ++cc)
+        off[cc] = T::SWAP ? frag_a<T::BN>(4 * ng + cc, kw)
+                          : frag_b<T::BN>(4 * ng + cc, kw);
 #pragma unroll
-    for (int a = 0; a < L::P; ++a) {
-      uint32_t r[4];
+      for (int a = 0; a < L::P; ++a) {
+        uint32_t r[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        r[j] = *reinterpret_cast<const uint32_t*>(src + a * L::WP + j * L::WS);
-      if constexpr (LIMBS) {
-        uint32_t t[4];
-        transpose4(r, t);
+        for (int j = 0; j < 4; ++j)
+          r[j] = *reinterpret_cast<const uint32_t*>(src + a * L::WP +
+                                                    j * L::WS);
+        if constexpr (LIMBS) {
+          uint32_t t[4];
+          transpose4(r, t);
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc) fw[a * WPL + off[cc]] = t[cc];
-      } else {
+          for (int cc = 0; cc < 4; ++cc) fw[a * WPL + off[cc]] = t[cc];
+        } else {
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          const uint32_t code[4] = {
-              (r[0] >> (8 * cc)) & 255u, (r[1] >> (8 * cc)) & 255u,
-              (r[2] >> (8 * cc)) & 255u, (r[3] >> (8 * cc)) & 255u};
-          uint32_t o[4];
-          code_limbs(rep, lane, code, o);
+          for (int cc = 0; cc < 4; ++cc) {
+            const uint32_t code[4] = {
+                (r[0] >> (8 * cc)) & 255u, (r[1] >> (8 * cc)) & 255u,
+                (r[2] >> (8 * cc)) & 255u, (r[3] >> (8 * cc)) & 255u};
+            uint32_t o[4];
+            code_limbs(rep, lane, code, o);
 #pragma unroll
-          for (int b = 0; b < 3; ++b) fw[b * WPL + off[cc]] = o[b];
+            for (int b = 0; b < 3; ++b) fw[b * WPL + off[cc]] = o[b];
+          }
         }
       }
     }
   }
 }
 
-// One 32-deep mma step (ks: 0 or 1 of the stage) of a warp's tiles: the 9
-// limb pairs (a, b) into class a + b.
-template <class T>
+// B3: the cached operand's codes over [k0, k1) of the tile at (m0, n0),
+// decoded through the table into the resident stripe res (limb plane a at
+// a * plane words), once per block: zero past M, N and k1, to the end of the
+// last 32-deep mma step. The A side is stored whole in frag_a's order over
+// the range; the B side only its `live` lines (frag_b_live).
+template <class T, int CACHE>
+__device__ __forceinline__ void convert_resident(
+    uint32_t* res, int plane, const Args& g, const uint8_t* xb,
+    const uint8_t* wb, int m0, int n0, int k0, int k1, int live,
+    const uint32_t* lut, int tid) {
+  using L = Layout<false, T, CACHE>;
+  const int nkw = (k1 - k0 + 31) / 32 * 8;   // K-packed words a line
+  const int nl = L::RES_A ? T::LA : live;    // lines stored
+  auto put = [&](int l, int kw, const uint32_t (&c)[4]) {
+    uint32_t lw[4], o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) lw[j] = lut[c[j]];
+    transpose4(lw, o);
+    const int at =
+        L::RES_A ? frag_a<T::LA>(l, kw) : frag_b_live(l, kw, live);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) res[a * plane + at] = o[a];
+  };
+  if constexpr (CACHE == 1) {   // x rows: 4 codes along K a word
+    for (int i = tid; i < nl * nkw; i += T::NT) {
+      const int l = i / nkw, kw = i % nkw;
+      const uint32_t v =
+          m0 + l < g.M
+              ? load_word(xb + (long long)(m0 + l) * g.K, k0 + 4 * kw, k1)
+              : 0u;
+      const uint32_t c[4] = {v & 255u, (v >> 8) & 255u, (v >> 16) & 255u,
+                             v >> 24};
+      put(l, kw, c);
+    }
+  } else {   // w columns: 4 rows x 4 columns an item, transposed
+    const int ng = (nl + 3) / 4;
+    for (int i = tid; i < ng * nkw; i += T::NT) {
+      const int c4 = i % ng, kw = i / ng;
+      uint32_t r[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + 4 * kw + j;
+        r[j] = k < k1 ? load_word(wb + (long long)k * g.N, n0 + 4 * c4, g.N)
+                      : 0u;
+      }
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        if (4 * c4 + cc >= nl) break;
+        const uint32_t c[4] = {
+            (r[0] >> (8 * cc)) & 255u, (r[1] >> (8 * cc)) & 255u,
+            (r[2] >> (8 * cc)) & 255u, (r[3] >> (8 * cc)) & 255u};
+        put(4 * c4 + cc, kw, c);
+      }
+    }
+  }
+}
+
+// One 32-deep mma step of a warp's tiles: the 9 limb pairs (a, b) into class
+// a + b. A's fragments of step ka sit in fa with pa words a limb plane, B's
+// of step kb in fb with pb; a stage holds steps 0 and 1, B3's resident side
+// every step of its range. BL: B is B3's resident B side of `live` lines.
+template <class T, bool BL>
 __device__ __forceinline__ void mma_step(
-    int (&acc)[kClasses][T::TA][T::TB][4], const uint32_t* fa,
-    const uint32_t* fb, int ks, int wa, int wb, int lane) {
-  constexpr int PA = kRW * T::LA, PB = kRW * T::LB;   // words a limb plane
+    int (&acc)[kClasses][T::TA][T::TB][4], const uint32_t* fa, int pa,
+    int ka, const uint32_t* fb, int pb, int kb, int live, int wa, int wb,
+    int lane) {
   uint32_t bf[3][T::TB][2];
 #pragma unroll
   for (int b = 0; b < 3; ++b)
 #pragma unroll
     for (int tb = 0; tb < T::TB; ++tb) {
       const int tile = wb * T::TB + tb;
+      if constexpr (BL) {
+        const int lt = min(8, live - 8 * tile);
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        bf[b][tb][r] = fb[b * PB + ((ks * (T::LB / 8) + tile) * 2 + r) * 32 +
-                          (lane ^ swz_b(tile))];
+        for (int r = 0; r < 2; ++r)
+          bf[b][tb][r] = lane < 4 * lt ? fb[b * pb + kb * 8 * live +
+                                            tile * 64 + r * 4 * lt + lane]
+                                       : 0u;
+      } else {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          bf[b][tb][r] = fb[b * pb + ((kb * (T::LB / 8) + tile) * 2 + r) * 32 +
+                            (lane ^ swz_b(tile))];
+      }
     }
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -746,7 +634,7 @@ __device__ __forceinline__ void mma_step(
       const int tile = wa * T::TA + ta;
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        af[ta][r] = fa[a * PA + ((ks * (T::LA / 16) + tile) * 4 + r) * 32 +
+        af[ta][r] = fa[a * pa + ((ka * (T::LA / 16) + tile) * 4 + r) * 32 +
                        (lane ^ swz_a(tile, r))];
     }
 #pragma unroll
@@ -759,31 +647,52 @@ __device__ __forceinline__ void mma_step(
   }
 }
 
-// B1 (codes) and B4 (LIMBS: limb planes). Grid: (column tiles, row tiles or
-// K splits, slices).
-template <bool LIMBS, int EB, int MB, class T>
-__global__ void __launch_bounds__(T::NT, (Layout<LIMBS, T>::MINB))
-    exact_kernel(Args g) {
-  using L = Layout<LIMBS, T>;
+// B1 (codes), B4 (LIMBS: limb planes) and B3 (CACHE). Grid, B1 / B4:
+// (column tiles, row tiles or K splits, slices); B3: (sweep groups, cached
+// tiles x K splits, slices).
+template <bool LIMBS, int EB, int MB, class T, int CACHE>
+__device__ __forceinline__ void exact_body(const Args& g) {
+  using L = Layout<LIMBS, T, CACHE>;
   constexpr int TA = T::TA, TB = T::TB;
   extern __shared__ __align__(16) uint8_t smem[];
   uint32_t* fa = reinterpret_cast<uint32_t*>(smem + L::STAGES * L::STAGE);
   uint32_t* fb = fa + L::FA;
   uint32_t* lut = fb + L::FB;
   uint32_t* rep = lut + 256;
+  uint32_t* res = rep + 256 * 32;   // B3's resident stripe
   __shared__ int last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ya = warp % T::WA, yb = warp / T::WA;  // the warp's place
-  const int bz = blockIdx.z, n0 = blockIdx.x * T::BN;
+  const int bz = blockIdx.z;
   const bool split = g.splits > 1;
-  const int m0 = split ? 0 : blockIdx.y * T::BM;
+  // the block's K split, and its output tiles: B1 / B4 one, B3 a run of pg
+  // tiles along the swept operand from s0, beside cached tile ct
+  const int sp = CACHE ? blockIdx.y % g.splits : blockIdx.y;
+  const int ct = CACHE ? blockIdx.y / g.splits : 0;
+  const int s0 = CACHE ? blockIdx.x * g.pg : 0;
+  const int ntile =
+      CACHE ? min(g.pg, (CACHE == 1 ? (g.N + T::BN - 1) / T::BN
+                                    : (g.M + T::BM - 1) / T::BM) - s0)
+            : 1;
+  auto origin = [&](int j, int& m0, int& n0) {
+    if (CACHE == 1) {
+      m0 = ct * T::BM;
+      n0 = (s0 + j) * T::BN;
+    } else if (CACHE == 2) {
+      m0 = (s0 + j) * T::BM;
+      n0 = ct * T::BN;
+    } else {
+      m0 = split ? 0 : blockIdx.y * T::BM;
+      n0 = blockIdx.x * T::BN;
+    }
+  };
   const int seg_len = 32 * g.seg;
   // this block's K range: all of K, or one split inside one flush segment
   int seg = 0, k0 = 0, k1 = g.K;
   if (split) {
-    seg = blockIdx.y / g.per;
-    k0 = seg * seg_len + (blockIdx.y % g.per) * 32 * g.run;
+    seg = sp / g.per;
+    k0 = seg * seg_len + (sp % g.per) * 32 * g.run;
     k1 = min(min(k0 + 32 * g.run, seg_len * (seg + 1)), g.K);
   }
   const uint8_t* xb = g.x + bz * g.x_bs;
@@ -801,11 +710,18 @@ __global__ void __launch_bounds__(T::NT, (Layout<LIMBS, T>::MINB))
         for (int c = 0; c < kClasses; ++c) acc[c][ta][tb][i] = 0;
       }
 
+  // the block's stream: stage s is K stage s % nst of its tile s / nst
   const int nst = k1 > k0 ? (k1 - k0 + kRK - 1) / kRK : 0;
+  const int nstream = ntile * nst;
+  auto stage_in = [&](int s) {
+    const int j = CACHE ? s / nst : 0, t = CACHE ? s - j * nst : s;
+    int m0, n0;
+    origin(j, m0, n0);
+    load_stage<LIMBS, T, CACHE>(smem + (s % L::STAGES) * L::STAGE, g, xb,
+                                wb, m0, n0, k0 + t * kRK, k1, tid);
+  };
   for (int s = 0; s < L::STAGES - 1; ++s) {
-    if (s < nst)
-      load_stage<LIMBS, T>(smem + s * L::STAGE, g, xb, wb, m0, n0,
-                           k0 + s * kRK, k1, tid);
+    if (s < nstream) stage_in(s);
     cp_async_commit();
   }
   if constexpr (!LIMBS) {   // while the first stages load
@@ -813,50 +729,92 @@ __global__ void __launch_bounds__(T::NT, (Layout<LIMBS, T>::MINB))
     __syncthreads();
     for (int i = tid; i < 256 * 32; i += T::NT) rep[i] = lut[i >> 5];
   }   // published by the first barrier of the loop
-  for (int t = 0; t < nst; ++t) {
-    cp_async_wait<L::STAGES - 2>();   // stage t has landed (own copies)
-    __syncthreads();                  // everyone's; the last mma pass is done
-    const int s = t + L::STAGES - 1;  // refill the slot converted at t - 1
-    if (s < nst)
-      load_stage<LIMBS, T>(smem + (s % L::STAGES) * L::STAGE, g, xb, wb, m0,
-                           n0, k0 + s * kRK, k1, tid);
-    cp_async_commit();
-    convert<LIMBS, T>(smem + (t % L::STAGES) * L::STAGE, fa, fb, rep, tid);
-    __syncthreads();
+  // B3: the resident stripe of the cached tile, converted once (published
+  // by the same barrier)
+  const int plane = g.run * 8 * g.lines;   // words a resident limb plane
+  int live = 0;
+  if constexpr (CACHE != 0) {
+    int m0, n0;
+    origin(0, m0, n0);
+    live = L::RES_A ? T::LA
+                    : min(CACHE == 1 ? g.M - m0 : g.N - n0, T::LB);
+    convert_resident<T, CACHE>(res, plane, g, xb, wb, m0, n0, k0, k1, live,
+                               lut, tid);
+  }
+  const uint32_t* src_a = L::RES_A ? res : fa;
+  const uint32_t* src_b = L::RES_B ? res : fb;
+  const int pa = L::RES_A ? plane : kRW * T::LA;
+  const int pb = L::RES_B ? plane : kRW * T::LB;
+  const long long mn = (long long)g.M * g.N, cs = mn * gridDim.z;
+  const int mtiles = (g.M + T::BM - 1) / T::BM;
+  const int ntiles = (g.N + T::BN - 1) / T::BN;
+
+  int u = 0;   // stages consumed
+  for (int j = 0; j < ntile; ++j) {
+    int m0, n0;
+    origin(j, m0, n0);
+    for (int t = 0; t < nst; ++t, ++u) {
+      cp_async_wait<L::STAGES - 2>();   // stage u has landed (own copies)
+      __syncthreads();                  // everyone's; the last mma pass is done
+      const int s = u + L::STAGES - 1;  // refill the slot converted at u - 1
+      if (s < nstream) stage_in(s);
+      cp_async_commit();
+      convert<LIMBS, T, CACHE>(smem + (u % L::STAGES) * L::STAGE, fa, fb,
+                               rep, tid);
+      __syncthreads();
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      const int kend = k0 + t * kRK + 32 * (ks + 1);
-      if (kend - 32 >= k1) break;
-      mma_step<T>(acc, fa, fb, ks, ya, yb, lane);
-      if (!split && (kend % seg_len == 0 || kend >= k1)) {
+      for (int ks = 0; ks < 2; ++ks) {
+        const int kend = k0 + t * kRK + 32 * (ks + 1);
+        if (kend - 32 >= k1) break;
+        const int kr = 2 * t + ks;   // the resident side's mma step
+        mma_step<T, L::RES_B>(acc, src_a, pa, L::RES_A ? kr : ks, src_b, pb,
+                              L::RES_B ? kr : ks, live, ya, yb, lane);
+        if (!split && (kend % seg_len == 0 || kend >= k1)) {
 #pragma unroll
-        for (int ta = 0; ta < TA; ++ta)
+          for (int ta = 0; ta < TA; ++ta)
 #pragma unroll
-          for (int tb = 0; tb < TB; ++tb)
+            for (int tb = 0; tb < TB; ++tb)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              int cl[kClasses];
+              for (int i = 0; i < 4; ++i) {
+                int cl[kClasses];
 #pragma unroll
-              for (int c = 0; c < kClasses; ++c) {
-                cl[c] = acc[c][ta][tb][i];
-                acc[c][ta][tb][i] = 0;
+                for (int c = 0; c < kClasses; ++c) {
+                  cl[c] = acc[c][ta][tb][i];
+                  acc[c][ta][tb][i] = 0;
+                }
+                tot[ta][tb][i] = flush_classes(tot[ta][tb][i], cl);
               }
-              tot[ta][tb][i] = flush_classes(tot[ta][tb][i], cl);
-            }
+        }
       }
     }
-  }
 
-  // accumulator (ta, tb, i) holds mma row 16 tile + g + 8 (i / 2) and column
-  // 8 tile + 2 q + i % 2 of lane 4 g + q
-  const int g8 = lane >> 2, q = lane & 3;
-  auto element = [&](int ta, int tb, int i, int& m, int& n) {
-    const int la = (ya * TA + ta) * 16 + g8 + 8 * (i >> 1);
-    const int lb = (yb * TB + tb) * 8 + 2 * q + (i & 1);
-    m = m0 + (T::SWAP ? lb : la);
-    n = n0 + (T::SWAP ? la : lb);
-  };
-  if (!split) {
+    // accumulator (ta, tb, i) holds mma row 16 tile + g + 8 (i / 2) and
+    // column 8 tile + 2 q + i % 2 of lane 4 g + q
+    const int g8 = lane >> 2, q = lane & 3;
+    auto element = [&](int ta, int tb, int i, int& m, int& n) {
+      const int la = (ya * TA + ta) * 16 + g8 + 8 * (i >> 1);
+      const int lb = (yb * TB + tb) * 8 + 2 * q + (i & 1);
+      m = m0 + (T::SWAP ? lb : la);
+      n = n0 + (T::SWAP ? la : lb);
+    };
+    if (!split) {
+#pragma unroll
+      for (int ta = 0; ta < TA; ++ta)
+#pragma unroll
+        for (int tb = 0; tb < TB; ++tb)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            int m, n;
+            element(ta, tb, i, m, n);
+            if (m < g.M && n < g.N)
+              finish<EB, MB>(g, bz, m, n, tot[ta][tb][i]);
+            tot[ta][tb][i] = 0.f;
+          }
+      continue;
+    }
+
+    // split: add the partials into the workspace, [segment][class][slice][M][N]
+    int* wsb = g.ws + (long long)seg * kClasses * cs + bz * mn;
 #pragma unroll
     for (int ta = 0; ta < TA; ++ta)
 #pragma unroll
@@ -865,63 +823,63 @@ __global__ void __launch_bounds__(T::NT, (Layout<LIMBS, T>::MINB))
         for (int i = 0; i < 4; ++i) {
           int m, n;
           element(ta, tb, i, m, n);
-          if (m < g.M && n < g.N) finish<EB, MB>(g, bz, m, n, tot[ta][tb][i]);
+#pragma unroll
+          for (int c = 0; c < kClasses; ++c) {
+            if (m < g.M && n < g.N && acc[c][ta][tb][i])
+              atomicAdd(wsb + c * cs + (long long)m * g.N + n,
+                        acc[c][ta][tb][i]);
+            acc[c][ta][tb][i] = 0;
+          }
         }
-    return;
-  }
-
-  // split: add the partials into the workspace, [segment][class][slice][M][N]
-  const long long mn = (long long)g.M * g.N, cs = mn * gridDim.z;
-  int* wsb = g.ws + (long long)seg * kClasses * cs + bz * mn;
-#pragma unroll
-  for (int ta = 0; ta < TA; ++ta)
-#pragma unroll
-    for (int tb = 0; tb < TB; ++tb)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int m, n;
-        element(ta, tb, i, m, n);
-        if (m >= g.M || n >= g.N) continue;
-#pragma unroll
-        for (int c = 0; c < kClasses; ++c)
-          if (acc[c][ta][tb][i])
-            atomicAdd(wsb + c * cs + (long long)m * g.N + n, acc[c][ta][tb][i]);
-      }
-  // the barrier orders the block's partials before thread 0's fence, which
-  // releases them with the arrival (and acquires the other splits' for the
-  // last arrival): the grid-barrier pattern of cooperative groups
-  __syncthreads();
-  int* cnt = g.cnt + (long long)bz * gridDim.x + blockIdx.x;
-  if (tid == 0) {
-    __threadfence();
-    last = atomicAdd(cnt, 1) == g.splits - 1;
-    if (last) __threadfence();
-  }
-  __syncthreads();
-  if (!last) return;
-  // the tile's last split: flush every segment in ascending order
-  const int nseg = g.splits / g.per;
-  static_assert(T::BM * T::BN % T::NT == 0, "whole rounds of outputs");
-#pragma unroll
-  for (int u = 0; u < T::BM * T::BN / T::NT; ++u) {
-    const int o = tid + u * T::NT;
-    const int m = o / T::BN, n = n0 + o % T::BN;
-    if (m >= g.M || n >= g.N) continue;
-    float r = 0.f;
-    for (int s = 0; s < nseg; ++s) {
-      int cl[kClasses];
-#pragma unroll
-      for (int c = 0; c < kClasses; ++c) {
-        int* p = g.ws + (long long)(s * kClasses + c) * cs + bz * mn +
-                 (long long)m * g.N + n;
-        cl[c] = __ldcg(p);
-        __stcg(p, 0);
-      }
-      r = flush_classes(r, cl);
+    // the barrier orders the block's partials before thread 0's fence,
+    // which releases them with the arrival (and acquires the other splits'
+    // for the last arrival): the grid-barrier pattern of cooperative groups
+    __syncthreads();
+    int* cnt = g.cnt + ((long long)bz * mtiles + m0 / T::BM) * ntiles +
+               n0 / T::BN;
+    if (tid == 0) {
+      __threadfence();
+      last = atomicAdd(cnt, 1) == g.splits - 1;
+      if (last) __threadfence();
     }
-    finish<EB, MB>(g, bz, m, n, r);
+    __syncthreads();
+    if (!last) continue;
+    // the tile's last split: flush every segment in ascending order
+    const int nseg = g.splits / g.per;
+    static_assert(T::BM * T::BN % T::NT == 0, "whole rounds of outputs");
+#pragma unroll
+    for (int v = 0; v < T::BM * T::BN / T::NT; ++v) {
+      const int o = tid + v * T::NT;
+      const int m = m0 + o / T::BN, n = n0 + o % T::BN;
+      if (m >= g.M || n >= g.N) continue;
+      float r = 0.f;
+      for (int s = 0; s < nseg; ++s) {
+        int cl[kClasses];
+#pragma unroll
+        for (int c = 0; c < kClasses; ++c) {
+          int* p = g.ws + (long long)(s * kClasses + c) * cs + bz * mn +
+                   (long long)m * g.N + n;
+          cl[c] = __ldcg(p);
+          __stcg(p, 0);
+        }
+        r = flush_classes(r, cl);
+      }
+      finish<EB, MB>(g, bz, m, n, r);
+    }
+    if (tid == 0) *cnt = 0;
   }
-  if (tid == 0) *cnt = 0;
+}
+
+template <bool LIMBS, int EB, int MB, class T>
+__global__ void __launch_bounds__(T::NT, (Layout<LIMBS, T>::MINB))
+    exact_kernel(Args g) {
+  exact_body<LIMBS, EB, MB, T, 0>(g);
+}
+
+template <int EB, int MB, class T, int CACHE>
+__global__ void __launch_bounds__(T::NT, (Layout<false, T, CACHE>::MINB))
+    exact_fused_stationary_kernel(Args g) {
+  exact_body<false, EB, MB, T, CACHE>(g);
 }
 
 template <bool LIMBS, int EB, int MB, class T>
@@ -942,30 +900,93 @@ int launch_exact(const Args& g, int Bt, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+template <int EB, int MB, class T, int CACHE>
+int launch_stationary(const Args& g, int Bt, const StatPlan& p,
+                      cudaStream_t stream) {
+  auto kern = exact_fused_stationary_kernel<EB, MB, T, CACHE>;
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = current_device(dev);
+  if (err == cudaSuccess)
+    err = smem_opt_in_once(kern, kStatBytes, attr_set, dev);
+  if (err != cudaSuccess) return int(err);
+  const long long cached =
+      CACHE == 1 ? (g.M + T::BM - 1) / T::BM : (g.N + T::BN - 1) / T::BN;
+  const long long gy = cached * g.splits;
+  if (gy > 65535 || Bt > 65535 || p.bytes > kStatBytes)
+    return int(cudaErrorInvalidConfiguration);
+  kern<<<dim3(unsigned(p.groups), unsigned(gy), unsigned(Bt)), T::NT,
+         p.bytes, stream>>>(g);
+  return int(cudaGetLastError());
+}
+
+// Take the plan's split into the arguments and check the workspace: ws_len
+// int32 for its segments' class sums, cnt_len tile counters (bm x bn tiles).
+bool take_split(Args& g, const Plan& p, int Bt, int bm, int bn,
+                long long ws_len, long long cnt_len) {
+  g.splits = p.splits;
+  g.per = p.per;
+  g.run = p.run;
+  g.seg = p.seg;
+  if (p.splits == 1) return true;
+  const long long ws_need =
+      (long long)(p.splits / p.per) * kClasses * Bt * g.M * g.N;
+  const long long cnt_need = (long long)Bt * ((g.M + bm - 1) / bm) *
+                             ((g.N + bn - 1) / bn);
+  return g.ws && g.cnt && ws_len >= ws_need && cnt_len >= cnt_need;
+}
+
+// The staging path: cp.async where every row is 16-byte aligned.
+void take_async(Args& g) {
+  g.async = ((reinterpret_cast<uintptr_t>(g.x) |
+              reinterpret_cast<uintptr_t>(g.w)) & 15) == 0 &&
+            g.K % 16 == 0 && g.N % 16 == 0;
+}
+
 // Plan the split, check the workspace, pick the staging path and the tile.
 template <bool LIMBS, int EB, int MB>
 int launch_exact_fmt(Args g, int Bt, long long ws_len, long long cnt_len,
                      cudaStream_t stream) {
   const Plan p = split_plan(Bt, g.M, g.K, g.N, g.block_k, g.flush_period);
-  g.splits = p.splits;
-  g.per = p.per;
-  g.run = p.run;
-  g.seg = p.seg;
-  if (p.splits > 1) {
-    const long long ws_need =
-        (long long)(p.splits / p.per) * kClasses * Bt * g.M * g.N;
-    const long long cnt_need =
-        (long long)Bt * ((g.N + kDecodeCols - 1) / kDecodeCols);
-    if (!g.ws || !g.cnt || ws_len < ws_need || cnt_len < cnt_need)
-      return int(cudaErrorInvalidValue);
-  }
-  g.async = ((reinterpret_cast<uintptr_t>(g.x) |
-              reinterpret_cast<uintptr_t>(g.w)) & 15) == 0 &&
-            g.K % 16 == 0 && g.N % 16 == 0;
+  if (!take_split(g, p, Bt, kDecodeRows, kDecodeCols, ws_len, cnt_len))
+    return int(cudaErrorInvalidValue);
+  take_async(g);
   if (g.M <= 8) return launch_exact<LIMBS, EB, MB, Decode8>(g, Bt, stream);
   if (g.M <= kDecodeRows)
     return launch_exact<LIMBS, EB, MB, Decode16>(g, Bt, stream);
   return launch_exact<LIMBS, EB, MB, Prefill>(g, Bt, stream);
+}
+
+template <int EB, int MB, class T>
+int launch_stationary_tile(const Args& g, int Bt, const StatPlan& p, bool cw,
+                           cudaStream_t stream) {
+  return cw ? launch_stationary<EB, MB, T, 2>(g, Bt, p, stream)
+            : launch_stationary<EB, MB, T, 1>(g, Bt, p, stream);
+}
+
+// B3: refuse what the admission rule refuses, then plan, check the
+// workspace, pick the staging path and the tile.
+template <int EB, int MB>
+int launch_stationary_fmt(Args g, int Bt, bool cw, long long ws_len,
+                          long long cnt_len, cudaStream_t stream) {
+  const long long kp =
+      (long long)((g.K + g.block_k - 1) / g.block_k) * g.block_k;
+  const int edge = cw || g.M > kDecodeRows ? 64 : g.M <= 4 ? 4 : 16;
+  if (3 * kp * edge > kStripeBudget) return int(cudaErrorInvalidValue);
+  const StatPlan p = stationary_plan(Bt, g.M, g.K, g.N, g.block_k,
+                                     g.flush_period, cw);
+  const int bm = g.M <= 8 ? 8 : g.M <= kDecodeRows ? kDecodeRows : 64;
+  const int bn = g.M <= kDecodeRows ? kDecodeCols : 64;
+  if (!take_split(g, p.k, Bt, bm, bn, ws_len, cnt_len))
+    return int(cudaErrorInvalidValue);
+  g.lines = p.lines;
+  g.pg = p.pg;
+  take_async(g);
+  if (g.M <= 8)
+    return launch_stationary_tile<EB, MB, Decode8>(g, Bt, p, cw, stream);
+  if (g.M <= kDecodeRows)
+    return launch_stationary_tile<EB, MB, Decode16>(g, Bt, p, cw, stream);
+  return launch_stationary_tile<EB, MB, Prefill>(g, Bt, p, cw, stream);
 }
 
 Args codes_args(const void* x, const void* w, const void* scale,
@@ -1020,19 +1041,26 @@ extern "C" int mgs_matmul_exact_fused(
                   : launch_exact_fmt<false, 3, 4>(g, Bt, ws_len, cnt_len, st);
 }
 
-// B3, the arguments of B1 without the workspace, plus cache_weight (1 =
-// weight-stationary, 0 = activation-stationary). Refuses
-// (cudaErrorInvalidValue) a stripe over mgs_matmul_stripe_budget() bytes.
+// B3, the arguments of B1 plus cache_weight (1 = weight-stationary, 0 =
+// activation-stationary) before the workspace, which is null when
+// mgs_matmul_stationary_plan gives one split. Refuses
+// (cudaErrorInvalidValue) a stripe over mgs_matmul_stripe_budget() bytes
+// (the admission rule) and a workspace too small.
 extern "C" int mgs_matmul_exact_fused_stationary(
     const void* x, const void* w, const void* scale, const void* bias,
     void* out, int Bt, int M, int K, int N, long long x_bs, long long w_bs,
     int s_bs, int s_ns, int b_bs, int b_ns, int fmt, int act, int block_k,
-    int flush_period, int cache_weight, void* stream) {
-  const Args g = codes_args(x, w, scale, bias, out, M, K, N, x_bs, w_bs, s_bs,
-                            s_ns, b_bs, b_ns, act, block_k, flush_period);
+    int flush_period, int cache_weight, void* ws, long long ws_len,
+    void* cnt, long long cnt_len, void* stream) {
+  Args g = codes_args(x, w, scale, bias, out, M, K, N, x_bs, w_bs, s_bs, s_ns,
+                      b_bs, b_ns, act, block_k, flush_period);
+  g.ws = static_cast<int*>(ws);
+  g.cnt = static_cast<int*>(cnt);
   auto st = static_cast<cudaStream_t>(stream);
-  return fmt == 0 ? launch_stationary_fmt<4, 3>(g, Bt, cache_weight != 0, st)
-                  : launch_stationary_fmt<3, 4>(g, Bt, cache_weight != 0, st);
+  const bool cw = cache_weight != 0;
+  return fmt == 0
+             ? launch_stationary_fmt<4, 3>(g, Bt, cw, ws_len, cnt_len, st)
+             : launch_stationary_fmt<3, 4>(g, Bt, cw, ws_len, cnt_len, st);
 }
 
 extern "C" long long mgs_matmul_stripe_budget() { return kStripeBudget; }
@@ -1047,6 +1075,23 @@ extern "C" void mgs_matmul_split_plan(int Bt, int M, int K, int N,
   plan[1] = p.per;
   plan[2] = p.run;
   plan[3] = p.seg;
+}
+
+// B3's plan: {splits, per segment, run, segment, groups, tiles a group,
+// resident lines, dynamic shared memory bytes}.
+extern "C" void mgs_matmul_stationary_plan(int Bt, int M, int K, int N,
+                                           int block_k, int flush_period,
+                                           int cache_weight, int* plan) {
+  const StatPlan p = stationary_plan(Bt, M, K, N, block_k, flush_period,
+                                     cache_weight != 0);
+  plan[0] = p.k.splits;
+  plan[1] = p.k.per;
+  plan[2] = p.k.run;
+  plan[3] = p.k.seg;
+  plan[4] = p.groups;
+  plan[5] = p.pg;
+  plan[6] = p.lines;
+  plan[7] = p.bytes;
 }
 
 // B4. x: (Bt, 3, M, K) int8 limb planes (x_bs = 3 * M * K), w: (Bt, 3, K, N)

@@ -15,24 +15,28 @@ accumulator in ascending class order. The epilogue is
 rounding.
 
 The stationary schedules only change the loop order: one operand's
-decoded limb stripe over the whole padded K (``ws_stripe_bytes``) stays
-resident in shared memory while the other operand's tiles sweep past it,
-so every schedule gives the same bits. A stripe over
-``WS_STRIPE_BUDGET_BYTES`` does not fit the card and raises here;
-``kernels.ops`` falls back to ``"output"`` with a warning first.
+decoded limb stripe stays resident in shared memory while the other
+operand's tiles sweep past it, so every schedule gives the same bits.
+Which shapes take a stationary schedule is the admission rule: a stripe
+over the whole padded K (``ws_stripe_bytes``) larger than
+``WS_STRIPE_BUDGET_BYTES`` raises here, and ``kernels.ops`` falls back to
+``"output"`` with a warning first. On the card B3 runs B1's loop with the
+cached operand's limb fragments resident for each block's part of K
+(:func:`stationary_plan`), split across blocks as B1's decode splits are.
 
 On a CUDA tensor the wrapper launches the hand-written kernels in
 ``csrc/mgs_matmul.cu``; on a CPU tensor it runs the plain PyTorch twins
 :func:`mgs_matmul_exact_fused_plain` and
 :func:`mgs_matmul_stationary_plain`, which repeat the kernels' arithmetic
 op for op (``_accumulate_classes`` / ``_flush_classes``).
-On the card B1 and B4 run their limb products on the int8 tensor cores,
-staged through an asynchronous copy ring; at decode (``M <= 16``) they may
-cut K across blocks (:func:`split_plan`): no split crosses a flush
-boundary, the splits add their int32 class partials into a workspace kept
-per device and stream, and the last split of each output tile flushes the
-segments in ascending order. Integer sums do not depend on their order, so
-this gives the twins' bits.
+On the card B1, B3 and B4 run their limb products on the int8 tensor
+cores, staged through an asynchronous copy ring; B1 and B4 at decode
+(``M <= 16``, :func:`split_plan`) and B3 wherever its resident stripe or
+the SMs ask for it (:func:`stationary_plan`) cut K across blocks: no split
+crosses a flush boundary, the splits add their int32 class partials into a
+workspace kept per device and stream, and the last split of each output
+tile flushes the segments in ascending order. Integer sums do not depend
+on their order, so this gives the twins' bits.
 The twin upcasts limbs to float64 for its integer products: every product
 and partial sum is an integer far below 2**53, so the float64 matmul is
 exact on the CPU and on the card alike (PyTorch has no int32 matmul on
@@ -75,7 +79,8 @@ from . import _cuda
 __all__ = ["ACTIVATIONS", "SCHEDULES", "WS_STRIPE_BUDGET_BYTES",
            "limb_decompose", "worst_case_flush_period", "flush_steps",
            "tile_shape", "exact_tile", "SplitPlan", "split_plan",
-           "split_ranges", "stationary_block", "ws_stripe_bytes",
+           "split_ranges", "StationaryPlan", "stationary_plan",
+           "stationary_block", "ws_stripe_bytes",
            "check_stripe", "mgs_matmul_exact_fused",
            "mgs_matmul_exact_fused_plain", "mgs_matmul_stationary_plain",
            "mgs_matmul_exact", "mgs_matmul_exact_plain", "mgs_matmul_dmac",
@@ -100,19 +105,35 @@ _DMAC_PRODUCTS = 1 << 24
 # B5's device rounding tables, (device index, format, gate) -> (128, 128)
 _DMAC_TABLES: dict = {}
 SCHEDULES = ("output", "weight", "activation")
-# the widest tile edge of the card's kernels (csrc/mgs_matmul.cu kMaxEdge)
+# the widest edge of tile_shape()
 _MAX_EDGE = 64
-#: Shared-memory bytes a B3 K-resident limb stripe may take on the card:
-#: the opt-in limit per block, less the 256-entry code->limbs table and the
-#: streamed operand's staged 32-deep sub-tile (3 limbs x 32 x 64 bytes).
-#: The reference's 8 MB is a TPU VMEM figure.
+#: The stationary schedules' admission rule (``csrc/mgs_matmul.cu``
+#: ``kStripeBudget``): a whole-K limb stripe (:func:`ws_stripe_bytes`) over
+#: :func:`tile_shape`'s edge larger than this takes ``"output"`` instead.
+#: Its value is the opt-in limit per block less a 256-entry table and a
+#: 32-deep staged tile (3 limbs x 32 x 64 bytes), the layout B3 had before
+#: its K split, kept so that every shape keeps its schedule. The
+#: reference's 8 MB is a TPU VMEM figure.
 WS_STRIPE_BUDGET_BYTES = _cuda.SMEM_LIMIT - 256 * 4 - 3 * 32 * _MAX_EDGE
-# B1 / B4 on the card (csrc/mgs_matmul.cu): rows up to which the decode
-# tiles and split-K apply; the blocks of one wave split-K fills (2 per SM of
-# an H100); the least 32-element K units a split takes
+# B1, B3 and B4 on the card (csrc/mgs_matmul.cu): rows up to which the
+# decode tiles and B1's split-K apply; the SMs of an H100; the blocks of one
+# wave split-K fills (2 per SM); the least 32-element K units a split takes
 _DECODE_ROWS = 16
-_SPLIT_TARGET = 2 * 132
+_SMS = 132
+_SPLIT_TARGET = 2 * _SMS
 _SPLIT_MIN_RUN = 4
+# B3's layout (csrc/mgs_matmul.cu Layout): K elements per ring stage, bytes
+# past each staged row, ring stages, the code->limbs table and its 32
+# replicas (bytes); the dynamic shared memory a block may take (the opt-in
+# less room for static shared memory), and each of two blocks on one SM
+# ((228 KB - 2 x 1 KB reserved) / 2, less the same room)
+_RING_K = 64
+_RING_PAD = 16
+_STAT_STAGES = 4
+_LUT_BYTES = 4 * 256 * 33
+_STATIC_RESERVE = 256
+_STAT_BYTES = _cuda.SMEM_LIMIT - _STATIC_RESERVE
+_PAIR_BYTES = (233472 - 2 * 1024) // 2 - _STATIC_RESERVE
 # split-K workspace and tile counters, (device index, stream) -> tensors
 _SPLIT_WS: dict = {}
 
@@ -188,14 +209,15 @@ def flush_steps(flush_period: Optional[int], block_k: int,
 
 
 def tile_shape(M: int) -> Tuple[int, int]:
-    """B3's ``(rows, columns)`` output tile on the card for ``M`` rows
-    (``csrc/mgs_matmul.cu::launch_stationary_fmt``): 4 rows at decode, 16,
-    else 64."""
+    """The tile the stationary admission rule counts for ``M`` rows
+    (:func:`stationary_block`; ``csrc/mgs_matmul.cu::launch_stationary_fmt``
+    refuses by the same edges): 4 rows at decode, 16, else 64. B3's own
+    tile is :func:`exact_tile`."""
     return (4, 64) if M <= 4 else (16, 64) if M <= 16 else (64, 64)
 
 
 def exact_tile(M: int) -> Tuple[int, int]:
-    """B1's and B4's ``(rows, columns)`` output tile on the card
+    """B1's, B3's and B4's ``(rows, columns)`` output tile on the card
     (``csrc/mgs_matmul.cu::launch_exact_fmt``): 8 or 16 rows by 128
     columns at decode, else 64 x 64."""
     return (8, 128) if M <= 8 else (16, 128) if M <= 16 else (64, 64)
@@ -236,9 +258,10 @@ def split_plan(Bt: int, M: int, K: int, N: int, block_k: int,
     return SplitPlan(nseg * per, per, run, seg)
 
 
-def split_ranges(plan: SplitPlan, K: int) -> List[Tuple[int, int]]:
-    """``(k0, k1)`` of each split in launch order (empty where a ragged
-    last segment runs out)."""
+def split_ranges(plan, K: int) -> List[Tuple[int, int]]:
+    """``(k0, k1)`` of each split of a :class:`SplitPlan` or
+    :class:`StationaryPlan`, in launch order (empty where a ragged last
+    segment runs out)."""
     if plan.splits == 1:
         return [(0, K)]
     out = []
@@ -249,6 +272,73 @@ def split_ranges(plan: SplitPlan, K: int) -> List[Tuple[int, int]]:
                  32 * (seg + 1) * plan.segment)
         out.append((k0, max(k0, k1)))
     return out
+
+
+class StationaryPlan(NamedTuple):
+    """How B3 cuts K across blocks and sweeps; K in units of 32 elements."""
+    splits: int           # blocks along K per output tile
+    per_segment: int      # splits inside each flush segment
+    run: int              # units a split takes (all of K for one split)
+    segment: int          # units of one flush segment
+    groups: int           # blocks along the swept operand's tiles
+    tiles_per_group: int  # swept tiles a block takes
+    lines: int            # lines (x rows / w columns) of the resident stripe
+    smem_bytes: int       # dynamic shared memory of a block
+
+
+def _stationary_layout(M: int, N: int, schedule: str):
+    """B3's ``Layout`` at the tile for ``M`` rows: bytes of ring, stage
+    fragments and table; the resident lines (the mma A side whole, the B
+    side only its live lines); the blocks an SM must hold."""
+    bm, bn = exact_tile(M)
+    swap = M <= _DECODE_ROWS          # w is mma's A side at decode
+    la, lb = (bn, bm) if swap else (bm, bn)
+    cache_w = schedule == "weight"
+    res_a = cache_w == swap
+    # the ring stages only the streamed operand
+    stage = (bm * (_RING_K + _RING_PAD) if cache_w
+             else _RING_K * (bn + _RING_PAD))
+    frag = 3 * (_RING_K // 4) * (lb if res_a else la)      # words
+    fixed = _STAT_STAGES * stage + 4 * frag + _LUT_BYTES
+    lines = la if res_a else min(N if cache_w else M, lb)
+    return fixed, lines, 2 if swap else 1
+
+
+def stationary_plan(Bt: int, M: int, K: int, N: int, block_k: int,
+                    flush_period: Optional[int],
+                    schedule: str) -> StationaryPlan:
+    """B3's K split and sweep on the card for one call
+    (``csrc/mgs_matmul.cu::stationary_plan``, line for line).
+
+    Each block keeps its part of the cached operand's limb stripe
+    (``96 * run * lines`` bytes) beside its ring, stage fragments and
+    table, in half an SM at decode (two blocks an SM) and in the opt-in at
+    prefill; so each flush segment is cut into enough runs that the stripe
+    fits, and into more while the blocks (two or one per SM) do not fill
+    the 132 SMs, none crossing a flush boundary. The blocks beside one
+    cached tile then share the swept operand's tiles in contiguous runs of
+    ``tiles_per_group``, as many groups as fill the SMs."""
+    fp = flush_steps(flush_period, block_k, -(-K // block_k))
+    fixed, lines, minb = _stationary_layout(M, N, schedule)
+    bm, bn = exact_tile(M)
+    mt, nt = -(-M // bm), -(-N // bn)
+    cached, sweep = (nt, mt) if schedule == "weight" else (mt, nt)
+    budget = _PAIR_BYTES if minb == 2 else _STAT_BYTES
+    target = minb * _SMS
+    units, seg = -(-K // 32), fp * (block_k // 32)
+    cap = max(1, (budget - fixed) // (96 * lines))
+    nseg = -(-units // seg)
+    span = min(units, seg)
+    per = max(-(-span // cap), target // (Bt * cached * sweep * nseg))
+    run = max(-(-span // per), min(cap, _SPLIT_MIN_RUN))
+    per = -(-span // run)
+    split = (1, 1, units, seg) if nseg * per == 1 else (nseg * per, per,
+                                                        run, seg)
+    items = Bt * cached * split[0]
+    groups = min(sweep, -(-target // items))
+    pg = -(-sweep // groups)
+    return StationaryPlan(*split, -(-sweep // pg), pg, lines,
+                          fixed + 96 * split[2] * lines)
 
 
 def stationary_block(schedule: str, M: int) -> int:
@@ -474,23 +564,23 @@ def _kernel(stationary: bool):
     fn = (lib.mgs_matmul_exact_fused_stationary if stationary
           else lib.mgs_matmul_exact_fused)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES + ([ctypes.c_int] if stationary
-                                   else _WS_ARGTYPES) + [ctypes.c_void_p]
+        fn.argtypes = (_ARGTYPES + ([ctypes.c_int] if stationary else [])
+                       + _WS_ARGTYPES + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _split_workspace(dev, Bt: int, M: int, K: int, N: int, block_k: int,
-                     fp: int) -> list:
-    """The split-K workspace arguments of one B1 / B4 launch: null for one
-    split, else int32 workspace (segments x 5 classes x Bt x M x N) and
-    tile counters, zeroed once, kept per (device, stream) and grown as
-    needed; the kernel leaves both zero again."""
-    plan = split_plan(Bt, M, K, N, block_k, fp)
+def _split_workspace(dev, plan, Bt: int, M: int, N: int) -> list:
+    """The split-K workspace arguments of one B1 / B3 / B4 launch under
+    ``plan`` (a :class:`SplitPlan` or :class:`StationaryPlan`): null for one
+    split, else int32 workspace (segments x 5 classes x Bt x M x N) and one
+    counter per output tile, zeroed once, kept per (device, stream) and
+    grown as needed; the kernel leaves both zero again."""
     if plan.splits == 1:
         return [None, 0, None, 0]
     ws_len = plan.splits // plan.per_segment * _N_CLASSES * Bt * M * N
-    cnt_len = Bt * -(-N // exact_tile(M)[1])
+    bm, bn = exact_tile(M)
+    cnt_len = Bt * -(-M // bm) * -(-N // bn)
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     ws, cnt = _SPLIT_WS.get(key, (None, None))
     if ws is None or ws.numel() < ws_len:
@@ -571,6 +661,8 @@ def mgs_matmul_exact_fused(x_codes, w_codes, fmt: FPFormat = E4M3, *,
             stationary = schedule != "output"
             name = ("mgs_matmul_exact_fused_stationary" if stationary
                     else "mgs_matmul_exact_fused")
+            plan = (stationary_plan(Bt, M, K, N, block_k, fp, schedule)
+                    if stationary else split_plan(Bt, M, K, N, block_k, fp))
             err = _kernel(stationary)(
                 xc.data_ptr(), wc.data_ptr(),
                 None if sc is None else sc.data_ptr(),
@@ -581,9 +673,8 @@ def mgs_matmul_exact_fused(x_codes, w_codes, fmt: FPFormat = E4M3, *,
                 0 if bi is None else bi.stride(0),
                 0 if bi is None else bi.stride(2),
                 _KERNEL_FMTS[fmt.name], _ACT_CODES[activation], block_k, fp,
-                *([int(schedule == "weight")] if stationary else
-                  _split_workspace(dev, Bt, M, K, N, block_k, fp)),
-                _cuda.stream_ptr(dev))
+                *([int(schedule == "weight")] if stationary else []),
+                *_split_workspace(dev, plan, Bt, M, N), _cuda.stream_ptr(dev))
             _cuda.check(err, name)
             _cuda.LAUNCHES[name] += 1
     return out[0] if squeeze else out
@@ -692,7 +783,9 @@ def mgs_matmul_exact(x_limbs, w_limbs, fmt: FPFormat = E4M3, *,
                 _N_LIMBS * M * K,
                 _N_LIMBS * K * N if wl.shape[0] == Bt else 0,
                 _KERNEL_FMTS[fmt.name], block_k, fp,
-                *_split_workspace(xl.device, Bt, M, K, N, block_k, fp),
+                *_split_workspace(xl.device,
+                                  split_plan(Bt, M, K, N, block_k, fp), Bt,
+                                  M, N),
                 _cuda.stream_ptr(xl.device))
             _cuda.check(err, "mgs_matmul_exact")
             _cuda.LAUNCHES["mgs_matmul_exact"] += 1

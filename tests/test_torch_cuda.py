@@ -18,7 +18,8 @@ from repro_torch.kernels.mgs_matmul import (  # noqa: E402
     mgs_matmul_dmac_codes, mgs_matmul_dmac_codes_plain,
     mgs_matmul_dmac_plain, mgs_matmul_exact,
     mgs_matmul_exact_fused, mgs_matmul_exact_fused_plain,
-    mgs_matmul_exact_plain, mgs_matmul_stationary_plain, split_plan)
+    mgs_matmul_exact_plain, mgs_matmul_stationary_plain, split_plan,
+    stationary_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -76,7 +77,7 @@ def test_b2_kernel_equals_twin(dev):
     assert torch.equal(out[2], torch.zeros_like(out[2]))
 
 
-@pytest.mark.parametrize("M", [1, 4, 13, 70])
+@pytest.mark.parametrize("M", [1, 4, 13, 16, 70])
 @pytest.mark.parametrize("schedule", ["weight", "activation"])
 def test_b3_kernel_equals_b1_and_twin(dev, M, schedule):
     K, N = 300, 197
@@ -93,6 +94,56 @@ def test_b3_kernel_equals_b1_and_twin(dev, M, schedule):
                                            **kw)
         torch.cuda.synchronize()
         assert torch.equal(out, b1) and torch.equal(out, twin), kw
+
+
+@pytest.mark.parametrize("flush_period", [None, 1])
+@pytest.mark.parametrize("K,N", [(4096, 11008), (11008, 4096)])
+def test_b3_at_serving_width(dev, K, N, flush_period):
+    """4 x K @ K x N under activation-stationary, 16-byte aligned: the
+    cp.async path with 4 resident rows and K split across blocks (one
+    segment, or one split per segment at flush_period=1)."""
+    M = 4
+    plan = stationary_plan(1, M, K, N, 128, flush_period, "activation")
+    assert plan.splits > 1 and plan.lines == M
+    xc, wc = _codes((M, K), E4M3, 16, dev), _codes((K, N), E4M3, 17, dev)
+    s = torch.rand(N, device=dev) * 1e-2
+    b = torch.randn(N, device=dev)
+    n0 = LAUNCHES["mgs_matmul_exact_fused_stationary"]
+    kw = dict(scale=s, bias=b, flush_period=flush_period)
+    out = mgs_matmul_exact_fused(xc, wc, E4M3, schedule="activation", **kw)
+    assert LAUNCHES["mgs_matmul_exact_fused_stationary"] == n0 + 1
+    b1 = mgs_matmul_exact_fused(xc, wc, E4M3, **kw)
+    twin = mgs_matmul_stationary_plain(xc, wc, E4M3, schedule="activation",
+                                       **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, b1) and torch.equal(out, twin)
+    # the workspace came back zero: a second call gives the same bits
+    assert torch.equal(mgs_matmul_exact_fused(
+        xc, wc, E4M3, schedule="activation", **kw), out)
+
+
+def test_stationary_plan_matches_the_launcher(dev):
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+    fn = _cuda.load("mgs_matmul").mgs_matmul_stationary_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = None
+    plan = (ctypes.c_int * 8)()
+    for Bt, M, K, N, bk, fp in [(1, 4, 4096, 11008, 128, 1),
+                                (1, 4, 11008, 4096, 128, 86),
+                                (1, 4, 4096, 102400, 128, 32),
+                                (1, 16, 4096, 4096, 128, 32),
+                                (32, 64, 128, 1024, 128, 1),
+                                (32, 64, 1024, 128, 128, 8),
+                                (32, 192, 1024, 128, 128, 8),
+                                (2, 13, 300, 197, 64, 2),
+                                (1, 70, 300, 197, 128, 3),
+                                (3, 1, 4100, 70, 64, 1)]:
+        for schedule in ("weight", "activation"):
+            fn(Bt, M, K, N, bk, fp, int(schedule == "weight"), plan)
+            assert tuple(plan) == tuple(stationary_plan(Bt, M, K, N, bk, fp,
+                                                        schedule))
 
 
 def test_b3_refuses_an_over_budget_stripe(dev):
