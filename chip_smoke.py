@@ -17,14 +17,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    stationary or fallback with the K splits of the kernel that runs it;
 3. B2 (flash-decode attention) against its twin at 128 slices, head dim
    128, chunk 128, ragged lengths up to 1024; then its paged and verify
-   entries through a permuted block table with stale and trash blocks;
+   entries through a permuted block table with stale and trash blocks at
+   the continuous path's width, at granite-20b's rows (one kv head, 48
+   query rows, 192 at a ``spec_k=4`` verify), at gemma3-27b's head dim 168
+   in E3M4, and at a long context (lengths 4096, 0, 2000, 1);
 4. serve 8 requests (batch 4, prompt 32, 16 new tokens) through
    ``repro_torch.launch.serve.ServeEngine`` with deepseek-7b at full width
    under ``FP8_MGS_SERVE_KV`` in bf16 (``--layers`` of its 30 layers, all
    by default), counting each kernel's launches; then a reduced model
    served on the GPU and on the CPU (twins) must give the same tokens;
 5. time B1 and B2 (median of per-call CUDA-event times; B2 also through
-   its paged decode and verify entries at the continuous path's width)
+   its paged decode and verify entries at the continuous path's width and
+   with every slot at 256, 1024 and 4096 live keys)
    beside the twin, a PyTorch yardstick call and the bound, and profile a
    group decode step;
 6. serve 8 ragged requests (prompts 16-160 tokens, 16 new tokens, four
@@ -124,12 +128,13 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return ts[len(ts) // 2]
 
 
-def fp8_codes(torch, shape, dev, gen, scale=1.0):
+def fp8_codes(torch, shape, dev, gen, scale=1.0, fmt=None):
     """Codes of per-tensor-quantized Gaussian values (weights/activations)."""
     from repro_torch.core.formats import E4M3, encode_bits
     from repro_torch.quant.quantize import quantize_fp8
+    fmt = fmt or E4M3
     x = torch.randn(shape, generator=gen, device=dev) * scale
-    return encode_bits(quantize_fp8(x, E4M3).q, E4M3)
+    return encode_bits(quantize_fp8(x, fmt).q, fmt)
 
 
 # ---------------------------------------------------------------------------
@@ -329,37 +334,35 @@ def check_b2(torch, dev, gen):
     return err, a
 
 
-def check_b2_paged(torch, dev, gen):
-    """The paged and verify entries at the continuous path's width: 4 slots
-    x 32 heads, head dim 128, block 128, table width 2, through a permuted
-    table whose unused blocks hold random (stale) codes; one slot is free
-    (trash-block row, length 0); verify scores T = 4 rows per slice."""
+def b2_paged_case(torch, dev, gen, lens, *, KV=32, R=1, D=128, bs=128, T=4,
+                  fmt=None):
+    """Paged decode and verify inputs: ``len(lens)`` slots x ``KV`` kv heads
+    (``R`` query rows each), head dim ``D``, block ``bs``, through a
+    permuted table whose unused blocks hold random (stale) codes. A slot
+    with length 0 is free (its table row points at the trash block 0), and
+    blocks past a slot's length are unallocated (trash). ``lens`` are the
+    decode lengths; verify scores ``T`` tokens a slot, token ``t``
+    attending to ``lens - (T - 1) + t`` keys (at least 1), so token
+    ``T - 1`` is the decode step."""
     from repro_torch.core.formats import E4M3, round_to_format
-    from repro_torch.kernels import _cuda
-    from repro_torch.kernels import mgs_attention as ma
-    slots, KV, D, bs, nb, T = 4, 32, 128, 128, 2, 4
-    smem = ma._kernel().mgs_flash_attention_smem(T, D, bs)
-    log(f"B2 verify: T={T} rows x D={D}, chunk {bs} need {smem} B of shared "
-        f"memory (limit {_cuda.SMEM_LIMIT})")
-    if smem > _cuda.SMEM_LIMIT:
-        raise AssertionError("B2 verify does not fit shared memory")
-    P = slots * nb + 1
-    S = nb * bs
-    kp = fp8_codes(torch, (P * KV, bs, D), dev, gen)
-    vp = fp8_codes(torch, (P * KV, bs, D), dev, gen)
+    fmt = fmt or E4M3
+    slots = len(lens)
+    nb = max(1, -(-max(lens) // bs))
+    S, P = nb * bs, slots * nb + 1
+    kp = fp8_codes(torch, (P * KV, bs, D), dev, gen, fmt=fmt)
+    vp = fp8_codes(torch, (P * KV, bs, D), dev, gen, fmt=fmt)
     perm = 1 + torch.randperm(P - 1, generator=gen, device=dev)
     bt = perm[:slots * nb].reshape(slots, nb).to(torch.int32)
-    base = torch.tensor([200, 0, 125, 1], dtype=torch.int32, device=dev)
-    bt[1] = 0                                   # the free slot: trash
-    bt[3, 1] = 0                                # unallocated tail
+    dec = torch.tensor(lens, dtype=torch.int64, device=dev)
+    bt[torch.arange(nb, device=dev)[None] * bs >= dec[:, None]] = 0
     bt_nk = (bt[:, None, :] * KV + torch.arange(KV, device=dev)[None, :, None]
              ).reshape(slots * KV, nb)
-    lengths = torch.where(base[:, None] > 0, base[:, None] + torch.arange(
-        T, device=dev)[None] + 1, 0).to(torch.int32)
-    lengths = lengths.repeat_interleave(KV, dim=0)
+    lengths = torch.where(dec[:, None] > 0, torch.clamp_min(
+        dec[:, None] - (T - 1) + torch.arange(T, device=dev)[None], 1), 0)
+    lengths = lengths.to(torch.int32).repeat_interleave(KV, dim=0)
     N = slots * KV
-    q = round_to_format(torch.randn((N, T, 1, D), generator=gen, device=dev)
-                        * 20, E4M3)
+    q = round_to_format(torch.randn((N, T, R, D), generator=gen, device=dev)
+                        * 20, fmt)
     pos = torch.arange(S, device=dev)
     live = pos[None, None] < lengths[:, :, None]
     qk = torch.where(live, torch.rand((N, T, S), generator=gen, device=dev)
@@ -367,29 +370,78 @@ def check_b2_paged(torch, dev, gen):
     vs = torch.where(live, torch.rand((N, T, S), generator=gen, device=dev)
                      * 1e-2, 0.0)
     bias = torch.where(live, 0.0, -1e30)
-    outs = {}
-    for use_kernel in (True, False):
-        outs[use_kernel] = (
-            ma.mgs_paged_flash_attention(
-                q[:, 0], kp, vp, bt_nk, lengths[:, 0], qk[:, 0], vs[:, 0],
-                bias[:, 0], E4M3, use_kernel=use_kernel),
-            ma.mgs_paged_verify_attention(q, kp, vp, bt_nk, lengths, qk, vs,
-                                          bias, E4M3, use_kernel=use_kernel))
+    return dict(q=q, kp=kp, vp=vp, bt=bt_nk, lengths=lengths, qk=qk, vs=vs,
+                bias=bias, fmt=fmt, KV=KV, lens=list(lens))
+
+
+def b2_entries(p, use_kernel: bool):
+    """The paged decode entry (token ``T - 1``'s rows, all ``R`` query rows
+    of a slice) and the verify entry on one case."""
+    from repro_torch.kernels import mgs_attention as ma
+    q, kp, vp, bt, lengths = (p[k] for k in ("q", "kp", "vp", "bt",
+                                             "lengths"))
+    dec = ma.mgs_paged_flash_attention(
+        q[:, -1], kp, vp, bt, lengths[:, -1], p["qk"][:, -1], p["vs"][:, -1],
+        p["bias"][:, -1], p["fmt"], use_kernel=use_kernel)
+    ver = ma.mgs_paged_verify_attention(q, kp, vp, bt, lengths, p["qk"],
+                                        p["vs"], p["bias"], p["fmt"],
+                                        use_kernel=use_kernel)
+    return dec, ver
+
+
+def check_b2_case(torch, p, label: str):
+    """Both entries == twin bitwise on one case; verify's last token ==
+    decode; every free slot's rows exactly zero; all finite."""
+    outs = {k: b2_entries(p, k) for k in (True, False)}
     torch.cuda.synchronize()
     err = max((a - b).abs().max().item()
               for a, b in zip(outs[True], outs[False]))
     dec, ver = outs[True]
     eq = all(torch.equal(a, b) for a, b in zip(outs[True], outs[False]))
-    log(f"B2 paged decode + verify (T={T}), {N} slices over a permuted "
-        f"pool: kernel == twin {eq}, verify token 0 == decode "
-        f"{torch.equal(ver[:, 0], dec)}, max_abs_err={err:.3g}")
-    if not eq or not torch.equal(ver[:, 0], dec):
-        raise AssertionError("B2 paged/verify entries != twin")
-    if ver[KV:2 * KV].abs().max().item() != 0.0 or not torch.isfinite(
-            ver).all():
-        raise AssertionError("B2 paged: the free slot is not exactly zero")
-    return err, dict(q=q, kp=kp, vp=vp, bt=bt_nk, lengths=lengths, qk=qk,
-                     vs=vs, bias=bias)
+    N, T, R, D = p["q"].shape
+    log(f"B2 {label}: {N} slices x ({T} x {R} rows, {D}), decode lengths "
+        f"{p['lens']}, {p['fmt'].name}: kernel == twin {eq}, verify token "
+        f"{T - 1} == decode {torch.equal(ver[:, -1], dec)}, "
+        f"max_abs_err={err:.3g}")
+    if not eq or not torch.equal(ver[:, -1], dec):
+        raise AssertionError(f"B2 {label}: paged/verify entries != twin")
+    free = [i for i, n in enumerate(p["lens"]) if n == 0]
+    KV = p["KV"]
+    if any(ver[i * KV:(i + 1) * KV].abs().max().item() != 0.0 for i in free) \
+            or not torch.isfinite(ver).all():
+        raise AssertionError(f"B2 {label}: a free slot is not exactly zero")
+    return err
+
+
+def check_b2_paged(torch, dev, gen):
+    """The paged and verify entries at the continuous path's width (4 slots
+    x 32 heads, head dim 128, block 128, verify T = 4, table width 2), at
+    granite-20b's rows (one kv head, 48 query rows a slice, 192 at a
+    ``spec_k=4`` verify), at gemma3-27b's head dim 168 (16 kv heads x 2
+    rows) in E3M4, and at a long context (lengths 4096, 0, 2000, 1: 32
+    chunks, four passes of the cluster)."""
+    from repro_torch.core.formats import E3M4
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import mgs_attention as ma
+    for rows, D in ((4, 128), (192, 128), (8, 168)):
+        smem = ma._kernel().mgs_flash_attention_smem(rows, D, 128)
+        log(f"B2: {rows} rows x D={D}, chunk 128 need {smem} B of shared "
+            f"memory (limit {_cuda.SMEM_LIMIT})")
+        if not 0 < smem <= _cuda.SMEM_LIMIT:
+            raise AssertionError("B2 does not fit shared memory")
+    p = b2_paged_case(torch, dev, gen, [201, 0, 126, 2])
+    err = check_b2_case(torch, p, "paged + verify")
+    cases = [
+        ("granite-20b rows", dict(KV=1, R=48, lens=[300, 0, 129, 1])),
+        ("gemma3-27b D=168", dict(KV=16, R=2, D=168, fmt=E3M4,
+                                  lens=[640, 0, 257, 3])),
+        ("long context", dict(lens=[4096, 0, 2000, 1])),
+    ]
+    for label, kw in cases:
+        err = max(err, check_b2_case(
+            torch, b2_paged_case(torch, dev, gen, kw.pop("lens"), **kw),
+            label))
+    return err, p
 
 
 # ---------------------------------------------------------------------------
@@ -637,37 +689,34 @@ def time_b2(torch, a):
                 bound_by=b_by)
 
 
-def time_b2_paged(torch, p):
-    """B2 as its paged decode and verify entries launch it, at the
-    continuous path's width (``check_b2_paged``'s inputs: 4 slots x 32
-    heads, block 128, verify T = 4): the kernel call on the arguments the
-    entries pass it (query codes, per-row scale and bias rows, the block
-    table), beside the twin on the same arguments, SDPA over the gathered,
-    dequantized cache (the gather outside the timed call; not the same
-    function bit for bit) and the bound over the live blocks. The entries'
-    own host-side preparation is left out: with it, each call's host time
-    exceeds its device time and the queue drains."""
-    from repro_torch.core.formats import E4M3, decode_bits, encode_bits
+def time_b2_paged(torch, p, label=""):
+    """B2 as its paged decode and verify entries launch it (one
+    ``b2_paged_case``): the kernel call on the arguments the entries pass
+    it (query codes, per-row scale and bias rows, the block table), beside
+    the twin on the same arguments, SDPA over the gathered, dequantized
+    cache (the gather outside the timed call; not the same function bit for
+    bit) and the bound over the live blocks. The entries' own host-side
+    preparation is left out: with it, each call's host time exceeds its
+    device time and the queue drains."""
+    from repro_torch.core.formats import decode_bits
     from repro_torch.kernels import mgs_attention as ma
     import torch.nn.functional as F
-    q, kp, vp, bt, lengths = (p[k] for k in ("q", "kp", "vp", "bt",
-                                             "lengths"))
+    q, kp, vp, bt, fmt = (p[k] for k in ("q", "kp", "vp", "bt", "fmt"))
     N, T, _, D = q.shape
     bs = kp.shape[1]
     S = bt.shape[1] * bs
-    kg = decode_bits(kp[bt.long()].reshape(N, S, D), E4M3)[:, None]
-    vg = decode_bits(vp[bt.long()].reshape(N, S, D), E4M3)
+    kg = decode_bits(kp[bt.long()].reshape(N, S, D), fmt)[:, None]
+    vg = decode_bits(vp[bt.long()].reshape(N, S, D), fmt)
     rows = {}
     for entry, t in (("paged", 1), ("verify", T)):
-        live = lengths[:, :t].amax(dim=1).to(torch.int32)
-        args = [encode_bits(q[:, :t, 0], E4M3), kp, vp, bt, live,
-                *(p[k][:, :t].contiguous() for k in ("qk", "vs", "bias"))]
-        ms = time_ms(torch, lambda: ma.mgs_flash_blocks(*args, E4M3), 50)
-        plain_ms = time_ms(torch, lambda: ma._flash_plain(*args, E4M3), 3,
+        args = b2_kernel_args(torch, p, t)
+        live = args[4]
+        ms = time_ms(torch, lambda: ma.mgs_flash_blocks(*args, fmt), 50)
+        plain_ms = time_ms(torch, lambda: ma._flash_plain(*args, fmt), 3,
                            1)
-        qf = q[:, :t, 0][:, None]
-        v = (vg * p["vs"][:, 0, :, None])[:, None]
-        mask = p["bias"][:, :t][:, None]
+        qf = q[:, T - t:, 0][:, None]
+        v = (vg * p["vs"][:, -1, :, None])[:, None]
+        mask = p["bias"][:, T - t:][:, None]
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qf, kg, v, attn_mask=mask), 50)
         keys = int(((live.to(torch.int64) + bs - 1) // bs * bs).sum())
@@ -675,12 +724,44 @@ def time_b2_paged(torch, p):
                   + N * t * D * 4 + bt.numel() * 4 + N * 4)
         ops = 2 * 9 * 2 * t * D * keys
         b_ms, b_by = bound(nbytes, ops)
-        log(f"time B2 {entry:6s} {N} slices x ({t} x {D}), {keys} live keys "
-            f"(block {bs}): kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, SDPA "
-            f"f32 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        log(f"time B2 {label}{entry:6s} {N} slices x ({t} x {D}), {keys} "
+            f"live keys (block {bs}): kernel {ms:.4f} ms, twin "
+            f"{plain_ms:.4f} ms, SDPA f32 {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
         rows[entry] = dict(rows=t, live_keys=keys, ms=ms, plain_ms=plain_ms,
                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     return rows
+
+
+def b2_kernel_args(torch, p, t):
+    """``mgs_flash_blocks``'s arguments as the paged entry (``t = 1``: the
+    last token, its ``R`` rows sharing one scale row) or the verify entry
+    (``t = T``: ``T * R`` rows, a scale row each) pass them."""
+    from repro_torch.core.formats import encode_bits
+    N, T, R, D = p["q"].shape
+    live = p["lengths"][:, T - t:].amax(dim=1).to(torch.int32)
+    rows = [p[k][:, T - t:].contiguous() for k in ("qk", "vs", "bias")]
+    if t > 1 and R > 1:
+        rows = [x.repeat_interleave(R, dim=1) for x in rows]
+    return [encode_bits(p["q"][:, T - t:].reshape(N, t * R, D), p["fmt"]),
+            p["kp"], p["vp"], p["bt"], live, *rows]
+
+
+# live keys a slot at which phase 5 times B2's paged and verify entries
+B2_CONTEXTS = (256, 1024, 4096)
+
+
+def time_b2_contexts(torch, dev, gen):
+    """B2 at 4 slots x 32 heads with every slot at 256, 1024 and 4096 live
+    keys (``B2_CONTEXTS``), through both entries."""
+    out = []
+    for keys in B2_CONTEXTS:
+        p = b2_paged_case(torch, dev, gen, [keys] * 4)
+        for entry, row in time_b2_paged(torch, p, f"{keys} keys ").items():
+            out.append(dict(entry=entry, context=keys, **row))
+        del p
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1235,6 +1316,7 @@ def main() -> int:
     b1_rows = time_b1(torch, dev, gen)
     b2_row = time_b2(torch, b2_args)
     b2p_rows = time_b2_paged(torch, b2p_args)
+    b2_ctx = time_b2_contexts(torch, dev, gen)
     step = profile_decode_step(torch, eng)
     del eng
     log(f"phase 5: timed ({time.time() - t0:.1f} s)")
@@ -1308,7 +1390,7 @@ def main() -> int:
              source="src/repro_torch/csrc/mgs_attention.cu",
              replaces="src/repro/kernels/mgs_attention.py:246",
              launches=launches["mgs_flash_attention"], max_abs_err=b2_err,
-             **b2_row, **b2p_rows,
+             **b2_row, **b2p_rows, contexts=b2_ctx,
              launches_by_path=by_path["mgs_flash_attention"]),
         dict(name="mgs_matmul_exact", route="cuda",
              source="src/repro_torch/csrc/mgs_matmul.cu",

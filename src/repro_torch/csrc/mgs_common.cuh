@@ -72,6 +72,21 @@ __device__ __forceinline__ int limb_word(uint32_t l0, uint32_t l1, uint32_t l2,
   return int(__byte_perm(lo, hi, 0x5410));
 }
 
+// A 4 x 4 byte transpose: byte j of c[i] is byte i of r[j]. Turns 4 staged
+// rows (4 columns each) into 4 K-packed column words, or 4 codes' packed
+// limbs into one word per limb.
+__device__ __forceinline__ void transpose4(const uint32_t (&r)[4],
+                                           uint32_t (&c)[4]) {
+  const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t hi01 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t hi23 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(lo01, lo23, 0x5410);
+  c[1] = __byte_perm(lo01, lo23, 0x7632);
+  c[2] = __byte_perm(hi01, hi23, 0x5410);
+  c[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
 // Exact float32 2**e for e in [-126, 127].
 __device__ __forceinline__ float pow2f(int e) {
   return __int_as_float((e + 127) << 23);

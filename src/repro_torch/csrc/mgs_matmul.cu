@@ -326,21 +326,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// A 4 x 4 byte transpose: byte j of c[i] is byte i of r[j]. Turns 4 staged
-// rows (4 columns each) into 4 K-packed column words, or 4 codes' packed
-// limbs into one word per limb.
-__device__ __forceinline__ void transpose4(const uint32_t (&r)[4],
-                                           uint32_t (&c)[4]) {
-  const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140);
-  const uint32_t hi01 = __byte_perm(r[0], r[1], 0x7362);
-  const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t hi23 = __byte_perm(r[2], r[3], 0x7362);
-  c[0] = __byte_perm(lo01, lo23, 0x5410);
-  c[1] = __byte_perm(lo01, lo23, 0x7632);
-  c[2] = __byte_perm(hi01, hi23, 0x5410);
-  c[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
 // The limb words of 4 codes along K (o[a] byte j: limb a of code[j]), from
 // the replicated table: lane l reads replica l, which sits in bank l.
 __device__ __forceinline__ void code_limbs(const uint32_t* rep, int lane,

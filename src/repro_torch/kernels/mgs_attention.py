@@ -45,6 +45,7 @@ __all__ = ["mgs_flash_attention", "mgs_paged_flash_attention",
            "flash_chunk_limit"]
 
 _TINY = 1e-30
+_KERNEL_MAX_CHUNK = 512     # csrc/mgs_attention.cu: kMaxChunk
 _MAX_PAIR = _N_LIMBS * (1 << (_LIMB_BASE - 1)) ** 2
 
 
@@ -209,6 +210,9 @@ def mgs_flash_blocks(q_codes, k_pool, v_pool, bt, live, qk_scale, v_scale,
         raise TypeError("q / k / v must be uint8 codes")
     lib = _kernel()
     smem = lib.mgs_flash_attention_smem(T, D, chunk)
+    if smem < 0:
+        raise ValueError(f"chunk {chunk} exceeds the kernel's "
+                         f"{_KERNEL_MAX_CHUNK} keys per tile")
     if smem > _cuda.SMEM_LIMIT:
         raise ValueError(f"T={T}, D={D}, chunk={chunk} needs {smem} B of "
                          f"shared memory (> {_cuda.SMEM_LIMIT})")
@@ -217,6 +221,9 @@ def mgs_flash_blocks(q_codes, k_pool, v_pool, bt, live, qk_scale, v_scale,
             qk_scale.to(torch.float32).contiguous(),
             v_scale.to(torch.float32).contiguous(),
             bias.to(torch.float32).contiguous()]
+    if args[1].data_ptr() % 16 or args[2].data_ptr() % 16:
+        raise ValueError("the K / V pools must start on a 16-byte boundary "
+                         "(a tile is one bulk copy)")
     out = torch.empty((N, T, D), dtype=torch.float32, device=dev)
     if N:
         err = lib.mgs_flash_attention(
@@ -372,9 +379,8 @@ def mgs_paged_verify_attention(q, k_pool, v_pool, block_table, lengths,
     _check_pool(q, k_pool, v_pool, block_table, lengths, (N, T),
                 (qk_scale, v_scale, bias), (N, T, S))
     q_codes = encode_bits(q, fmt).reshape(N, T * R, D)
-    qk = torch.repeat_interleave(qk_scale, R, dim=1)
-    vs = torch.repeat_interleave(v_scale, R, dim=1)
-    bias_r = torch.repeat_interleave(bias, R, dim=1)
+    qk, vs, bias_r = (t if R == 1 else torch.repeat_interleave(t, R, dim=1)
+                      for t in (qk_scale, v_scale, bias))
     live = torch.clamp(lengths.to(torch.int32), 0, S).amax(dim=1)
     out = _dispatch(q_codes, k_pool, v_pool, block_table.to(torch.int32),
                     live, qk, vs, bias_r, fmt, use_kernel)

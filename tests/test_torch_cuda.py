@@ -188,6 +188,132 @@ def test_b2_paged_and_verify_entries_equal_twin(dev):
     assert not ver[1].any()
 
 
+def _paged_case(dev, lens, KV, R, D, bs, T, fmt, seed):
+    """A paged pool through a permuted table: stale blocks, free slots
+    (length 0) and unallocated tails on the trash block 0; verify token t
+    attends to ``lens - (T - 1) + t`` keys (token T - 1 is the decode)."""
+    g = torch.Generator().manual_seed(seed)
+    slots = len(lens)
+    nb = max(1, -(-max(lens) // bs))
+    S, P = nb * bs, slots * nb + 1
+    kp = _codes((P * KV, bs, D), fmt, seed + 1, dev)
+    vp = _codes((P * KV, bs, D), fmt, seed + 2, dev)
+    bt = (1 + torch.randperm(P - 1, generator=g)[:slots * nb]).to(
+        torch.int32).reshape(slots, nb)
+    dec = torch.tensor(lens)
+    bt[torch.arange(nb)[None] * bs >= dec[:, None]] = 0
+    bt = (bt[:, None, :] * KV + torch.arange(KV)[None, :, None]).reshape(
+        slots * KV, nb).to(torch.int32)
+    lengths = torch.where(dec[:, None] > 0, torch.clamp_min(
+        dec[:, None] - (T - 1) + torch.arange(T)[None], 1), 0)
+    lengths = lengths.to(torch.int32).repeat_interleave(KV, dim=0)
+    N = slots * KV
+    q = round_to_format(torch.randn(N, T, R, D, generator=g) * 20, fmt)
+    live = torch.arange(S)[None, None] < lengths[:, :, None]
+    qk = torch.where(live, torch.rand(N, T, S, generator=g) * 1e-3, 0.0)
+    vs = torch.where(live, torch.rand(N, T, S, generator=g) * 1e-2, 0.0)
+    bias = torch.where(live, 0.0, -1e30)
+    return [x.to(dev) for x in (q, kp, vp, bt, lengths, qk, vs, bias)]
+
+
+def _entries_equal_twin(case, fmt):
+    q, kp, vp, bt, lengths, qk, vs, bias = case
+    n0 = LAUNCHES["mgs_flash_attention"]
+    out = {}
+    for k in (True, False):
+        out[k] = (ta.mgs_paged_flash_attention(
+            q[:, -1], kp, vp, bt, lengths[:, -1], qk[:, -1], vs[:, -1],
+            bias[:, -1], fmt, use_kernel=k),
+            ta.mgs_paged_verify_attention(q, kp, vp, bt, lengths, qk, vs,
+                                          bias, fmt, use_kernel=k))
+    torch.cuda.synchronize()
+    assert LAUNCHES["mgs_flash_attention"] == n0 + 2
+    for a, b in zip(out[True], out[False]):
+        assert torch.equal(a, b)
+    dec, ver = out[True]
+    assert torch.equal(ver[:, -1], dec)
+    assert torch.isfinite(ver).all()
+    return dec, ver
+
+
+# (kv heads, query rows a kv head, head dim, decode lengths): granite-20b
+# (one kv head, 48 rows: 192 at a spec_k=4 verify), gemma3-27b (head dim
+# 168), minicpm-2b (head dim 64), deepseek-7b
+_ARCH_WIDTHS = {"granite-20b": (1, 48, 128, [300, 0, 129, 1]),
+                "gemma3-27b": (4, 2, 168, [640, 0, 257, 3]),
+                "minicpm-2b": (4, 1, 64, [500, 1, 0, 128]),
+                "deepseek-7b": (8, 1, 128, [1024, 0, 700, 2])}
+
+
+@pytest.mark.parametrize("arch", list(_ARCH_WIDTHS))
+@pytest.mark.parametrize("fmt", [E4M3, E3M4])
+def test_b2_entries_at_dense_arch_widths(dev, arch, fmt):
+    KV, R, D, lens = _ARCH_WIDTHS[arch]
+    case = _paged_case(dev, lens, KV, R, D, 128, 4, fmt, 20)
+    dec, ver = _entries_equal_twin(case, fmt)
+    free = lens.index(0)
+    assert not ver[free * KV:(free + 1) * KV].any()   # exact zeros
+
+
+@pytest.mark.parametrize("nb", [7, 8, 9, 16, 17, 33])
+@pytest.mark.parametrize("fmt", [E4M3, E3M4])
+def test_b2_across_split_passes(dev, nb, fmt):
+    """Tables 7 to 33 chunks wide (cluster 8: one to five passes), lengths
+    at and around the pass edges, chunk 32, shared and per-row rows."""
+    bs = 32
+    lens = [nb * bs, nb * bs - 1, (nb - 1) * bs + 1, min(nb, 8) * bs, 1, 0]
+    case = _paged_case(dev, lens, 2, 3, 64, bs, 4, fmt, nb)
+    _entries_equal_twin(case, fmt)
+
+
+def test_b2_paged_4096_keys(dev):
+    """4 slots x 32 heads, block 128, decode lengths 4096, 0, 2000, 1 over a
+    permuted pool with stale and trash blocks."""
+    case = _paged_case(dev, [4096, 0, 2000, 1], 32, 1, 128, 128, 4, E4M3, 40)
+    dec, ver = _entries_equal_twin(case, E4M3)
+    assert not ver[32:64].any()
+
+
+def test_b2_granite_spec4_verify_fits(dev):
+    """A granite-20b verify at spec_k=4 (one kv head, 4 tokens x 48 query
+    rows = 192 rows a slice, head dim 128, chunk 128) launches: no dense
+    arch's decode or verify exceeds the shared-memory limit."""
+    from repro_torch.kernels import _cuda
+    for rows, D in ((1, 64), (16, 64), (8, 168), (16, 168), (48, 128),
+                    (192, 128)):
+        assert 0 < ta._kernel().mgs_flash_attention_smem(
+            rows, D, 128) <= _cuda.SMEM_LIMIT
+    q, kp, vp, bt, lengths, qk, vs, bias = _paged_case(
+        dev, [130, 4096, 1, 0], 1, 48, 128, 128, 4, E4M3, 50)
+    ver = ta.mgs_paged_verify_attention(q, kp, vp, bt, lengths, qk, vs, bias,
+                                        E4M3)
+    torch.cuda.synchronize()
+    assert ver.shape == (4, 4, 48, 128) and torch.isfinite(ver).all()
+
+
+@pytest.mark.parametrize("pool", ["k", "v"])
+def test_b2_refuses_a_pool_off_16_bytes(dev, pool):
+    """A tile is one bulk copy: a pool view that starts off a 16-byte
+    boundary is refused, not launched, and the aligned copy of the same
+    pool still equals the twin."""
+    case = _paged_case(dev, [200, 0, 65, 1], 2, 1, 64, 32, 4, E4M3, 60)
+    q, kp, vp, bt, lengths, qk, vs, bias = case
+    i = 1 if pool == "k" else 2
+    flat = torch.empty(case[i].numel() + 4, dtype=torch.uint8, device=dev)
+    view = flat[4:].view(case[i].shape)
+    view.copy_(case[i])
+    assert view.data_ptr() % 16
+    bad = list(case)
+    bad[i] = view
+    n0 = LAUNCHES["mgs_flash_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        ta.mgs_paged_flash_attention(
+            bad[0][:, -1], bad[1], bad[2], bt, lengths[:, -1], qk[:, -1],
+            vs[:, -1], bias[:, -1], E4M3)
+    assert LAUNCHES["mgs_flash_attention"] == n0
+    _entries_equal_twin(case, E4M3)
+
+
 @pytest.mark.parametrize("M", [1, 4, 13, 16, 70])
 @pytest.mark.parametrize("fmt", [E4M3, E3M4])
 def test_b4_kernel_equals_b1_and_twin(dev, M, fmt):
