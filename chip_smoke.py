@@ -61,9 +61,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    each configuration's logit error and token agreement against the
    unquantized model is printed; a decode step of (a)-(d) is profiled and
    B4 / B5 are timed at the shapes above (B5 through both entries and
-   with both of its bin updates). Last, print the card's name and
-   power limit, a JSON line of kernel results, and
-   ``{"ok": true, "device": {...}}``.
+   with both of its bin updates);
+8. calibration on the weights of phases 4 and 6 (nothing prepared
+   again): the group engine under ``FP8_MGS_SERVE_KV`` with
+   ``flush_target=1e-6`` serves a group on v0, ``calibrate()``s to v1
+   (the table and planned periods logged), serves, installs a refreshed
+   v2 and swaps to v3 mid-group through an injector, and replays v0, v1
+   and the torn group bitwise, each run launching phase 4's kernels; the
+   continuous engine (``spec_k=4``, static decode-query scale,
+   ``flush_target=1e-6``) ``calibrate()``s, takes a plan-changing swap
+   mid-traffic that must fence (late arrivals on the new version, none
+   dropped), replays every era bitwise and refreshes its table from
+   streaming shadow passes; ``PREP_STATS`` and the builds stay flat; the
+   time of ``calibrate()`` and of a shadow pass, and a paged decode step
+   under the static scale profiled beside phase 6's dynamic one (B3 / B2
+   launches equal). Last, print the card's name and power limit, a JSON
+   line of kernel results, and ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -886,22 +899,23 @@ def profile_paged_step(torch, eng):
     """Four slots admitted, then the host-clock time of 5 paged decode
     steps and one step under ``torch.profiler`` by kernel."""
     from repro_torch.launch.serve import Request
-    from repro_torch.models import decode_step_paged
     import numpy as np
     rng = np.random.default_rng(SEED + 1)
     active = {}
     t0 = time.monotonic()
     for i, plen in enumerate((40, 100, 150, 64)):
+        # 61 new tokens: two blocks a slot with or without spec_k=4's
+        # 3 rows of headroom
         req = Request(rid=900 + i, prompt=rng.integers(
-            1, eng.cfg.vocab, plen).astype(np.int32), max_new_tokens=64)
+            1, eng.cfg.vocab, plen).astype(np.int32), max_new_tokens=61)
         eng._admit(req, 0.0, t0, active)
     cur = np.zeros((eng.slots, 1), np.int64)
     for slot, st in active.items():
         cur[slot, 0] = st.cur
     cur = eng._tokens(cur)
-    return profile_step(torch, lambda: decode_step_paged(
-        eng.params, eng.cfg, cur, eng.cache),
-        f"paged decode step ({eng.cfg.n_layers} layers, 4 slots)")
+    return profile_step(torch, lambda: eng._decode_paged(cur),
+                        f"paged decode step ({eng.cfg.n_layers} layers, "
+                        "4 slots)")
 
 
 def time_b3(torch, dev, gen):
@@ -1262,6 +1276,233 @@ def time_b45(torch, dev, gen):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 8: calibration on the card (both engines, the phase 4 / 6 weights)
+# ---------------------------------------------------------------------------
+
+
+class _SwapAtDecode:
+    """Injector: a table swap at one decode step inside a group."""
+
+    def __init__(self, engine, table, step):
+        self.engine, self.table, self.step = engine, table, step
+        self.fired = False
+
+    def before_group(self):
+        pass
+
+    def on_decode(self, step):
+        if step == self.step and not self.fired:
+            self.fired = True
+            self.engine.apply_calibration(self.table)
+
+
+def _flat_or_raise(what, prep0, builds0):
+    from repro_torch.kernels import BUILDS
+    from repro_torch.quant import PREP_STATS
+    if dict(PREP_STATS) != prep0 or dict(BUILDS) != builds0:
+        raise AssertionError(f"{what}: PREP_STATS {PREP_STATS} (before "
+                             f"{prep0}) or nvcc builds {BUILDS} (before "
+                             f"{builds0}) moved")
+
+
+def _replay_or_raise(eng, req, logged, what, group=None):
+    rep, st = eng.replay(req, group=group)
+    if rep.out_tokens != req.out_tokens or not _logits_equal(
+            st["logits"][req.rid], logged):
+        raise AssertionError(f"{what}: replay of request {req.rid} under "
+                             f"v{req.table_version} is not bitwise")
+    log(f"calibration {what}: request {req.rid} replayed bitwise under "
+        f"v{req.table_version}")
+
+
+def calibrate_group(torch, params, layers: int):
+    """Phase 8, group engine: serve v0, ``calibrate()`` to v1, serve, a
+    refreshed v2 with a mid-group swap to v3 through an injector, replay
+    v0, v1 and the torn group bitwise; launches per run as phase 4's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.quant import PREP_STATS
+    from repro_torch.quant.config import FP8_MGS_SERVE_KV
+    import numpy as np
+    quant = FP8_MGS_SERVE_KV.replace(flush_target=1e-6)
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=layers,
+                              quant=quant)
+    new = 8
+    eng = ServeEngine(cfg, batch=4, max_len=32 + new + 1, params=params)
+    eng.warmup([32], max_new=1)
+    prep0, builds0 = dict(PREP_STATS), dict(BUILDS)
+    rng = np.random.default_rng(SEED + 8)
+
+    def reqs(rid0):
+        return [Request(rid=rid0 + i, prompt=rng.integers(
+            1, cfg.vocab, 32).astype(np.int32), max_new_tokens=new)
+            for i in range(4)]
+
+    # one group: prefill 9 per layer + head, then new - 1 decode steps
+    want = {"mgs_matmul_exact_fused": (9 * layers + 1)
+            + (new - 1) * (7 * layers + 1),
+            "mgs_flash_attention": (new - 1) * layers}
+
+    def serve(rr, **kw):
+        reset_launch_counts()
+        st = eng.run(rr, record_logits=True, **kw)
+        got = {k: LAUNCHES[k] for k in want}
+        if got != want:
+            raise AssertionError(f"group launches {got} != {want}")
+        return {r.rid: st["logits"][r.rid] for r in rr}
+
+    r0 = reqs(0)
+    l0 = serve(r0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t1 = eng.calibrate()
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    log(f"calibration group: calibrate() {calib_s:.3f} s -> v"
+        f"{eng.table_version} {t1}")
+    log(f"calibration group: planned flush periods {eng._flush_host}")
+    r1 = reqs(10)
+    l1 = serve(r1)
+    t2 = t1.refreshed([(s, v * 1.5) for s, v in t1.to_pairs()])
+    if eng.apply_calibration(t2) != 2:
+        raise AssertionError("refresh did not install v2")
+    t3 = t2.refreshed([(s, v * 0.75) for s, v in t2.to_pairs()])
+    r2 = reqs(20)
+    probe = _SwapAtDecode(eng, t3, step=3)
+    l2 = serve(r2, injector=probe)
+    stamps = [r.table_version for r in r0 + r1 + r2]
+    if not probe.fired or eng.table_version != 3 or stamps != (
+            [0] * 4 + [1] * 4 + [2] * 4):
+        raise AssertionError(f"versions {stamps}, head v{eng.table_version}")
+    log(f"calibration group: stamps {stamps}, a swap to v3 at decode step "
+        f"3 of v2's group; launches per run {want} (phase 4's 7L + 1 B1 "
+        f"and L B2 a decode step) with and without a table")
+    for rr, logged, what in ((r0, l0, "group v0"), (r1, l1, "group v1"),
+                             (r2, l2, "group torn by a mid-group swap")):
+        _replay_or_raise(eng, rr[0], logged[rr[0].rid], what, group=rr)
+    _flat_or_raise("group calibration", prep0, builds0)
+    return {"calibrate_s": calib_s, "versions": eng.table_version,
+            "table": dict(t1.to_pairs()),
+            "flush_periods": dict(eng._flush_host),
+            "launches_per_run": want}
+
+
+def calibrate_continuous(torch, params, layers: int, dyn_step):
+    """Phase 8, continuous engine (``spec_k=4``, static decode-query scale,
+    ``flush_target``): ``calibrate()``, a plan-changing swap mid-traffic
+    that must fence (late arrivals on the new version, nothing dropped),
+    replay of every era bitwise, a streaming refresh; a profiled paged
+    decode step under the static scale beside phase 6's dynamic one."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import BUILDS
+    from repro_torch.launch.serve import ContinuousBatchingEngine, Request
+    from repro_torch.quant import PREP_STATS
+    from repro_torch.quant.config import FP8_MGS_SERVE_PAGED
+    import numpy as np
+    quant = FP8_MGS_SERVE_PAGED.replace(schedule="activation",
+                                        static_q_scale=True,
+                                        flush_target=1e-6, draft_layers=8)
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=layers,
+                              quant=quant)
+    eng = ContinuousBatchingEngine(cfg, slots=4, max_len=256, params=params,
+                                   spec_k=4)
+    eng.warmup([64, 128, 192])
+    torch.cuda.synchronize()
+    prep0, builds0 = dict(PREP_STATS), dict(BUILDS)
+    rng = np.random.default_rng(SEED + 9)
+
+    def mk(rid, new=8):
+        n = int(rng.integers(16, 161))
+        return Request(rid=rid, prompt=rng.integers(1, cfg.vocab, n).astype(
+            np.int32), max_new_tokens=new)
+
+    def serve(rr, **kw):
+        return eng.serve(rr, record_logits=True, **kw)["logits"]
+
+    r0 = [mk(0), mk(1)]
+    l0 = serve(r0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t1 = eng.calibrate()
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    if not eng._amax_value > 0.0:
+        raise AssertionError("calibrate() left no static decode-query amax")
+    log(f"calibration continuous: calibrate() {calib_s:.3f} s -> v"
+        f"{eng.table_version}, attn.q.amax {eng._amax_value:.4f}")
+    r1 = [mk(10), mk(11)]
+    l1 = serve(r1)
+    t2 = t1.refreshed([(s, v * 4.0) for s, v in t1.to_pairs()])
+    if eng._plan_flush_host(t2) == eng._flush_host:
+        raise AssertionError("the x4 table does not change the flush plan")
+    state = {"round": 0, "late": None, "fenced": None}
+
+    def feed():
+        state["round"] += 1
+        if state["round"] == 2:
+            eng.apply_calibration(t2)
+            state["fenced"] = eng._pending is not None
+            state["late"] = [mk(30, 6), mk(31, 6)]
+            return state["late"]
+        return []
+
+    resident = [mk(20, 16), mk(21, 16)]
+    l2 = serve(resident, feed=feed)
+    late = state["late"]
+    stamps = [r.table_version for r in r0 + r1 + resident + late]
+    drops = sum(len(r.out_tokens) != r.max_new_tokens
+                for r in resident + late)
+    if (not state["fenced"] or drops or eng._pending is not None
+            or stamps != [0, 0, 1, 1, 1, 1, 2, 2]):
+        raise AssertionError(f"fence: fenced {state['fenced']}, drops "
+                             f"{drops}, stamps {stamps}")
+    log(f"calibration continuous: a plan-changing swap at round 2 fenced; "
+        f"stamps {stamps}, {drops} dropped")
+    for req, logged, what in ((r0[0], l0, "continuous v0"),
+                              (r1[0], l1, "continuous v1"),
+                              (resident[0], l2, "continuous v1, fenced"),
+                              (late[0], l2, "continuous v2, after fence")):
+        _replay_or_raise(eng, req, logged[req.rid], what)
+    cal = eng.enable_streaming(seed=1, sample_period=2, sigma_rtol=0.0,
+                               min_calls=1)
+    r3 = [mk(40), mk(41)]
+    serve(r3)
+    if not any(cal.recorder.calls(s) for s in cal.recorder.sites):
+        raise AssertionError("no shadow pass recorded")
+    v_before = eng.table_version
+    report = eng.maybe_refresh_calibration()
+    if report is None or eng.table_version != v_before + 1:
+        raise AssertionError("the streaming refresh did not bump the table")
+    log(f"calibration continuous: streaming refresh v{v_before} -> "
+        f"v{eng.table_version} (drifted sites {len(report.drifted_sites)})")
+    toks = np.zeros((1, 128), np.int64)
+    toks[0] = rng.integers(1, cfg.vocab, 128)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._shadow_pass(toks)
+    torch.cuda.synchronize()
+    shadow_s = time.perf_counter() - t0
+    log(f"calibration continuous: one shadow pass (128-token prefill + a "
+        f"decode step) {shadow_s:.3f} s")
+    _flat_or_raise("continuous calibration", prep0, builds0)
+    step = profile_paged_step(torch, eng)
+    for k in ("B3", "B2"):
+        if step[f"{k}_kernels"] != dyn_step[f"{k}_kernels"]:
+            raise AssertionError(f"{k} launches a step {step[f'{k}_kernels']}"
+                                 f" != phase 6's {dyn_step[f'{k}_kernels']}")
+    log(f"calibration continuous: paged decode step, static vs dynamic "
+        f"(phase 6) query scale: device busy {step['device_ms']:.2f} / "
+        f"{dyn_step['device_ms']:.2f} ms, other kernels "
+        f"{step['other_kernels']} / {dyn_step['other_kernels']}, B3 "
+        f"{step['B3_kernels']}, B2 {step['B2_kernels']}")
+    return {"calibrate_s": calib_s, "shadow_pass_s": shadow_s,
+            "q_amax": eng._amax_value, "versions": eng.table_version,
+            "stamps": stamps, "static_step": step,
+            "flush_periods": dict(eng._flush_host)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=30,
@@ -1318,6 +1559,7 @@ def main() -> int:
     b2p_rows = time_b2_paged(torch, b2p_args)
     b2_ctx = time_b2_contexts(torch, dev, gen)
     step = profile_decode_step(torch, eng)
+    group_params = eng.params       # phase 8 serves these weights again
     del eng
     log(f"phase 5: timed ({time.time() - t0:.1f} s)")
 
@@ -1338,6 +1580,7 @@ def main() -> int:
         f"{cont['spec_rounds']}), decode tokens/s {cont['decode_tok_per_s']:.2f}"
         f" sequential, {cont['spec_decode_tok_per_s']:.2f} speculative")
     paged_step = profile_paged_step(torch, ceng)
+    cont_params = ceng.params       # and these
     del ceng
     b3_rows = time_b3(torch, dev, gen)
     log(f"phase 6: continuous path served and timed "
@@ -1353,6 +1596,15 @@ def main() -> int:
     b45_rows = time_b45(torch, dev, gen)
     log(f"phase 7: paper numerics checked, served and timed "
         f"({time.time() - t0:.1f} s)")
+
+    t0 = time.time()
+    calibration = {
+        "group": calibrate_group(torch, group_params, args.layers),
+        "continuous": calibrate_continuous(torch, cont_params, args.layers,
+                                           paged_step)}
+    del group_params, cont_params
+    log(f"phase 8: calibration served, swapped, fenced and replayed on "
+        f"both engines ({time.time() - t0:.1f} s)")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1420,7 +1672,8 @@ def main() -> int:
                     "paged_decode_step": paged_step,
                     "paper_decode_steps": paper_steps,
                     "paper_serve": {k: runs[k]["stats"] for k in runs},
-                    "paper_accuracy": accuracy, "layers": args.layers}))
+                    "paper_accuracy": accuracy, "calibration": calibration,
+                    "layers": args.layers}))
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

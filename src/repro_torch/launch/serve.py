@@ -16,9 +16,19 @@ Static weights are quantized and encoded once at construction
 (``quant.prepare_params`` + ``prepare_logits_head``); ``PREP_STATS``
 stays flat while serving.
 
+Calibration (``quant.calibrate``, ``quant.streaming``): ``calibrate``
+records per-site activation limb sigmas and the decode-query absmax in one
+pass; ``apply_calibration`` installs a table as a new version, whose
+runtime state (per-site flush periods, the static decode-query amax) the
+engine applies around every model call; every request records the
+version it was served under, and ``replay`` re-serves it under that
+version bitwise, after any number of swaps. A swap builds nothing and
+prepares nothing. ``enable_streaming`` + ``maybe_refresh_calibration``
+refresh the table from gated shadow passes over live traffic.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
-(the tests do); a default-device engine without CUDA raises. Calibration
-and the replica fleet are later slices (ROADMAP A9, A12).
+(the tests do); a default-device engine without CUDA raises. The replica
+fleet is a later slice (ROADMAP A12).
 
   python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
       --batch 4 --prompt-len 32 --max-new 16 --quant fp8-mgs-serve-kv
@@ -29,7 +39,9 @@ and the replica fleet are later slices (ROADMAP A9, A12).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
@@ -39,13 +51,16 @@ import torch
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.markov import plan_flush_period
 from repro_torch.models import (adopt_slot, cast_params, decode_step,
                                 decode_step_paged, draft_step_paged,
                                 init_cache, init_paged_cache, init_params,
                                 prefill, release_slot, rewind_slots,
                                 verify_step_paged)
-from repro_torch.quant import (BlockAllocator, prepare_logits_head,
-                               prepare_params)
+from repro_torch.quant import (BlockAllocator, PreparedWeight, calibrating,
+                               prepare_logits_head, prepare_params)
+from repro_torch.quant.calibrate import CalibrationTable, applied_calib_state
+from repro_torch.quant.streaming import StreamingCalibrator, sample_gate
 
 __all__ = ["ServeEngine", "ContinuousBatchingEngine", "Request",
            "bucket_for", "make_engine", "main", "resolve_device"]
@@ -72,6 +87,31 @@ def bucket_for(plen: int, buckets=None, *, block: int = 1) -> int:
     return -(-plen // block) * block
 
 
+def _site_of(path) -> Optional[str]:
+    """The calibration site of a prepared weight at ``path``: the
+    ``parent.name`` convention of the model's call sites (``"ffn.wg"``,
+    ``"attn.wq"``, ...); the unembedding weights are ``"logits"``."""
+    if path and path[-1] in ("unembed", "unembed_prepared"):
+        return "logits"
+    return f"{path[-2]}.{path[-1]}" if len(path) >= 2 else None
+
+
+def _stamp_act_sigmas(params, table: CalibrationTable):
+    """Stamp each PreparedWeight with its call site's observed act sigma
+    (planes shared, nothing rebuilt)."""
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, PreparedWeight):
+            sigma = table.sigma(_site_of(path))
+            if sigma is not None:
+                return node.with_act_sigma(sigma)
+        return node
+
+    return walk(params, ())
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -79,6 +119,10 @@ class Request:
     max_new_tokens: int
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    #: calibration-table version the request was served under (stamped at
+    #: group start by the group engine, at admission by the continuous
+    #: one); ``replay`` re-installs exactly this version
+    table_version: int = 0
 
 
 class ServeEngine:
@@ -90,13 +134,20 @@ class ServeEngine:
       max_len: cache length (prompt bucket + new tokens must fit).
       params: parameter tree (``init_params`` layout) on ``device``;
         ``None`` draws random weights from ``seed`` on the device.
+      calibration: a :class:`~repro_torch.quant.calibrate.CalibrationTable`
+        to start from (installed as version 1, or its own version if
+        higher); later tables go through :meth:`apply_calibration`.
       device: ``"cuda"`` (default) or ``"cpu"``.
     """
 
     def __init__(self, cfg: ModelConfig, *, batch: int, max_len: int,
                  params=None, seed: int = 0, eos_id: Optional[int] = None,
+                 calibration: Optional[CalibrationTable] = None,
                  device=None):
         self.device = resolve_device(device)
+        if calibration is not None:
+            cfg = dataclasses.replace(
+                cfg, quant=cfg.quant.with_calibration(calibration))
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
@@ -107,10 +158,141 @@ class ServeEngine:
         params = prepare_params(params, cfg.quant)
         params = prepare_logits_head(params, cfg.quant,
                                      tied=cfg.tie_embeddings)
+        if calibration is not None:
+            params = _stamp_act_sigmas(params, calibration)
         self.params = cast_params(params, cfg)
+        self._init_calib_runtime(calibration)
+
+    # -- versioned runtime calibration state ---------------------------
+
+    def _init_calib_runtime(self, calibration: Optional[CalibrationTable]):
+        """Version bookkeeping and the runtime calibration state.
+
+        ``self._calib_state`` is what the engine applies around each model
+        call (``quant.calibrate.applied_calib_state``): ``{"flush": {site:
+        period}}`` under ``flush_target`` and the decode-query amax under
+        ``static_q_scale``. A swap replaces the state; versions and tables
+        stay on the host.
+        """
+        self._site_wsigmas = self._collect_limb_sigmas(self.params)
+        sites = set(self._site_wsigmas)
+        if calibration is not None:
+            sites |= {s for s, _ in calibration.to_pairs()
+                      if not s.endswith(".amax")}
+        self._flush_sites = sorted(sites)
+        self._flush_host: Dict[str, int] = {}
+        self._amax_value = 0.0
+        self._tables: Dict[int, CalibrationTable] = {}
+        self.table_version = 0
+        if calibration is not None:
+            v = calibration.version if calibration.version > 0 else 1
+            if calibration.version != v:
+                calibration = CalibrationTable.from_pairs(
+                    calibration.to_pairs(), version=v)
+            self._tables[v] = calibration
+            self.table_version = v
+        self._calib_state = self._build_calib_state(calibration)
+        self._streaming: Optional[StreamingCalibrator] = None
+        self._stream_seed = 0
+        self._stream_index = 0
+        self._replaying = False
+        # guards the (version, state, host mirrors) swap against readers on
+        # other threads; re-entrant for the continuous engine's override
+        self._calib_lock = threading.RLock()
+
+    @staticmethod
+    def _collect_limb_sigmas(params) -> Dict[str, float]:
+        """Per-site PreparedWeight limb sigma, keyed like the stamps."""
+        out: Dict[str, float] = {}
+
+        def walk(node, path):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, path + (k,))
+            elif isinstance(node, PreparedWeight):
+                site = _site_of(path)
+                if site is not None:
+                    out[site] = float(node.limb_sigma)
+
+        walk(params, ())
+        return out
+
+    def _q_amax_state(self, values) -> Dict[str, Any]:
+        """The decode-query amax entries of a state: the device tensor (a
+        scalar or one per slot), its host-known range, and the cache of its
+        per-row expansions."""
+        a = np.asarray(values, np.float32)
+        return {"q_amax": torch.as_tensor(a, device=self.device),
+                "q_amax_min": float(a.min()), "q_amax_max": float(a.max()),
+                "q_amax_rows": {}}
+
+    def _build_calib_state(self, table: Optional[CalibrationTable]):
+        """Runtime state for ``table`` (``None`` = uncalibrated plan): a
+        pure function of the config, the weights' limb sigmas, the flush
+        sites and ``table``, so replay rebuilds any version's values."""
+        q = self.cfg.quant
+        state: Dict[str, Any] = {}
+        if q.flush_target is not None:
+            self._flush_host = self._plan_flush_host(table)
+            state["flush"] = self._flush_host
+        if q.static_q_scale:
+            a = table.sigma("attn.q.amax") if table is not None else None
+            self._amax_value = float(a) if a is not None and a > 0 else 0.0
+            state.update(self._q_amax_state(self._amax_value))
+        return state or None
+
+    def _plan_flush_host(self, table: Optional[CalibrationTable]
+                         ) -> Dict[str, int]:
+        """The flush plan ``table`` implies (pure, installs nothing); the
+        continuous engine fences a swap whose plan differs."""
+        q = self.cfg.quant
+        if q.flush_target is None:
+            return {}
+        # clamped to the kernels' C int: any period past K flushes once
+        return {
+            s: min(2**31 - 1, plan_flush_period(
+                q.block_k, target_overflow=q.flush_target,
+                sigma_limb_x=(table.sigma(s) if table is not None
+                              else None),
+                sigma_limb_w=self._site_wsigmas.get(s)))
+            for s in self._flush_sites}
+
+    @contextlib.contextmanager
+    def _pinned_state(self, version: int):
+        """Temporarily re-install ``version``'s runtime state (replay);
+        streaming observation is muted meanwhile."""
+        if version != 0 and version not in self._tables:
+            raise KeyError(f"no calibration table recorded for version "
+                           f"{version} (known: {sorted(self._tables)})")
+        table = self._tables.get(version)
+        prev = (self._calib_state, self._flush_host, self._amax_value,
+                self.table_version, self._replaying)
+        rec = self._streaming.recorder if self._streaming else None
+        prev_mute = rec.muted if rec is not None else None
+        try:
+            self._calib_state = self._build_calib_state(table)
+            self.table_version = version
+            self._replaying = True
+            if rec is not None:
+                rec.muted = True
+            yield
+        finally:
+            (self._calib_state, self._flush_host, self._amax_value,
+             self.table_version, self._replaying) = prev
+            if rec is not None:
+                rec.muted = prev_mute
 
     def _tokens(self, toks: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(toks, dtype=torch.int64, device=self.device)
+
+    def _prefill(self, toks: np.ndarray, cache, cs):
+        with applied_calib_state(cs):
+            return prefill(self.params, self.cfg,
+                           {"tokens": self._tokens(toks)}, cache)
+
+    def _decode(self, cur: torch.Tensor, cache, cs):
+        with applied_calib_state(cs):
+            return decode_step(self.params, self.cfg, cur, cache)
 
     @torch.no_grad()
     def warmup(self, plen_buckets, *, max_new: int = 1, seed: int = 0):
@@ -127,21 +309,177 @@ class ServeEngine:
             toks = rng.integers(1, self.cfg.vocab, (self.batch, plen))
             cache = init_cache(self.cfg, self.batch, self.max_len,
                                device=self.device)
-            logits, cache = prefill(self.params, self.cfg,
-                                    {"tokens": self._tokens(toks)}, cache)
+            logits, cache = self._prefill(toks, cache, self._calib_state)
             for _ in range(max_new):
                 cur = logits.argmax(dim=-1)[:, None]
-                logits, cache = decode_step(self.params, self.cfg, cur,
-                                            cache)
+                logits, cache = self._decode(cur, cache, self._calib_state)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._buckets = buckets
         return buckets
 
+    def apply_calibration(self, table: CalibrationTable) -> int:
+        """Install a calibration table; returns its version.
+
+        The first table also goes on the config and is stamped onto every
+        :class:`~repro_torch.quant.PreparedWeight` (``act_sigma``; planes
+        shared). Every table replaces the runtime state (flush periods,
+        the static decode-query amax), which the next model call applies:
+        nothing is rebuilt or prepared, so a swap is safe between decode
+        steps under traffic. In-flight work keeps its plan: the group
+        engine snapshots the state per group, the continuous engine pins
+        the amax per slot at admission and fences plan changes until the
+        resident requests drain.
+
+        The version is monotone per engine: ``table.version`` when it
+        advances the counter, else ``current + 1``. Every version's table
+        is kept for :meth:`replay`.
+        """
+        with self._calib_lock:
+            v = (table.version if table.version > self.table_version
+                 else self.table_version + 1)
+            if table.version != v:
+                table = CalibrationTable.from_pairs(table.to_pairs(),
+                                                    version=v)
+            first = not self._tables
+            self._tables[v] = table
+            new_sites = {s for s, _ in table.to_pairs()
+                         if not s.endswith(".amax")} - set(self._flush_sites)
+            if new_sites:
+                self._flush_sites = sorted(set(self._flush_sites)
+                                           | new_sites)
+            self.table_version = v
+            if first:
+                self.cfg = dataclasses.replace(
+                    self.cfg, quant=self.cfg.quant.with_calibration(table))
+                self.params = _stamp_act_sigmas(self.params, table)
+            self._calib_state = self._build_calib_state(table)
+            if self._streaming is not None:
+                self._streaming.table = table
+            return v
+
+    def _record_pass(self, toks: np.ndarray, recorder=None):
+        """One prefill + one decode step over ``toks`` under
+        ``calibrating(recorder)``, outside any applied state, on the
+        engine's device and kernels; returns the recorder."""
+        cache = init_cache(self.cfg, toks.shape[0], self.max_len,
+                           device=self.device)
+        with calibrating(recorder) as rec:
+            logits, cache = prefill(self.params, self.cfg,
+                                    {"tokens": self._tokens(toks)}, cache)
+            decode_step(self.params, self.cfg,
+                        logits.argmax(dim=-1)[:, None], cache)
+        return rec
+
     @torch.no_grad()
-    def run(self, requests: List[Request], *,
+    def calibrate(self, prompts: Optional[List[np.ndarray]] = None, *,
+                  update: bool = True, seed: int = 0) -> CalibrationTable:
+        """One recording pass: a prefill over ``prompts`` (default: random
+        tokens) and one decode step, under ``calibrating()``: every
+        site-tagged matmul records its quantized activation's limb
+        histogram, the decode query its absmax. Returns the
+        :class:`CalibrationTable`; with ``update`` it is installed
+        (:meth:`apply_calibration`)."""
+        if prompts is None:
+            rng = np.random.default_rng(seed)
+            prompts = [rng.integers(1, self.cfg.vocab,
+                                    min(self.max_len - 1, 16))
+                       for _ in range(self.batch)]
+        plen = max(len(p) for p in prompts)
+        toks = np.zeros((self.batch, plen), np.int64)
+        for j, p in enumerate(prompts[:self.batch]):
+            toks[j, plen - len(p):] = p
+        table = self._record_pass(toks).table()
+        if update:
+            self.apply_calibration(table)
+        return table
+
+    # -- streaming calibration (quant.streaming) -----------------------
+
+    def enable_streaming(self, calibrator: Optional[StreamingCalibrator]
+                         = None, *, seed: Optional[int] = None,
+                         sample_period: int = 4,
+                         **thresholds) -> StreamingCalibrator:
+        """Attach a streaming calibrator: every ``sample_gate``-admitted
+        unit of traffic (a group here, an admission on the continuous
+        engine) also runs a shadow pass over its tokens under
+        ``calibrating(recorder)``, beside the served pass, whose bits it
+        never touches. ``thresholds`` go to :class:`StreamingCalibrator`.
+        """
+        if calibrator is None:
+            calibrator = StreamingCalibrator(
+                self._tables.get(self.table_version,
+                                 CalibrationTable({})),
+                seed=seed if seed is not None else 0,
+                sample_period=sample_period, **thresholds)
+        self._streaming = calibrator
+        self._stream_seed = seed if seed is not None else calibrator.seed
+        return calibrator
+
+    def maybe_refresh_calibration(self):
+        """Drift-check the streaming statistics; swap in a refreshed table
+        on drift. Returns the justifying ``DriftReport``, else ``None``."""
+        if self._streaming is None:
+            return None
+        return self._streaming.maybe_refresh(self.apply_calibration)
+
+    def _maybe_shadow(self, toks: np.ndarray):
+        """The gated shadow pass of one unit of live traffic."""
+        if self._streaming is None or self._replaying:
+            return
+        idx = self._stream_index
+        self._stream_index += 1
+        if sample_gate(self._stream_seed, idx, self._streaming.sample_period):
+            self._shadow_pass(toks)
+
+    @torch.no_grad()
+    def _shadow_pass(self, toks: np.ndarray):
+        """:meth:`calibrate`'s pass over gated traffic tokens into the
+        streaming recorder; the outputs are discarded."""
+        self._record_pass(toks, self._streaming.recorder)
+
+    def replay(self, request: Request, version: Optional[int] = None, *,
+               group: Optional[List[Request]] = None):
+        """Re-serve a logged request under its recorded table version.
+
+        Returns ``(replayed_request, stats)``; ``stats["logits"]`` holds
+        the float32 logits row behind every token, bitwise those of the
+        original run however many swaps happened since. ``version``
+        defaults to ``request.table_version``. ``group``: the request's
+        original co-members in order, required with per-tensor activation
+        scales (``per_row_act=False``), where a member's quantization
+        depends on the whole group.
+        """
+        version = request.table_version if version is None else version
+        members = list(group) if group is not None else [request]
+        idx = next((i for i, r in enumerate(members) if r is request), None)
+        if idx is None:
+            raise ValueError("request must be a member of its group")
+        if group is None and not self.cfg.quant.per_row_act and \
+                self.batch > 1:
+            raise ValueError(
+                "per-tensor activation scales couple group members: pass "
+                "group=<the request's original co-members> to replay "
+                "(per_row_act=False quant)")
+        copies = [dataclasses.replace(r, out_tokens=[], done=False)
+                  for r in members]
+        with self._pinned_state(version):
+            stats = self._replay_run(copies)
+        return copies[idx], stats
+
+    def _replay_run(self, copies: List[Request]) -> Dict[str, Any]:
+        return self.run(copies, record_logits=True)
+
+    @torch.no_grad()
+    def run(self, requests: List[Request], *, injector=None,
             record_logits: bool = False) -> Dict[str, Any]:
         """Serve ``requests`` in fixed-size groups; fills ``out_tokens``.
+
+        Each group runs under one snapshot of the runtime calibration
+        state, stamped on its requests (``table_version``): a swap landing
+        mid-group takes effect at the next group. ``injector``: an object
+        with ``before_group()`` and ``on_decode(step)`` hooks, called as
+        each group starts and before each decode step.
 
         Returns stats (``prefill_tokens``, ``decode_tokens``, ``wall_s``,
         ``decode_tok_per_s``), plus the float32 logits row behind every
@@ -152,19 +490,28 @@ class ServeEngine:
         logits_log: Dict[int, List[np.ndarray]] = {}
         for i in range(0, len(requests), self.batch):
             group = requests[i:i + self.batch]
+            with self._calib_lock:
+                cs = self._calib_state
+                ver = self.table_version
+            for r in group:
+                r.table_version = ver
+            if injector is not None:
+                injector.before_group()
             plen = bucket_for(max(len(r.prompt) for r in group),
                               self._buckets)
             toks = np.zeros((self.batch, plen), np.int64)
             for j, r in enumerate(group):
                 toks[j, plen - len(r.prompt):] = r.prompt   # left-pad
+            self._maybe_shadow(toks)
             cache = init_cache(self.cfg, self.batch, self.max_len,
                                device=self.device)
-            logits, cache = prefill(self.params, self.cfg,
-                                    {"tokens": self._tokens(toks)}, cache)
+            logits, cache = self._prefill(toks, cache, cs)
             n_prefill += plen * len(group)
             cur = logits.argmax(dim=-1)[:, None]
             max_new = max(r.max_new_tokens for r in group)
-            for _ in range(max_new):
+            for step in range(max_new):
+                if injector is not None:
+                    injector.on_decode(step + 1)
                 cur_h = cur.cpu().numpy()
                 rows = logits.float().cpu().numpy() if record_logits else None
                 for j, r in enumerate(group):
@@ -180,8 +527,7 @@ class ServeEngine:
                 if all(r.done or len(r.out_tokens) >= r.max_new_tokens
                        for r in group):
                     break
-                logits, cache = decode_step(self.params, self.cfg, cur,
-                                            cache)
+                logits, cache = self._decode(cur, cache, cs)
                 cur = logits.argmax(dim=-1)[:, None]
             for r in group:
                 r.done = True
@@ -228,13 +574,17 @@ class ContinuousBatchingEngine(ServeEngine):
     tokens and logits rows are bitwise those of sequential decode.
     ``stats["spec"]`` reports the acceptance rate.
 
-    Calibration hooks (the reference's pinned per-slot amax, fenced table
-    swaps and replay) are ROADMAP item A9.
+    Calibration: each slot pins the static decode-query amax of the table
+    current at its admission (the state's per-slot vector, rebuilt on the
+    device only at admission, release and swap), so a swap never moves a
+    resident request's scale; a swap that changes the flush plan is fenced
+    until the resident requests drain (:meth:`apply_calibration`).
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int,
                  n_blocks: Optional[int] = None, params=None, seed: int = 0,
                  eos_id: Optional[int] = None,
+                 calibration: Optional[CalibrationTable] = None,
                  spec_k: Optional[int] = None, device=None):
         if not cfg.quant.per_row_act:
             raise ValueError(
@@ -247,7 +597,8 @@ class ContinuousBatchingEngine(ServeEngine):
                              f"spec_k=None for plain sequential decode")
         self.spec_k = spec_k
         super().__init__(cfg, batch=1, max_len=max_len, params=params,
-                         seed=seed, eos_id=eos_id, device=device)
+                         seed=seed, eos_id=eos_id, calibration=calibration,
+                         device=device)
         self.slots = slots
         self.block_size = cfg.quant.block_k
         self.n_table = -(-max_len // self.block_size)
@@ -261,6 +612,35 @@ class ContinuousBatchingEngine(ServeEngine):
         self._free_slots = deque(range(slots))
         self._cur = np.zeros((slots, 1), np.int64)
         self._logits_log: Optional[Dict[int, List[np.ndarray]]] = None
+        # per-slot decode-query amax pinned at admission (0 = free slot:
+        # the dynamic reduce, never read); its device copy is rebuilt on
+        # the next step after a change
+        self._slot_amax = np.zeros(slots, np.float32)
+        self._slot_state: Optional[Dict[str, Any]] = None
+        # a flush-plan-changing table waits here until the slots drain
+        self._pending: Optional[CalibrationTable] = None
+        self._serving = False
+
+    def _set_slot_amax(self, slot: int, value: float):
+        self._slot_amax[slot] = value
+        self._slot_state = None
+
+    def _cs_decode(self):
+        """The decode steps' state: the admission-pinned per-slot amaxes
+        in place of the scalar."""
+        cs = self._calib_state
+        if cs is None or "q_amax" not in cs:
+            return cs
+        if self._slot_state is None:
+            self._slot_state = self._q_amax_state(self._slot_amax)
+        return {**cs, **self._slot_state}
+
+    def _decode_paged(self, cur: torch.Tensor):
+        """One paged decode step over every slot under the pinned state."""
+        with applied_calib_state(self._cs_decode()):
+            logits, _ = decode_step_paged(self.params, self.cfg, cur,
+                                          self.cache)
+        return logits
 
     @torch.no_grad()
     def warmup(self, plen_buckets, *, max_new: int = 1, seed: int = 0):
@@ -308,9 +688,15 @@ class ContinuousBatchingEngine(ServeEngine):
         blocks = self.alloc.alloc(n_alloc)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, bucket - plen:] = req.prompt          # left-pad
+        self._maybe_shadow(toks)
+        with self._calib_lock:
+            # one consistent read: the version stamp, the slot's pinned
+            # amax and the state the prefill runs under
+            req.table_version = self.table_version
+            self._set_slot_amax(slot, self._amax_value)
+            cs = self._calib_state
         pcache = init_cache(self.cfg, 1, bucket, device=self.device)
-        logits, pcache = prefill(self.params, self.cfg,
-                                 {"tokens": self._tokens(toks)}, pcache)
+        logits, pcache = self._prefill(toks, pcache, cs)
         phys = np.zeros(self.n_table, np.int32)       # tail -> trash block
         phys[:n_alloc] = blocks
         adopt_slot(self.cache, pcache, slot, phys)
@@ -335,20 +721,22 @@ class ContinuousBatchingEngine(ServeEngine):
             self.alloc.free(st.blocks)
             self._free_slots.append(slot)
             self._cur[slot, 0] = 0
+            self._set_slot_amax(slot, 0.0)
             del active[slot]
 
     def _spec_round(self, cur: torch.Tensor):
         """``spec_k - 1`` chained draft steps, then one verify of
-        ``[cur, drafts]``. Returns ``(tokens (slots, k), logits
-        (slots, k, V))``."""
+        ``[cur, drafts]``, under the pinned state. Returns ``(tokens
+        (slots, k), logits (slots, k, V))``."""
         toks = [cur]
-        for j in range(self.spec_k - 1):
-            dlog, _ = draft_step_paged(self.params, self.cfg, toks[-1],
-                                       self.cache, j)
-            toks.append(dlog.argmax(dim=-1)[:, None])
-        tokens = torch.cat(toks, dim=1)
-        logits, _ = verify_step_paged(self.params, self.cfg, tokens,
-                                      self.cache)
+        with applied_calib_state(self._cs_decode()):
+            for j in range(self.spec_k - 1):
+                dlog, _ = draft_step_paged(self.params, self.cfg, toks[-1],
+                                           self.cache, j)
+                toks.append(dlog.argmax(dim=-1)[:, None])
+            tokens = torch.cat(toks, dim=1)
+            logits, _ = verify_step_paged(self.params, self.cfg, tokens,
+                                          self.cache)
         return tokens, logits
 
     @torch.no_grad()
@@ -362,7 +750,9 @@ class ContinuousBatchingEngine(ServeEngine):
         wall-clock has elapsed (default: all at once, in list order).
         ``feed``: optional zero-arg callable polled once per scheduling
         round; the requests it returns join the queue mid-flight.
-        ``on_done``: optional callback per finished request.
+        ``on_done``: optional callback per finished request. A fenced
+        table (:meth:`apply_calibration`) pauses admission until the
+        resident requests drain, installs, and admission resumes under it.
 
         Returns ``prefill_tokens``, ``decode_tokens``, ``steps`` (decode
         steps, or speculative rounds), ``step_s`` (host-clock seconds of
@@ -394,71 +784,81 @@ class ContinuousBatchingEngine(ServeEngine):
             if on_done is not None:
                 on_done(req)
 
-        while True:
-            now = time.monotonic() - t0
-            if feed is not None:
-                for req in feed():
-                    waiting.append((now, req))
-            decoding = bool(active)      # residents of earlier rounds
-            while waiting and waiting[0][0] <= now:
-                arr, req = waiting[0]
-                st = self._admit(req, arr, t0, active)
-                if st is None:
+        self._serving = True
+        try:
+            while True:
+                now = time.monotonic() - t0
+                if feed is not None:
+                    for req in feed():
+                        waiting.append((now, req))
+                if (self._pending is not None and not active
+                        and not self._replaying):
+                    # the fence: the slots drained, install the parked
+                    # table and resume admission under it
+                    ServeEngine.apply_calibration(self, self._pending)
+                    self._pending = None
+                decoding = bool(active)      # residents of earlier rounds
+                while (waiting and waiting[0][0] <= now
+                       and (self._pending is None or self._replaying)):
+                    arr, req = waiting[0]
+                    st = self._admit(req, arr, t0, active)
+                    if st is None:
+                        break
+                    waiting.popleft()
+                    n_mid += decoding
+                    n_prefill += bucket_for(len(req.prompt), self._buckets,
+                                            block=self.block_size)
+                    if req.done:                      # done at first token
+                        finish(req, arr, st.admit_s)
+                if not active:
+                    if waiting:
+                        time.sleep(min(1e-3, max(0.0, waiting[0][0] - now)))
+                        continue
                     break
-                waiting.popleft()
-                n_mid += decoding
-                n_prefill += bucket_for(len(req.prompt), self._buckets,
-                                        block=self.block_size)
-                if req.done:                      # done at first token
-                    finish(req, arr, st.admit_s)
-            if not active:
-                if waiting:
-                    time.sleep(min(1e-3, max(0.0, waiting[0][0] - now)))
-                    continue
-                break
-            for slot, st in active.items():
-                self._cur[slot, 0] = st.cur
-            cur = self._tokens(self._cur)
-            t_step = time.perf_counter()
-            if self.spec_k:
-                k = self.spec_k
-                tokens, logits = self._spec_round(cur)
-                targets = logits.argmax(dim=-1).cpu().numpy()
-                tokens_np = tokens.cpu().numpy()
-                rows = logits.float().cpu().numpy()   # (slots, k, vocab)
-                step_s.append(time.perf_counter() - t_step)
-                keep = np.zeros(self.slots, np.int32)
-                for slot in list(active):
-                    st = active[slot]
-                    # exact acceptance: drafts survive while they equal
-                    # the verify argmax at their position
-                    a = 0
-                    while (a + 1 < k and tokens_np[slot, a + 1]
-                           == targets[slot, a]):
-                        a += 1
-                    n_drafted += k - 1
-                    n_accepted += a
-                    keep[slot] = a + 1
-                    for j in range(a + 1):
-                        st.cur = int(targets[slot, j])
-                        self._harvest(slot, st, active, rows[slot, j])
+                for slot, st in active.items():
+                    self._cur[slot, 0] = st.cur
+                cur = self._tokens(self._cur)
+                t_step = time.perf_counter()
+                if self.spec_k:
+                    k = self.spec_k
+                    tokens, logits = self._spec_round(cur)
+                    targets = logits.argmax(dim=-1).cpu().numpy()
+                    tokens_np = tokens.cpu().numpy()
+                    rows = logits.float().cpu().numpy()  # (slots, k, vocab)
+                    step_s.append(time.perf_counter() - t_step)
+                    keep = np.zeros(self.slots, np.int32)
+                    for slot in list(active):
+                        st = active[slot]
+                        # exact acceptance: drafts survive while they equal
+                        # the verify argmax at their position
+                        a = 0
+                        while (a + 1 < k and tokens_np[slot, a + 1]
+                               == targets[slot, a]):
+                            a += 1
+                        n_drafted += k - 1
+                        n_accepted += a
+                        keep[slot] = a + 1
+                        for j in range(a + 1):
+                            st.cur = int(targets[slot, j])
+                            self._harvest(slot, st, active, rows[slot, j])
+                            if st.req.done:
+                                finish(st.req, st.arrival, st.admit_s)
+                                break
+                    # released slots have pos == 0 and are skipped; live
+                    # ones advance by their accepted count and shed the
+                    # rejected rows
+                    rewind_slots(self.cache, keep, k)
+                else:
+                    rows = self._decode_paged(cur).float().cpu().numpy()
+                    step_s.append(time.perf_counter() - t_step)
+                    for slot in list(active):
+                        st = active[slot]
+                        st.cur = int(rows[slot].argmax())
+                        self._harvest(slot, st, active, rows[slot])
                         if st.req.done:
                             finish(st.req, st.arrival, st.admit_s)
-                            break
-                # released slots have pos == 0 and are skipped; live ones
-                # advance by their accepted count and shed the rejected rows
-                rewind_slots(self.cache, keep, k)
-            else:
-                logits, _ = decode_step_paged(self.params, self.cfg, cur,
-                                              self.cache)
-                rows = logits.float().cpu().numpy()
-                step_s.append(time.perf_counter() - t_step)
-                for slot in list(active):
-                    st = active[slot]
-                    st.cur = int(rows[slot].argmax())
-                    self._harvest(slot, st, active, rows[slot])
-                    if st.req.done:
-                        finish(st.req, st.arrival, st.admit_s)
+        finally:
+            self._serving = False
         dt = time.monotonic() - t0
         stats: Dict[str, Any] = {
             "prefill_tokens": n_prefill, "decode_tokens": n_decode,
@@ -478,6 +878,28 @@ class ContinuousBatchingEngine(ServeEngine):
         self._logits_log = None
         return stats
 
+    def apply_calibration(self, table: CalibrationTable) -> int:
+        """Install a table, behind a drain fence if it changes the plan.
+
+        Flush periods are shared by every slot of a step, so a table whose
+        flush plan differs cannot install while requests are resident: it
+        is parked, admission pauses, the resident slots drain, and it
+        installs at the next empty scheduling round (no request dropped,
+        nothing rebuilt). A swap with the same plan (an amax-only refresh,
+        a re-install of the same content) installs at once: resident slots
+        keep their pinned amax. Returns the installed version, or the
+        current one when the table was fenced.
+        """
+        with self._calib_lock:
+            if (self._serving and self._tables
+                    and self._plan_flush_host(table) != self._flush_host):
+                self._pending = table
+                return self.table_version
+            return super().apply_calibration(table)
+
+    def _replay_run(self, copies: List[Request]) -> Dict[str, Any]:
+        return self.serve(copies, record_logits=True)
+
     def run(self, requests: List[Request], **kw) -> Dict[str, Any]:
         """The group-mode entry point is replaced by :meth:`serve`."""
         if kw:
@@ -489,20 +911,24 @@ class ContinuousBatchingEngine(ServeEngine):
 
 def make_engine(cfg: ModelConfig, *, batch: int, max_len: int, params=None,
                 seed: int = 0, eos_id: Optional[int] = None, device=None,
+                calibration: Optional[CalibrationTable] = None,
                 continuous: bool = False,
                 spec_k: Optional[int] = None) -> ServeEngine:
     """Engine factory: a :class:`ServeEngine`, or with ``continuous=True`` a
     :class:`ContinuousBatchingEngine` with ``batch`` decode slots
-    (``spec_k`` turns on speculative decoding there)."""
+    (``spec_k`` turns on speculative decoding there); ``calibration``
+    starts either pre-calibrated."""
     if continuous:
         return ContinuousBatchingEngine(
             cfg, slots=batch, max_len=max_len, params=params, seed=seed,
-            eos_id=eos_id, spec_k=spec_k, device=device)
+            eos_id=eos_id, calibration=calibration, spec_k=spec_k,
+            device=device)
     if spec_k is not None:
         raise ValueError("spec_k requires continuous=True: speculative "
                          "decoding runs on the paged continuous engine")
     return ServeEngine(cfg, batch=batch, max_len=max_len, params=params,
-                       seed=seed, eos_id=eos_id, device=device)
+                       seed=seed, eos_id=eos_id, calibration=calibration,
+                       device=device)
 
 
 _QUANTS = {"none": "NONE", "fp8-mgs-serve": "FP8_MGS_SERVE",

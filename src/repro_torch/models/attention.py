@@ -11,7 +11,10 @@ decode (``_sdpa_packed_cache``) and the paged decode and speculative
 verify (``_sdpa_paged_cache``, ``_sdpa_paged_verify``). Under an fp8
 config the score and value contractions of prefill route through
 ``qeinsum`` (B1 or B3, batched over (batch, kv-head) slices). Caches are
-written in place.
+written in place. Every contraction carries the reference's calibration
+site (``attn.wq`` ... ``attn.wo``, ``attn.scores``, ``attn.values``); the
+decode query's absmax is observed at ``attn.q`` and, under
+``quant.static_q_scale``, replaced by the calibrated amax.
 """
 
 from __future__ import annotations
@@ -27,7 +30,10 @@ from repro_torch.kernels.mgs_attention import (mgs_flash_attention,
                                                mgs_paged_verify_attention)
 from repro_torch.quant import (PagedKVCache, QuantizedKVCache, append_kv,
                                paged_append_kv, qeinsum)
-from repro_torch.quant.quantize import QTensor, quantize_fp8
+from repro_torch.quant.calibrate import (current_calib_state, observe,
+                                         observe_amax)
+from repro_torch.quant.quantize import (QTensor, quantize_fp8,
+                                        quantize_fp8_static)
 from .common import apply_rope, pairwise_sum_last
 from .linear import proj
 
@@ -65,13 +71,13 @@ def _sdpa_dense(q, k, v, bias, quant=None):
         scores = scores + bias
         w = torch.softmax(scores, dim=-1).to(q.dtype)
         return torch.einsum("bkgts,bskh->btkgh", w, v)
-    scores = qeinsum("btkgh,bskh->bkgts", q, k, quant,
+    scores = qeinsum("btkgh,bskh->bkgts", q, k, quant, site="attn.scores",
                      out_dtype=torch.float32) * scale
     scores = scores + bias
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     w = (e / pairwise_sum_last(e)[..., None]).to(q.dtype)
-    return qeinsum("bkgts,bskh->btkgh", w, v, quant,
+    return qeinsum("bkgts,bskh->btkgh", w, v, quant, site="attn.values",
                    out_dtype=q.dtype)
 
 
@@ -102,7 +108,7 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, is_global,
         pb = k_pos[:, c0:c0 + chunk]
         if fp8:
             s = qeinsum("btkgh,bskh->bkgts", q, kb, quant,
-                        out_dtype=torch.float32) * scale
+                        site="attn.scores", out_dtype=torch.float32) * scale
         else:
             s = torch.einsum("btkgh,bskh->bkgts", q.to(torch.float32),
                              kb.to(torch.float32)) * scale
@@ -116,7 +122,7 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, is_global,
         l_new = l * alpha + pairwise_sum_last(p)
         if fp8:
             pv = qeinsum("bkgts,bskh->bkgth", p.to(q.dtype), vb, quant,
-                         out_dtype=torch.float32)
+                         site="attn.values", out_dtype=torch.float32)
         else:
             pv = torch.einsum("bkgts,bskh->bkgth", p.to(q.dtype),
                               vb).to(torch.float32)
@@ -136,13 +142,57 @@ def _pad_kv_to_chunk(k, v, k_pos, chunk: int):
     return k, v, k_pos
 
 
-def _quantize_decode_q(q2, quant) -> QTensor:
-    """Per-row decode-query quantization (dynamic absmax). The calibrated
-    static scale is ROADMAP item A9."""
+#: calibration site of the decode-query quantization; the table carries
+#: its absmax as ``"attn.q.amax"``
+_Q_SITE = "attn.q"
+
+
+def _quantize_decode_q(q2, quant, batch: int = 1) -> QTensor:
+    """Per-row decode-query quantization: dynamic absmax or calibrated.
+
+    ``q2``: ``(N, K)`` query rows, one per kernel slice. Dynamic is
+    ``quantize_fp8(axis=1)``. Under ``quant.static_q_scale`` the absmax
+    comes from the applied runtime state's ``q_amax`` (a scalar, or one
+    entry per slot repeated over the slot's ``N // batch`` rows), else from
+    the config's ``"attn.q.amax"`` entry, else the dynamic path. A state
+    entry ``<= 0`` takes the dynamic reduce for its rows, bit-identically;
+    when the state's host-known minimum is positive no reduce runs.
+    """
+    fmt = quant.kv_fmt
+    observe_amax(_Q_SITE, q2)
     if quant.static_q_scale:
-        raise NotImplementedError("static_q_scale (calibrated decode-query "
-                                  "scale) is ROADMAP item A9")
-    return quantize_fp8(q2, quant.kv_fmt, axis=1)
+        cs = current_calib_state()
+        if cs is not None and "q_amax" in cs:
+            if cs["q_amax_max"] <= 0.0:
+                return quantize_fp8(q2, fmt, axis=1)
+            a = cs["q_amax"]
+            if a.dim():
+                a = _slot_rows(cs, q2.shape[0] // batch)
+            return quantize_fp8_static(q2, fmt, a,
+                                       dynamic_rows=cs["q_amax_min"] <= 0.0)
+        amax = quant.act_sigma(_Q_SITE + ".amax")
+        if amax is not None and amax > 0.0:
+            return quantize_fp8_static(q2, fmt, amax)
+    return quantize_fp8(q2, fmt, axis=1)
+
+
+def _slot_rows(cs, reps: int):
+    """The state's per-slot amax repeated over each slot's ``reps`` rows
+    (``repeat_interleave``: element by element), kept in the state's
+    ``q_amax_rows`` cache so every layer of a step reuses one copy."""
+    cache = cs.get("q_amax_rows")
+    rows = None if cache is None else cache.get(reps)
+    if rows is None:
+        rows = torch.repeat_interleave(cs["q_amax"], reps).reshape(-1, 1)
+        if cache is not None:
+            cache[reps] = rows
+    return rows
+
+
+def _observe_scores(qvals, quant):
+    """The decode paths' score-contraction statistics (the query codes)."""
+    if quant.accum in ("mgs_exact", "mgs_dmac"):
+        observe("attn.scores", qvals, quant.kv_fmt)
 
 
 def _sdpa_packed_cache(q, cache: QuantizedKVCache, bias, quant,
@@ -158,8 +208,9 @@ def _sdpa_packed_cache(q, cache: QuantizedKVCache, bias, quant,
     S = cache.k_codes.shape[2]
     fmt = quant.kv_fmt
     q2 = q.permute(0, 2, 3, 1, 4).reshape(B * KV, G * T * hd)
-    qt = _quantize_decode_q(q2, quant)
+    qt = _quantize_decode_q(q2, quant, batch=B)
     qvals = qt.q.reshape(B * KV, G * T, hd)
+    _observe_scores(qvals, quant)
     ks = cache.k_scale.reshape(B * KV, S)
     vs = cache.v_scale.reshape(B * KV, S)
     qk = (qt.scale * ks) * (hd ** -0.5)
@@ -209,8 +260,9 @@ def _sdpa_paged_cache(q, cache: PagedKVCache, block_table, bias, lengths,
     B, T, KV, G, hd = q.shape
     fmt = quant.kv_fmt
     q2 = q.permute(0, 2, 3, 1, 4).reshape(B * KV, G * T * hd)
-    qt = _quantize_decode_q(q2, quant)
+    qt = _quantize_decode_q(q2, quant, batch=B)
     qvals = qt.q.reshape(B * KV, G * T, hd)
+    _observe_scores(qvals, quant)
     bt = block_table.to(torch.int64)
     ks, vs, bt_nk = _paged_rows(cache, bt, B)
     S = ks.shape[1]
@@ -236,8 +288,9 @@ def _sdpa_paged_verify(q, cache: PagedKVCache, block_table, bias,
     B, T, KV, G, hd = q.shape
     fmt = quant.kv_fmt
     q2 = q.permute(0, 2, 1, 3, 4).reshape(B * KV * T, G * hd)
-    qt = _quantize_decode_q(q2, quant)
+    qt = _quantize_decode_q(q2, quant, batch=B)
     qvals = qt.q.reshape(B * KV, T, G, hd)
+    _observe_scores(qvals, quant)
     bt = block_table.to(torch.int64)
     ks, vs, bt_nk = _paged_rows(cache, bt, B)
     S = ks.shape[1]
@@ -274,11 +327,11 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
 
-    q = proj(x, p["wq"], cfg.quant)
+    q = proj(x, p["wq"], cfg.quant, site="attn.wq")
     q = apply_rope(q, positions, cfg.rope_theta).reshape(B, T, KV, G, hd)
-    k = proj(x, p["wk"], cfg.quant)
+    k = proj(x, p["wk"], cfg.quant, site="attn.wk")
     k = apply_rope(k, positions, cfg.rope_theta)
-    v = proj(x, p["wv"], cfg.quant)
+    v = proj(x, p["wv"], cfg.quant, site="attn.wv")
 
     packed_out = None
     if isinstance(cache, PagedKVCache):
@@ -342,5 +395,5 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
                           quant=cfg.quant)
 
     out = out.reshape(B, T, H, hd)
-    y = qeinsum("bthd,hdo->bto", out, p["wo"], cfg.quant)
+    y = qeinsum("bthd,hdo->bto", out, p["wo"], cfg.quant, site="attn.wo")
     return y, cache

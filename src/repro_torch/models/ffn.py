@@ -11,8 +11,8 @@ __all__ = ["ffn_apply"]
 
 def ffn_apply(p, x, cfg: ModelConfig):
     if cfg.act == "silu":
-        h = (proj(x, p["wg"], cfg.quant, activation="silu")
-             * proj(x, p["wu"], cfg.quant))
+        h = (proj(x, p["wg"], cfg.quant, activation="silu", site="ffn.wg")
+             * proj(x, p["wu"], cfg.quant, site="ffn.wu"))
     else:
-        h = proj(x, p["wi"], cfg.quant, activation="gelu")
-    return proj(h, p["wd"], cfg.quant)
+        h = proj(x, p["wi"], cfg.quant, activation="gelu", site="ffn.wi")
+    return proj(h, p["wd"], cfg.quant, site="ffn.wd")

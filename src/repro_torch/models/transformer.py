@@ -123,13 +123,13 @@ def _embed_tokens(params, cfg: ModelConfig, tokens):
 def _logits(params, cfg: ModelConfig, x):
     pw = params.get("unembed_prepared")
     if pw is not None:
-        return qeinsum("btd,dv->btv", x, pw, cfg.quant,
+        return qeinsum("btd,dv->btv", x, pw, cfg.quant, site="logits",
                        out_dtype=torch.float32)
     if cfg.tie_embeddings:
         return qeinsum("btd,vd->btv", x, params["embed"], cfg.quant,
-                       out_dtype=torch.float32)
+                       site="logits", out_dtype=torch.float32)
     return qeinsum("btd,dv->btv", x, params["unembed"], cfg.quant,
-                   out_dtype=torch.float32)
+                   site="logits", out_dtype=torch.float32)
 
 
 def _dense_body(pl, x, positions, cfg: ModelConfig, is_global, cache,

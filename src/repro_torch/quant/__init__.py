@@ -1,6 +1,10 @@
 """Quantized execution of the port: config, quantizers, prepared weights,
-the ``qmatmul`` / ``qeinsum`` dispatch and the packed KV cache."""
+the ``qmatmul`` / ``qeinsum`` dispatch, the packed KV cache, and
+calibration (one-pass and streaming)."""
 
+from .calibrate import (ActivationRecorder, CalibrationTable,
+                        applied_calib_state, calibrating,
+                        current_calib_state, current_recorder)
 from .config import (FP8_MGS, FP8_MGS_EXACT, FP8_MGS_SERVE,
                      FP8_MGS_SERVE_KV, FP8_MGS_SERVE_PAGED, FP8_WIDE, NONE,
                      QuantConfig)
@@ -14,6 +18,8 @@ from .prepared import (PREP_STATS, PreparedWeight, clear_prepared_cache,
 from .qeinsum import plan_qeinsum, qeinsum
 from .qmatmul import qmatmul
 from .quantize import QTensor, quantize_fp8, quantize_fp8_static
+from .streaming import (DriftReport, StreamingCalibrator, StreamingRecorder,
+                        detect_drift, sample_gate, tv_distance)
 
 __all__ = ["QuantConfig", "NONE", "FP8_MGS", "FP8_MGS_EXACT",
            "FP8_MGS_SERVE", "FP8_MGS_SERVE_KV", "FP8_MGS_SERVE_PAGED",
@@ -25,4 +31,8 @@ __all__ = ["QuantConfig", "NONE", "FP8_MGS", "FP8_MGS_EXACT",
            "quantize_kv", "init_quantized_kv", "append_kv", "TRASH_BLOCK",
            "PagedKVCache", "BlockAllocator", "init_paged_kv",
            "paged_append_kv", "paged_rollback_kv", "gather_paged_kv",
-           "kv_cache_bytes"]
+           "kv_cache_bytes", "ActivationRecorder", "CalibrationTable",
+           "applied_calib_state", "calibrating", "current_calib_state",
+           "current_recorder", "DriftReport", "StreamingCalibrator",
+           "StreamingRecorder", "detect_drift", "sample_gate",
+           "tv_distance"]

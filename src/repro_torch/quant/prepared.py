@@ -10,6 +10,13 @@ Stacked weights (a leading per-layer axis) get one scale per slice — the
 reference's ``vmap`` of the per-tensor quantizer, here a loop over slices
 so a full-width layer stack never holds more than one slice's float
 temporaries. Model code indexes a layer with :meth:`PreparedWeight.slice`.
+
+Each prepared leaf also carries the std of its weight's limb values
+(``limb_sigma``, the Markov flush planner's ``sigma_w``), from an int64
+histogram of the packed codes: every code maps to three balanced limbs,
+so the histogram of limb values follows from the code counts with no
+limb plane built, and the std is taken in float64 on the host, the same
+number on the CPU and the card.
 """
 
 from __future__ import annotations
@@ -18,11 +25,13 @@ import math
 import weakref
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.formats import FPFormat, decode_bits, encode_bits, \
     get_format
-from repro_torch.kernels.mgs_matmul import limb_decompose
+from repro_torch.core.markov import Pmf
+from repro_torch.kernels.mgs_matmul import _decode_limbs, limb_decompose
 from .config import QuantConfig
 from .quantize import quantize_fp8
 
@@ -46,17 +55,23 @@ class PreparedWeight:
       (``use_kernel and not fused``): at 3 bytes per element they would
       otherwise be dead device memory beside the codes.
 
-    ``tail`` is the logical shape of the flattened ``N``. The reference's
-    limb statistics (for the calibration slice, A9) are not carried yet.
+    ``tail`` is the logical shape of the flattened ``N``. ``limb_sigma``
+    is the observed std of the weight's limb values (one per prepared leaf,
+    every stack slice pooled) and ``act_sigma`` the calibrated activation
+    limb sigma of its call site (``None`` until a calibration table is
+    stamped): the Markov flush planner's inputs.
     """
 
     def __init__(self, codes, scale, fmt_name: str, tail: Tuple[int, ...],
-                 limbs=None):
+                 limbs=None, limb_sigma: Optional[float] = None,
+                 act_sigma: Optional[float] = None):
         self.codes = codes
         self.scale = scale
         self.fmt_name = fmt_name
         self.tail = tuple(tail)
         self.limbs = limbs
+        self.limb_sigma = limb_sigma
+        self.act_sigma = act_sigma
 
     @property
     def fmt(self) -> FPFormat:
@@ -74,12 +89,20 @@ class PreparedWeight:
         """The planes of leading stack index ``i`` (one layer)."""
         return PreparedWeight(
             self.codes[i], self.scale[i], self.fmt_name, self.tail,
-            None if self.limbs is None else self.limbs[i])
+            None if self.limbs is None else self.limbs[i], self.limb_sigma,
+            self.act_sigma)
+
+    def with_act_sigma(self, act_sigma: Optional[float]) -> "PreparedWeight":
+        """Copy sharing the same planes, with a calibrated act sigma."""
+        return PreparedWeight(self.codes, self.scale, self.fmt_name,
+                              self.tail, self.limbs, self.limb_sigma,
+                              act_sigma)
 
     def __repr__(self):
         return (f"PreparedWeight(shape={tuple(self.codes.shape)}, "
                 f"fmt={self.fmt_name}, tail={self.tail}, "
-                f"limbs={self.limbs is not None})")
+                f"limbs={self.limbs is not None}, "
+                f"limb_sigma={self.limb_sigma}, act_sigma={self.act_sigma})")
 
 
 def _keep_limbs(cfg: QuantConfig, keep_limbs: Optional[bool]) -> bool:
@@ -87,6 +110,19 @@ def _keep_limbs(cfg: QuantConfig, keep_limbs: Optional[bool]) -> bool:
     if keep_limbs is None:
         return bool(cfg.use_kernel and not cfg.fused)
     return bool(keep_limbs)
+
+
+def _limb_sigma(code_counts: torch.Tensor, fmt: FPFormat) -> float:
+    """Std of the limb values of codes with the given ``(256,)`` counts:
+    each code contributes its three balanced limbs."""
+    limbs = torch.stack(_decode_limbs(torch.arange(256, dtype=torch.uint8),
+                                      fmt)).to(torch.int64).numpy()
+    counts = code_counts.cpu().numpy().astype(np.int64)
+    lo = int(limbs.min())
+    hist = np.zeros(int(limbs.max()) - lo + 1, np.int64)
+    for row in limbs:
+        np.add.at(hist, row - lo, counts)
+    return Pmf(lo, hist / hist.sum()).std
 
 
 def _build(w, cfg: QuantConfig, stack_ndim: int, k_ndim: int,
@@ -107,9 +143,11 @@ def _build(w, cfg: QuantConfig, stack_ndim: int, k_ndim: int,
     limbs = torch.empty((n_stack, 3, K, n), dtype=torch.int8,
                         device=w.device) if keep_limbs else None
     scales = []
+    code_counts = torch.zeros(256, dtype=torch.int64, device=w.device)
     for i in range(n_stack):
         qt = quantize_fp8(w3[i], fmt, axis=axis, margin=cfg.fp8_margin)
         codes[i] = encode_bits(qt.q, fmt)
+        code_counts += torch.bincount(codes[i].reshape(-1), minlength=256)
         if keep_limbs:
             limbs[i] = limb_decompose(qt.q, fmt)
         scales.append(qt.scale)
@@ -124,7 +162,8 @@ def _build(w, cfg: QuantConfig, stack_ndim: int, k_ndim: int,
         if keep_limbs:
             limbs = limbs[0]
     PREP_STATS["prepared"] += 1
-    return PreparedWeight(codes, scale, fmt.name, tail, limbs)
+    return PreparedWeight(codes, scale, fmt.name, tail, limbs,
+                          _limb_sigma(code_counts, fmt))
 
 
 def _cached(key, src, build):

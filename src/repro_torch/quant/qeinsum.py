@@ -12,7 +12,8 @@ exact kernel's ``(M, K) @ (K, N)`` form by reshape/transpose planning
 
 A :class:`PreparedWeight` ``w`` must already be in canonical
 ``batch + k + n`` order. ``cfg.dtype == "none"`` is a plain float32
-``torch.einsum``.
+``torch.einsum``. ``site`` names the call site for calibration
+statistics and per-site flush planning (``quant.calibrate``).
 """
 
 from __future__ import annotations
@@ -133,7 +134,7 @@ def _sizes_of(plan: QeinsumPlan, x, w) -> Dict[str, int]:
 
 def qeinsum(spec: str, x, w, cfg: QuantConfig, *, bias=None,
             activation: str = "none", out_dtype=None,
-            flush_period: Optional[int] = None):
+            flush_period: Optional[int] = None, site: Optional[str] = None):
     """Quantized 2-operand einsum under the numerics of ``cfg``.
 
     ``bias`` is a flattened-N row and, like ``activation``, requires the
@@ -177,7 +178,7 @@ def qeinsum(spec: str, x, w, cfg: QuantConfig, *, bias=None,
         w2 = w if prepared else w.permute(plan.w_perm).reshape(K, N)
         out2 = qmatmul(xt.reshape(M, K), w2, cfg, out_dtype=out_dtype,
                        bias=bias, activation=act_in,
-                       flush_period=flush_period)
+                       flush_period=flush_period, site=site)
     else:
         if prepared:
             s_tail = tuple(w.scale.shape[len(batch_shape):])
@@ -185,12 +186,13 @@ def qeinsum(spec: str, x, w, cfg: QuantConfig, *, bias=None,
                 w.codes.reshape((B,) + tuple(w.codes.shape[-2:])),
                 w.scale.reshape((B,) + s_tail), w.fmt_name, w.tail,
                 None if w.limbs is None else
-                w.limbs.reshape((B,) + tuple(w.limbs.shape[-3:])))
+                w.limbs.reshape((B,) + tuple(w.limbs.shape[-3:])),
+                w.limb_sigma, w.act_sigma)
         else:
             wb = w.permute(plan.w_perm).reshape(B, K, N)
         out2 = qmatmul(xt.reshape(B, M, K), wb, cfg, out_dtype=out_dtype,
                        bias=bias, activation=act_in, batched=True,
-                       flush_period=flush_period)
+                       flush_period=flush_period, site=site)
 
     out = out2.reshape(batch_shape + m_shape + n_shape)
     if plan.out_perm != tuple(range(out.dim())):

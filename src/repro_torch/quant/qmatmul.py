@@ -30,11 +30,17 @@ scales do not fit the fused kernel's ``(1, N)`` epilogue row, so they are
 applied after it (the same float32 ops).
 
 The swamp and integer accumulations are later slices of the port and
-raise (A14). ``flush_period`` is the exact kernels' runtime argument,
-passed straight through; ``cfg.flush_target``, from which the reference
-plans it, raises until the calibration slice (A9) lands. A config's
-``calibration`` alone changes no bits in the reference (it feeds only
-that plan and the static decode-query scale, which also raises).
+raise (A14).
+
+``site`` names the call site (``"ffn.wg"``, ``"attn.scores"``, ...) for
+calibration: under ``quant.calibrate.calibrating()`` the quantized
+activation's limb histogram is recorded per site (``mgs_exact`` and
+``mgs_dmac``), and the exact kernels' flush period resolves per site
+(:func:`_exact_flush_period`): the engine's applied runtime state, else
+the Markov plan from ``cfg.flush_target`` with the site's activation and
+weight limb sigmas, else the worst-case bound. An explicit
+``flush_period`` overrides all three. The period is a runtime argument of
+B1, B3 and B4: a new period builds nothing.
 """
 
 from __future__ import annotations
@@ -44,24 +50,56 @@ from typing import Optional
 import torch
 
 from repro_torch.core.formats import encode_bits
+from repro_torch.core.markov import plan_flush_period
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.mgs_matmul import (limb_decompose,
                                             mgs_matmul_dmac_codes,
                                             mgs_matmul_exact,
                                             mgs_matmul_exact_fused)
+from .calibrate import current_calib_state, observe
 from .config import QuantConfig
 from .prepared import PreparedWeight
 from .quantize import quantize_fp8
 
 __all__ = ["qmatmul"]
 
+#: the exact kernels take the flush period as a C int
+_MAX_PERIOD = 2**31 - 1
+
+
+def _exact_flush_period(cfg: QuantConfig, w_sigma, x_sigma, site):
+    """Flush period for the exact kernels: runtime state, plan, or None.
+
+    Resolution order (the reference's):
+    1. the applied runtime state's flush entry for ``site``
+       (``quant.calibrate.applied_calib_state``: the engines' hot-swap
+       path);
+    2. the Markov plan when ``cfg.flush_target`` is set, from the site's
+       observed activation limb sigma ``x_sigma`` (calibration table, else
+       the prepared weight's stamped ``act_sigma``; ``None`` = the
+       planner's uniform-limb default) and the weight's ``w_sigma``;
+    3. ``None``: the kernels' worst-case bound.
+    Python periods are clamped to the C int range.
+    """
+    cs = current_calib_state()
+    if cs is not None and site is not None:
+        fp = cs.get("flush", {}).get(site)
+        if fp is not None:
+            return min(int(fp), _MAX_PERIOD)
+    if cfg.flush_target is None:
+        return None
+    return min(_MAX_PERIOD, plan_flush_period(
+        cfg.block_k, target_overflow=cfg.flush_target, sigma_limb_x=x_sigma,
+        sigma_limb_w=w_sigma))
+
 
 def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
             activation: str = "none", batched: bool = False,
-            flush_period: Optional[int] = None):
+            flush_period: Optional[int] = None, site: Optional[str] = None):
     """``(..., K) @ (K, N)`` (or per-slice ``(B, M, K) @ (B, K, N)`` with
-    ``batched``) under the quantized numerics of ``cfg``."""
+    ``batched``) under the quantized numerics of ``cfg``; ``site`` tags the
+    call for calibration (module docstring)."""
     if out_dtype is None:
         out_dtype = x.dtype
     prepared = isinstance(w, PreparedWeight)
@@ -76,10 +114,6 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
             f"dtype={cfg.dtype!r}, accum={cfg.accum!r}: the swamp and "
             "integer accumulations are a later slice of the port (ROADMAP "
             "A14); fp8 wide / mgs_exact / mgs_dmac and dtype='none' run")
-    if cfg.accum == "mgs_exact" and cfg.flush_target is not None:
-        raise NotImplementedError(
-            "flush_target (the Markov flush plan of the exact kernels) is "
-            "ROADMAP item A9; pass flush_period instead")
     fmt = cfg.fmt
     if prepared and w.fmt_name != fmt.name:
         raise ValueError(f"PreparedWeight format {w.fmt_name!r} != "
@@ -90,6 +124,8 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
     else:
         x_axis = tuple(range(1, x.dim())) if batched else None
     qx = quantize_fp8(x, fmt, axis=x_axis, margin=margin)
+    if cfg.accum in ("mgs_exact", "mgs_dmac"):
+        observe(site, qx.q, fmt, batched=batched)
     if prepared:
         w_scale = w.scale
         if batched and w_scale.dim() == 1:      # per-slice scalars
@@ -122,6 +158,12 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
                                   gate_subnormal=cfg.gate_subnormal)
         out = kops.apply_epilogue(out * scale, None, bias, activation)
         return out.to(out_dtype)
+    if flush_period is None:
+        x_sigma = cfg.act_sigma(site)
+        if x_sigma is None and prepared:
+            x_sigma = w.act_sigma
+        flush_period = _exact_flush_period(
+            cfg, w.limb_sigma if prepared else None, x_sigma, site)
     in_kernel = not cfg.per_row_act
     if cfg.use_kernel and cfg.fused and batched:
         # one launch over every slice: the B1 kernel's batch axis

@@ -65,16 +65,23 @@ def quantize_fp8(x: torch.Tensor, fmt: FPFormat,
     return QTensor(q=q, scale=scale)
 
 
-def quantize_fp8_static(x: torch.Tensor, fmt: FPFormat, amax) -> QTensor:
+def quantize_fp8_static(x: torch.Tensor, fmt: FPFormat, amax, *,
+                        dynamic_rows: bool = True) -> QTensor:
     """:func:`quantize_fp8` over ``(N, K)`` rows with a fixed absmax.
 
-    ``amax``: a scalar or per-row ``(N, 1)`` value; rows are clipped into
-    ``[-amax, amax]`` and divided by the same scale, so a row whose own
-    absmax equals ``amax`` gets codes and scale identical to
-    ``quantize_fp8(x, fmt, axis=1)``.
+    ``amax``: a positive scalar, or a scalar / per-row ``(N, 1)`` tensor.
+    Rows are clipped into ``[-amax, amax]`` and divided by the same scale,
+    so a row whose own absmax equals ``amax`` gets codes and scale
+    identical to ``quantize_fp8(x, fmt, axis=1)``. A tensor entry ``<= 0``
+    selects the dynamic per-row reduce for its row (the same
+    ``clamp_min(TINY)`` guard), bit-identical to ``quantize_fp8(x, fmt,
+    axis=1)``; ``dynamic_rows=False`` promises that no entry is ``<= 0``
+    and skips that reduce.
     """
     x = x.to(torch.float32)
     a = torch.as_tensor(amax, dtype=torch.float32, device=x.device)
+    if dynamic_rows and isinstance(amax, torch.Tensor):
+        a = torch.where(a > 0.0, a, _absmax(x, 1))
     scale = a * recip(fmt.max_finite)
-    q = round_to_format(torch.minimum(torch.maximum(x, -a), a) / scale, fmt)
+    q = round_to_format(torch.clamp(x, -a, a) / scale, fmt)
     return QTensor(q=q, scale=torch.broadcast_to(scale, (x.shape[0], 1)))

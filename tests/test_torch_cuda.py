@@ -438,3 +438,107 @@ def test_b5_device_table_equals_twin(dev, fmt):
         assert tbl.shape == (128, 128) and tbl.dtype == torch.uint8
         assert torch.equal(tbl.cpu(), dmac_table_plain(f, gate)), gate
         assert dmac_table(dev, f, gate) is tbl          # built once
+
+
+# ---------------------------------------------------------------------------
+# calibration's runtime values at the kernels
+# ---------------------------------------------------------------------------
+
+
+def test_b2_paged_entries_with_static_q_scale(dev):
+    """B2's paged decode and verify entries at the continuous width (4
+    slots x 32 heads x 128, block 128) under a static decode-query scale
+    whose per-slot vector holds a 0 (that live slot's rows take the dynamic
+    reduce) == the twin; the static rows differ from the dynamic run, the
+    dynamic slot's do not."""
+    from repro_torch.models.attention import (_sdpa_paged_cache,
+                                              _sdpa_paged_verify)
+    from repro_torch.quant import PagedKVCache
+    from repro_torch.quant.calibrate import applied_calib_state
+    from repro_torch.quant.config import FP8_MGS_SERVE_PAGED
+    slots, KV, hd, bs, nb, T = 4, 32, 128, 128, 2, 4
+    P = slots * nb + 1
+    g = torch.Generator().manual_seed(40)
+    cache = PagedKVCache(_codes((P, KV, bs, hd), E4M3, 41, dev),
+                         _codes((P, KV, bs, hd), E4M3, 42, dev),
+                         (torch.rand(P, KV, bs, generator=g) * 1e-2).to(dev),
+                         (torch.rand(P, KV, bs, generator=g) * 1e-2).to(dev))
+    bt = (1 + torch.randperm(P - 1, generator=g)[:slots * nb]).to(
+        torch.int32).reshape(slots, nb).to(dev)
+    pos = torch.tensor([201, 64, 126, 2], dtype=torch.int32, device=dev)
+    lengths = pos + 1
+    q = (torch.randn(slots, T, KV, 1, hd, generator=g) * 2).to(dev)
+    k_pos = torch.arange(nb * bs, device=dev)
+    positions = pos[:, None].to(torch.int64) + torch.arange(T, device=dev)
+    bias_v = torch.where(k_pos[None, None] <= positions[:, :, None], 0.0,
+                         -1e30)
+    amax = torch.tensor([2.5, 0.0, 4.0, 3.0], device=dev)
+    state = {"q_amax": amax, "q_amax_min": 0.0, "q_amax_max": 4.0}
+    out = {}
+    for static in (True, False):
+        for k in (True, False):
+            quant = FP8_MGS_SERVE_PAGED.replace(static_q_scale=static,
+                                                use_kernel=k)
+            n0 = LAUNCHES["mgs_flash_attention"]
+            with applied_calib_state(state):
+                out[static, k] = (
+                    _sdpa_paged_cache(q[:, :1], cache, bt, bias_v[:, :1],
+                                      lengths, quant),
+                    _sdpa_paged_verify(q, cache, bt, bias_v, positions,
+                                       lengths, quant))
+            assert LAUNCHES["mgs_flash_attention"] == n0 + 2 * k
+    torch.cuda.synchronize()
+    for static in (True, False):
+        for a, b in zip(out[static, True], out[static, False]):
+            assert torch.equal(a, b)
+            assert torch.isfinite(a).all()
+    dec, ver = out[True, True]
+    dyn_dec, dyn_ver = out[False, True]
+    assert torch.equal(dec[1], dyn_dec[1]) and torch.equal(ver[1], dyn_ver[1])
+    assert not torch.equal(dec[0], dyn_dec[0])
+    assert not torch.equal(ver[2], dyn_ver[2])
+
+
+_PERIOD_KERNELS = {"b1": "mgs_matmul_exact_fused",
+                   "b3": "mgs_matmul_exact_fused_stationary",
+                   "b4": "mgs_matmul_exact"}
+
+
+@pytest.mark.parametrize("period", [1, 2, 2**31 - 1])
+@pytest.mark.parametrize("kernel", list(_PERIOD_KERNELS))
+def test_flush_period_through_qmatmul_equals_direct_call(dev, kernel,
+                                                         period):
+    """A flush period from the applied runtime state reaches B1, B3
+    (``schedule="activation"``) and B4 through ``qmatmul``: == the kernel
+    called directly with that period; ``2**31 - 1`` (the clamp of a
+    near-uniform plan) runs and gives the worst case's bits."""
+    from repro_torch.quant import prepare_weight
+    from repro_torch.quant.calibrate import applied_calib_state
+    from repro_torch.quant.config import FP8_MGS_EXACT, FP8_MGS_SERVE
+    from repro_torch.quant.qmatmul import qmatmul
+    from repro_torch.quant.quantize import quantize_fp8
+    cfg = {"b1": FP8_MGS_SERVE,
+           "b3": FP8_MGS_SERVE.replace(schedule="activation"),
+           "b4": FP8_MGS_EXACT.replace(use_kernel=True)}[kernel]
+    g = torch.Generator().manual_seed(50)
+    x = (torch.randn(4, 4096, generator=g)
+         * torch.exp(torch.randn(4096, generator=g))).to(dev)
+    pw = prepare_weight((torch.randn(4096, 1024, generator=g) * 0.02).to(dev),
+                        cfg)
+    name = _PERIOD_KERNELS[kernel]
+    n0 = LAUNCHES[name]
+    with applied_calib_state({"flush": {"ffn.wd": period}}):
+        got = qmatmul(x, pw, cfg, site="ffn.wd")
+    assert LAUNCHES[name] == n0 + 1
+    qx = quantize_fp8(x, E4M3)
+    scale = qx.scale * pw.scale
+    fp = None if period == 2**31 - 1 else period
+    if kernel == "b4":
+        want = mgs_matmul_exact(limb_decompose(qx.q, E4M3), pw.limbs, E4M3,
+                                block_k=cfg.block_k, flush_period=fp) * scale
+    else:
+        want = mgs_matmul_exact_fused(
+            encode_bits(qx.q, E4M3), pw.codes, E4M3, scale=scale,
+            block_k=cfg.block_k, flush_period=fp, schedule=cfg.schedule)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

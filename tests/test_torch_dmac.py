@@ -377,18 +377,36 @@ def test_unported_accums_raise():
 
 
 def test_flush_target_raises_and_calibration_alone_changes_no_bits():
-    """The reference plans the exact kernels' flush period from
-    ``flush_target`` (A9, not ported): the port refuses it. A config's
-    ``calibration`` alone feeds only that plan (and the static decode-q
-    scale, which also raises), so it gives the reference's bits."""
+    """``flush_target`` plans the exact kernels' flush period (the Markov
+    plan, never shorter than the worst case): the port gives the
+    reference's planned period and bits, where it used to raise. A
+    config's ``calibration`` alone feeds only that plan and the static
+    decode-q scale, so without ``flush_target`` it changes no bits."""
+    from repro.core.markov import plan_flush_period as r_plan
+    tqm = importlib.import_module("repro_torch.quant.qmatmul")
+
     x, w = _acts((6, 96), 21), _acts((96, 40), 22, scale=0.1)
-    for base in (tq.FP8_MGS_EXACT, tq.FP8_MGS_SERVE):
-        with pytest.raises(NotImplementedError, match="A9"):
-            qmatmul(torch.from_numpy(x), torch.from_numpy(w),
-                    base.replace(flush_target=1e-6))
-    calib = {"ffn.wg": 0.3, "attn.wq": 0.7}
     want = np.asarray(r_qmatmul(jnp.asarray(x), jnp.asarray(w),
                                 rq.FP8_MGS_EXACT))
+    calib = {"ffn.wg": 0.3, "attn.wq": 0.7}
+    for calibration in (None, calib):
+        for base_r, base_t in ((rq.FP8_MGS_EXACT, tq.FP8_MGS_EXACT),
+                               (rq.FP8_MGS_SERVE, tq.FP8_MGS_SERVE)):
+            r_cfg = base_r.replace(flush_target=1e-6).with_calibration(
+                calibration)
+            t_cfg = base_t.replace(flush_target=1e-6).with_calibration(
+                calibration)
+            for site in ("ffn.wg", None):
+                sigma = r_cfg.act_sigma(site)
+                period = tqm._exact_flush_period(t_cfg, None, sigma, site)
+                # the reference clamps to the C int before its kernel
+                assert period == min(2**31 - 1, r_plan(
+                    r_cfg.block_k, target_overflow=1e-6, sigma_limb_x=sigma))
+                got = qmatmul(torch.from_numpy(x), torch.from_numpy(w),
+                              t_cfg, site=site).numpy()
+                np.testing.assert_array_equal(got, np.asarray(r_qmatmul(
+                    jnp.asarray(x), jnp.asarray(w), r_cfg, site=site)))
+                np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         np.asarray(r_qmatmul(jnp.asarray(x), jnp.asarray(w),
                              rq.FP8_MGS_EXACT.with_calibration(calib),
@@ -397,5 +415,5 @@ def test_flush_target_raises_and_calibration_alone_changes_no_bits():
         cfg = base.with_calibration(calib)
         assert cfg.calibration is not None
         np.testing.assert_array_equal(
-            qmatmul(torch.from_numpy(x), torch.from_numpy(w), cfg).numpy(),
-            want)
+            qmatmul(torch.from_numpy(x), torch.from_numpy(w), cfg,
+                    site="ffn.wg").numpy(), want)

@@ -22,7 +22,9 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.quant",
            "repro_torch.quant.kvcache", "repro_torch.quant.qmatmul",
            "repro_torch.models.attention", "repro_torch.models.transformer",
            "repro_torch.core.mgs", "repro_torch.kernels.ref",
-           "repro_torch.quant.prepared", "repro_torch.quant.qeinsum"]
+           "repro_torch.quant.prepared", "repro_torch.quant.qeinsum",
+           "repro_torch.core.markov", "repro_torch.quant.calibrate",
+           "repro_torch.quant.streaming"]
 
 
 def test_import_leaves_jax_and_repro_unloaded():
