@@ -75,8 +75,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    streaming shadow passes; ``PREP_STATS`` and the builds stay flat; the
    time of ``calibrate()`` and of a shadow pass, and a paged decode step
    under the static scale profiled beside phase 6's dynamic one (B3 / B2
-   launches equal). Last, print the card's name and power limit, a JSON
-   line of kernel results, and ``{"ok": true, "device": {...}}``.
+   launches equal);
+9. the other families on the group path: B1 == twin at every shape the
+   two models below launch it at (granite-moe-1b-a400m's attention
+   projections, prefill scores / values, router, experts in one launch
+   over all 32 with per-expert scales, an all-zero expert slice and the
+   silu epilogue, and its 49155-column head; falcon-mamba-7b's seven
+   projections at decode and prefill and its 65024-column head) and B2 ==
+   twin at granite-moe's heads; reduced granite-moe and falcon-mamba on
+   the card and the CPU give the same tokens; then granite-moe-1b-a400m
+   (24 layers) and falcon-mamba-7b (64 layers) at full width in bf16 under
+   ``FP8_MGS_SERVE_KV`` serve phase 4's traffic, launch counts equal the
+   prediction, every B1 launch is at a checked shape, ``PREP_STATS`` and
+   the builds stay flat, a decode step of each is profiled, each model is
+   freed before the next; B1 / B2 are timed at those shapes. Last, print the card's name and power limit, a
+   JSON line of kernel results, and ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -84,6 +97,7 @@ Needs a CUDA device and the repository's ``src/`` beside this file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -326,10 +340,12 @@ def b2_inputs(torch, dev, gen, N=128, T=1, D=128, chunk=128, S=1024):
                 bias=bias[:, None].contiguous(), q_scale=qt.scale, ks=ks)
 
 
-def check_b2(torch, dev, gen):
+def check_b2(torch, dev, gen, **shape):
+    """The dense entry == twin (``shape``: ``b2_inputs``' N, T, D, chunk,
+    S; phase 3 takes the defaults)."""
     from repro_torch.core.formats import E4M3
     from repro_torch.kernels import mgs_attention as ma
-    a = b2_inputs(torch, dev, gen)
+    a = b2_inputs(torch, dev, gen, **shape)
     args = [a[k] for k in ("q_codes", "k_pool", "v_pool", "bt", "live",
                            "qk_scale", "v_scale", "bias")]
     out = ma.mgs_flash_blocks(*args, E4M3)
@@ -337,8 +353,10 @@ def check_b2(torch, dev, gen):
     torch.cuda.synchronize()
     err = (out - twin).abs().max().item()
     eq = torch.equal(out, twin)
-    log(f"B2 128 slices x (1 x 128) over ragged <= 1024 keys, chunk 128: "
-        f"equal={eq} max_abs_err={err:.3g}")
+    N, T, D = a["q_codes"].shape
+    log(f"B2 {N} slices x ({T} x {D}) over ragged <= "
+        f"{a['bt'].shape[1] * a['k_pool'].shape[1]} keys, chunk "
+        f"{a['k_pool'].shape[1]}: equal={eq} max_abs_err={err:.3g}")
     if not eq:
         raise AssertionError("B2 kernel != twin")
     if not torch.isfinite(out).all() or out[1].abs().max().item() != 0.0:
@@ -462,19 +480,47 @@ def check_b2_paged(torch, dev, gen):
 # ---------------------------------------------------------------------------
 
 
-def serve_full(torch, layers: int):
+def group_launches(cfg):
+    """Predicted kernel launches of phase 4's traffic under
+    FP8_MGS_SERVE_KV (2 groups, each a 32-token prefill and 15 decode
+    steps), and (B1, B2) launches of one decode step."""
+    L = cfg.n_layers
+    if cfg.is_ssm_only:
+        # 7 projections a layer + the logits head, in prefill and decode
+        pre = dec = 7 * L + 1
+        b2 = 0
+    elif cfg.is_moe:
+        # 4 attention projections, the router, the 3 expert contractions
+        # (one launch over every expert each) + the head; the prefill adds
+        # the score / value contractions, decode runs B2 once a layer
+        pre, dec, b2 = 10 * L + 1, 8 * L + 1, L
+    else:
+        # 7 projections + the head; the prefill adds the score / value
+        # contractions, decode runs B2 once a layer
+        pre, dec, b2 = 9 * L + 1, 7 * L + 1, L
+    return ({"mgs_matmul_exact_fused": 2 * (pre + 15 * dec),
+             "mgs_flash_attention": 2 * 15 * b2}, (dec, b2))
+
+
+def serve_full(torch, arch: str, layers: int):
+    """``arch`` at full width (``layers`` of its depth) in bf16 under
+    FP8_MGS_SERVE_KV through the group engine: 8 requests of 32 prompt
+    tokens at batch 4, 16 new tokens each. Launch counts equal
+    ``group_launches``, ``PREP_STATS`` and the builds stay flat, 8 x 16
+    finite logits rows. Returns (launches, stats, engine)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.quant import PREP_STATS
     from repro_torch.quant.config import FP8_MGS_SERVE_KV
     import numpy as np
-    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=layers,
-                              quant=FP8_MGS_SERVE_KV)
-    log(f"serve: deepseek-7b full width (d_model {cfg.d_model}, heads "
-        f"{cfg.n_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), depth "
-        f"{cfg.n_layers} of 30 layers, {cfg.compute_dtype}, "
-        f"FP8_MGS_SERVE_KV")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers, quant=FP8_MGS_SERVE_KV)
+    want, _ = group_launches(cfg)
+    log(f"serve: {arch} full width (d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.family}), "
+        f"depth {cfg.n_layers} of {full.n_layers} layers, "
+        f"{cfg.compute_dtype}, FP8_MGS_SERVE_KV; predicted launches {want}")
     t0 = time.time()
     eng = ServeEngine(cfg, batch=4, max_len=32 + 16 + 1, seed=SEED)
     torch.cuda.synchronize()
@@ -484,7 +530,7 @@ def serve_full(torch, layers: int):
     rng = np.random.default_rng(SEED)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, 32).astype(
         np.int32), max_new_tokens=16) for i in range(8)]
-    prep0 = dict(PREP_STATS)
+    prep0, builds0 = dict(PREP_STATS), dict(BUILDS)
     reset_launch_counts()
     stats = eng.run(reqs, record_logits=True)
     launches = dict(LAUNCHES)
@@ -493,11 +539,13 @@ def serve_full(torch, layers: int):
     log(f"serve: launches during the run {launches}")
     for r in reqs[:2]:
         log(f"serve: req {r.rid} first tokens {r.out_tokens[:10]}")
-    for k in ("mgs_matmul_exact_fused", "mgs_flash_attention"):
-        if launches[k] == 0:
-            raise AssertionError(f"kernel {k} was not launched by serving")
-    if PREP_STATS != prep0:
-        raise AssertionError("serving re-prepared weights")
+    expect = {k: want.get(k, 0) for k in launches}
+    if launches != expect:
+        raise AssertionError(f"{arch}: launch counts {launches} != "
+                             f"predicted {expect}")
+    if dict(PREP_STATS) != prep0 or dict(BUILDS) != builds0:
+        raise AssertionError(f"{arch}: serving re-prepared weights or "
+                             "rebuilt a kernel")
     if stats["decode_tokens"] != 8 * 16:
         raise AssertionError(f"decode tokens {stats['decode_tokens']}")
     for r in reqs:
@@ -507,28 +555,24 @@ def serve_full(torch, layers: int):
                                  "not finite")
         if not all(0 <= t < cfg.vocab for t in r.out_tokens):
             raise AssertionError("token out of range")
-    # 2 groups x (prefill: 9 per layer + 1 logits head; 15 decode steps:
-    # 7 per layer + 1 logits head for B1, 1 per layer for B2)
-    want_b1 = 2 * ((9 * layers + 1) + 15 * (7 * layers + 1))
-    want_b2 = 2 * 15 * layers
-    if (launches["mgs_matmul_exact_fused"], launches["mgs_flash_attention"]
-            ) != (want_b1, want_b2):
-        raise AssertionError(f"launch counts {launches} != expected "
-                             f"({want_b1}, {want_b2})")
     return launches, stats, eng
 
 
-def serve_reduced_gpu_vs_cpu(torch, quant=None, label="FP8_MGS_SERVE_KV"):
-    """The same reduced model on the card (kernels) and the CPU (twins)."""
+def serve_reduced_gpu_vs_cpu(torch, quant=None, label="FP8_MGS_SERVE_KV",
+                             arch="deepseek-7b", edit=None):
+    """The same reduced model on the card (kernels) and the CPU (twins);
+    ``edit`` may change the weights in place first."""
     from repro_torch.configs import reduced_config
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import init_params
     from repro_torch.quant.config import FP8_MGS_SERVE_KV
     import numpy as np
-    cfg = dataclasses.replace(reduced_config("deepseek-7b"),
+    cfg = dataclasses.replace(reduced_config(arch),
                               compute_dtype="float32",
                               quant=quant or FP8_MGS_SERVE_KV)
     params = init_params(cfg, SEED)
+    if edit is not None:
+        edit(params)
     out = {}
     for dev in ("cuda", "cpu"):
         eng = ServeEngine(cfg, batch=2, max_len=24,
@@ -551,8 +595,9 @@ def serve_reduced_gpu_vs_cpu(torch, quant=None, label="FP8_MGS_SERVE_KV"):
                                  f"{err.max() / scale:.3g} of scale")
     worst = max(np.abs(np.stack(lg[r.rid]) - np.stack(lc[r.rid])).max()
                 for r in rg)
-    log(f"reduced deepseek-7b (4 layers, f32, {label}): GPU kernels and "
-        f"CPU twins give equal tokens; max logit diff {worst:.3g}")
+    log(f"reduced {arch} ({cfg.n_layers} layers, f32, {label}): GPU kernels "
+        f"and CPU twins give equal tokens {[r.out_tokens for r in rg[:2]]}; "
+        f"max logit diff {worst:.3g}")
 
 
 def _tree_to(tree, dev):
@@ -566,26 +611,27 @@ def _tree_to(tree, dev):
 # ---------------------------------------------------------------------------
 
 
-def time_b1(torch, dev, gen):
-    """Per-shape times; weights cycle through enough copies to leave L2."""
+def time_b1(torch, dev, gen, shapes=B1_SHAPES):
+    """Per-shape times (with the shape's epilogue activation, if it names
+    one); weights cycle through enough copies to leave L2."""
     from repro_torch.core.formats import E4M3, decode_bits
     from repro_torch.kernels.mgs_matmul import (
         mgs_matmul_exact_fused, mgs_matmul_exact_fused_plain, split_plan)
     rows = []
-    for name, Bt, M, K, N in B1_SHAPES:
+    for name, Bt, M, K, N, *act in shapes:
         copies = max(1, min(8, -(-200_000_000 // (Bt * K * N))))
         xs = fp8_codes(torch, (Bt, M, K), dev, gen)
         ws = [fp8_codes(torch, (Bt, K, N), dev, gen) for _ in range(copies)]
-        scale = torch.full((Bt, 1, 1), 1e-4, device=dev)
+        epi = dict(scale=torch.full((Bt, 1, 1), 1e-4, device=dev),
+                   activation=act[0] if act else "none")
         it = iter(range(10**9))
 
         def kern():
-            mgs_matmul_exact_fused(xs, ws[next(it) % copies], E4M3,
-                                   scale=scale)
+            mgs_matmul_exact_fused(xs, ws[next(it) % copies], E4M3, **epi)
 
         def plain():
             mgs_matmul_exact_fused_plain(xs, ws[next(it) % copies], E4M3,
-                                         scale=scale)
+                                         **epi)
         xv = decode_bits(xs, E4M3)
         wv = [decode_bits(w, E4M3) for w in ws]
 
@@ -1503,6 +1549,215 @@ def calibrate_continuous(torch, params, layers: int, dyn_step):
             "flush_periods": dict(eng._flush_host)}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the other families (MoE, SSM) on the group serving path
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("granite-moe-1b-a400m", "falcon-mamba-7b")
+# the B1 launches of phase 4's traffic (batch 4, 32-token prompts) that a
+# check's settings cover: no bias, block_k 128, the worst-case flush and one
+# weight per slice
+B1_CHECKED = (False, 128, None, False)
+
+
+def family_b1_shapes(cfg, batch=4, prompt=32):
+    """Every B1 launch shape of phase 4's traffic on the MoE or SSM model
+    ``cfg`` through the group engine, as (name, Bt, M, K, N, epilogue
+    activation): the projections at decode (``batch`` rows) and at prefill
+    (``batch`` x ``prompt`` rows), the prefill's score / value contractions
+    over (request, kv head) slices, one key chunk a launch, the experts in
+    one launch over all of them (``C`` rows each, one dispatch group), and
+    the logits head on each request's last row."""
+    import math
+    from repro_torch.models.moe import _n_groups
+    d = cfg.d_model
+    out = {}
+
+    def add(prefix, short, *key):
+        out.setdefault(key, (prefix, []))[1].append(short)
+    fam = "ssm" if cfg.is_ssm_only else "moe"
+    add(fam, "logits", 1, batch, d, cfg.vocab, "none")
+    for stage, T in (("decode", 1), ("prefill", prompt)):
+        M, pre = batch * T, f"{fam} {stage}"
+        if cfg.is_ssm_only:
+            di, r = cfg.d_inner, cfg.dt_rank
+            add(pre, "wx/wz", 1, M, d, di, "none")
+            add(pre, "wdt_down", 1, M, di, r, "none")
+            add(pre, "wdt_up", 1, M, r, di, "none")
+            add(pre, "wB/wC", 1, M, di, cfg.ssm_state, "none")
+            add(pre, "wo", 1, M, di, d, "none")
+            continue
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        add(pre, "wq", 1, M, d, H * hd, "none")
+        add(pre, "wk/wv", 1, M, d, KV * hd, "none")
+        add(pre, "wo", 1, M, H * hd, d, "none")
+        if T > 1:
+            S = cfg.attn_chunk or T
+            add(pre, "scores", batch * KV, H // KV * T, hd, S, "none")
+            add(pre, "values", batch * KV, H // KV * T, S, hd, "none")
+        if _n_groups(M, cfg) != 1:
+            raise ValueError(f"{cfg.name}: {M} tokens dispatch in more than "
+                             "one group")
+        E = cfg.n_experts
+        C = max(1, math.ceil(cfg.top_k * M * cfg.capacity_factor / E))
+        add(pre, "router", 1, M, d, E, "none")
+        if cfg.act == "silu":
+            add(pre, "wg", E, C, d, cfg.d_ff, "silu")
+            add(pre, "wu", E, C, d, cfg.d_ff, "none")
+        else:
+            add(pre, "wi", E, C, d, cfg.d_ff, "gelu")
+        add(pre, "wd", E, C, cfg.d_ff, d, "none")
+    return [(f"{pre} {'/'.join(shorts)}",) + key
+            for key, (pre, shorts) in out.items()]
+
+
+def family_b1_checks():
+    """B1's checked and timed shapes in phase 9: those of
+    ``family_b1_shapes`` for the full-width ``FAMILY_ARCHS``."""
+    from repro_torch.configs import get_config
+    return [s for arch in FAMILY_ARCHS
+            for s in family_b1_shapes(get_config(arch))]
+
+
+@contextlib.contextmanager
+def recording_b1():
+    """Collects each B1 call the models make (through ``qmatmul`` and
+    ``kernels.ops``) as (Bt, M, K, N, activation, bias given, block_k,
+    flush_period, one weight shared by every slice)."""
+    import importlib
+    from repro_torch.kernels.mgs_matmul import mgs_matmul_exact_fused as b1
+    mods = [importlib.import_module(m) for m in (
+        "repro_torch.quant.qmatmul", "repro_torch.kernels.ops")]
+    seen = set()
+
+    def rec(x, w, *a, **kw):
+        if kw.get("schedule", "output") == "output":
+            Bt, M, K = x.shape if x.dim() == 3 else (1, *x.shape)
+            seen.add((Bt, M, K, w.shape[-1], kw.get("activation", "none"),
+                      kw.get("bias") is not None, kw.get("block_k", 128),
+                      kw.get("flush_period"), x.dim() == 3 and w.dim() == 2))
+        return b1(x, w, *a, **kw)
+    for m in mods:
+        m.mgs_matmul_exact_fused = rec
+    try:
+        yield seen
+    finally:
+        for m in mods:
+            m.mgs_matmul_exact_fused = b1
+
+
+def unchecked_b1(seen, shapes):
+    """The recorded B1 calls (``recording_b1``) that no check at ``shapes``
+    covers."""
+    keys = {s[1:] for s in shapes}
+    return {c for c in seen if c[:5] not in keys or c[5:] != B1_CHECKED}
+
+
+# B2 at granite-moe-1b-a400m's group decode: 4 requests x 8 kv heads, 2
+# query rows (16 heads) of head dim 64, a 49-token cache padded to one
+# 128-key chunk
+FAMILY_B2 = dict(N=32, T=2, D=64, chunk=128, S=128)
+
+
+def check_family_b1(torch, dev, gen):
+    """B1 == twin (``torch.equal``) at ``family_b1_checks()``, with no
+    epilogue, with per-slice scales and with the path's activation; a
+    slice of zero codes (an expert no token chose) gives zeros."""
+    from repro_torch.core.formats import E4M3
+    from repro_torch.kernels.mgs_matmul import (
+        mgs_matmul_exact_fused, mgs_matmul_exact_fused_plain)
+    worst = 0.0
+    for name, Bt, M, K, N, act in family_b1_checks():
+        x = fp8_codes(torch, (Bt, M, K), dev, gen)
+        if Bt > 1:
+            x[1] = 0
+        w = fp8_codes(torch, (Bt, K, N), dev, gen)
+        scale = torch.rand((Bt, 1, 1), generator=gen, device=dev) * 1e-4
+        tags = [("none", {}), ("scale", {"scale": scale})]
+        if act != "none":
+            tags.append((f"scale+{act}", {"scale": scale, "activation": act}))
+        for tag, kw in tags:
+            out = mgs_matmul_exact_fused(x, w, E4M3, **kw)
+            twin = mgs_matmul_exact_fused_plain(x, w, E4M3, **kw)
+            torch.cuda.synchronize()
+            err = (out - twin).abs().max().item()
+            worst = max(worst, err)
+            eq = torch.equal(out, twin)
+            log(f"B1 {name:20s} {Bt}x({M}x{K} @ {K}x{N}) {tag:11s} "
+                f"equal={eq} max_abs_err={err:.3g}")
+            if not eq:
+                raise AssertionError(f"B1 kernel != twin at {name} {tag}")
+            if not torch.isfinite(out).all() or (
+                    Bt > 1 and out[1].abs().max().item() != 0.0):
+                raise AssertionError(f"B1 at {name}: non-finite output, or "
+                                     "a zero slice is not zero")
+    return worst
+
+
+def serve_family(torch, arch: str, layers: int):
+    """Phase 4's serving (``serve_full``) of ``arch``, then one profiled
+    decode step with the predicted B1 / B2 launches; every B1 launch must
+    be at a shape ``check_family_b1`` held. The model is freed."""
+    import gc
+    from repro_torch.quant import clear_prepared_cache
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with recording_b1() as seen:
+        launches, stats, eng = serve_full(torch, arch, layers)
+        _, (b1_step, b2_step) = group_launches(eng.cfg)
+        step = profile_decode_step(torch, eng)
+    if (step["B1_kernels"], step["B2_kernels"]) != (b1_step, b2_step):
+        raise AssertionError(f"{arch}: a decode step launched "
+                             f"{step['B1_kernels']} B1 / {step['B2_kernels']}"
+                             f" B2, predicted {b1_step} / {b2_step}")
+    missed = unchecked_b1(seen, family_b1_checks())
+    if missed:
+        raise AssertionError(f"{arch}: B1 launched at shapes no check "
+                             f"covers: {sorted(missed, key=str)}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"family {arch}: {time.time() - t0:.1f} s, peak device memory "
+        f"{peak:.1f} GiB, B1 at {len(seen)} launch shapes, each checked")
+    del eng
+    clear_prepared_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, stats=stats, decode_step=step,
+                peak_gib=peak, layers=layers)
+
+
+def _scale_ssm_out(params):
+    """Seed-0 reduced falcon-mamba echoes each prompt's last token; the
+    out-projections scaled by 8 make the tokens vary."""
+    params["layers"]["ssm"]["wo"] *= 8.0
+
+
+def family_phase(torch, dev, gen):
+    """Phase 9: B1 / B2 at the families' shapes, reduced MoE / SSM models
+    on the card and the CPU, the two full-width models, the kernel times."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.quant import clear_prepared_cache
+    clear_prepared_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    b1_err = check_family_b1(torch, dev, gen)
+    b2_err, b2_args = check_b2(torch, dev, gen, **FAMILY_B2)
+    log(f"family kernels: B1 == twin at {len(family_b1_checks())} shapes, B2 "
+        f"== twin at granite-moe's heads ({time.time() - t0:.1f} s)")
+    serve_reduced_gpu_vs_cpu(torch, arch="granite-moe-1b-a400m")
+    serve_reduced_gpu_vs_cpu(torch, arch="falcon-mamba-7b",
+                             edit=_scale_ssm_out)
+    runs = {arch: serve_family(torch, arch, get_config(arch).n_layers)
+            for arch in FAMILY_ARCHS}
+    b1_rows = time_b1(torch, dev, gen, family_b1_checks())
+    b2_row = time_b2(torch, b2_args)
+    del b2_args
+    torch.cuda.empty_cache()
+    return dict(b1_err=b1_err, b2_err=b2_err, runs=runs, b1_shapes=b1_rows,
+                b2=b2_row)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=30,
@@ -1549,7 +1804,7 @@ def main() -> int:
         f"({time.time() - t0:.1f} s)")
 
     t0 = time.time()
-    group_launches, stats, eng = serve_full(torch, args.layers)
+    group_run, stats, eng = serve_full(torch, "deepseek-7b", args.layers)
     serve_reduced_gpu_vs_cpu(torch)
     log(f"phase 4: served ({time.time() - t0:.1f} s)")
 
@@ -1606,6 +1861,15 @@ def main() -> int:
     log(f"phase 8: calibration served, swapped, fenced and replayed on "
         f"both engines ({time.time() - t0:.1f} s)")
 
+    t0 = time.time()
+    fam = family_phase(torch, dev, gen)
+    fam_launches = {k: fam["runs"][a]["launches"]
+                    for k, a in zip(("group_moe", "group_ssm"), FAMILY_ARCHS)}
+    b1_err = max(b1_err, fam["b1_err"])
+    b2_err = max(b2_err, fam["b2_err"])
+    log(f"phase 9: MoE and SSM families checked, served and timed "
+        f"({time.time() - t0:.1f} s)")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
@@ -1615,10 +1879,12 @@ def main() -> int:
     main_b1 = next(r for r in b1_rows if r["shape"] == "decode wg/wu")
     main_b3 = next(r for r in b3_rows if r["shape"] == "decode wg/wu")
     main_b45 = next(r for r in b45_rows if r["shape"] == "decode wg/wu")
-    by_path = {k: {"group": group_launches.get(k, 0),
+    by_path = {k: {"group": group_run.get(k, 0),
                    "continuous": launches[k],
                    **{f"group_{c}": runs[c]["launches"][k]
-                      for c in ("a", "b", "d")}} for k in launches}
+                      for c in ("a", "b", "d")},
+                   **{p: fam_launches[p][k] for p in fam_launches}}
+               for k in launches}
     kernels = [
         dict(name="mgs_matmul_exact_fused", route="cuda",
              source="src/repro_torch/csrc/mgs_matmul.cu",
@@ -1673,6 +1939,8 @@ def main() -> int:
                     "paper_decode_steps": paper_steps,
                     "paper_serve": {k: runs[k]["stats"] for k in runs},
                     "paper_accuracy": accuracy, "calibration": calibration,
+                    "families": {k: v for k, v in fam.items()
+                                 if not k.endswith("_err")},
                     "layers": args.layers}))
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -57,6 +57,7 @@ from repro_torch.models import (adopt_slot, cast_params, decode_step,
                                 init_cache, init_paged_cache, init_params,
                                 prefill, release_slot, rewind_slots,
                                 verify_step_paged)
+from repro_torch.models.transformer import _require_paged_arch
 from repro_torch.quant import (BlockAllocator, PreparedWeight, calibrating,
                                prepare_logits_head, prepare_params)
 from repro_torch.quant.calibrate import CalibrationTable, applied_calib_state
@@ -129,7 +130,8 @@ class ServeEngine:
     """Fixed-batch prefill/decode engine with greedy sampling.
 
     Args:
-      cfg: model config (dense family); ``cfg.quant`` selects the numerics.
+      cfg: model config (dense, MoE or SSM family); ``cfg.quant`` selects
+        the numerics.
       batch: requests per group.
       max_len: cache length (prompt bucket + new tokens must fit).
       params: parameter tree (``init_params`` layout) on ``device``;
@@ -586,6 +588,7 @@ class ContinuousBatchingEngine(ServeEngine):
                  eos_id: Optional[int] = None,
                  calibration: Optional[CalibrationTable] = None,
                  spec_k: Optional[int] = None, device=None):
+        _require_paged_arch(cfg)    # before any weight is drawn or prepared
         if not cfg.quant.per_row_act:
             raise ValueError(
                 "ContinuousBatchingEngine requires quant.per_row_act=True: "
@@ -989,11 +992,14 @@ def main(argv=None):
                                                ).astype(np.int32),
                     max_new_tokens=args.max_new)
             for i in range(args.n_requests)]
-    engine = make_engine(cfg, batch=args.batch,
-                         max_len=(args.prompt_len + args.max_new + 1
-                                  + max(args.spec_k - 1, 0)),
-                         device=args.device, continuous=args.continuous,
-                         spec_k=args.spec_k or None)
+    try:
+        engine = make_engine(cfg, batch=args.batch,
+                             max_len=(args.prompt_len + args.max_new + 1
+                                      + max(args.spec_k - 1, 0)),
+                             device=args.device, continuous=args.continuous,
+                             spec_k=args.spec_k or None)
+    except NotImplementedError as e:
+        ap.error(f"{cfg.name}: {e}")
     if args.continuous:
         engine.warmup([args.prompt_len], max_new=1)
         stats = engine.serve(reqs)

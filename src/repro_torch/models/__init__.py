@@ -1,5 +1,7 @@
-"""Model stack of the port (dense decoder family)."""
+"""Model stack of the port (dense, MoE and pure-SSM decoder families)."""
 
+from .mamba import SSMCache, mamba_apply, mamba_decode_step
+from .moe import moe_apply
 from .transformer import (adopt_slot, cast_params, decode_step,
                           decode_step_paged, draft_step_paged, init_cache,
                           init_paged_cache, init_params, layer_params,
@@ -9,4 +11,5 @@ from .transformer import (adopt_slot, cast_params, decode_step,
 __all__ = ["init_params", "init_cache", "prefill", "decode_step",
            "layer_params", "cast_params", "init_paged_cache", "adopt_slot",
            "release_slot", "decode_step_paged", "verify_step_paged",
-           "draft_step_paged", "rewind_slots"]
+           "draft_step_paged", "rewind_slots", "moe_apply", "mamba_apply",
+           "mamba_decode_step", "SSMCache"]

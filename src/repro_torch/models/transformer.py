@@ -1,7 +1,7 @@
-"""The dense decoder stack of the port: init, serving caches, prefill,
-decode, and the paged slot pool of continuous batching with its
-speculative draft / verify / rewind steps (``repro.models.transformer``,
-dense family).
+"""The decoder stack of the port: init, serving caches, prefill, decode,
+and the paged slot pool of continuous batching with its speculative
+draft / verify / rewind steps (``repro.models.transformer``; the dense,
+MoE and pure-SSM families).
 
 Layers run in a Python loop over the stacked parameters (the reference's
 ``lax.scan``): :func:`layer_params` indexes one layer of every stacked
@@ -10,8 +10,9 @@ updated in place. In the group cache ``cache["pos"]`` is a host integer
 (every row of a group decodes the same position); in the paged cache it
 is a ``(slots,)`` device tensor beside the ``(slots, nb)`` block table.
 
-The other families (MoE, hybrid, SSM, encoder-decoder, VLM) are ROADMAP
-item A10 and raise ``NotImplementedError``.
+MoE and SSM stacks serve on the group path only: the paged path refuses
+them, as the reference's does. The hybrid, encoder-decoder and VLM
+families are ROADMAP item A10 and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from repro_torch.quant.kvcache import (init_paged_kv, init_quantized_kv,
 from .attention import KVCache, attention_apply
 from .common import dtype_of, normal_param, rms_norm
 from .ffn import ffn_apply
+from .mamba import SSMCache, mamba_apply, mamba_decode_step
+from .moe import moe_apply
 
 __all__ = ["init_params", "init_cache", "prefill", "decode_step",
            "layer_params", "cast_params", "init_paged_cache", "adopt_slot",
@@ -36,13 +39,13 @@ __all__ = ["init_params", "init_cache", "prefill", "decode_step",
            "draft_step_paged", "rewind_slots"]
 
 
-def _require_dense(cfg: ModelConfig):
-    if (cfg.is_moe or cfg.is_hybrid or cfg.is_ssm_only or cfg.encoder_layers
-            or cfg.vision_prefix or not cfg.n_heads):
+def _require_ported(cfg: ModelConfig):
+    if (cfg.is_hybrid or cfg.encoder_layers or cfg.vision_prefix
+            or not (cfg.n_heads or cfg.is_ssm_only)):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port runs the dense decoder "
-            "family; MoE, hybrid, SSM, encoder-decoder and VLM stacks are "
-            "ROADMAP item A10")
+            f"{cfg.name} ({cfg.family}): the port runs the dense, MoE and "
+            "SSM decoder families; hybrid, encoder-decoder and VLM stacks "
+            "are ROADMAP item A10")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
@@ -50,7 +53,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     scales (``repro.models.init_params``), drawn from ``seed`` with a
     ``torch.Generator`` on ``device`` — not the reference's numbers (use
     :func:`repro_torch.convert.params_from_numpy` for those)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     device = torch.device("cpu") if device is None else torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -65,22 +68,46 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     def ones(shape):
         return torch.ones(shape, dtype=pdt, device=device)
 
+    def zeros(shape):
+        return torch.zeros(shape, dtype=pdt, device=device)
+
     params: Dict[str, Any] = {
         "embed": w((cfg.vocab, d), d),
         "final_norm": ones((d,)),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = w((d, cfg.vocab), d)
-    ffn = ({"wg": w((L, d, cfg.d_ff), d), "wu": w((L, d, cfg.d_ff), d)}
-           if cfg.act == "silu" else {"wi": w((L, d, cfg.d_ff), d)})
-    ffn["wd"] = w((L, cfg.d_ff, d), cfg.d_ff)
+    if cfg.is_ssm_only:
+        di, n, r, k = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.d_conv
+        a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                       device=device))
+        params["layers"] = {"ln1": ones((L, d)), "ssm": {
+            "wx": w((L, d, di), d), "wz": w((L, d, di), d),
+            "conv_w": w((L, k, di), k, 1.0 / k), "conv_b": zeros((L, di)),
+            "wdt_down": w((L, di, r), di), "wdt_up": w((L, r, di), r),
+            "dt_bias": zeros((L, di)),
+            "wB": w((L, di, n), di), "wC": w((L, di, n), di),
+            "A_log": a_log.expand(L, di, n).to(pdt).contiguous(),
+            "D": ones((L, di)), "wo": w((L, di, d), di)}}
+        return params
+    h, E = cfg.d_ff, cfg.n_experts
+    if cfg.is_moe:
+        # the reference's default fan-in is shape[0]: the expert count for
+        # the (E, d, h) gate / up / in projections
+        mlp = ({"wg": w((L, E, d, h), E), "wu": w((L, E, d, h), E)}
+               if cfg.act == "silu" else {"wi": w((L, E, d, h), E)})
+        mlp.update(wr=w((L, d, E), d), wd=w((L, E, h, d), h))
+    else:
+        mlp = ({"wg": w((L, d, h), d), "wu": w((L, d, h), d)}
+               if cfg.act == "silu" else {"wi": w((L, d, h), d)})
+        mlp["wd"] = w((L, h, d), h)
     params["layers"] = {
         "ln1": ones((L, d)),
         "attn": {"wq": w((L, d, H, hd), d), "wk": w((L, d, KV, hd), d),
                  "wv": w((L, d, KV, hd), d),
                  "wo": w((L, H, hd, d), H * hd)},
         "ln2": ones((L, d)),
-        "ffn": ffn,
+        "moe" if cfg.is_moe else "ffn": mlp,
     }
     return params
 
@@ -94,18 +121,22 @@ def layer_params(tree, i: int):
     return tree[i]
 
 
+_KEEP_F32 = ("A_log",)  # SSM decay rates: exp() is precision-sensitive
+
+
 def cast_params(params, cfg: ModelConfig):
     """Raw float32 matrices (rank >= 2) to the compute dtype; prepared
-    weights and rank-1 leaves (norms) unchanged (``_cast_params``)."""
+    weights, rank-1 leaves (norms) and ``_KEEP_F32`` leaves unchanged
+    (``_cast_params``)."""
     cdt = dtype_of(cfg.compute_dtype)
     if dtype_of(cfg.param_dtype) == cdt:
         return params
 
-    def cast(p):
+    def cast(p, name=""):
         if isinstance(p, dict):
-            return {k: cast(v) for k, v in p.items()}
+            return {k: cast(v, k) for k, v in p.items()}
         if (isinstance(p, torch.Tensor) and p.dim() >= 2
-                and p.dtype == torch.float32):
+                and p.dtype == torch.float32 and name not in _KEEP_F32):
             return p.to(cdt)
         return p
 
@@ -139,21 +170,46 @@ def _dense_body(pl, x, positions, cfg: ModelConfig, is_global, cache,
                            cache=cache, cache_pos=cache_pos,
                            block_table=block_table, lengths=lengths)
     x = x + h
-    x = x + ffn_apply(pl["ffn"], rms_norm(x, pl["ln2"], cfg.norm_eps), cfg)
-    return x
+    xn = rms_norm(x, pl["ln2"], cfg.norm_eps)
+    if "moe" in pl:
+        h, _ = moe_apply(pl["moe"], xn, cfg)    # serving drops the aux loss
+    else:
+        h = ffn_apply(pl["ffn"], xn, cfg)
+    return x + h
+
+
+def _ssm_body(pl, x, cfg: ModelConfig, cache, decode: bool):
+    xn = rms_norm(x, pl["ln1"], cfg.norm_eps)
+    if decode:
+        h, new_cache = mamba_decode_step(pl["ssm"], xn, cache, cfg)
+    else:
+        h, new_cache = mamba_apply(pl["ssm"], xn, cfg, return_state=True)
+    return x + h, new_cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
-    """The serving cache: ``{"pos": 0, "k", "v"[, "k_scale", "v_scale"]}``.
+    """The serving cache: ``{"pos": 0, "k", "v"[, "k_scale", "v_scale"]}``
+    for attention stacks, ``{"pos": 0, "ssm_h", "ssm_conv"}`` for SSM ones.
 
     Packed (``cfg.quant.kv_cache == "packed"``): uint8 code planes
     ``(L, B, KV, S, hd)`` + float32 scale planes ``(L, B, KV, S)`` with
     ``S`` rounded up to the flash kernel's chunk (``quant.block_k``).
-    Float: ``(L, B, max_len, KV, hd)`` in ``cfg.kv_cache_dtype``.
+    Float: ``(L, B, max_len, KV, hd)`` in ``cfg.kv_cache_dtype``. SSM: the
+    recurrent state ``(L, B, d_inner, N)`` in float32 and the conv state
+    ``(L, B, d_conv - 1, d_inner)`` in bfloat16, as the reference keeps
+    them.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     L = cfg.n_layers
     cache: Dict[str, Any] = {"pos": 0}
+    if cfg.is_ssm_only:
+        cache["ssm_h"] = torch.zeros(
+            (L, batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+            device=device)
+        cache["ssm_conv"] = torch.zeros(
+            (L, batch, cfg.d_conv - 1, cfg.d_inner), dtype=torch.bfloat16,
+            device=device)
+        return cache
     if cfg.quant.quantized_kv:
         chunk = cfg.quant.block_k
         s_alloc = -(-max_len // chunk) * chunk
@@ -176,7 +232,17 @@ def _layer_cache(cache, i: int):
     return KVCache(cache["k"][i], cache["v"][i])
 
 
-def _run_layers(params, cfg: ModelConfig, x, positions, cache, pos: int):
+def _run_layers(params, cfg: ModelConfig, x, positions, cache, pos: int,
+                decode: bool):
+    if cfg.is_ssm_only:
+        for i in range(cfg.n_layers):
+            sc = (SSMCache(cache["ssm_h"][i], cache["ssm_conv"][i])
+                  if decode else None)
+            x, sc = _ssm_body(layer_params(params["layers"], i), x, cfg, sc,
+                              decode)
+            cache["ssm_h"][i] = sc.h        # to the cache's dtypes
+            cache["ssm_conv"][i] = sc.conv
+        return x
     for i in range(cfg.n_layers):
         x = _dense_body(layer_params(params["layers"], i), x, positions, cfg,
                         cfg.layer_is_global_attn(i), _layer_cache(cache, i),
@@ -187,13 +253,13 @@ def _run_layers(params, cfg: ModelConfig, x, positions, cache, pos: int):
 def prefill(params, cfg: ModelConfig, batch, cache):
     """Run the prompt ``batch["tokens"]`` (B, T) through the stack, filling
     ``cache`` in place. Returns (last-position logits (B, V), cache)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     params = cast_params(params, cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
-    x = _run_layers(params, cfg, x, positions, cache, 0)
+    x = _run_layers(params, cfg, x, positions, cache, 0, decode=False)
     cache["pos"] = T
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, x[:, -1:])[:, 0], cache
@@ -201,13 +267,13 @@ def prefill(params, cfg: ModelConfig, batch, cache):
 
 def decode_step(params, cfg: ModelConfig, tokens, cache):
     """One decode step. tokens: (B, 1). Returns (logits (B, V), cache)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     params = cast_params(params, cfg)
     B = tokens.shape[0]
     pos = int(cache["pos"])
     x = _embed_tokens(params, cfg, tokens)
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    x = _run_layers(params, cfg, x, positions, cache, pos)
+    x = _run_layers(params, cfg, x, positions, cache, pos, decode=True)
     cache["pos"] = pos + 1
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, x)[:, 0], cache
@@ -220,8 +286,18 @@ def decode_step(params, cfg: ModelConfig, tokens, cache):
 
 def _require_paged_arch(cfg: ModelConfig):
     """The paged decode path covers plain dense decoder-only stacks with
-    the packed cache (the reference's guard)."""
-    _require_dense(cfg)
+    the packed cache (the reference's guard).
+
+    SSM towers carry recurrent state (not paged), and MoE routing couples
+    tokens across the batch (expert capacity + per-expert-slice
+    quantization scales), which would break the continuous engine's
+    traffic-invariance contract: both keep the group engine.
+    """
+    _require_ported(cfg)
+    if cfg.is_ssm_only or cfg.is_moe:
+        raise NotImplementedError(
+            "paged decode supports plain dense attention-only stacks "
+            "(no SSM/hybrid, encoder-decoder, vision prefix, or MoE)")
     if not cfg.quant.quantized_kv:
         raise ValueError("paged decode requires quant.kv_cache='packed' "
                          "(the pool stores packed FP8 codes)")

@@ -233,19 +233,33 @@ def clear_prepared_cache():
 
 
 # Weights consumed by proj / qeinsum call sites, keyed by parent module.
+# The rest (embedding tables, norms, conv filters, biases, A_log, D) stay
+# raw.
 _PROJ_WEIGHTS = {
     "attn": {"wq", "wk", "wv", "wo"},
     "ffn": {"wg", "wu", "wi", "wd"},
+    "moe": {"wr", "wg", "wu", "wi", "wd"},
+    "ssm": {"wx", "wz", "wdt_down", "wdt_up", "wB", "wC", "wo"},
 }
 # the attention out-projection flattens (heads, head_dim) into K
 _K_NDIM = {("attn", "wo"): 2}
 _STACKED_ROOTS = {"layers"}
 
 
+def _stack_ndim_of(path, ndim: int, k_ndim: int) -> int:
+    """Leading stack axes of one weight: the layer axis under a stacked
+    root, plus the expert axis of the MoE expert weights (the router
+    ``wr`` has none), so each (layer, expert) slice gets its own scale."""
+    n = 1 if any(p in _STACKED_ROOTS for p in path) else 0
+    if path[-2] == "moe" and path[-1] != "wr":
+        n += 1
+    return min(n, ndim - k_ndim - 1)
+
+
 def prepare_params(params, cfg: QuantConfig):
     """``params`` with every projection weight prepared (per-layer scales
-    under ``layers``). Idempotent and cache-backed; non-MGS configs pass
-    through untouched."""
+    under ``layers``, per (layer, expert) for MoE experts). Idempotent and
+    cache-backed; non-MGS configs pass through untouched."""
     if not (cfg.is_fp8 and cfg.accum in ("mgs_exact", "mgs_dmac")):
         return params
 
@@ -255,9 +269,9 @@ def prepare_params(params, cfg: QuantConfig):
         if (len(path) >= 2 and path[-1] in _PROJ_WEIGHTS.get(path[-2], ())
                 and isinstance(node, torch.Tensor) and node.dim() >= 2):
             k_ndim = _K_NDIM.get((path[-2], path[-1]), 1)
-            stack = 1 if any(p in _STACKED_ROOTS for p in path) else 0
-            stack = min(stack, node.dim() - k_ndim - 1)
-            return prepare_weight(node, cfg, stack_ndim=stack, k_ndim=k_ndim)
+            return prepare_weight(
+                node, cfg, stack_ndim=_stack_ndim_of(path, node.dim(), k_ndim),
+                k_ndim=k_ndim)
         return node
 
     return walk(params, ())

@@ -542,3 +542,54 @@ def test_flush_period_through_qmatmul_equals_direct_call(dev, kernel,
             block_k=cfg.block_k, flush_period=fp, schedule=cfg.schedule)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# B1 on the MoE path of granite-moe-1b-a400m at batch 4: the experts in one
+# launch over all 32 (2 rows a slice at decode, 40 at a 4 x 32 prefill; the
+# gate with its silu epilogue), the router's 32 columns, the 49155-column
+# logits head (rows not 16-byte aligned)
+@pytest.mark.parametrize("Bt,M,K,N,act", [
+    (32, 2, 1024, 512, "silu"), (32, 2, 512, 1024, "none"),
+    (32, 40, 1024, 512, "silu"), (1, 4, 1024, 32, "none"),
+    (1, 4, 1024, 49155, "none")])
+def test_b1_at_moe_shapes(dev, Bt, M, K, N, act):
+    """Per-expert scales, an expert slice of zero codes (an expert no
+    token chose: zeros out), the path's epilogue: kernel == twin."""
+    xc = _codes((Bt, M, K), E4M3, 60, dev)
+    if Bt > 1:
+        xc[1] = 0
+    wc = _codes((Bt, K, N), E4M3, 61, dev)
+    s = torch.rand(Bt, 1, 1, device=dev) * 1e-3
+    for kw in ({}, {"scale": s}, {"scale": s, "activation": act}):
+        out = mgs_matmul_exact_fused(xc, wc, E4M3, **kw)
+        twin = mgs_matmul_exact_fused_plain(xc, wc, E4M3, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, twin), kw
+        if Bt > 1:
+            assert not out[1].any()
+
+
+def test_moe_apply_on_the_card_is_deterministic(dev):
+    """One granite-moe-1b-a400m layer at full width under
+    ``FP8_MGS_SERVE_KV``: the router and the three expert contractions
+    are one B1 launch each, and two calls give identical bits (dispatch
+    and combine are gathers and integer adds, no float scatter)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, layer_params, moe_apply
+    from repro_torch.quant import prepare_params
+    from repro_torch.quant.config import FP8_MGS_SERVE_KV
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"), n_layers=1,
+                              quant=FP8_MGS_SERVE_KV)
+    params = prepare_params(init_params(cfg, 0, device=dev), cfg.quant)
+    p = layer_params(params["layers"], 0)["moe"]
+    g = torch.Generator(device=dev).manual_seed(62)
+    for T in (1, 32):
+        x = torch.randn((4, T, cfg.d_model), generator=g,
+                        device=dev).to(torch.bfloat16)
+        n0 = LAUNCHES["mgs_matmul_exact_fused"]
+        y1, _ = moe_apply(p, x, cfg)
+        assert LAUNCHES["mgs_matmul_exact_fused"] == n0 + 4
+        y2, _ = moe_apply(p, x, cfg)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y1).all() and torch.equal(y1, y2)

@@ -41,6 +41,7 @@ from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     Request, ServeEngine, make_engine)
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.quant import PREP_STATS  # noqa: E402
 from repro_torch.quant import config as tq  # noqa: E402
@@ -49,17 +50,24 @@ PRESETS = {"packed": "FP8_MGS_SERVE_KV", "float": "FP8_MGS_SERVE"}
 OTHER_DENSE = ["gemma3-27b", "granite-20b", "minicpm-2b", "mgs-paper-eval"]
 
 
-def _weights(arch):
+def _weights(arch, edit=None):
     """One random tree in the shared layout, as numpy: the reference gets
-    it as jax arrays, the port through ``params_from_numpy``."""
+    it as jax arrays in its own parameter dtypes, the port through
+    ``params_from_numpy`` (float32 holding the same values: a bfloat16
+    tree is drawn in bfloat16). ``edit`` may change the port's tree in
+    place first."""
     cfg = dataclasses.replace(reduced_config(arch), compute_dtype="float32")
-    np_params = _to_numpy(init_params(cfg, seed=0))
+    params = init_params(cfg, seed=0)
+    if edit is not None:
+        edit(params)
+    np_params = _to_numpy(params)
     r_shapes = jax.eval_shape(
         lambda k: r_init_params(r_reduced(arch), k)[0],
         jax.random.PRNGKey(0))
     assert jax.tree.map(lambda a: a.shape, r_shapes) == jax.tree.map(
         lambda a: a.shape, np_params)
-    return jax.tree.map(jnp.asarray, np_params), np_params
+    return jax.tree.map(lambda a, s: jnp.asarray(a, s.dtype), np_params,
+                        r_shapes), np_params
 
 
 @pytest.fixture(scope="module")
@@ -70,7 +78,7 @@ def weights():
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
-    return tree.numpy()
+    return tree.float().numpy()
 
 
 def _prompts():
@@ -88,7 +96,7 @@ def test_serve_engine_matches_reference(weights, cache, attn_chunk):
 @pytest.mark.parametrize("cache", ["packed", "float"])
 @pytest.mark.parametrize("arch", OTHER_DENSE)
 def test_serve_engine_matches_reference_other_dense_archs(arch, cache):
-    """The other dense archs of ``_require_dense``: gemma3-27b (local /
+    """The other dense archs of ``_require_ported``: gemma3-27b (local /
     global window), granite-20b (MQA, gelu), minicpm-2b and the paper's
     eval proxy, at the same bar."""
     _check_group_parity(arch, _weights(arch), cache, 0)
@@ -117,7 +125,7 @@ def _check_group_parity(arch, weights, cache, attn_chunk):
              for i, p in enumerate(_prompts())]
     tstats = eng.run(treqs, record_logits=True)
     assert PREP_STATS == before                 # nothing re-prepared
-    if cache == "packed":
+    if cache == "packed" and "attn" in eng.params["layers"]:
         assert eng.params["layers"]["attn"]["wq"].codes.dtype == torch.uint8
     for rr, tr in zip(rreqs, treqs):
         assert rr.out_tokens == tr.out_tokens, (rr.rid, rr.out_tokens,
@@ -129,6 +137,7 @@ def _check_group_parity(arch, weights, cache, attn_chunk):
         assert err.max() <= 5e-2 * scale and err.mean() <= 1e-2 * scale, (
             arch, cache, attn_chunk, err.max() / scale, err.mean() / scale)
     assert tstats["decode_tokens"] == rstats["decode_tokens"] == 12
+    return eng, treqs
 
 
 def test_default_device_without_cuda_raises():
@@ -141,14 +150,30 @@ def test_default_device_without_cuda_raises():
         make_engine(cfg, batch=1, max_len=8)
 
 
-def test_other_families_and_later_slices_raise():
+def test_other_families_and_later_slices_raise(capsys):
+    """The hybrid, encoder-decoder and VLM families are still unported
+    (A10); MoE and SSM serve on the group engine only: the continuous
+    engine and the CLI's ``--continuous`` refuse them with the reference's
+    reason (``repro.models.transformer._require_paged_arch``)."""
+    for arch in ("jamba-1.5-large-398b", "whisper-tiny", "internvl2-2b"):
+        with pytest.raises(NotImplementedError, match="A10"):
+            ServeEngine(reduced_config(arch), batch=1, max_len=8,
+                        device="cpu")
+    jamba = dataclasses.replace(reduced_config("jamba-1.5-large-398b"),
+                                quant=tq.FP8_MGS_SERVE_PAGED)
     with pytest.raises(NotImplementedError, match="A10"):
-        ServeEngine(reduced_config("granite-moe-1b-a400m"), batch=1,
-                    max_len=8, device="cpu")
-    moe = dataclasses.replace(reduced_config("granite-moe-1b-a400m"),
-                              quant=tq.FP8_MGS_SERVE_PAGED)
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_engine(moe, batch=1, max_len=8, device="cpu", continuous=True)
+        make_engine(jamba, batch=1, max_len=8, device="cpu", continuous=True)
+    reason = "paged decode supports plain dense attention-only stacks"
+    for arch in ("granite-moe-1b-a400m", "falcon-mamba-7b"):
+        cfg = dataclasses.replace(reduced_config(arch),
+                                  quant=tq.FP8_MGS_SERVE_PAGED)
+        with pytest.raises(NotImplementedError, match=reason):
+            make_engine(cfg, batch=1, max_len=8, device="cpu",
+                        continuous=True)
+        with pytest.raises(SystemExit):
+            serve_main(["--arch", arch, "--reduced", "--continuous",
+                        "--quant", "fp8-mgs-serve-paged", "--device", "cpu"])
+        assert reason in capsys.readouterr().err
 
 
 def test_warmup_and_bucketed_run_on_cpu():
