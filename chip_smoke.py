@@ -88,8 +88,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``FP8_MGS_SERVE_KV`` serve phase 4's traffic, launch counts equal the
    prediction, every B1 launch is at a checked shape, ``PREP_STATS`` and
    the builds stay flat, a decode step of each is profiled, each model is
-   freed before the next; B1 / B2 are timed at those shapes. Last, print the card's name and power limit, a
-   JSON line of kernel results, and ``{"ok": true, "device": {...}}``.
+   freed before the next; B1 / B2 are timed at those shapes;
+10. the hybrid, encoder-decoder and VLM families on the group path: B1 ==
+   twin at every shape whisper-tiny's and internvl2-2b's full-width runs
+   launch it at (whisper's encoder over 1500 frames, the cross K / V
+   projections of its output and the cross scores / values, internvl2's
+   projections over the 256-token vision prefix and the prompt) and at
+   every shape of one full-width jamba-1.5-large-398b period (computed
+   from its config; the twin held in slices where its planes would pass
+   4 GB); B2 == twin at whisper's cross-attention (1500 live of 1536
+   keys, a non-causal bias row) and self-attention, internvl2's and
+   jamba's heads; reduced jamba, whisper and internvl2 served on the card
+   and the CPU give the same tokens, and whisper / internvl2 also at model
+   level with seeded random audio / vision embeddings (whisper's decode
+   then runs B2 over its cross planes); then whisper-tiny (4 + 4 layers)
+   and internvl2-2b (24 layers, max_len 256 + 32 + 16 + 1) at full width
+   serve phase 4's traffic with phase 9's checks. Last, print the card's
+   name and power limit, a JSON line of kernel results, and ``{"ok":
+   true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -100,6 +116,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -156,10 +173,17 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 
 def fp8_codes(torch, shape, dev, gen, scale=1.0, fmt=None):
-    """Codes of per-tensor-quantized Gaussian values (weights/activations)."""
+    """Codes of per-tensor-quantized Gaussian values (weights/activations);
+    past 2**28 elements, per leading slice (bounds the float
+    temporaries)."""
     from repro_torch.core.formats import E4M3, encode_bits
     from repro_torch.quant.quantize import quantize_fp8
     fmt = fmt or E4M3
+    if len(shape) > 1 and shape[0] > 1 and math.prod(shape) > 2**28:
+        out = torch.empty(shape, dtype=torch.uint8, device=dev)
+        for i in range(shape[0]):
+            out[i] = fp8_codes(torch, shape[1:], dev, gen, scale, fmt)
+        return out
     x = torch.randn(shape, generator=gen, device=dev) * scale
     return encode_bits(quantize_fp8(x, fmt).q, fmt)
 
@@ -314,7 +338,12 @@ def check_b3(torch, dev, gen):
 # ---------------------------------------------------------------------------
 
 
-def b2_inputs(torch, dev, gen, N=128, T=1, D=128, chunk=128, S=1024):
+def b2_inputs(torch, dev, gen, N=128, T=1, D=128, chunk=128, S=1024,
+              live=None, most=None):
+    """Dense-entry inputs: ``N`` slices of ``T`` query rows, head dim
+    ``D``, ``S`` keys; each slice's live keys ragged up to ``most``
+    (default ``S``; slices 0, 1, 2: ``most``, 0, 1), or all ``live``; the
+    bias row masks the rest."""
     from repro_torch.core.formats import E4M3, encode_bits
     from repro_torch.quant.kvcache import quantize_kv
     from repro_torch.quant.quantize import quantize_fp8
@@ -325,8 +354,12 @@ def b2_inputs(torch, dev, gen, N=128, T=1, D=128, chunk=128, S=1024):
     qt = quantize_fp8(torch.randn((N, T * D), generator=gen, device=dev),
                       E4M3, axis=1)
     qc = encode_bits(qt.q.reshape(N, T, D), E4M3)
-    lengths = torch.randint(0, S + 1, (N,), generator=gen, device=dev)
-    lengths[0], lengths[1], lengths[2] = S, 0, 1
+    if live is not None:
+        lengths = torch.full((N,), live, device=dev)
+    else:
+        most = S if most is None else most
+        lengths = torch.randint(0, most + 1, (N,), generator=gen, device=dev)
+        lengths[0], lengths[1], lengths[2] = most, 0, 1
     lengths = lengths.to(torch.int32)
     pos = torch.arange(S, device=dev)[None]
     bias = torch.where(pos < lengths[:, None], 0.0, -1e30).to(torch.float32)
@@ -354,12 +387,15 @@ def check_b2(torch, dev, gen, **shape):
     err = (out - twin).abs().max().item()
     eq = torch.equal(out, twin)
     N, T, D = a["q_codes"].shape
-    log(f"B2 {N} slices x ({T} x {D}) over ragged <= "
+    log(f"B2 {N} slices x ({T} x {D}) over {a['live'].min().item()}-"
+        f"{a['live'].max().item()} live of "
         f"{a['bt'].shape[1] * a['k_pool'].shape[1]} keys, chunk "
         f"{a['k_pool'].shape[1]}: equal={eq} max_abs_err={err:.3g}")
     if not eq:
         raise AssertionError("B2 kernel != twin")
-    if not torch.isfinite(out).all() or out[1].abs().max().item() != 0.0:
+    dead = a["live"] == 0
+    if not torch.isfinite(out).all() or (
+            dead.any() and out[dead].abs().max().item() != 0.0):
         raise AssertionError("B2 output not finite, or a dead slice is "
                              "not exactly zero")
     return err, a
@@ -480,24 +516,58 @@ def check_b2_paged(torch, dev, gen):
 # ---------------------------------------------------------------------------
 
 
-def group_launches(cfg):
+def _chunks(cfg, keys: int) -> int:
+    """Score / value launch pairs of a prefill over ``keys`` keys: one a
+    key chunk (``attn_chunk``), one with dense scores."""
+    return -(-keys // cfg.attn_chunk) if cfg.attn_chunk else 1
+
+
+def group_launches(cfg, prompt: int = 32):
     """Predicted kernel launches of phase 4's traffic under
-    FP8_MGS_SERVE_KV (2 groups, each a 32-token prefill and 15 decode
-    steps), and (B1, B2) launches of one decode step."""
+    FP8_MGS_SERVE_KV (2 groups, each a ``prompt``-token prefill and 15
+    decode steps), and (B1, B2) launches of one decode step."""
     L = cfg.n_layers
+    ffn = 3 if cfg.act == "silu" else 2
     if cfg.is_ssm_only:
         # 7 projections a layer + the logits head, in prefill and decode
         pre = dec = 7 * L + 1
         b2 = 0
+    elif cfg.is_hybrid:
+        # a period: 4 attention projections, 7 Mamba projections a Mamba
+        # sublayer, the router and the expert contractions on a MoE
+        # sublayer, the FFN on the others; the prefill adds the attention's
+        # score / value pairs, decode runs B2 once a period
+        G, per = cfg.n_layers // cfg.attn_every, cfg.attn_every
+        n_moe = sum(1 for j in range(per)
+                    if j % cfg.moe_every == cfg.moe_offset)
+        dec = G * (4 + 7 * (per - 1) + n_moe * (1 + ffn)
+                   + (per - n_moe) * ffn) + 1
+        pre = dec + 2 * G * _chunks(cfg, prompt)
+        b2 = G
     elif cfg.is_moe:
         # 4 attention projections, the router, the 3 expert contractions
         # (one launch over every expert each) + the head; the prefill adds
         # the score / value contractions, decode runs B2 once a layer
         pre, dec, b2 = 10 * L + 1, 8 * L + 1, L
+    elif cfg.encoder_layers:
+        # the encoder (prefill only): 4 projections, a score / value pair a
+        # key chunk, the FFN; a decoder layer: self-attention's 4
+        # projections, the cross-attention's query and output projections
+        # and the FFN, plus at prefill a self score / value pair a prompt
+        # chunk, the cross K / V projections of the encoder output and a
+        # cross score / value pair a key chunk; decode runs B2 twice a layer
+        # (self and cross over the packed cross planes)
+        nk = _chunks(cfg, cfg.encoder_len)
+        enc = cfg.encoder_layers * (4 + 2 * nk + ffn)
+        dec = (4 + 2 + ffn) * L + 1
+        pre = enc + (4 + 2 * _chunks(cfg, prompt) + 4 + 2 * nk + ffn) * L + 1
+        b2 = 2 * L
     else:
-        # 7 projections + the head; the prefill adds the score / value
-        # contractions, decode runs B2 once a layer
-        pre, dec, b2 = 9 * L + 1, 7 * L + 1, L
+        # 4 projections + the FFN's + the head; the prefill (the vision
+        # prefix before the prompt) adds a score / value pair a key chunk,
+        # decode runs B2 once a layer
+        nk = _chunks(cfg, cfg.vision_prefix + prompt)
+        pre, dec, b2 = (4 + 2 * nk + ffn) * L + 1, (4 + ffn) * L + 1, L
     return ({"mgs_matmul_exact_fused": 2 * (pre + 15 * dec),
              "mgs_flash_attention": 2 * 15 * b2}, (dec, b2))
 
@@ -522,7 +592,8 @@ def serve_full(torch, arch: str, layers: int):
         f"depth {cfg.n_layers} of {full.n_layers} layers, "
         f"{cfg.compute_dtype}, FP8_MGS_SERVE_KV; predicted launches {want}")
     t0 = time.time()
-    eng = ServeEngine(cfg, batch=4, max_len=32 + 16 + 1, seed=SEED)
+    eng = ServeEngine(cfg, batch=4, max_len=cfg.vision_prefix + 32 + 16 + 1,
+                      seed=SEED)
     torch.cuda.synchronize()
     log(f"serve: random weights + preparation {time.time() - t0:.1f} s, "
         f"PREP_STATS {PREP_STATS}")
@@ -575,7 +646,7 @@ def serve_reduced_gpu_vs_cpu(torch, quant=None, label="FP8_MGS_SERVE_KV",
         edit(params)
     out = {}
     for dev in ("cuda", "cpu"):
-        eng = ServeEngine(cfg, batch=2, max_len=24,
+        eng = ServeEngine(cfg, batch=2, max_len=cfg.vision_prefix + 24,
                           params=_tree_to(params, dev), device=dev)
         rng = np.random.default_rng(SEED)
         reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, 12).astype(
@@ -703,10 +774,9 @@ def profile_decode_step(torch, eng):
     from repro_torch.models import decode_step, init_cache, prefill
     import numpy as np
     rng = np.random.default_rng(SEED)
-    toks = torch.as_tensor(rng.integers(1, eng.cfg.vocab, (eng.batch, 32)),
-                           device=eng.device)
+    batch = eng._make_batch(rng.integers(1, eng.cfg.vocab, (eng.batch, 32)))
     cache = init_cache(eng.cfg, eng.batch, eng.max_len, device=eng.device)
-    logits, cache = prefill(eng.params, eng.cfg, {"tokens": toks}, cache)
+    logits, cache = prefill(eng.params, eng.cfg, batch, cache)
     cur = logits.argmax(dim=-1)[:, None]
     return profile_step(torch, lambda: decode_step(eng.params, eng.cfg, cur,
                                                    cache),
@@ -1561,40 +1631,71 @@ B1_CHECKED = (False, 128, None, False)
 
 
 def family_b1_shapes(cfg, batch=4, prompt=32):
-    """Every B1 launch shape of phase 4's traffic on the MoE or SSM model
-    ``cfg`` through the group engine, as (name, Bt, M, K, N, epilogue
-    activation): the projections at decode (``batch`` rows) and at prefill
-    (``batch`` x ``prompt`` rows), the prefill's score / value contractions
+    """Every B1 launch shape of phase 4's traffic on the MoE, SSM, hybrid,
+    encoder-decoder or VLM model ``cfg`` through the group engine, as
+    (name, Bt, M, K, N, epilogue activation): the projections at decode
+    (``batch`` rows) and at prefill (``batch`` x ``prompt`` rows, the
+    vision prefix's rows too), the prefill's score / value contractions
     over (request, kv head) slices, one key chunk a launch, the experts in
-    one launch over all of them (``C`` rows each, one dispatch group), and
-    the logits head on each request's last row."""
-    import math
+    one launch over all of them (``C`` rows each, one dispatch group), the
+    encoder's projections and contractions over its frames and the cross
+    K / V projections of its output, and the logits head on each request's
+    last row."""
     from repro_torch.models.moe import _n_groups
     d = cfg.d_model
     out = {}
 
     def add(prefix, short, *key):
         out.setdefault(key, (prefix, []))[1].append(short)
-    fam = "ssm" if cfg.is_ssm_only else "moe"
+
+    def attention(pre, Bq, Tq, Tk):
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        add(pre, "wq", 1, Bq * Tq, d, H * hd, "none")
+        add(pre, "wk/wv", 1, Bq * Tq, d, KV * hd, "none")
+        add(pre, "wo", 1, Bq * Tq, H * hd, d, "none")
+        if Tk:
+            S = cfg.attn_chunk or Tk
+            add(pre, "scores", Bq * KV, H // KV * Tq, hd, S, "none")
+            add(pre, "values", Bq * KV, H // KV * Tq, S, hd, "none")
+
+    def ffn(pre, M):
+        if cfg.act == "silu":
+            add(pre, "wg", 1, M, d, cfg.d_ff, "silu")
+            add(pre, "wu", 1, M, d, cfg.d_ff, "none")
+        else:
+            add(pre, "wi", 1, M, d, cfg.d_ff, "gelu")
+        add(pre, "wd", 1, M, cfg.d_ff, d, "none")
+
+    fam = cfg.family
+    # a hybrid's Mamba and MoE weights beside its attention and FFN ones
+    st, mt = ("ssm ", "moe ") if cfg.is_hybrid else ("", "")
     add(fam, "logits", 1, batch, d, cfg.vocab, "none")
+    if cfg.encoder_layers:
+        # the encoder's self-attention (keys: its frames) and FFN, and the
+        # cross K / V projections of its output (the wk / wv shape)
+        attention(f"{fam} encoder", batch, cfg.encoder_len, cfg.encoder_len)
+        ffn(f"{fam} encoder", batch * cfg.encoder_len)
     for stage, T in (("decode", 1), ("prefill", prompt)):
         M, pre = batch * T, f"{fam} {stage}"
-        if cfg.is_ssm_only:
+        if cfg.ssm_state:
             di, r = cfg.d_inner, cfg.dt_rank
-            add(pre, "wx/wz", 1, M, d, di, "none")
-            add(pre, "wdt_down", 1, M, di, r, "none")
-            add(pre, "wdt_up", 1, M, r, di, "none")
-            add(pre, "wB/wC", 1, M, di, cfg.ssm_state, "none")
-            add(pre, "wo", 1, M, di, d, "none")
+            add(pre, st + "wx/wz", 1, M, d, di, "none")
+            add(pre, st + "wdt_down", 1, M, di, r, "none")
+            add(pre, st + "wdt_up", 1, M, r, di, "none")
+            add(pre, st + "wB/wC", 1, M, di, cfg.ssm_state, "none")
+            add(pre, st + "wo", 1, M, di, d, "none")
+        if cfg.is_ssm_only:
             continue
-        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        add(pre, "wq", 1, M, d, H * hd, "none")
-        add(pre, "wk/wv", 1, M, d, KV * hd, "none")
-        add(pre, "wo", 1, M, H * hd, d, "none")
-        if T > 1:
-            S = cfg.attn_chunk or T
-            add(pre, "scores", batch * KV, H // KV * T, hd, S, "none")
-            add(pre, "values", batch * KV, H // KV * T, S, hd, "none")
+        Tq = T + (cfg.vision_prefix if T > 1 else 0)
+        attention(pre, batch, Tq, Tq if T > 1 else 0)
+        if cfg.encoder_layers and T > 1:
+            # the cross-attention's scores / values over the encoder keys
+            # (its projections share the self-attention's shapes)
+            attention(pre, batch, T, cfg.encoder_len)
+        if not cfg.is_moe or cfg.is_hybrid:
+            ffn(pre, batch * Tq)
+        if not cfg.is_moe:
+            continue
         if _n_groups(M, cfg) != 1:
             raise ValueError(f"{cfg.name}: {M} tokens dispatch in more than "
                              "one group")
@@ -1602,11 +1703,11 @@ def family_b1_shapes(cfg, batch=4, prompt=32):
         C = max(1, math.ceil(cfg.top_k * M * cfg.capacity_factor / E))
         add(pre, "router", 1, M, d, E, "none")
         if cfg.act == "silu":
-            add(pre, "wg", E, C, d, cfg.d_ff, "silu")
-            add(pre, "wu", E, C, d, cfg.d_ff, "none")
+            add(pre, mt + "wg", E, C, d, cfg.d_ff, "silu")
+            add(pre, mt + "wu", E, C, d, cfg.d_ff, "none")
         else:
-            add(pre, "wi", E, C, d, cfg.d_ff, "gelu")
-        add(pre, "wd", E, C, cfg.d_ff, d, "none")
+            add(pre, mt + "wi", E, C, d, cfg.d_ff, "gelu")
+        add(pre, mt + "wd", E, C, cfg.d_ff, d, "none")
     return [(f"{pre} {'/'.join(shorts)}",) + key
             for key, (pre, shorts) in out.items()]
 
@@ -1659,15 +1760,40 @@ def unchecked_b1(seen, shapes):
 FAMILY_B2 = dict(N=32, T=2, D=64, chunk=128, S=128)
 
 
-def check_family_b1(torch, dev, gen):
-    """B1 == twin (``torch.equal``) at ``family_b1_checks()``, with no
-    epilogue, with per-slice scales and with the path's activation; a
-    slice of zero codes (an expert no token chose) gives zeros."""
+# bytes of float64 limb planes the B1 twin may hold for one call (larger
+# shapes are held in slices and column chunks)
+TWIN_BYTES = 4e9
+
+
+def b1_twin(torch, x, w, fmt, scale=None, **kw):
+    """The B1 twin on ``(Bt, M, K) @ (Bt, K, N)``, one slice and column
+    chunk at a time where its float64 limb planes would pass
+    ``TWIN_BYTES``: every output element depends on its own row, column
+    and slice alone, so the pieces are the whole call's bits."""
+    from repro_torch.kernels.mgs_matmul import mgs_matmul_exact_fused_plain
+    Bt, K, N = w.shape
+    if Bt * K * min(N, 16384) * 24 <= TWIN_BYTES:
+        return mgs_matmul_exact_fused_plain(x, w, fmt, scale=scale, **kw)
+    cols = max(128, int(TWIN_BYTES // (K * 24)) // 128 * 128)
+    out = torch.empty((Bt, x.shape[1], N), dtype=torch.float32,
+                      device=x.device)
+    for b in range(Bt):
+        for n0 in range(0, N, cols):
+            out[b:b + 1, :, n0:n0 + cols] = mgs_matmul_exact_fused_plain(
+                x[b:b + 1], w[b:b + 1, :, n0:n0 + cols], fmt,
+                scale=None if scale is None else scale[b:b + 1], **kw)
+    return out
+
+
+def check_family_b1(torch, dev, gen, shapes=None):
+    """B1 == twin (``torch.equal``) at ``shapes`` (``family_b1_checks()``),
+    with no epilogue, with per-slice scales and with the path's
+    activation; a slice of zero codes (an expert no token chose) gives
+    zeros."""
     from repro_torch.core.formats import E4M3
-    from repro_torch.kernels.mgs_matmul import (
-        mgs_matmul_exact_fused, mgs_matmul_exact_fused_plain)
+    from repro_torch.kernels.mgs_matmul import mgs_matmul_exact_fused
     worst = 0.0
-    for name, Bt, M, K, N, act in family_b1_checks():
+    for name, Bt, M, K, N, act in shapes or family_b1_checks():
         x = fp8_codes(torch, (Bt, M, K), dev, gen)
         if Bt > 1:
             x[1] = 0
@@ -1678,7 +1804,7 @@ def check_family_b1(torch, dev, gen):
             tags.append((f"scale+{act}", {"scale": scale, "activation": act}))
         for tag, kw in tags:
             out = mgs_matmul_exact_fused(x, w, E4M3, **kw)
-            twin = mgs_matmul_exact_fused_plain(x, w, E4M3, **kw)
+            twin = b1_twin(torch, x, w, E4M3, **kw)
             torch.cuda.synchronize()
             err = (out - twin).abs().max().item()
             worst = max(worst, err)
@@ -1691,13 +1817,15 @@ def check_family_b1(torch, dev, gen):
                     Bt > 1 and out[1].abs().max().item() != 0.0):
                 raise AssertionError(f"B1 at {name}: non-finite output, or "
                                      "a zero slice is not zero")
+        del x, w
     return worst
 
 
-def serve_family(torch, arch: str, layers: int):
+def serve_family(torch, arch: str, layers: int, checks=None):
     """Phase 4's serving (``serve_full``) of ``arch``, then one profiled
     decode step with the predicted B1 / B2 launches; every B1 launch must
-    be at a shape ``check_family_b1`` held. The model is freed."""
+    be at a shape ``check_family_b1`` held (``checks``, by default
+    ``family_b1_checks()``). The model is freed."""
     import gc
     from repro_torch.quant import clear_prepared_cache
     torch.cuda.reset_peak_memory_stats()
@@ -1710,7 +1838,7 @@ def serve_family(torch, arch: str, layers: int):
         raise AssertionError(f"{arch}: a decode step launched "
                              f"{step['B1_kernels']} B1 / {step['B2_kernels']}"
                              f" B2, predicted {b1_step} / {b2_step}")
-    missed = unchecked_b1(seen, family_b1_checks())
+    missed = unchecked_b1(seen, checks or family_b1_checks())
     if missed:
         raise AssertionError(f"{arch}: B1 launched at shapes no check "
                              f"covers: {sorted(missed, key=str)}")
@@ -1756,6 +1884,142 @@ def family_phase(torch, dev, gen):
     torch.cuda.empty_cache()
     return dict(b1_err=b1_err, b2_err=b2_err, runs=runs, b1_shapes=b1_rows,
                 b2=b2_row)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the hybrid, encoder-decoder and VLM families on the group path
+# ---------------------------------------------------------------------------
+
+# served at full width (jamba-1.5-large-398b's experts alone are 77 GB in
+# bf16: only its period's shapes run at full width)
+LATE_ARCHS = ("whisper-tiny", "internvl2-2b")
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# B2 at the three families' heads: whisper-tiny's cross-attention (4
+# requests x 6 kv heads, one query row of head dim 64, 1500 live frames of
+# 1536 keys, the rest masked by a non-causal bias row) and its
+# self-attention over a 49-token cache; internvl2-2b's (8 kv heads x 2
+# rows of 128) over the 305-token cache (3 chunks, up to 304 live keys);
+# jamba's (8 kv heads x 8 rows of 128)
+LATE_B2 = {
+    "whisper-tiny cross": dict(N=24, T=1, D=64, S=1536, live=1500),
+    "whisper-tiny self": dict(N=24, T=1, D=64, S=128),
+    "internvl2-2b": dict(N=32, T=2, D=128, S=384, most=304),
+    "jamba-1.5-large-398b": dict(N=32, T=8, D=128, S=128),
+}
+
+
+def late_b1_checks():
+    """B1's checked shapes in phase 10: every launch shape of the two
+    full-width models' runs, and of one full-width jamba period (its
+    experts at prefill 16 x (20 x 8192 @ 8192 x 24576))."""
+    from repro_torch.configs import get_config
+    return [s for arch in LATE_ARCHS + (HYBRID_ARCH,)
+            for s in family_b1_shapes(get_config(arch))]
+
+
+def _scale_out(params):
+    """Seed-0 reduced whisper / internvl2 echo each prompt's last token;
+    the residual output projections scaled by 8 make the tokens vary."""
+    for root in ("layers", "cross"):
+        if root in params:
+            params[root]["attn"]["wo"] *= 8.0
+    params["layers"]["ffn"]["wd"] *= 8.0
+
+
+def model_gpu_vs_cpu(torch, arch: str, edit=None, steps: int = 4):
+    """A model-level prefill and ``steps`` decode steps of reduced ``arch``
+    with seeded random audio / vision embeddings (the engine's zero stub
+    gives whisper an all-zero encoder output, so its served runs never
+    exercise cross-attention), on the card (kernels) and the CPU (twins):
+    equal tokens, logits within the engine bar; on the card every decode
+    step runs B2 once a layer, twice for an encoder-decoder (its cross
+    planes)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import decode_step, init_cache, init_params, \
+        prefill
+    from repro_torch.quant.config import FP8_MGS_SERVE_KV
+    import numpy as np
+    cfg = dataclasses.replace(reduced_config(arch), compute_dtype="float32",
+                              quant=FP8_MGS_SERVE_KV)
+    params = init_params(cfg, SEED)
+    if edit is not None:
+        edit(params)
+    rng = np.random.default_rng(SEED)
+    B, T, d = 2, 12, cfg.d_model
+    side = {"tokens": rng.integers(1, cfg.vocab, (B, T))}
+    if cfg.vision_prefix:
+        side["vision_embeds"] = rng.normal(0, 0.1, (B, cfg.vision_prefix, d))
+    if cfg.encoder_layers:
+        side["audio_embeds"] = rng.normal(0, 0.1, (B, cfg.encoder_len, d))
+    max_len = cfg.vision_prefix + T + steps + 1
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServeEngine(cfg, batch=B, max_len=max_len,
+                          params=_tree_to(params, dev), device=dev)
+        batch = {k: torch.as_tensor(v, device=dev, dtype=(
+            torch.int64 if k == "tokens" else torch.float32))
+            for k, v in side.items()}
+        reset_launch_counts()
+        logits, cache = prefill(eng.params, cfg, batch,
+                                init_cache(cfg, B, max_len, device=dev))
+        rows, toks = [], []
+        for step in range(steps + 1):
+            cur = logits.argmax(dim=-1)[:, None]
+            rows.append(logits.float().cpu().numpy())
+            toks.append(cur.cpu().numpy()[:, 0])
+            if step < steps:
+                logits, cache = decode_step(eng.params, cfg, cur, cache)
+        out[dev] = (np.stack(toks, 1), np.stack(rows), dict(LAUNCHES))
+    (tg, lg, launches), (tc, lc, _) = out["cuda"], out["cpu"]
+    b2 = steps * cfg.n_layers * (2 if cfg.encoder_layers else 1)
+    if launches["mgs_flash_attention"] != b2:
+        raise AssertionError(f"{arch}: {launches['mgs_flash_attention']} B2 "
+                             f"launches in {steps} decode steps, not {b2}")
+    scale = np.abs(lc).max()
+    err = np.abs(lg - lc)
+    if not np.array_equal(tg, tc) or err.max() > 5e-2 * scale \
+            or err.mean() > 1e-2 * scale:
+        raise AssertionError(f"reduced {arch} with random side inputs: GPU "
+                             f"tokens {tg.tolist()} vs CPU {tc.tolist()}, "
+                             f"max logit diff {err.max() / scale:.3g} of "
+                             "scale")
+    log(f"reduced {arch} model-level prefill + {steps} decode steps with "
+        f"seeded side inputs: GPU == CPU tokens {tg.tolist()}, max logit "
+        f"diff {err.max():.3g}, {b2} B2 launches")
+
+
+def late_phase(torch, dev, gen):
+    """Phase 10: B1 at the three families' shapes (jamba's from its config),
+    B2 at their heads, reduced jamba / whisper / internvl2 on the card and
+    the CPU (served, and whisper / internvl2 also at model level with
+    random side inputs), whisper-tiny and internvl2-2b at full width."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.quant import clear_prepared_cache
+    clear_prepared_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    checks = late_b1_checks()
+    b1_err = check_family_b1(torch, dev, gen, checks)
+    b2_err, b2_args = 0.0, {}
+    for label, shape in LATE_B2.items():
+        err, b2_args[label] = check_b2(torch, dev, gen, **shape)
+        b2_err = max(b2_err, err)
+    log(f"late family kernels: B1 == twin at {len(checks)} shapes, B2 == "
+        f"twin at {len(LATE_B2)} head shapes ({time.time() - t0:.1f} s)")
+    serve_reduced_gpu_vs_cpu(torch, arch=HYBRID_ARCH)
+    for arch in LATE_ARCHS:
+        serve_reduced_gpu_vs_cpu(torch, arch=arch, edit=_scale_out)
+        model_gpu_vs_cpu(torch, arch, edit=_scale_out)
+    runs = {arch: serve_family(torch, arch, get_config(arch).n_layers, checks)
+            for arch in LATE_ARCHS}
+    b2_row = time_b2(torch, b2_args["whisper-tiny cross"])
+    del b2_args
+    torch.cuda.empty_cache()
+    return dict(b1_err=b1_err, b2_err=b2_err, runs=runs, b2_cross=b2_row)
 
 
 def main() -> int:
@@ -1870,6 +2134,15 @@ def main() -> int:
     log(f"phase 9: MoE and SSM families checked, served and timed "
         f"({time.time() - t0:.1f} s)")
 
+    t0 = time.time()
+    late = late_phase(torch, dev, gen)
+    fam_launches.update({k: late["runs"][a]["launches"] for k, a in zip(
+        ("group_encdec", "group_vlm"), LATE_ARCHS)})
+    b1_err = max(b1_err, late["b1_err"])
+    b2_err = max(b2_err, late["b2_err"])
+    log(f"phase 10: hybrid, encoder-decoder and VLM families checked and "
+        f"served ({time.time() - t0:.1f} s)")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
@@ -1941,6 +2214,8 @@ def main() -> int:
                     "paper_accuracy": accuracy, "calibration": calibration,
                     "families": {k: v for k, v in fam.items()
                                  if not k.endswith("_err")},
+                    "late_families": {k: v for k, v in late.items()
+                                      if not k.endswith("_err")},
                     "layers": args.layers}))
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -130,8 +130,9 @@ class ServeEngine:
     """Fixed-batch prefill/decode engine with greedy sampling.
 
     Args:
-      cfg: model config (dense, MoE or SSM family); ``cfg.quant`` selects
-        the numerics.
+      cfg: model config (any family; an encoder-decoder or a VLM gets the
+        reference's stub side inputs: zero frame / patch embeddings);
+        ``cfg.quant`` selects the numerics.
       batch: requests per group.
       max_len: cache length (prompt bucket + new tokens must fit).
       params: parameter tree (``init_params`` layout) on ``device``;
@@ -157,7 +158,7 @@ class ServeEngine:
         self._buckets: Optional[List[int]] = None
         if params is None:
             params = init_params(cfg, seed, device=self.device)
-        params = prepare_params(params, cfg.quant)
+        params = prepare_params(params, cfg.quant, hybrid=cfg.is_hybrid)
         params = prepare_logits_head(params, cfg.quant,
                                      tied=cfg.tie_embeddings)
         if calibration is not None:
@@ -287,10 +288,37 @@ class ServeEngine:
     def _tokens(self, toks: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(toks, dtype=torch.int64, device=self.device)
 
+    def _make_batch(self, toks: np.ndarray) -> Dict[str, Any]:
+        """The prefill batch: the tokens, and the reference's stub side
+        inputs (zero patch / frame embeddings in bfloat16) where the
+        family takes them."""
+        batch = {"tokens": self._tokens(toks)}
+        B, cfg = toks.shape[0], self.cfg
+        if cfg.vision_prefix:
+            batch["vision_embeds"] = torch.zeros(
+                (B, cfg.vision_prefix, cfg.d_model), dtype=torch.bfloat16,
+                device=self.device)
+        if cfg.encoder_layers:
+            batch["audio_embeds"] = torch.zeros(
+                (B, cfg.encoder_len, cfg.d_model), dtype=torch.bfloat16,
+                device=self.device)
+        return batch
+
+    def _check_fits(self, plen: int, steps: int):
+        """A prompt bucket, the vision prefix before it and the entries of
+        ``steps`` decode steps must fit the cache (``max_len``)."""
+        prefix = self.cfg.vision_prefix
+        if plen <= 0 or prefix + plen + steps > self.max_len:
+            raise ValueError(
+                f"prompt bucket {plen} + {steps} decode steps"
+                + (f" after the {prefix}-token vision prefix" if prefix
+                   else "")
+                + f" out of range for max_len={self.max_len}")
+
     def _prefill(self, toks: np.ndarray, cache, cs):
         with applied_calib_state(cs):
-            return prefill(self.params, self.cfg,
-                           {"tokens": self._tokens(toks)}, cache)
+            return prefill(self.params, self.cfg, self._make_batch(toks),
+                           cache)
 
     def _decode(self, cur: torch.Tensor, cache, cs):
         with applied_calib_state(cs):
@@ -302,10 +330,8 @@ class ServeEngine:
         before traffic: builds the kernels and fixes the buckets that
         :meth:`run` pads to. Returns the sorted bucket list."""
         buckets = sorted({int(b) for b in plen_buckets})
-        bad = [b for b in buckets if b <= 0 or b + max_new > self.max_len]
-        if bad:
-            raise ValueError(f"warmup buckets {bad} out of range for "
-                             f"max_len={self.max_len}, max_new={max_new}")
+        for b in buckets:
+            self._check_fits(b, max_new)
         rng = np.random.default_rng(seed)
         for plen in buckets:
             toks = rng.integers(1, self.cfg.vocab, (self.batch, plen))
@@ -368,7 +394,7 @@ class ServeEngine:
                            device=self.device)
         with calibrating(recorder) as rec:
             logits, cache = prefill(self.params, self.cfg,
-                                    {"tokens": self._tokens(toks)}, cache)
+                                    self._make_batch(toks), cache)
             decode_step(self.params, self.cfg,
                         logits.argmax(dim=-1)[:, None], cache)
         return rec
@@ -384,8 +410,8 @@ class ServeEngine:
         (:meth:`apply_calibration`)."""
         if prompts is None:
             rng = np.random.default_rng(seed)
-            prompts = [rng.integers(1, self.cfg.vocab,
-                                    min(self.max_len - 1, 16))
+            n = min(self.max_len - 1 - self.cfg.vision_prefix, 16)
+            prompts = [rng.integers(1, self.cfg.vocab, n)
                        for _ in range(self.batch)]
         plen = max(len(p) for p in prompts)
         toks = np.zeros((self.batch, plen), np.int64)
@@ -501,6 +527,8 @@ class ServeEngine:
                 injector.before_group()
             plen = bucket_for(max(len(r.prompt) for r in group),
                               self._buckets)
+            max_new = max(r.max_new_tokens for r in group)
+            self._check_fits(plen, max_new - 1)   # the last token: no step
             toks = np.zeros((self.batch, plen), np.int64)
             for j, r in enumerate(group):
                 toks[j, plen - len(r.prompt):] = r.prompt   # left-pad
@@ -510,7 +538,6 @@ class ServeEngine:
             logits, cache = self._prefill(toks, cache, cs)
             n_prefill += plen * len(group)
             cur = logits.argmax(dim=-1)[:, None]
-            max_new = max(r.max_new_tokens for r in group)
             for step in range(max_new):
                 if injector is not None:
                     injector.on_decode(step + 1)
@@ -994,7 +1021,8 @@ def main(argv=None):
             for i in range(args.n_requests)]
     try:
         engine = make_engine(cfg, batch=args.batch,
-                             max_len=(args.prompt_len + args.max_new + 1
+                             max_len=(cfg.vision_prefix + args.prompt_len
+                                      + args.max_new + 1
                                       + max(args.spec_k - 1, 0)),
                              device=args.device, continuous=args.continuous,
                              spec_k=args.spec_k or None)

@@ -1,4 +1,5 @@
-"""Model stack of the port (dense, MoE and pure-SSM decoder families)."""
+"""Model stack of the port: the dense, MoE, pure-SSM, hybrid,
+encoder-decoder and vision-prefix families."""
 
 from .mamba import SSMCache, mamba_apply, mamba_decode_step
 from .moe import moe_apply

@@ -1,14 +1,15 @@
-"""Self-attention (MHA/GQA/MQA, causal / sliding window) with decode KV
-caches — float (:class:`KVCache`), packed FP8
-(:class:`repro_torch.quant.QuantizedKVCache`) or the paged pool
+"""Self- and cross-attention (MHA/GQA/MQA, causal / sliding window /
+bidirectional) with decode KV caches — float (:class:`KVCache`), packed
+FP8 (:class:`repro_torch.quant.QuantizedKVCache`) or the paged pool
 (:class:`repro_torch.quant.PagedKVCache`), the last two decoded by the B2
 flash kernel.
 
-The port's copy of the self-attention branches of
-``repro.models.attention``: dense scores (``_sdpa_dense``), the
-online-softmax chunked prefill (``_sdpa_chunked``), the packed-cache
-decode (``_sdpa_packed_cache``) and the paged decode and speculative
-verify (``_sdpa_paged_cache``, ``_sdpa_paged_verify``). Under an fp8
+The port's copy of ``repro.models.attention``: dense scores
+(``_sdpa_dense``), the online-softmax chunked prefill
+(``_sdpa_chunked``), the packed-cache decode (``_sdpa_packed_cache``,
+also the packed cross-attention of an encoder-decoder's decode) and the
+paged decode and speculative verify (``_sdpa_paged_cache``,
+``_sdpa_paged_verify``). Under an fp8
 config the score and value contractions of prefill route through
 ``qeinsum`` (B1 or B3, batched over (batch, kv-head) slices). Caches are
 written in place. Every contraction carries the reference's calibration
@@ -307,10 +308,26 @@ def _sdpa_paged_verify(q, cache: PagedKVCache, block_table, bias,
     return out.reshape(B, KV, T, G, hd).permute(0, 2, 1, 3, 4).to(q.dtype)
 
 
+def _live_positions(positions, S: int):
+    """Key positions ``0..S-1`` of a decode cache, those past the query's
+    last position set to the sentinel."""
+    B = positions.shape[0]
+    k_pos = torch.arange(S, device=positions.device)[None].expand(B, S)
+    return torch.where(k_pos <= positions[:, -1:], k_pos,
+                       torch.full_like(k_pos, _POS_SENTINEL))
+
+
+def _decode_bias(positions, S: int, causal: bool, cfg: ModelConfig,
+                 is_global):
+    """The (B, T, S) mask of a decode or verify step over an S-key cache."""
+    return _mask(positions, _live_positions(positions, S), causal=causal,
+                 window=cfg.window, is_global=is_global)
+
+
 def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
                     causal: bool = True, cache=None, cache_pos=0,
-                    block_table=None, lengths=None):
-    """Self-attention. x: (B, T, d); positions: (B, T) int.
+                    block_table=None, lengths=None, cross_kv=None):
+    """Self- or cross-attention. x: (B, T, d); positions: (B, T) int.
 
     ``cache``: a float :class:`KVCache`, a packed
     :class:`QuantizedKVCache` or a paged :class:`PagedKVCache` (one
@@ -321,6 +338,12 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
     a per-slot ``(B,)`` position, ``block_table`` ``(B, nb)`` names each
     slot's blocks and ``lengths`` ``(B,)`` its live key count (0 = free
     slot); ``T == 1`` decodes, ``T > 1`` is the speculative verify.
+
+    ``cross_kv``: the encoder's K/V (encoder-decoder), not roped, in place
+    of the self-attention K/V; attended without a causal mask. Packed
+    (:class:`QuantizedKVCache`, decode only) through the flash kernel over
+    the first ``cfg.encoder_len`` keys, the padded tail masked; float
+    (:class:`KVCache`) by the dense or chunked path.
     Returns (out (B, T, d), cache | None).
     """
     B, T, d = x.shape
@@ -329,56 +352,63 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
 
     q = proj(x, p["wq"], cfg.quant, site="attn.wq")
     q = apply_rope(q, positions, cfg.rope_theta).reshape(B, T, KV, G, hd)
-    k = proj(x, p["wk"], cfg.quant, site="attn.wk")
-    k = apply_rope(k, positions, cfg.rope_theta)
-    v = proj(x, p["wv"], cfg.quant, site="attn.wv")
 
     packed_out = None
-    if isinstance(cache, PagedKVCache):
-        paged_append_kv(cache, k, v, cache_pos, block_table,
-                        cfg.quant.kv_fmt)
-        S = block_table.shape[1] * cache.k_codes.shape[2]
+    if isinstance(cross_kv, QuantizedKVCache):
+        if T != 1:
+            raise NotImplementedError(
+                "packed cross-attention is decode-only (T == 1): the "
+                "decoder prefill attends the fresh float encoder K/V")
+        S = cross_kv.k_codes.shape[2]
         k_pos = torch.arange(S, device=x.device)[None].expand(B, S)
-        valid = k_pos <= positions[:, -1:]
-        k_pos = torch.where(valid, k_pos,
+        k_pos = torch.where(k_pos < cfg.encoder_len, k_pos,
                             torch.full_like(k_pos, _POS_SENTINEL))
-        bias3 = _mask(positions, k_pos, causal=causal, window=cfg.window,
+        bias3 = _mask(positions, k_pos, causal=False, window=cfg.window,
                       is_global=is_global)
-        if T == 1:
-            packed_out = _sdpa_paged_cache(q, cache, block_table, bias3,
-                                           lengths, cfg.quant)
-        else:
-            packed_out = _sdpa_paged_verify(q, cache, block_table, bias3,
-                                            positions, lengths, cfg.quant)
-    elif isinstance(cache, QuantizedKVCache):
-        append_kv(cache, k, v, cache_pos, cfg.quant.kv_fmt)
-        if T == 1:
-            S = cache.k_codes.shape[2]
-            k_pos = torch.arange(S, device=x.device)[None].expand(B, S)
-            valid = k_pos <= positions[:, -1:]
-            k_pos = torch.where(valid, k_pos,
-                                torch.full_like(k_pos, _POS_SENTINEL))
-            bias3 = _mask(positions, k_pos, causal=causal, window=cfg.window,
-                          is_global=is_global)
-            packed_out = _sdpa_packed_cache(q, cache, bias3, cfg.quant,
-                                            lengths=positions[:, -1] + 1)
-        else:
-            if cache_pos != 0:
-                raise NotImplementedError(
-                    "packed-cache prefill (T > 1) supports cache_pos == 0 "
-                    "only")
-            k_pos = positions
-    elif cache is not None:
-        cache.k[:, cache_pos:cache_pos + T] = k.to(cache.k.dtype)
-        cache.v[:, cache_pos:cache_pos + T] = v.to(cache.v.dtype)
-        k, v = cache.k, cache.v
+        packed_out = _sdpa_packed_cache(
+            q, cross_kv, bias3, cfg.quant,
+            lengths=torch.full((B,), cfg.encoder_len, dtype=torch.int32,
+                               device=x.device))
+    elif cross_kv is not None:
+        k, v = cross_kv.k, cross_kv.v
         S = k.shape[1]
         k_pos = torch.arange(S, device=x.device)[None].expand(B, S)
-        valid = k_pos <= positions[:, -1:]
-        k_pos = torch.where(valid, k_pos,
-                            torch.full_like(k_pos, _POS_SENTINEL))
+        causal = False
     else:
-        k_pos = positions
+        k = proj(x, p["wk"], cfg.quant, site="attn.wk")
+        k = apply_rope(k, positions, cfg.rope_theta)
+        v = proj(x, p["wv"], cfg.quant, site="attn.wv")
+        if isinstance(cache, PagedKVCache):
+            paged_append_kv(cache, k, v, cache_pos, block_table,
+                            cfg.quant.kv_fmt)
+            S = block_table.shape[1] * cache.k_codes.shape[2]
+            bias3 = _decode_bias(positions, S, causal, cfg, is_global)
+            if T == 1:
+                packed_out = _sdpa_paged_cache(q, cache, block_table, bias3,
+                                               lengths, cfg.quant)
+            else:
+                packed_out = _sdpa_paged_verify(q, cache, block_table, bias3,
+                                                positions, lengths, cfg.quant)
+        elif isinstance(cache, QuantizedKVCache):
+            append_kv(cache, k, v, cache_pos, cfg.quant.kv_fmt)
+            if T == 1:
+                bias3 = _decode_bias(positions, cache.k_codes.shape[2],
+                                     causal, cfg, is_global)
+                packed_out = _sdpa_packed_cache(q, cache, bias3, cfg.quant,
+                                                lengths=positions[:, -1] + 1)
+            else:
+                if cache_pos != 0:
+                    raise NotImplementedError(
+                        "packed-cache prefill (T > 1) supports cache_pos "
+                        "== 0 only")
+                k_pos = positions
+        elif cache is not None:
+            cache.k[:, cache_pos:cache_pos + T] = k.to(cache.k.dtype)
+            cache.v[:, cache_pos:cache_pos + T] = v.to(cache.v.dtype)
+            k, v = cache.k, cache.v
+            k_pos = _live_positions(positions, k.shape[1])
+        else:
+            k_pos = positions
 
     if packed_out is not None:
         out = packed_out

@@ -1,7 +1,8 @@
-"""The decoder stack of the port: init, serving caches, prefill, decode,
+"""The model stack of the port: init, serving caches, prefill, decode,
 and the paged slot pool of continuous batching with its speculative
-draft / verify / rewind steps (``repro.models.transformer``; the dense,
-MoE and pure-SSM families).
+draft / verify / rewind steps (``repro.models.transformer``; every family:
+dense, MoE, pure SSM, the attention / Mamba hybrid, encoder-decoder and the
+vision-prefix decoder).
 
 Layers run in a Python loop over the stacked parameters (the reference's
 ``lax.scan``): :func:`layer_params` indexes one layer of every stacked
@@ -10,9 +11,10 @@ updated in place. In the group cache ``cache["pos"]`` is a host integer
 (every row of a group decodes the same position); in the paged cache it
 is a ``(slots,)`` device tensor beside the ``(slots, nb)`` block table.
 
-MoE and SSM stacks serve on the group path only: the paged path refuses
-them, as the reference's does. The hybrid, encoder-decoder and VLM
-families are ROADMAP item A10 and raise ``NotImplementedError``.
+A hybrid runs its periods (one attention and ``attn_every - 1`` Mamba
+sublayers, FFN / MoE alternating) in a loop over groups. Only plain dense
+stacks take the paged path; the other families serve on the group path,
+as the reference's do.
 """
 
 from __future__ import annotations
@@ -26,10 +28,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.quant import (PagedKVCache, PreparedWeight,
                                QuantizedKVCache, qeinsum)
 from repro_torch.quant.kvcache import (init_paged_kv, init_quantized_kv,
-                                       paged_rollback_kv)
+                                       paged_rollback_kv, quantize_kv)
 from .attention import KVCache, attention_apply
 from .common import dtype_of, normal_param, rms_norm
 from .ffn import ffn_apply
+from .linear import proj
 from .mamba import SSMCache, mamba_apply, mamba_decode_step
 from .moe import moe_apply
 
@@ -39,21 +42,16 @@ __all__ = ["init_params", "init_cache", "prefill", "decode_step",
            "draft_step_paged", "rewind_slots"]
 
 
-def _require_ported(cfg: ModelConfig):
-    if (cfg.is_hybrid or cfg.encoder_layers or cfg.vision_prefix
-            or not (cfg.n_heads or cfg.is_ssm_only)):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port runs the dense, MoE and "
-            "SSM decoder families; hybrid, encoder-decoder and VLM stacks "
-            "are ROADMAP item A10")
-
-
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     """Random parameters with the reference's tree, shapes and per-weight
     scales (``repro.models.init_params``), drawn from ``seed`` with a
     ``torch.Generator`` on ``device`` — not the reference's numbers (use
-    :func:`repro_torch.convert.params_from_numpy` for those)."""
-    _require_ported(cfg)
+    :func:`repro_torch.convert.params_from_numpy` for those).
+
+    Stacks lead with ``(n_layers,)``; a hybrid's with ``(groups,)`` and,
+    below it, ``(sub,)`` for its Mamba / FFN / MoE sublayers; an
+    encoder-decoder adds the ``encoder`` stack, ``encoder_norm`` and the
+    decoder's ``cross`` stack."""
     device = torch.device("cpu") if device is None else torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -71,45 +69,79 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     def zeros(shape):
         return torch.zeros(shape, dtype=pdt, device=device)
 
+    def attn(n):
+        return {"wq": w(n + (d, H, hd), d), "wk": w(n + (d, KV, hd), d),
+                "wv": w(n + (d, KV, hd), d), "wo": w(n + (H, hd, d), H * hd)}
+
+    def ffn(n):
+        h = cfg.d_ff
+        mlp = ({"wg": w(n + (d, h), d), "wu": w(n + (d, h), d)}
+               if cfg.act == "silu" else {"wi": w(n + (d, h), d)})
+        mlp["wd"] = w(n + (h, d), h)
+        return mlp
+
+    def moe(n):
+        # the reference's default fan-in is shape[0]: the expert count for
+        # the (E, d, h) gate / up / in projections
+        h, E = cfg.d_ff, cfg.n_experts
+        mlp = ({"wg": w(n + (E, d, h), E), "wu": w(n + (E, d, h), E)}
+               if cfg.act == "silu" else {"wi": w(n + (E, d, h), E)})
+        mlp.update(wr=w(n + (d, E), d), wd=w(n + (E, h, d), h))
+        return mlp
+
+    def ssm(n):
+        di, N, r, k = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.d_conv
+        a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                       device=device))
+        return {"wx": w(n + (d, di), d), "wz": w(n + (d, di), d),
+                "conv_w": w(n + (k, di), k, 1.0 / k),
+                "conv_b": zeros(n + (di,)),
+                "wdt_down": w(n + (di, r), di), "wdt_up": w(n + (r, di), r),
+                "dt_bias": zeros(n + (di,)),
+                "wB": w(n + (di, N), di), "wC": w(n + (di, N), di),
+                "A_log": a_log.expand(n + (di, N)).to(pdt).contiguous(),
+                "D": ones(n + (di,)), "wo": w(n + (di, d), di)}
+
     params: Dict[str, Any] = {
         "embed": w((cfg.vocab, d), d),
         "final_norm": ones((d,)),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = w((d, cfg.vocab), d)
-    if cfg.is_ssm_only:
-        di, n, r, k = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.d_conv
-        a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
-                                       device=device))
-        params["layers"] = {"ln1": ones((L, d)), "ssm": {
-            "wx": w((L, d, di), d), "wz": w((L, d, di), d),
-            "conv_w": w((L, k, di), k, 1.0 / k), "conv_b": zeros((L, di)),
-            "wdt_down": w((L, di, r), di), "wdt_up": w((L, r, di), r),
-            "dt_bias": zeros((L, di)),
-            "wB": w((L, di, n), di), "wC": w((L, di, n), di),
-            "A_log": a_log.expand(L, di, n).to(pdt).contiguous(),
-            "D": ones((L, di)), "wo": w((L, di, d), di)}}
-        return params
-    h, E = cfg.d_ff, cfg.n_experts
-    if cfg.is_moe:
-        # the reference's default fan-in is shape[0]: the expert count for
-        # the (E, d, h) gate / up / in projections
-        mlp = ({"wg": w((L, E, d, h), E), "wu": w((L, E, d, h), E)}
-               if cfg.act == "silu" else {"wi": w((L, E, d, h), E)})
-        mlp.update(wr=w((L, d, E), d), wd=w((L, E, h, d), h))
+    if cfg.is_hybrid:
+        G, per = _hybrid_groups(cfg), cfg.attn_every
+        n_moe = _n_moe_sub(cfg)
+        params["layers"] = {
+            "ln_mix": ones((G, per, d)), "ln_ffn": ones((G, per, d)),
+            "attn": attn((G,)), "ssm": ssm((G, per - 1)),
+            "ffn": ffn((G, per - n_moe)), "moe": moe((G, n_moe))}
+    elif cfg.is_ssm_only:
+        params["layers"] = {"ln1": ones((L, d)), "ssm": ssm((L,))}
     else:
-        mlp = ({"wg": w((L, d, h), d), "wu": w((L, d, h), d)}
-               if cfg.act == "silu" else {"wi": w((L, d, h), d)})
-        mlp["wd"] = w((L, h, d), h)
-    params["layers"] = {
-        "ln1": ones((L, d)),
-        "attn": {"wq": w((L, d, H, hd), d), "wk": w((L, d, KV, hd), d),
-                 "wv": w((L, d, KV, hd), d),
-                 "wo": w((L, H, hd, d), H * hd)},
-        "ln2": ones((L, d)),
-        "moe" if cfg.is_moe else "ffn": mlp,
-    }
+        mlp = moe((L,)) if cfg.is_moe else ffn((L,))
+        params["layers"] = {"ln1": ones((L, d)), "attn": attn((L,)),
+                            "ln2": ones((L, d)),
+                            "moe" if cfg.is_moe else "ffn": mlp}
+    if cfg.encoder_layers:
+        Le = cfg.encoder_layers
+        enc_ffn = ffn((Le,))
+        params["encoder"] = {"ln1": ones((Le, d)), "attn": attn((Le,)),
+                             "ln2": ones((Le, d)), "ffn": enc_ffn}
+        params["encoder_norm"] = ones((d,))
+        params["cross"] = {"ln": ones((L, d)), "attn": attn((L,))}
     return params
+
+
+def _hybrid_groups(cfg: ModelConfig) -> int:
+    """A hybrid's periods: one attention and ``attn_every - 1`` Mamba
+    sublayers each."""
+    return cfg.n_layers // cfg.attn_every
+
+
+def _n_moe_sub(cfg: ModelConfig) -> int:
+    """The MoE sublayers of one hybrid period (the rest have a dense FFN)."""
+    return sum(1 for j in range(cfg.attn_every)
+               if j % cfg.moe_every == cfg.moe_offset)
 
 
 def layer_params(tree, i: int):
@@ -164,18 +196,59 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def _dense_body(pl, x, positions, cfg: ModelConfig, is_global, cache,
-                cache_pos, block_table=None, lengths=None):
+                cache_pos, block_table=None, lengths=None, cross_kv=None,
+                cross_p=None):
     h, _ = attention_apply(pl["attn"], rms_norm(x, pl["ln1"], cfg.norm_eps),
                            cfg, positions=positions, is_global=is_global,
                            cache=cache, cache_pos=cache_pos,
                            block_table=block_table, lengths=lengths)
     x = x + h
+    if cross_p is not None:
+        h, _ = attention_apply(cross_p["attn"],
+                               rms_norm(x, cross_p["ln"], cfg.norm_eps), cfg,
+                               positions=positions, cross_kv=cross_kv)
+        x = x + h
     xn = rms_norm(x, pl["ln2"], cfg.norm_eps)
     if "moe" in pl:
         h, _ = moe_apply(pl["moe"], xn, cfg)    # serving drops the aux loss
     else:
         h = ffn_apply(pl["ffn"], xn, cfg)
     return x + h
+
+
+def _hybrid_group_body(pg, x, positions, cfg: ModelConfig, attn_cache,
+                       cache_pos, ssm_cache, decode: bool):
+    """One hybrid period: attention on sublayer 0, Mamba on the others, MoE
+    on sublayers ``j % moe_every == moe_offset`` and the dense FFN on the
+    rest. Returns (x, the period's new SSM state, stacked over sublayers)."""
+    eps = cfg.norm_eps
+    hs, convs = [], []
+    i_ffn = i_moe = 0
+    for j in range(cfg.attn_every):
+        xn = rms_norm(x, pg["ln_mix"][j], eps)
+        if j == 0:
+            h, _ = attention_apply(pg["attn"], xn, cfg, positions=positions,
+                                   cache=attn_cache, cache_pos=cache_pos)
+        else:
+            sub = layer_params(pg["ssm"], j - 1)
+            if decode:
+                h, sc = mamba_decode_step(
+                    sub, xn, SSMCache(ssm_cache.h[j - 1],
+                                      ssm_cache.conv[j - 1]), cfg)
+            else:
+                h, sc = mamba_apply(sub, xn, cfg, return_state=True)
+            hs.append(sc.h)
+            convs.append(sc.conv)
+        x = x + h
+        xf = rms_norm(x, pg["ln_ffn"][j], eps)
+        if j % cfg.moe_every == cfg.moe_offset:
+            h, _ = moe_apply(layer_params(pg["moe"], i_moe), xf, cfg)
+            i_moe += 1
+        else:
+            h = ffn_apply(layer_params(pg["ffn"], i_ffn), xf, cfg)
+            i_ffn += 1
+        x = x + h
+    return x, SSMCache(torch.stack(hs), torch.stack(convs))
 
 
 def _ssm_body(pl, x, cfg: ModelConfig, cache, decode: bool):
@@ -187,41 +260,94 @@ def _ssm_body(pl, x, cfg: ModelConfig, cache, decode: bool):
     return x + h, new_cache
 
 
+def _encode(params, cfg: ModelConfig, audio_embeds):
+    """The encoder over precomputed frame embeddings (the frontend is a
+    stub): non-causal self-attention with RoPE at positions 0..S-1, the
+    FFN, then ``encoder_norm``."""
+    x = audio_embeds.to(dtype_of(cfg.compute_dtype))
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    for i in range(cfg.encoder_layers):
+        pl = layer_params(params["encoder"], i)
+        h, _ = attention_apply(pl["attn"],
+                               rms_norm(x, pl["ln1"], cfg.norm_eps), cfg,
+                               positions=positions, causal=False)
+        x = x + h
+        x = x + ffn_apply(pl["ffn"], rms_norm(x, pl["ln2"], cfg.norm_eps),
+                          cfg)
+    return rms_norm(x, params["encoder_norm"], cfg.norm_eps)
+
+
+def _n_attn_layers(cfg: ModelConfig) -> int:
+    if cfg.is_ssm_only:
+        return 0
+    if cfg.is_hybrid:
+        return _hybrid_groups(cfg)
+    return cfg.n_layers
+
+
+def _n_ssm_layers(cfg: ModelConfig) -> int:
+    if cfg.is_ssm_only:
+        return cfg.n_layers
+    if cfg.is_hybrid:
+        return cfg.n_layers - _hybrid_groups(cfg)
+    return 0
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
-    """The serving cache: ``{"pos": 0, "k", "v"[, "k_scale", "v_scale"]}``
-    for attention stacks, ``{"pos": 0, "ssm_h", "ssm_conv"}`` for SSM ones.
+    """The serving cache: ``{"pos": 0}`` plus, per family, the attention
+    planes ``"k", "v"[, "k_scale", "v_scale"]``, the SSM state
+    ``"ssm_h", "ssm_conv"`` and the cross-attention planes ``"cross_k",
+    "cross_v"[, "cross_k_scale", "cross_v_scale"]``.
 
     Packed (``cfg.quant.kv_cache == "packed"``): uint8 code planes
-    ``(L, B, KV, S, hd)`` + float32 scale planes ``(L, B, KV, S)`` with
-    ``S`` rounded up to the flash kernel's chunk (``quant.block_k``).
-    Float: ``(L, B, max_len, KV, hd)`` in ``cfg.kv_cache_dtype``. SSM: the
-    recurrent state ``(L, B, d_inner, N)`` in float32 and the conv state
-    ``(L, B, d_conv - 1, d_inner)`` in bfloat16, as the reference keeps
-    them.
+    ``(La, B, KV, S, hd)`` + float32 scale planes ``(La, B, KV, S)`` with
+    ``S`` rounded up to the flash kernel's chunk (``quant.block_k``); the
+    cross planes likewise, ``(L, B, KV, encoder_len rounded up, hd)``.
+    Float: ``(La, B, max_len, KV, hd)`` and ``(L, B, encoder_len, KV, hd)``
+    in ``cfg.kv_cache_dtype``. ``La`` is one a layer, one a hybrid
+    period. SSM: the recurrent state ``(L, B, d_inner, N)`` in float32 and
+    the conv state ``(L, B, d_conv - 1, d_inner)`` in bfloat16, as the
+    reference keeps them; a hybrid's lead with ``(groups, sub)``.
     """
-    _require_ported(cfg)
-    L = cfg.n_layers
     cache: Dict[str, Any] = {"pos": 0}
-    if cfg.is_ssm_only:
-        cache["ssm_h"] = torch.zeros(
-            (L, batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
-            device=device)
-        cache["ssm_conv"] = torch.zeros(
-            (L, batch, cfg.d_conv - 1, cfg.d_inner), dtype=torch.bfloat16,
-            device=device)
-        return cache
-    if cfg.quant.quantized_kv:
-        chunk = cfg.quant.block_k
+    packed = cfg.quant.quantized_kv
+    chunk = cfg.quant.block_k
+    La = _n_attn_layers(cfg)
+    if La and packed:
         s_alloc = -(-max_len // chunk) * chunk
-        qkv = init_quantized_kv((L, batch), cfg.n_kv_heads, s_alloc,
+        qkv = init_quantized_kv((La, batch), cfg.n_kv_heads, s_alloc,
                                 cfg.head_dim, device=device)
         cache.update(k=qkv.k_codes, v=qkv.v_codes, k_scale=qkv.k_scale,
                      v_scale=qkv.v_scale)
-    else:
-        shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    elif La:
+        shape = (La, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         kv_dtype = dtype_of(cfg.kv_cache_dtype)
         cache.update(k=torch.zeros(shape, dtype=kv_dtype, device=device),
                      v=torch.zeros(shape, dtype=kv_dtype, device=device))
+    if _n_ssm_layers(cfg):
+        lead = ((_hybrid_groups(cfg), cfg.attn_every - 1) if cfg.is_hybrid
+                else (cfg.n_layers,))
+        cache["ssm_h"] = torch.zeros(
+            lead + (batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+            device=device)
+        cache["ssm_conv"] = torch.zeros(
+            lead + (batch, cfg.d_conv - 1, cfg.d_inner),
+            dtype=torch.bfloat16, device=device)
+    if cfg.encoder_layers:
+        if packed:
+            enc_pad = -(-cfg.encoder_len // chunk) * chunk
+            cq = init_quantized_kv((cfg.n_layers, batch), cfg.n_kv_heads,
+                                   enc_pad, cfg.head_dim, device=device)
+            cache.update(cross_k=cq.k_codes, cross_v=cq.v_codes,
+                         cross_k_scale=cq.k_scale, cross_v_scale=cq.v_scale)
+        else:
+            shape = (cfg.n_layers, batch, cfg.encoder_len, cfg.n_kv_heads,
+                     cfg.head_dim)
+            kv_dtype = dtype_of(cfg.kv_cache_dtype)
+            cache.update(
+                cross_k=torch.zeros(shape, dtype=kv_dtype, device=device),
+                cross_v=torch.zeros(shape, dtype=kv_dtype, device=device))
     return cache
 
 
@@ -232,8 +358,37 @@ def _layer_cache(cache, i: int):
     return KVCache(cache["k"][i], cache["v"][i])
 
 
+def _cross_cache(cache, i: int):
+    """Layer ``i``'s stored cross K/V: packed codes or float planes."""
+    if cache["cross_k"].dtype == torch.uint8:
+        return QuantizedKVCache(cache["cross_k"][i], cache["cross_v"][i],
+                                cache["cross_k_scale"][i],
+                                cache["cross_v_scale"][i])
+    return KVCache(cache["cross_k"][i], cache["cross_v"][i])
+
+
+def _store_cross(pc, cfg: ModelConfig, enc, cache, i: int) -> KVCache:
+    """Project layer ``i``'s cross K/V (``pc``: its ``cross`` params) from
+    the encoder output, with no calibration site as in the reference; store
+    them in the cache (packed: quantized once, the pad tail left zero) and
+    return what the prefill attends: the fresh float K/V (packed), or the
+    stored planes (float)."""
+    k = proj(enc, pc["attn"]["wk"], cfg.quant)
+    v = proj(enc, pc["attn"]["wv"], cfg.quant)
+    S = k.shape[1]
+    if cache["cross_k"].dtype == torch.uint8:
+        for name, x in (("cross_k", k), ("cross_v", v)):
+            codes, scale = quantize_kv(x, cfg.quant.kv_fmt)
+            cache[name][i, :, :, :S] = codes.transpose(1, 2)
+            cache[name + "_scale"][i, :, :, :S] = scale.transpose(1, 2)
+        return KVCache(k, v)
+    cache["cross_k"][i] = k
+    cache["cross_v"][i] = v
+    return _cross_cache(cache, i)
+
+
 def _run_layers(params, cfg: ModelConfig, x, positions, cache, pos: int,
-                decode: bool):
+                decode: bool, enc=None):
     if cfg.is_ssm_only:
         for i in range(cfg.n_layers):
             sc = (SSMCache(cache["ssm_h"][i], cache["ssm_conv"][i])
@@ -243,31 +398,53 @@ def _run_layers(params, cfg: ModelConfig, x, positions, cache, pos: int,
             cache["ssm_h"][i] = sc.h        # to the cache's dtypes
             cache["ssm_conv"][i] = sc.conv
         return x
+    if cfg.is_hybrid:
+        for g in range(_hybrid_groups(cfg)):
+            sc = (SSMCache(cache["ssm_h"][g], cache["ssm_conv"][g])
+                  if decode else None)
+            x, sc = _hybrid_group_body(layer_params(params["layers"], g), x,
+                                       positions, cfg, _layer_cache(cache, g),
+                                       pos, sc, decode)
+            cache["ssm_h"][g] = sc.h
+            cache["ssm_conv"][g] = sc.conv
+        return x
     for i in range(cfg.n_layers):
+        cross_kv = cross_p = None
+        if cfg.encoder_layers:
+            cross_p = layer_params(params["cross"], i)
+            cross_kv = (_store_cross(cross_p, cfg, enc, cache, i)
+                        if enc is not None else _cross_cache(cache, i))
         x = _dense_body(layer_params(params["layers"], i), x, positions, cfg,
                         cfg.layer_is_global_attn(i), _layer_cache(cache, i),
-                        pos)
+                        pos, cross_kv=cross_kv, cross_p=cross_p)
     return x
 
 
 def prefill(params, cfg: ModelConfig, batch, cache):
     """Run the prompt ``batch["tokens"]`` (B, T) through the stack, filling
-    ``cache`` in place. Returns (last-position logits (B, V), cache)."""
-    _require_ported(cfg)
+    ``cache`` in place. A VLM takes ``batch["vision_embeds"]`` (B, P, d),
+    prepended to the tokens (positions and ``cache["pos"]`` count them); an
+    encoder-decoder takes ``batch["audio_embeds"]`` (B, encoder_len, d),
+    whose encoding fills the cross planes. Returns (last-position logits
+    (B, V), cache)."""
     params = cast_params(params, cfg)
     tokens = batch["tokens"]
-    B, T = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
-    positions = torch.arange(T, device=x.device)[None].expand(B, T)
-    x = _run_layers(params, cfg, x, positions, cache, 0, decode=False)
-    cache["pos"] = T
+    if cfg.vision_prefix:
+        x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    enc = (_encode(params, cfg, batch["audio_embeds"])
+           if cfg.encoder_layers else None)
+    x = _run_layers(params, cfg, x, positions, cache, 0, decode=False,
+                    enc=enc)
+    cache["pos"] = S
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, x[:, -1:])[:, 0], cache
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache):
     """One decode step. tokens: (B, 1). Returns (logits (B, V), cache)."""
-    _require_ported(cfg)
     params = cast_params(params, cfg)
     B = tokens.shape[0]
     pos = int(cache["pos"])
@@ -288,13 +465,15 @@ def _require_paged_arch(cfg: ModelConfig):
     """The paged decode path covers plain dense decoder-only stacks with
     the packed cache (the reference's guard).
 
-    SSM towers carry recurrent state (not paged), and MoE routing couples
-    tokens across the batch (expert capacity + per-expert-slice
-    quantization scales), which would break the continuous engine's
-    traffic-invariance contract: both keep the group engine.
+    Hybrid and SSM towers carry recurrent state (not paged),
+    encoder-decoder and vision archs have prefill-time side inputs, and MoE
+    routing couples tokens across the batch (expert capacity +
+    per-expert-slice quantization scales), which would break the
+    continuous engine's traffic-invariance contract: all of them keep the
+    group engine.
     """
-    _require_ported(cfg)
-    if cfg.is_ssm_only or cfg.is_moe:
+    if (cfg.is_hybrid or cfg.is_ssm_only or cfg.encoder_layers
+            or cfg.vision_prefix or cfg.is_moe):
         raise NotImplementedError(
             "paged decode supports plain dense attention-only stacks "
             "(no SSM/hybrid, encoder-decoder, vision prefix, or MoE)")

@@ -57,10 +57,16 @@ class QuantizedKVCache(NamedTuple):
 def quantize_kv(x: torch.Tensor, fmt: FPFormat = E4M3
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(..., hd)`` K or V vectors -> ``(codes, scale)``: uint8 codes and
-    one float32 scale per vector (absmax over ``hd`` / max finite)."""
+    one float32 scale per vector (absmax over ``hd`` / max finite).
+
+    A subnormal scale (an all-zero vector: ``TINY / max_finite``) is
+    flushed to zero, as XLA:CPU flushes it in the reference; the codes are
+    then those of ``0 / 0`` (NaN's code), scaled by zero to an exact zero
+    contribution."""
     x = x.to(torch.float32)
     amax = torch.clamp_min(x.abs().amax(dim=-1), TINY)
     scale = amax * recip(fmt.max_finite)
+    scale = torch.where(scale < TINY, torch.zeros_like(scale), scale)
     q = round_to_format(x / scale[..., None], fmt)
     return encode_bits(q, fmt), scale
 

@@ -6,10 +6,11 @@ parameter alone, so they are computed once at engine construction and
 reused by every request. ``PREP_STATS`` counts builds and cache hits;
 serving must keep ``prepared`` flat.
 
-Stacked weights (a leading per-layer axis) get one scale per slice — the
-reference's ``vmap`` of the per-tensor quantizer, here a loop over slices
-so a full-width layer stack never holds more than one slice's float
-temporaries. Model code indexes a layer with :meth:`PreparedWeight.slice`.
+Stacked weights (leading per-layer, per-sublayer or per-expert axes) get
+one scale per slice — the reference's ``vmap`` of the per-tensor
+quantizer, here a loop over slices so a full-width layer stack never
+holds more than one slice's float temporaries. Model code indexes a
+stack axis with :meth:`PreparedWeight.slice`.
 
 Each prepared leaf also carries the std of its weight's limb values
 (``limb_sigma``, the Markov flush planner's ``sigma_w``), from an int64
@@ -243,23 +244,33 @@ _PROJ_WEIGHTS = {
 }
 # the attention out-projection flattens (heads, head_dim) into K
 _K_NDIM = {("attn", "wo"): 2}
-_STACKED_ROOTS = {"layers"}
+# roots whose subtrees stack a leading per-layer axis: the decoder's layers
+# (a hybrid's groups), an encoder-decoder's encoder and cross-attention
+_STACKED_ROOTS = {"layers", "encoder", "cross"}
+# a hybrid group's modules stacked again over its sublayers
+_SUB_STACKED = {"ssm", "ffn", "moe"}
 
 
-def _stack_ndim_of(path, ndim: int, k_ndim: int) -> int:
-    """Leading stack axes of one weight: the layer axis under a stacked
-    root, plus the expert axis of the MoE expert weights (the router
-    ``wr`` has none), so each (layer, expert) slice gets its own scale."""
-    n = 1 if any(p in _STACKED_ROOTS for p in path) else 0
+def _stack_ndim_of(path, ndim: int, k_ndim: int, hybrid: bool) -> int:
+    """Leading stack axes of one weight, as the reference's logical dims
+    give them (``layers`` / ``groups``, ``sub``, ``experts``): the layer
+    axis under a stacked root; in a hybrid's ``layers``, the sublayer axis
+    of its Mamba / FFN / MoE weights; the expert axis of the MoE expert
+    weights (the router ``wr`` has none). So each (layer | group[, sub][,
+    expert]) slice gets its own scale."""
+    n = 1 if path[0] in _STACKED_ROOTS else 0
+    if hybrid and path[0] == "layers" and path[-2] in _SUB_STACKED:
+        n += 1
     if path[-2] == "moe" and path[-1] != "wr":
         n += 1
     return min(n, ndim - k_ndim - 1)
 
 
-def prepare_params(params, cfg: QuantConfig):
-    """``params`` with every projection weight prepared (per-layer scales
-    under ``layers``, per (layer, expert) for MoE experts). Idempotent and
-    cache-backed; non-MGS configs pass through untouched."""
+def prepare_params(params, cfg: QuantConfig, *, hybrid: bool = False):
+    """``params`` with every projection weight prepared, one scale per
+    stack slice (``_stack_ndim_of``; ``hybrid``: the tree is a hybrid
+    model's, ``ModelConfig.is_hybrid``). Idempotent and cache-backed;
+    non-MGS configs pass through untouched."""
     if not (cfg.is_fp8 and cfg.accum in ("mgs_exact", "mgs_dmac")):
         return params
 
@@ -270,8 +281,8 @@ def prepare_params(params, cfg: QuantConfig):
                 and isinstance(node, torch.Tensor) and node.dim() >= 2):
             k_ndim = _K_NDIM.get((path[-2], path[-1]), 1)
             return prepare_weight(
-                node, cfg, stack_ndim=_stack_ndim_of(path, node.dim(), k_ndim),
-                k_ndim=k_ndim)
+                node, cfg, k_ndim=k_ndim,
+                stack_ndim=_stack_ndim_of(path, node.dim(), k_ndim, hybrid))
         return node
 
     return walk(params, ())

@@ -593,3 +593,77 @@ def test_moe_apply_on_the_card_is_deterministic(dev):
         y2, _ = moe_apply(p, x, cfg)
         torch.cuda.synchronize()
         assert torch.isfinite(y1).all() and torch.equal(y1, y2)
+
+
+def _dense_b2_case(dev, N, T, D, S, live, seed):
+    """Dense-entry B2 inputs: ``N`` slices of ``T`` query rows over ``S``
+    keys in 128-key chunks, slice ``i`` with ``live[i]`` live keys and a
+    bias row masking the rest (no causal part: one row a slice)."""
+    chunk, nb = 128, S // 128
+    qc = _codes((N, T, D), E4M3, seed, dev)
+    kp = _codes((N * nb, chunk, D), E4M3, seed + 1, dev)
+    vp = _codes((N * nb, chunk, D), E4M3, seed + 2, dev)
+    bt = torch.arange(N * nb, dtype=torch.int32, device=dev).reshape(N, nb)
+    live = torch.as_tensor(live, dtype=torch.int32, device=dev)
+    pos = torch.arange(S, device=dev)
+    qk = torch.rand(N, 1, S, device=dev) * 1e-3
+    vs = torch.rand(N, 1, S, device=dev) * 1e-2
+    bias = torch.where(pos[None, None] < live[:, None, None], 0.0, -1e30)
+    return qc, kp, vp, bt, live, qk, vs, bias
+
+
+@pytest.mark.parametrize("case", ["whisper cross", "internvl2", "jamba"])
+def test_b2_at_late_family_shapes(dev, case):
+    """B2 == twin at whisper-tiny's cross-attention (4 requests x 6 heads,
+    one row of 64, 1500 live frames of 1536 keys, the padded tail masked by
+    a non-causal bias row), internvl2-2b's heads (8 kv x 2 rows of 128, up
+    to 304 live keys of 384) and jamba's (8 kv x 8 rows of 128)."""
+    N, T, D, S, live = {
+        "whisper cross": (24, 1, 64, 1536, [1500] * 24),
+        "internvl2": (32, 2, 128, 384, [304, 0, 1] + [289 + i % 16
+                                                      for i in range(29)]),
+        "jamba": (32, 8, 128, 128, [49, 0] + [1 + i for i in range(30)]),
+    }[case]
+    args = _dense_b2_case(dev, N, T, D, S, live, 70)
+    n0 = LAUNCHES["mgs_flash_attention"]
+    out = ta.mgs_flash_blocks(*args, E4M3)
+    assert LAUNCHES["mgs_flash_attention"] == n0 + 1
+    twin = ta._flash_plain(*args, E4M3)
+    torch.cuda.synchronize()
+    assert torch.equal(out, twin)
+    assert torch.isfinite(out).all()
+    dead = args[4] == 0
+    assert not out[dead].any()
+
+
+def test_reduced_hybrid_is_deterministic_on_the_card(dev):
+    """Reduced jamba (2 periods, MoE and Mamba sublayers) under
+    ``FP8_MGS_SERVE_KV``: a prefill and 3 decode steps run twice on the
+    card give identical logits, through B1 and B2."""
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.quant.config import FP8_MGS_SERVE_KV
+    cfg = dataclasses.replace(reduced_config("jamba-1.5-large-398b"),
+                              quant=FP8_MGS_SERVE_KV)
+    eng = ServeEngine(cfg, batch=2, max_len=16, device=dev)
+    toks = torch.randint(1, cfg.vocab, (2, 8), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+
+    def run():
+        rows = []
+        logits, cache = prefill(eng.params, cfg, {"tokens": toks},
+                                init_cache(cfg, 2, 16, device=dev))
+        for _ in range(3):
+            rows.append(logits)
+            logits, cache = decode_step(eng.params, cfg,
+                                        logits.argmax(-1)[:, None], cache)
+        return torch.stack(rows + [logits])
+    n0 = dict(LAUNCHES)
+    a = run()
+    assert LAUNCHES["mgs_flash_attention"] == n0["mgs_flash_attention"] + 6
+    assert LAUNCHES["mgs_matmul_exact_fused"] > n0["mgs_matmul_exact_fused"]
+    b = run()
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all() and torch.equal(a, b)

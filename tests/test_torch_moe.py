@@ -310,7 +310,8 @@ def check_family_b1_shapes(cfg):
     checks use."""
     cs = _chip_smoke()
     cfg = dataclasses.replace(cfg, quant=tq.FP8_MGS_SERVE_KV)
-    eng = ServeEngine(cfg, batch=4, max_len=35, seed=0, device="cpu")
+    eng = ServeEngine(cfg, batch=4, max_len=cfg.vision_prefix + 35, seed=0,
+                      device="cpu")
     eng.warmup([32], max_new=1)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, 32).astype(
@@ -320,6 +321,43 @@ def check_family_b1_shapes(cfg):
     shapes = cs.family_b1_shapes(cfg)
     assert cs.unchecked_b1(seen, shapes) == set()
     assert {c[:5] for c in seen} == {s[1:] for s in shapes}
+
+
+def check_group_launches(cfg):
+    """Phase 4's traffic (8 requests of 32 tokens at batch 4, 16 new
+    tokens) on ``cfg`` through the group engine under ``FP8_MGS_SERVE_KV``
+    calls B1 and B2 as often as ``chip_smoke.group_launches(cfg)``
+    predicts the card launches them."""
+    import importlib
+    from repro_torch.models import attention
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(cfg, quant=tq.FP8_MGS_SERVE_KV)
+    eng = ServeEngine(cfg, batch=4, max_len=cfg.vision_prefix + 49, seed=0,
+                      device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, 32).astype(
+        np.int32), max_new_tokens=16) for i in range(8)]
+    calls = {"mgs_matmul_exact_fused": 0, "mgs_flash_attention": 0}
+    mods = {"mgs_matmul_exact_fused": [importlib.import_module(m) for m in (
+        "repro_torch.quant.qmatmul", "repro_torch.kernels.ops")],
+        "mgs_flash_attention": [attention]}
+    saved = {name: getattr(ms[0], name) for name, ms in mods.items()}
+
+    def counting(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return saved[name](*a, **kw)
+        return call
+    try:
+        for name, ms in mods.items():
+            for m in ms:
+                setattr(m, name, counting(name))
+        eng.run(reqs)
+    finally:
+        for name, ms in mods.items():
+            for m in ms:
+                setattr(m, name, saved[name])
+    assert calls == cs.group_launches(cfg)[0]
 
 
 @pytest.mark.parametrize("attn_chunk", [0, 16])
