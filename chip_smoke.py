@@ -55,11 +55,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the CPU; then the group traffic of phase 4 on one bf16 parameter
    set (seed 0, full width) under the unquantized model and (a)
    ``FP8_MGS`` (B5), (b) ``FP8_MGS_EXACT`` (B4), (c) ``FP8_WIDE``, (d)
-   ``FP8_MGS_SERVE`` (B1), all with the float KV cache: launch counts
-   equal the prediction, ``PREP_STATS`` and the builds stay flat, (b)
-   gives (d)'s greedy tokens with logits within 5% of their scale, and
-   each configuration's logit error and token agreement against the
-   unquantized model is printed; a decode step of (a)-(d) is profiled and
+   ``FP8_MGS_SERVE`` (B1), (e) ``INT8_DMAC``, all with the float KV cache:
+   launch counts equal the prediction, ``PREP_STATS`` and the builds stay
+   flat, (b) gives (d)'s greedy tokens with logits within 5% of their
+   scale, and each configuration's logit error and token agreement
+   against the unquantized model is printed; a decode step of (a)-(e) is
+   profiled and
    B4 / B5 are timed at the shapes above (B5 through both entries and
    with both of its bin updates);
 8. calibration on the weights of phases 4 and 6 (nothing prepared
@@ -103,9 +104,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    level with seeded random audio / vision embeddings (whisper's decode
    then runs B2 over its cross planes); then whisper-tiny (4 + 4 layers)
    and internvl2-2b (24 layers, max_len 256 + 32 + 16 + 1) at full width
-   serve phase 4's traffic with phase 9's checks. Last, print the card's
-   name and power limit, a JSON line of kernel results, and ``{"ok":
-   true, "device": {...}}``.
+   serve phase 4's traffic with phase 9's checks;
+11. the paper's accumulation analysis, each result on the card equal to
+   the CPU's bitwise: Fig. 3's traffic (E4M3 Gaussian pairs, lengths 16 to
+   4096, 16 trials each in one call) through the sequential / pairwise /
+   Kahan sums in a 4-bit-mantissa accumulator, ``mgs_dot_narrow_clipped``,
+   ``mgs_dot_exact`` in both modes and the ``mgs_dot_dmac`` emulator
+   (value and counters; its value == ``mgs_dot_exact(mode="dmac")``),
+   printing each one's mean % error; Fig. 4b's integer dMAC counters (K
+   576, 64 dots, narrow 8 / 9 / 10 / 12 bits), printing the average
+   accumulator bits and overflow rates; Table 3's sparsity sweep of FP8
+   dMAC counters at K 4096 fed to the energy model (weights from a seeded
+   normal pool), and the paper-rate rows; ``qmatmul`` at the decode ``wq``
+   shape (4 x 4096 @ 4096 x 4096) under fp8 ``swamp``, ``INT8_DMAC`` and
+   int8 ``clip`` / ``wrap`` (narrow 16 / 24 bits), printing each error
+   against the float64 product beside ``FP8_MGS``'s; reduced deepseek-7b
+   under ``INT8_DMAC`` and fp8 ``swamp`` on the card and the CPU give the
+   same tokens. Last, print the card's name and power limit, a JSON line
+   of kernel results, and ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -1217,14 +1233,17 @@ def paper_configs():
             "b": ("FP8_MGS_EXACT (B4)",
                   q.FP8_MGS_EXACT.replace(use_kernel=True)),
             "c": ("FP8_WIDE", q.FP8_WIDE),
-            "d": ("FP8_MGS_SERVE (B1)", q.FP8_MGS_SERVE)}
+            "d": ("FP8_MGS_SERVE (B1)", q.FP8_MGS_SERVE),
+            "e": ("INT8_DMAC", q.INT8_DMAC)}
 
 
 def serve_paper(torch, layers: int):
     """Group serving of deepseek-7b at full width under the unquantized
-    model and configurations (a)-(d) on one bf16 parameter set: launches,
+    model and configurations (a)-(e) on one bf16 parameter set: launches,
     tokens, logits, PREP_STATS / nvcc flat, and a profiled decode step of
-    (a)-(d). Prepared planes are dropped between runs."""
+    (a)-(e). Prepared planes are dropped between runs; (e) ``INT8_DMAC``
+    prepares nothing (integer configs keep raw weights) and launches no
+    kernel (its integer sums are exact float64 matmuls)."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
@@ -1251,7 +1270,7 @@ def serve_paper(torch, layers: int):
     per_run = 2 * ((9 * layers + 1) + 15 * (9 * layers + 1))
     want = {"none": {}, "a": {"mgs_matmul_dmac": per_run},
             "b": {"mgs_matmul_exact": per_run}, "c": {},
-            "d": {"mgs_matmul_exact_fused": per_run}}
+            "d": {"mgs_matmul_exact_fused": per_run}, "e": {}}
     runs, steps = {}, {}
     for key, (name, quant) in paper_configs().items():
         cfg = dataclasses.replace(base, quant=quant)
@@ -1301,7 +1320,7 @@ def paper_accuracy(runs):
     names = {k: v[0] for k, v in paper_configs().items()}
     ref = runs["none"]
     acc = {}
-    for key in ("a", "b", "c", "d"):
+    for key in ("a", "b", "c", "d", "e"):
         r = runs[key]
         agree = [a == b for rid in ref["tokens"]
                  for a, b in zip(r["tokens"][rid], ref["tokens"][rid])]
@@ -2022,6 +2041,256 @@ def late_phase(torch, dev, gen):
     return dict(b1_err=b1_err, b2_err=b2_err, runs=runs, b2_cross=b2_row)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the paper's accumulation analysis (Fig. 3, Fig. 4b, Table 3)
+# ---------------------------------------------------------------------------
+
+FIG3_LENGTHS = (16, 64, 256, 1024, 4096)
+FIG3_TRIALS = 16
+FIG4_K, FIG4_DOTS, FIG4_NARROW = 576, 64, (8, 9, 10, 12)
+TABLE3_K, TABLE3_DOTS = 4096, 32          # deepseek-7b's d_model
+TABLE3_SPARSITY = (0.0, 0.5, 0.8, 0.95)
+LAYER_SHAPE = (4, 4096, 4096)             # deepseek-7b's decode wq
+
+
+def _leaves(out):
+    """The tensors of a result: a tensor, or (nested) tuples of them."""
+    if isinstance(out, tuple):
+        return [t for o in out for t in _leaves(o)]
+    return [out]
+
+
+def _same_on_both(torch, label, gpu, cpu):
+    """``gpu`` (a result on the card) == ``cpu``, bitwise, or raise naming
+    ``label``."""
+    gpu, cpu = _leaves(gpu), _leaves(cpu)
+    if len(gpu) != len(cpu):
+        raise AssertionError(f"{label}: card and CPU results differ in form")
+    for i, (a, b) in enumerate(zip(gpu, cpu)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{label}: card != CPU (field {i})")
+
+
+def on_both(torch, label, fn, *args):
+    """``fn`` on the card and on the CPU (``args`` are CPU tensors); the
+    results must be equal bitwise. Returns the CPU result."""
+    gpu = fn(*(a.cuda() for a in args))
+    cpu = fn(*args)
+    torch.cuda.synchronize()
+    _same_on_both(torch, label, gpu, cpu)
+    return cpu
+
+
+def analysis_fig3(torch):
+    """Fig. 3's traffic (``benchmarks/fig3_dot_error.py``): E4M3 Gaussian
+    pairs, 16 trials a length (seeds ``1000 k + t``) in one call per
+    algorithm and length, the products summed in ``acc_format(4)``. Every
+    algorithm on the card == the CPU; ``mgs_dot_dmac``'s value ==
+    ``mgs_dot_exact(mode="dmac")``'s. Returns the mean % error (against the
+    float64 sum of the rounded products; ``mgs_exact`` against the exact
+    dot) per algorithm and length."""
+    import numpy as np
+    from repro_torch.core import formats, mgs, summation
+    acc4 = summation.acc_format(4)
+    E4M3 = formats.E4M3
+    algos = {
+        "sequential": lambda x, w, p: summation.sequential_sum(p, acc4),
+        "pairwise": lambda x, w, p: summation.pairwise_sum(p, acc4),
+        "kahan": lambda x, w, p: summation.kahan_sum(p, acc4),
+        "mgs_narrow_clip": lambda x, w, p: mgs.mgs_dot_narrow_clipped(x, w),
+        "mgs_dmac": lambda x, w, p: mgs.mgs_dot_exact(x, w, E4M3, "dmac"),
+        "mgs_exact": lambda x, w, p: mgs.mgs_dot_exact(x, w, E4M3, "exact"),
+        "mgs_dmac_emulator": lambda x, w, p: mgs.mgs_dot_dmac(x, w),
+    }
+    table = {}
+    for k in FIG3_LENGTHS:
+        xs, ws = [], []
+        for t in range(FIG3_TRIALS):
+            rng = np.random.default_rng(1000 * k + t)
+            xs.append(rng.normal(0, 1, k).astype(np.float32))
+            ws.append(rng.normal(0, 1, k).astype(np.float32))
+        x = formats.round_to_format(torch.from_numpy(np.stack(xs)), E4M3)
+        w = formats.round_to_format(torch.from_numpy(np.stack(ws)), E4M3)
+        p = mgs.round_product(x * w, E4M3)[0]
+        ref = p.double().sum(-1).numpy()
+        true = (x.double() * w.double()).sum(-1).numpy()
+        keep = np.abs(ref) >= 1e-6
+        res = {}
+        for name, fn in algos.items():
+            out = on_both(torch, f"fig3 {name} k={k}", fn, x, w, p)
+            res[name] = out
+        dm_value, dm_stats = res.pop("mgs_dmac_emulator")
+        if not torch.equal(dm_value, res["mgs_dmac"]):
+            raise AssertionError(f"fig3 k={k}: mgs_dot_dmac's value != "
+                                 "mgs_dot_exact(mode='dmac')")
+        row = {}
+        for name, out in res.items():
+            v = (out[0] if isinstance(out, tuple) else out).double().numpy()
+            want = true if name == "mgs_exact" else ref
+            err = np.abs(v - want) / np.maximum(np.abs(want), 1e-9)
+            row[name] = 100 * float(err[keep].mean())
+        row["dmac_overflow_rate"] = float(
+            dm_stats.wide_flushes.sum() / max(int(dm_stats.narrow_adds.sum()),
+                                              1))
+        table[k] = row
+        log(f"fig3 k={k} ({int(keep.sum())} trials) mean % error: "
+            + ", ".join(f"{n} {e:.4g}" for n, e in row.items()
+                        if n != "dmac_overflow_rate")
+            + f"; dMAC overflow rate {row['dmac_overflow_rate']:.4g}")
+    return table
+
+
+def analysis_fig4b(torch):
+    """Fig. 4b's traffic (``benchmarks/fig4_overflow.py``): 64 dots of K 576,
+    5-bit weights x 7-bit post-ReLU activations, the integer dMAC at narrow
+    widths 8 / 9 / 10 / 12; the counters on the card == the CPU's. Returns
+    the average accumulator bits and overflow rate per width."""
+    import numpy as np
+    from repro_torch.core import int_dmac
+    rng = np.random.default_rng(0)
+    out = {}
+    for nb in FIG4_NARROW:
+        ws, xs = [], []
+        for _ in range(FIG4_DOTS):
+            ws.append(np.clip(np.rint(rng.normal(0, 5, FIG4_K)), -15, 15))
+            xs.append(np.clip(np.rint(np.abs(rng.normal(0, 21, FIG4_K))), 0,
+                              127))
+        w = torch.from_numpy(np.stack(ws).astype(np.int32))
+        x = torch.from_numpy(np.stack(xs).astype(np.int32))
+        value, st = on_both(torch, f"fig4b narrow {nb}",
+                            lambda a, b: int_dmac.int_dot_dmac(a, b, nb),
+                            w, x)
+        if not torch.equal(value, int_dmac.int_dot_exact(w, x)):
+            raise AssertionError(f"fig4b narrow {nb}: the dMAC is not exact")
+        narrow = int(st.narrow_adds.sum())
+        wide = int(st.wide_flushes.sum()) + FIG4_DOTS     # + final drains
+        avg = float(int_dmac.average_accumulator_bits(narrow, wide, nb, 32))
+        out[nb] = dict(avg_bits=avg, overflow_rate=wide / max(narrow, 1))
+        log(f"fig4b narrow {nb} bits: average accumulator bits {avg:.4f}, "
+            f"overflow rate {wide / max(narrow, 1):.4f}")
+    return out
+
+
+def analysis_table3(torch):
+    """Table 3's sparsity sweep (``benchmarks/table3_energy.py``) with FP8
+    dMAC counters at K 4096: 32 dots a level in one call, counters on the
+    card == the CPU's, fed to ``FP8_MODEL.savings``. The reference draws
+    its weights from a trained tiny LM (training is not ported); here the
+    pool is seeded normal values. Then the paper-rate rows."""
+    import numpy as np
+    from repro_torch.core import energy, formats, mgs
+    E4M3 = formats.E4M3
+    wpool = np.random.default_rng(SEED + 1).normal(0, 0.02, 200000).astype(
+        np.float32)
+    rng = np.random.default_rng(0)
+    m = energy.FP8_MODEL
+    out = {}
+    for sparsity in TABLE3_SPARSITY:
+        xs, ws = [], []
+        for _ in range(TABLE3_DOTS):
+            w = rng.choice(wpool, TABLE3_K).astype(np.float32)
+            x = np.abs(rng.normal(0, 1.0, TABLE3_K)).astype(np.float32)
+            x[rng.random(TABLE3_K) < sparsity] = 0.0
+            ws.append(w / (np.abs(w).max() / 448 ** 0.5))
+            xs.append(x / (max(np.abs(x).max(), 1e-9) / 448 ** 0.5))
+        xq = formats.round_to_format(torch.from_numpy(np.stack(xs)), E4M3)
+        wq = formats.round_to_format(torch.from_numpy(np.stack(ws)), E4M3)
+        _, st = on_both(torch, f"table3 sparsity {sparsity}",
+                        lambda a, b: mgs.mgs_dot_dmac(a, b, E4M3, 5), xq, wq)
+        narrow = int(st.narrow_adds.sum())
+        flush = int(st.wide_flushes.sum()) + int(st.final_flushes.sum())
+        skip, macs = int(st.skipped.sum()), int(st.total_macs.sum())
+        s = m.savings(narrow, flush, skip, skipping=True)
+        out[sparsity] = dict(savings=s, overflow_rate=flush / max(narrow, 1),
+                             skip_rate=skip / max(macs, 1))
+        log(f"table3 FP8 dMAC, activation sparsity {sparsity} (weights: "
+            f"seeded normal pool, not a trained LM): savings {s:.4f}, "
+            f"overflow rate {flush / max(narrow, 1):.4f}, skip rate "
+            f"{skip / max(macs, 1):.4f}")
+    n = 10**6
+    paper = {"fp8_dmac": (m.savings(n, int(0.02 * n)), 0.336),
+             "fp8_dmac_skipping": (m.savings(n, int(0.02 * n),
+                                             int(0.04 * n), True), 0.341),
+             "int8_dmac": (energy.INT8_MODEL.savings(n, int(0.02 * n)),
+                           0.154)}
+    for name, (s, want) in paper.items():
+        log(f"table3 {name} at the paper's 2% overflow rate: savings "
+            f"{s:.4f} (paper {want})")
+    for unit, row in energy.PAPER_TABLE3.items():
+        log(f"table3 paper {unit}: total {row[2]} uW, savings {row[3]}")
+    out["paper_rate"] = {k: v[0] for k, v in paper.items()}
+    return out
+
+
+def analysis_layer(torch):
+    """``qmatmul`` at the decode ``wq`` shape (4 x 4096 @ 4096 x 4096) under
+    fp8 ``swamp`` (``narrow_bits`` 5), ``INT8_DMAC`` and int8 ``clip`` /
+    ``wrap`` at ``narrow_bits`` 16 / 24 (int8 products need 15 bits): each
+    on the card == the CPU bitwise; the error of each against the float64
+    product, beside ``FP8_MGS``'s (B5)."""
+    import numpy as np
+    from repro_torch.quant import config as q
+    from repro_torch.quant.qmatmul import qmatmul
+    M, K, N = LAYER_SHAPE
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn((M, K), generator=g)
+    w = torch.randn((K, N), generator=g) * K ** -0.5
+    ref = (x.double() @ w.double()).numpy()
+    scale = np.abs(ref).max()
+    cfgs = {"fp8 swamp (narrow 5)": q.QuantConfig(dtype="fp8_e4m3",
+                                                  accum="swamp"),
+            "INT8_DMAC": q.INT8_DMAC,
+            "int8 clip (narrow 16)": q.QuantConfig(dtype="int8",
+                                                   accum="clip",
+                                                   narrow_bits=16),
+            "int8 wrap (narrow 24)": q.QuantConfig(dtype="int8",
+                                                   accum="wrap",
+                                                   narrow_bits=24)}
+    out = {}
+    for name, cfg in cfgs.items():
+        t0 = time.time()
+        y = on_both(torch, f"layer qmatmul {name}",
+                    lambda a, b: qmatmul(a, b, cfg), x, w)
+        out[name] = dict(max_err=float(np.abs(y.numpy() - ref).max() / scale),
+                         rms_err=float(np.sqrt(((y.numpy() - ref) ** 2
+                                                ).mean()) / scale),
+                         s=time.time() - t0)
+    y = qmatmul(x.cuda(), w.cuda(), q.FP8_MGS.replace(use_kernel=True))
+    y = y.cpu().double().numpy()
+    out["FP8_MGS (B5)"] = dict(max_err=float(np.abs(y - ref).max() / scale),
+                               rms_err=float(np.sqrt(((y - ref) ** 2).mean())
+                                             / scale))
+    for name, r in out.items():
+        log(f"layer {M} x {K} @ {K} x {N} {name}: error against the float64 "
+            f"product max {r['max_err']:.4g}, rms {r['rms_err']:.4g} of its "
+            f"scale" + (f" (card + CPU {r['s']:.1f} s)" if "s" in r else ""))
+    return out
+
+
+def analysis_phase(torch):
+    """Phase 11: the paper's accumulation analysis on the card, each part
+    held against the CPU bitwise, then a reduced deepseek-7b served under
+    ``INT8_DMAC`` and fp8 ``swamp`` on the card and the CPU."""
+    from repro_torch.quant import config as q
+    out, secs = {}, {}
+    for name, fn in (("fig3", analysis_fig3), ("fig4b", analysis_fig4b),
+                     ("table3", analysis_table3), ("layer", analysis_layer)):
+        t0 = time.time()
+        out[name] = fn(torch)
+        secs[name] = time.time() - t0
+        log(f"analysis {name}: {secs[name]:.1f} s")
+    t0 = time.time()
+    serve_reduced_gpu_vs_cpu(torch, q.INT8_DMAC, "INT8_DMAC",
+                             edit=_scale_out)
+    serve_reduced_gpu_vs_cpu(torch, q.QuantConfig(dtype="fp8_e4m3",
+                                                  accum="swamp"),
+                             "fp8 swamp", edit=_scale_out)
+    secs["serve_reduced"] = time.time() - t0
+    log(f"analysis reduced serving: {secs['serve_reduced']:.1f} s")
+    out["seconds"] = secs
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=30,
@@ -2143,6 +2412,11 @@ def main() -> int:
     log(f"phase 10: hybrid, encoder-decoder and VLM families checked and "
         f"served ({time.time() - t0:.1f} s)")
 
+    t0 = time.time()
+    analysis = analysis_phase(torch)
+    log(f"phase 11: the paper's accumulation analysis checked on the card "
+        f"({time.time() - t0:.1f} s)")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
@@ -2216,6 +2490,7 @@ def main() -> int:
                                  if not k.endswith("_err")},
                     "late_families": {k: v for k, v in late.items()
                                       if not k.endswith("_err")},
+                    "analysis": analysis,
                     "layers": args.layers}))
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -28,7 +28,8 @@ import torch
 
 __all__ = ["FPFormat", "E4M3", "E5M2", "E3M4", "get_format", "pow2",
            "round_to_format", "decompose", "recompose", "encode_bits",
-           "decode_bits", "decode_sm_e", "representable_values"]
+           "decode_bits", "decode_sm_e", "quantum_exponent",
+           "representable_values"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +86,24 @@ class FPFormat:
     @property
     def min_subnormal(self) -> float:
         return 2.0 ** (1 - self.bias - self.mbits)
+
+    @property
+    def min_subnormal_exp(self) -> int:
+        return 1 - self.bias - self.mbits
+
+    @property
+    def max_abs_sm(self) -> int:
+        """Largest |signed mantissa| over all bins (for overflow analysis)."""
+        return 2 ** (self.mbits + 1) - 1
+
+    def scale(self, e: torch.Tensor) -> torch.Tensor:
+        """Per-bin power-of-two scale: value = sm * 2**scale_exp(e), as an
+        exact float32 (:func:`pow2`)."""
+        return pow2(self.scale_exp(torch.as_tensor(e)))
+
+    def scale_exp(self, e: torch.Tensor) -> torch.Tensor:
+        return torch.clamp_min(torch.as_tensor(e), 1) - (self.bias
+                                                         + self.mbits)
 
 
 E4M3 = FPFormat("e4m3", ebits=4, mbits=3)
@@ -183,6 +202,11 @@ def decode_bits(code: torch.Tensor, fmt: FPFormat = E4M3,
     """Unpack codes produced by :func:`encode_bits` to values."""
     sm, e = decode_sm_e(code, fmt)
     return recompose(sm, e, fmt, dtype)
+
+
+def quantum_exponent(fmt: FPFormat, e: torch.Tensor) -> torch.Tensor:
+    """Power-of-two exponent of one mantissa ULP in bin ``e``."""
+    return fmt.scale_exp(e)
 
 
 def representable_values(fmt: FPFormat = E4M3) -> np.ndarray:

@@ -13,17 +13,20 @@ product tensor): test sizes only. Operands are format-exact FP8 values.
   one ascending combine per output.
 * :func:`wide_matmul_ref`: the FP32-accumulation baseline the paper
   compares against.
+* :func:`swamp_matmul_ref`: the Fig. 3 failure mode, a sequential
+  narrow-mantissa accumulator (no kernel; it walks K).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import E4M3, FPFormat, decompose
+from repro_torch.core.formats import (E4M3, FPFormat, decompose,
+                                      round_to_format)
 from repro_torch.core.mgs import bin_sums, combine_bins, round_product
 from .mgs_matmul import _limb_split, _fixed_point, _class_int32
 
-__all__ = ["mgs_matmul_ref", "wide_matmul_ref"]
+__all__ = ["mgs_matmul_ref", "wide_matmul_ref", "swamp_matmul_ref"]
 
 
 def mgs_matmul_ref(x, w, fmt: FPFormat = E4M3, mode: str = "exact",
@@ -66,3 +69,33 @@ def wide_matmul_ref(x, w, dtype=torch.float32):
     switched off for it, so the card multiplies in full float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(dtype)
+
+
+def swamp_matmul_ref(x, w, fmt: FPFormat = E4M3, acc_mantissa_bits: int = 4,
+                     acc_ebits: int = 4):
+    """Sequential narrow-accumulator matmul, the Fig. 3 failure mode.
+
+    Every product is rounded to ``fmt`` (subnormal products gated), and
+    every partial sum to an ``acc_mantissa_bits``-significant-bit
+    accumulator (swamping), saturating at its max (overflow). The products
+    round one by one, so they are formed a block of K-steps at a time (at
+    most ``_SWAMP_BLOCK`` elements): the reference's bits without its
+    ``M x K x N`` product tensor.
+    """
+    acc_fmt = FPFormat(f"acc{acc_mantissa_bits}", ebits=acc_ebits,
+                       mbits=acc_mantissa_bits - 1)
+    x, w = x.to(torch.float32), w.to(torch.float32)
+    M, K = x.shape
+    N = w.shape[1]
+    acc = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+    kb = max(1, _SWAMP_BLOCK // max(M * N, 1))
+    for k0 in range(0, K, kb):
+        k1 = min(K, k0 + kb)
+        p, _ = round_product(x[:, k0:k1, None] * w[None, k0:k1], fmt, True)
+        for j in range(k1 - k0):
+            acc = round_to_format(acc + p[:, j], acc_fmt)
+    return acc
+
+
+#: products a block of :func:`swamp_matmul_ref` holds at once
+_SWAMP_BLOCK = 1 << 22

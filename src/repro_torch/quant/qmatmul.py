@@ -21,6 +21,26 @@ numerics and rescales:
                              oracle; operands quantized with
                              ``cfg.fp8_margin`` so no product saturates,
                              then ``out * scale`` and the epilogue
+  fp8_* + accum=swamp     -> the Fig. 3 failure baseline: products rounded
+                             to the format, summed in a sequential
+                             ``narrow_bits - 1``-significant-bit
+                             accumulator (``kernels.ref.swamp_matmul_ref``;
+                             an evaluation tool for layer-sized problems)
+  int8/int5/int4 + wide, mgs_exact or mgs_dmac
+                          -> symmetric integer operands and an exact
+                             int32 sum (the dMAC's narrow / wide split
+                             changes the energy, not the value, §5.1)
+  int* + clip / wrap      -> saturating / wrapping ``narrow_bits``
+                             accumulation, each output a sequential dot
+                             (``core.int_dmac.int_dot_clip`` /
+                             ``int_dot_wrap``)
+
+PyTorch has no integer matmul on CUDA, and its CPU int8 matmul wraps, so
+the exact integer sum is a float64 matmul over the integer values, cast
+to int32: every partial sum is an integer below ``2**53``, exact in any
+order on either device, and equal to the reference's int32 sum while that
+cannot wrap (``K * 2**(bx-1) * 2**(bw-1) < 2**31``); past that the call
+raises.
 
 With ``batched=True`` the leading axis of ``x`` (and of a raw or prepared
 ``w``) indexes independent slices, each quantized with its own scale —
@@ -29,8 +49,8 @@ launch (B1, or B3 under ``cfg.schedule``, B4 or B5). Per-row activation
 scales do not fit the fused kernel's ``(1, N)`` epilogue row, so they are
 applied after it (the same float32 ops).
 
-The swamp and integer accumulations are later slices of the port and
-raise (A14).
+An integer config takes raw weights only (a ``PreparedWeight`` raises
+``ValueError``, as in the reference).
 
 ``site`` names the call site (``"ffn.wg"``, ``"attn.scores"``, ...) for
 calibration: under ``quant.calibrate.calibrating()`` the quantized
@@ -50,6 +70,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.formats import encode_bits
+from repro_torch.core.int_dmac import int_dot_clip, int_dot_wrap
 from repro_torch.core.markov import plan_flush_period
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -60,7 +81,7 @@ from repro_torch.kernels.mgs_matmul import (limb_decompose,
 from .calibrate import current_calib_state, observe
 from .config import QuantConfig
 from .prepared import PreparedWeight
-from .quantize import quantize_fp8
+from .quantize import quantize_fp8, quantize_int
 
 __all__ = ["qmatmul"]
 
@@ -109,11 +130,13 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
         out = torch.matmul(x.to(torch.float32), w.to(torch.float32))
         out = kops.apply_epilogue(out, None, bias, activation)
         return out.to(out_dtype)
-    if not (cfg.is_fp8 and cfg.accum in ("mgs_exact", "mgs_dmac", "wide")):
+    if cfg.is_int:
+        if prepared:
+            raise ValueError("PreparedWeight requires an fp8 QuantConfig")
+        return _int_qmatmul(x, w, cfg, out_dtype, bias, activation, batched)
+    if cfg.accum not in ("mgs_exact", "mgs_dmac", "wide", "swamp"):
         raise NotImplementedError(
-            f"dtype={cfg.dtype!r}, accum={cfg.accum!r}: the swamp and "
-            "integer accumulations are a later slice of the port (ROADMAP "
-            "A14); fp8 wide / mgs_exact / mgs_dmac and dtype='none' run")
+            f"accum={cfg.accum} for fp8 (use wide/mgs_*/swamp)")
     fmt = cfg.fmt
     if prepared and w.fmt_name != fmt.name:
         raise ValueError(f"PreparedWeight format {w.fmt_name!r} != "
@@ -139,6 +162,9 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
     if cfg.accum != "mgs_exact":
         if cfg.accum == "wide":
             out = kref.wide_matmul_ref(qx.q, w.values() if prepared else qw.q)
+        elif cfg.accum == "swamp":
+            out = _swamp(qx.q, w.values() if prepared else qw.q, fmt,
+                         cfg.narrow_bits - 1, batched)
         elif batched and cfg.use_kernel:
             # one launch over every slice: the B5 kernel's batch axis, over
             # packed codes (a prepared weight's own)
@@ -204,4 +230,68 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
             activation=activation if in_kernel else "none")
     if not in_kernel:
         out = kops.apply_epilogue(out, scale, bias, activation)
+    return out.to(out_dtype)
+
+
+def _swamp(xq, w_vals, fmt, acc_mantissa_bits: int, batched: bool):
+    """The swamp accumulation over ``(..., K)`` rows (slice by slice under
+    ``batched``)."""
+    if batched:
+        return torch.stack([_swamp(xq[b], w_vals[b], fmt, acc_mantissa_bits,
+                                   False) for b in range(xq.shape[0])])
+    out = kref.swamp_matmul_ref(xq.reshape(-1, xq.shape[-1]), w_vals, fmt,
+                                acc_mantissa_bits=acc_mantissa_bits)
+    return out.reshape(xq.shape[:-1] + (w_vals.shape[-1],))
+
+
+def _int_matmul(xq: torch.Tensor, wq: torch.Tensor, bx: int,
+                     bw: int) -> torch.Tensor:
+    """``xq @ wq`` of integer values as an exact int32 sum: a float64
+    matmul (exact: every partial sum is an integer below ``2**53``), cast
+    to int32. ``bx`` / ``bw`` bound the operands' magnitudes by
+    ``2**(b-1)``; a depth at which the reference's int32 sum could wrap
+    raises."""
+    K = xq.shape[-1]
+    if K * 2 ** (bx - 1) * 2 ** (bw - 1) >= 2**31:
+        raise ValueError(
+            f"integer matmul of depth K={K} with {bx}-bit x {bw}-bit "
+            "operands may leave int32 (the reference's accumulator wraps "
+            "there); split K")
+    return torch.matmul(xq.to(torch.float64), wq.to(torch.float64)).to(
+        torch.int32)
+
+
+def _int_qmatmul(x, w, cfg: QuantConfig, out_dtype, bias, activation: str,
+                 batched: bool):
+    """The integer configs: symmetric int quantization of both operands
+    (per slice under ``batched``), one of the accumulations, then
+    ``out * scale`` and the epilogue in float32."""
+    bits = cfg.int_bits
+    bx, bw = min(bits, cfg.act_bits), min(bits, cfg.weight_bits)
+    if cfg.per_row_act:
+        x_axis = -1
+    else:
+        x_axis = tuple(range(1, x.dim())) if batched else None
+    w_axis = (1 if batched else 0) if cfg.per_channel else (
+        (1, 2) if batched else None)
+    qx = quantize_int(x, bx, axis=x_axis)
+    qw = quantize_int(w, bw, axis=w_axis)
+    scale = qx.scale * qw.scale
+    if cfg.accum in ("wide", "mgs_exact", "mgs_dmac"):
+        out = _int_matmul(qx.q, qw.q, bx, bw)
+    elif cfg.accum in ("clip", "wrap"):
+        # every output a sequential dot: rows against the columns of w,
+        # products formed one K-step at a time
+        xr = qx.q if batched else qx.q.reshape(-1, qx.q.shape[-1])
+        wt = qw.q.transpose(-1, -2).unsqueeze(-3)
+        if cfg.accum == "clip":
+            out = int_dot_clip(xr.unsqueeze(-2), wt, cfg.narrow_bits)[0]
+        else:
+            out = int_dot_wrap(xr.unsqueeze(-2), wt, cfg.narrow_bits)
+        if not batched:
+            out = out.reshape(qx.q.shape[:-1] + (w.shape[-1],))
+    else:
+        raise NotImplementedError(f"accum={cfg.accum} for int")
+    out = kops.apply_epilogue(out.to(torch.float32) * scale, None, bias,
+                              activation)
     return out.to(out_dtype)

@@ -26,6 +26,17 @@ from repro.kernels.mgs_attention import (  # noqa: E402
 from repro_torch.core import formats as tf  # noqa: E402
 from repro_torch.kernels import mgs_attention as ta  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread, so that test workers running
+    side by side do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N, T, S, D, CHUNK = 4, 2, 300, 16, 128
 
 

@@ -49,6 +49,17 @@ from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.quant import prepare_logits_head, prepare_params  # noqa: E402
 from repro_torch.quant.config import FP8_MGS_SERVE_PAGED  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread, so that test workers running
+    side by side do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _BUCKETS = [8, 16]
 _MAXLEN = 48
 _PLENS = (5, 11, 3, 8, 14, 6)

@@ -667,3 +667,83 @@ def test_reduced_hybrid_is_deterministic_on_the_card(dev):
     b = run()
     torch.cuda.synchronize()
     assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the paper's accumulation analysis (chip_smoke.py phase 11), small sizes
+# ---------------------------------------------------------------------------
+
+
+def _leaves(out):
+    if isinstance(out, tuple):
+        return [t for o in out for t in _leaves(o)]
+    return [out]
+
+
+def _card_equals_cpu(fn, *args):
+    """``fn`` on the card == ``fn`` on the CPU, bitwise, every returned
+    tensor (counters included)."""
+    gpu = _leaves(fn(*(a.cuda() for a in args)))
+    cpu = _leaves(fn(*args))
+    torch.cuda.synchronize()
+    assert len(gpu) == len(cpu)
+    for i, (a, b) in enumerate(zip(gpu, cpu)):
+        assert a.device.type == "cuda"
+        assert torch.equal(a.cpu(), b), i
+
+
+def _fp8_rows(shape, seed, scale=1.0, fmt=E4M3):
+    g = torch.Generator().manual_seed(seed)
+    return round_to_format(torch.randn(shape, generator=g) * scale, fmt)
+
+
+@pytest.mark.parametrize("fn", ["sequential_sum", "pairwise_sum",
+                                "kahan_sum"])
+def test_low_precision_sum_on_the_card_equals_cpu(dev, fn):
+    from repro_torch.core import summation
+    p = _fp8_rows((16, 300), 0, 3.0)
+    _card_equals_cpu(lambda a: getattr(summation, fn)(
+        a, summation.acc_format(4)), p)
+
+
+@pytest.mark.parametrize("fn", ["exact", "dmac", "dmac_emulator",
+                                "narrow_clipped"])
+def test_mgs_dot_on_the_card_equals_cpu(dev, fn):
+    from repro_torch.core import mgs
+    x, w = _fp8_rows((16, 257), 1, 3.0), _fp8_rows((16, 257), 2)
+    call = {"exact": lambda a, b: mgs.mgs_dot_exact(a, b, E4M3, "exact"),
+            "dmac": lambda a, b: mgs.mgs_dot_exact(a, b, E4M3, "dmac"),
+            "dmac_emulator": lambda a, b: mgs.mgs_dot_dmac(a, b),
+            "narrow_clipped": lambda a, b: mgs.mgs_dot_narrow_clipped(a, b)}
+    _card_equals_cpu(call[fn], x, w)
+
+
+@pytest.mark.parametrize("fn", ["int_dot_dmac", "int_dot_clip",
+                                "int_dot_wrap", "int_dot_exact"])
+def test_int_dot_on_the_card_equals_cpu(dev, fn):
+    from repro_torch.core import int_dmac
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(0, 128, (64, 576), generator=g, dtype=torch.int32)
+    w = torch.randint(-15, 16, (64, 576), generator=g, dtype=torch.int32)
+    f = getattr(int_dmac, fn)
+    _card_equals_cpu((lambda a, b: f(a, b)) if fn == "int_dot_exact"
+                     else (lambda a, b: f(a, b, 9)), x, w)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(dtype="fp8_e4m3", accum="swamp"),
+    dict(dtype="int8", accum="mgs_dmac"),
+    dict(dtype="int8", accum="clip", narrow_bits=16),
+    dict(dtype="int8", accum="wrap", narrow_bits=24),
+    dict(dtype="int4", accum="wide", per_channel=True, per_row_act=True)],
+    ids=lambda kw: f"{kw['dtype']}-{kw['accum']}")
+def test_qmatmul_swamp_and_int_on_the_card_equal_cpu(dev, kw):
+    from repro_torch.quant import QuantConfig, qmatmul
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((4, 512), generator=g)
+    w = torch.randn((512, 384), generator=g) * 512 ** -0.5
+    cfg = QuantConfig(**kw)
+    _card_equals_cpu(lambda a, b: qmatmul(a, b, cfg), x, w)
+    xb = torch.randn((3, 5, 256), generator=g)
+    wb = torch.randn((3, 256, 64), generator=g)
+    _card_equals_cpu(lambda a, b: qmatmul(a, b, cfg, batched=True), xb, wb)

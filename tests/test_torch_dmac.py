@@ -56,6 +56,17 @@ from repro_torch.quant import prepared as tprep  # noqa: E402
 from repro_torch.quant.qmatmul import qmatmul  # noqa: E402
 from repro_torch.quant.quantize import quantize_fp8, recip  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread, so that test workers running
+    side by side do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 rmm = importlib.import_module("repro.kernels.mgs_matmul")
 tmm = importlib.import_module("repro_torch.kernels.mgs_matmul")
 
@@ -370,10 +381,26 @@ def test_qmatmul_dmac_batched_one_launch_and_prepared(rng):
         qmatmul(torch.from_numpy(x2), torch.from_numpy(w2), tcfg).numpy())
 
 
-def test_unported_accums_raise():
-    with pytest.raises(NotImplementedError, match="A14"):
-        qmatmul(torch.ones(2, 8), torch.ones(8, 4),
-                tq.QuantConfig(dtype="fp8_e4m3", accum="swamp"))
+def test_swamp_accum_matches_reference_raw_and_prepared():
+    """fp8 ``swamp`` (the Fig. 3 baseline, operands at the dmac margin, a
+    ``narrow_bits - 1``-bit accumulator) bitwise against the reference,
+    with a raw weight and with a prepared one (its decoded values)."""
+    from repro.quant import prepared as rprep
+    x, w = _acts((4, 80), 31), _acts((80, 12), 32, scale=0.1)
+    for narrow in (5, 7):
+        rcfg = rq.QuantConfig(dtype="fp8_e4m3", accum="swamp",
+                              narrow_bits=narrow)
+        tcfg = tq.QuantConfig(dtype="fp8_e4m3", accum="swamp",
+                              narrow_bits=narrow)
+        want = np.asarray(r_qmatmul(jnp.asarray(x), jnp.asarray(w), rcfg))
+        np.testing.assert_array_equal(
+            qmatmul(torch.from_numpy(x), torch.from_numpy(w), tcfg).numpy(),
+            want)
+        rpw = rprep.prepare_weight(jnp.asarray(w), rcfg)
+        tpw = tprep.prepare_weight(torch.from_numpy(w), tcfg)
+        np.testing.assert_array_equal(
+            qmatmul(torch.from_numpy(x), tpw, tcfg).numpy(),
+            np.asarray(r_qmatmul(jnp.asarray(x), rpw, rcfg)))
 
 
 def test_flush_target_raises_and_calibration_alone_changes_no_bits():

@@ -38,6 +38,17 @@ from repro_torch.kernels.mgs_matmul import (  # noqa: E402
     _fixed_point, _limb_split, _limbs64, _round_decompose_e4m3, out_scale)
 from repro_torch.quant.quantize import recip  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread, so that test workers running
+    side by side do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROWS = 16          # csrc/mgs_attention.cu: kRows (a block's query rows)
 WARPS = 8          # kWarps
 MAX_CLUSTER = 8    # kMaxCluster

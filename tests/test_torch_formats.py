@@ -11,6 +11,17 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import formats as rf  # noqa: E402
 from repro_torch.core import formats as tf  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread, so that test workers running
+    side by side do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FMTS = ["e4m3", "e3m4", "e5m2"]
 
 

@@ -30,6 +30,17 @@ from repro_torch.kernels.mgs_matmul import (  # noqa: E402
 from repro_torch.kernels.ops import mgs_matmul  # noqa: E402
 from repro_torch.kernels.ref import mgs_matmul_ref  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread, so that test workers running
+    side by side do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 M, K, N = 5, 300, 70
 
 

@@ -46,6 +46,17 @@ from repro_torch.models import init_params  # noqa: E402
 from repro_torch.quant import PREP_STATS  # noqa: E402
 from repro_torch.quant import config as tq  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread, so that test workers running
+    side by side do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PRESETS = {"packed": "FP8_MGS_SERVE_KV", "float": "FP8_MGS_SERVE"}
 OTHER_DENSE = ["gemma3-27b", "granite-20b", "minicpm-2b", "mgs-paper-eval"]
 

@@ -48,6 +48,16 @@ from repro_torch.quant import qeinsum  # noqa: E402
 from repro_torch.quant import config as tq  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread, so that test workers running
+    side by side do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def weights():
     """One random tree in the shared layout, as numpy."""

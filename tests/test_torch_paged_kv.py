@@ -32,6 +32,17 @@ from repro_torch.kernels import mgs_attention as ta  # noqa: E402
 from repro_torch.quant import kvcache as tk  # noqa: E402
 from repro_torch.quant.quantize import quantize_fp8  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread, so that test workers running
+    side by side do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _KV, _HD, _BS = 2, 8, 4
 _FIELDS = ("k_codes", "v_codes", "k_scale", "v_scale")
 

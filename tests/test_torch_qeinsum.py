@@ -16,6 +16,17 @@ from repro_torch.quant import prepared as tprep  # noqa: E402
 from repro_torch.quant.config import FP8_MGS_SERVE_KV  # noqa: E402
 from repro_torch.quant.qeinsum import plan_qeinsum, qeinsum  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread, so that test workers running
+    side by side do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 R_CFG = R_KV.replace(block_k=32)
 T_CFG = FP8_MGS_SERVE_KV.replace(block_k=32)
 

@@ -34,6 +34,16 @@ from repro_torch.quant.quantize import (  # noqa: E402
     quantize_fp8, quantize_fp8_static)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread, so that test workers running
+    side by side do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _x(shape, seed=0, scale=3.0):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal(shape) * scale

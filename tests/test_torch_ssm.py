@@ -111,7 +111,12 @@ def test_mamba_prefill_and_decode_match_reference(T):
 
 @pytest.mark.parametrize("T", [3, 8])
 def test_prefill_then_decode_matches_longer_prefill(T):
-    """A prefill of T tokens and one decode step == a prefill of T + 1."""
+    """A prefill of T tokens and one decode step == a prefill of T + 1, the
+    conv state included, within 1e-5 as ``h``. The conv state holds
+    projected inputs: the decode step projects B rows and the prefill
+    B (T + 1), and torch's CPU matmul may round the same row differently
+    at the two shapes, by CPU (a last-bit difference on some hosts; the
+    reference's XLA:CPU dot gives equal bits on the same host)."""
     tcfg, _ = _cfgs()
     tp = {k: torch.from_numpy(v) for k, v in _block_weights(tcfg, 1).items()}
     x = torch.from_numpy(np.random.default_rng(5).normal(
@@ -121,7 +126,7 @@ def test_prefill_then_decode_matches_longer_prefill(T):
     full, fst = mamba_apply(tp, x, tcfg, return_state=True)
     _close(dout, full[:, T:])
     _close(dst.h, fst.h)
-    assert torch.equal(dst.conv, fst.conv)
+    _close(dst.conv, fst.conv)
 
 
 def test_ssm_tree_cast_and_cache_layout():

@@ -38,6 +38,17 @@ from repro_torch.quant.config import FP8_MGS_SERVE_KV  # noqa: E402
 from repro_torch.quant.qeinsum import qeinsum  # noqa: E402
 from repro_torch.quant.qmatmul import qmatmul  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small ops: one intra-op thread, so that test workers running
+    side by side do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the module (the package re-exports the ops function under its name)
 tmm = importlib.import_module("repro_torch.kernels.mgs_matmul")
 M, K, N = 37, 300, 70
