@@ -120,8 +120,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    int8 ``clip`` / ``wrap`` (narrow 16 / 24 bits), printing each error
    against the float64 product beside ``FP8_MGS``'s; reduced deepseek-7b
    under ``INT8_DMAC`` and fp8 ``swamp`` on the card and the CPU give the
-   same tokens. Last, print the card's name and power limit, a JSON line
-   of kernel results, and ``{"ok": true, "device": {...}}``.
+   same tokens;
+12. training and Table 1 / Fig. 9 (``benchmarks/table1_accuracy.py`` and
+   ``fig9_pareto.py``' traffic): B1 and B5 == twin at every shape the
+   teacher-forced forward of full-width mgs-paper-eval over 8 x 64 tokens
+   launches them at (the projections over 512 rows, the batched score /
+   value contractions, the 32768-column tied head); mgs-paper-eval (12
+   layers, d 384, vocab 32768) trained at full width through
+   ``launch.train.train_loop`` for 150 steps of ``SyntheticLM`` batches,
+   checkpoints in a temporary directory (the loss must fall by more than
+   0.3; the last checkpoint restores the final state bitwise) and one step
+   profiled; every B1 / B5 launch of an eval forward recorded at a checked
+   shape; Table 1's six modes (``dmac_mgs`` on B5, ``mgs_exact`` on B1)
+   scored by top-1 over 4 held-out batches, each kernel launching
+   ``eval_launches`` times a forward; Fig. 9's int8 ``clip`` / ``wrap`` at
+   narrow 12 / 14 / 16 / 20 bits against int8 ``mgs_exact`` on one batch;
+   reduced mgs-paper-eval's forward under both kernels on the card and the
+   CPU gives the same greedy tokens; granite-moe-1b-a400m (24 layers,
+   1.33 B parameters) takes 3 full-width train steps of 8 x 512 tokens
+   with ``remat="layer"`` and its aux loss, the last profiled, peak memory
+   printed; B1 / B5 timed at the forward's shapes. Last, print the card's
+   name and power limit, a JSON line of kernel results, and ``{"ok": true,
+   "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -739,26 +759,17 @@ def time_b1(torch, dev, gen, shapes=B1_SHAPES):
     return rows
 
 
-def profile_step(torch, step, label: str):
-    """Where one step's time goes: host-clock step time (median of 5
-    unprofiled steps after one more), then one step under
-    ``torch.profiler`` with the device time of its GPU events summed by
-    kernel."""
+def device_breakdown(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: host-clock time, the
+    device time of its GPU events summed by kernel (B1-B5, other) and the
+    idle share; ``result`` holds what ``fn`` returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    walls = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    step_ms = sorted(walls[1:])[2]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step()
+        result = fn()
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
     by = {k: [0.0, 0] for k in ("B1", "B3", "B2", "B4", "B5", "other")}
@@ -774,14 +785,41 @@ def profile_step(torch, step, label: str):
         by[key][0] += us / 1e3
         by[key][1] += e.count
     busy = sum(v[0] for v in by.values())
-    row = dict(step_ms=step_ms, profiled_step_ms=prof_wall, device_ms=busy,
-               idle_share=(1 - busy / prof_wall) if busy else None,
-               **{f"{k}_ms": v[0] for k, v in by.items()},
-               **{f"{k}_kernels": v[1] for k, v in by.items()})
-    log(f"profile {label}: {step_ms:.2f} ms unprofiled; profiled "
-        f"{prof_wall:.2f} ms with device busy {busy:.2f} ms ("
-        + ", ".join(f"{k} {v[0]:.2f} ms in {v[1]} launches"
-                    for k, v in by.items()) + ")")
+    return dict(profiled_step_ms=prof_wall, device_ms=busy,
+                idle_share=(1 - busy / prof_wall) if busy else None,
+                **{f"{k}_ms": v[0] for k, v in by.items()},
+                **{f"{k}_kernels": v[1] for k, v in by.items()},
+                result=result)
+
+
+def _breakdown_text(row):
+    idle = row["idle_share"]
+    idle = "n/a" if idle is None else f"{idle:.0%}"
+    return (f"profiled {row['profiled_step_ms']:.2f} ms with device busy "
+            f"{row['device_ms']:.2f} ms, idle {idle} (" + ", ".join(
+                f"{k} {row[k + '_ms']:.2f} ms in {row[k + '_kernels']} "
+                "launches" for k in ("B1", "B3", "B2", "B4", "B5", "other"))
+            + ")")
+
+
+def profile_step(torch, step, label: str):
+    """Where one step's time goes: host-clock step time (median of 5
+    unprofiled steps after one more), then one step under
+    ``torch.profiler`` with the device time of its GPU events summed by
+    kernel."""
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    step_ms = sorted(walls[1:])[2]
+    row = device_breakdown(torch, step)
+    del row["result"]
+    row = dict(step_ms=step_ms, **row)
+    log(f"profile {label}: {step_ms:.2f} ms unprofiled; "
+        + _breakdown_text(row))
     return row
 
 
@@ -2291,6 +2329,439 @@ def analysis_phase(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training, then Table 1 / Fig. 9's traffic on the trained model
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "mgs-paper-eval"
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+# benchmarks/common.py::trained_tiny_lm's traffic: SyntheticLM batches of
+# 8 x 64 tokens, 150 AdamW steps (lr 3e-3, 5 warm-up steps, cosine), then
+# 4 held-out batches from step 10000
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, EVAL_BATCHES = 8, 64, 150, 4
+FIG9_WIDTHS = (12, 14, 16, 20)
+# granite-moe-1b-a400m: 3 steps of 8 x 512 tokens
+MOE_BATCH, MOE_SEQ, MOE_STEPS = 8, 512, 3
+
+
+def table1_modes():
+    """``benchmarks/table1_accuracy.py``'s modes, ``dmac_mgs`` on B5 and
+    ``mgs_exact`` on B1."""
+    from repro_torch.quant import QuantConfig as Q
+    return {"baseline_fp32": Q(),
+            "int8": Q(dtype="int8", accum="wide"),
+            "fp8_wide": Q(dtype="fp8_e4m3", accum="wide"),
+            "dmac_mgs": Q(dtype="fp8_e4m3", accum="mgs_dmac",
+                          use_kernel=True),
+            "mgs_exact": Q(dtype="fp8_e4m3", accum="mgs_exact",
+                           use_kernel=True, fused=True),
+            "fp8_swamp_narrow": Q(dtype="fp8_e4m3", accum="swamp",
+                                  narrow_bits=5)}
+
+
+def eval_b1_shapes(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """Every shape a teacher-forced forward of the dense model ``cfg`` over
+    ``batch`` x ``seq`` tokens launches B1 (``mgs_exact``) or B5
+    (``dmac_mgs``) at, as (name, Bt, M, K, N, B1's epilogue activation):
+    the projections over all ``batch * seq`` rows, the score / value
+    contractions batched over (batch, kv head), the tied logits head."""
+    M, d, hd = batch * seq, cfg.d_model, cfg.head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    rows = [("wq", 1, M, d, H * hd, "none"), ("wk/wv", 1, M, d, KV * hd,
+                                               "none"),
+            ("wo", 1, M, H * hd, d, "none"),
+            ("wg", 1, M, d, cfg.d_ff, "silu"),
+            ("wu", 1, M, d, cfg.d_ff, "none"),
+            ("wd", 1, M, cfg.d_ff, d, "none"),
+            ("scores", batch * KV, H // KV * seq, hd, seq, "none"),
+            ("values", batch * KV, H // KV * seq, seq, hd, "none"),
+            ("logits", 1, M, d, cfg.vocab, "none")]
+    names = {}
+    for name, *shape in rows:     # one row a distinct (shape, activation)
+        key = tuple(shape)
+        names[key] = f"{names[key]}/{name}" if key in names else name
+    return [(name, *key) for key, name in names.items()]
+
+
+def eval_launches(cfg):
+    """B1 (or B5) launches of one eval forward: 9 a layer (q, k, v, o, the
+    batched scores and values, gate, up, down) and the head."""
+    return 9 * cfg.n_layers + 1
+
+
+@contextlib.contextmanager
+def recording_b5():
+    """Collects each B5 call (through ``qmatmul`` and ``kernels.ops``) as
+    (Bt, M, K, N)."""
+    import importlib
+    from repro_torch.kernels.mgs_matmul import mgs_matmul_dmac_codes as b5
+    mods = [importlib.import_module(m) for m in (
+        "repro_torch.quant.qmatmul", "repro_torch.kernels.ops")]
+    seen = []
+
+    def rec(xc, wc, *a, **kw):
+        Bt, M, K = xc.shape if xc.dim() == 3 else (1, *xc.shape)
+        seen.append((Bt, M, K, wc.shape[-1]))
+        return b5(xc, wc, *a, **kw)
+    for m in mods:
+        m.mgs_matmul_dmac_codes = rec
+    try:
+        yield seen
+    finally:
+        for m in mods:
+            m.mgs_matmul_dmac_codes = b5
+
+
+
+def check_eval_b5(torch, dev, gen, shapes):
+    """B5 == twin == float entry (``torch.equal``) at ``shapes``."""
+    from repro_torch.core.formats import E4M3
+    worst = 0.0
+    for name, Bt, M, K, N, _ in shapes:
+        x = _margin_values(torch, (Bt, M, K), dev, gen)
+        w = _margin_values(torch, (Bt, K, N), dev, gen)
+        worst = max(worst, _b5_equal(
+            torch, x, w, E4M3, True, f"{name:22s} {Bt}x({M}x{K} @ {K}x{N})"))
+        del x, w
+    return worst
+
+
+def time_b5(torch, dev, gen, shapes):
+    """B5's codes entry at ``shapes`` beside its twin, torch.matmul in
+    float32 over the values and its bound; weights cycle through enough
+    copies to leave L2."""
+    from repro_torch.core.formats import encode_bits
+    from repro_torch.kernels.mgs_matmul import (mgs_matmul_dmac_codes,
+                                                mgs_matmul_dmac_codes_plain)
+    rows = []
+    for name, Bt, M, K, N, _ in shapes:
+        copies = max(1, min(8, -(-200_000_000 // (Bt * K * N))))
+        x = _margin_values(torch, (Bt, M, K), dev, gen)
+        ws = [_margin_values(torch, (Bt, K, N), dev, gen)
+              for _ in range(copies)]
+        xc, wcs = encode_bits(x), [encode_bits(w) for w in ws]
+        it = iter(range(10**9))
+
+        def nxt():
+            return next(it) % copies
+        ms = time_ms(torch, lambda: mgs_matmul_dmac_codes(xc, wcs[nxt()]), 20)
+        plain = time_ms(torch, lambda: mgs_matmul_dmac_codes_plain(
+            xc, wcs[nxt()]), 2, warmup=1)
+        lib = time_ms(torch, lambda: torch.matmul(x, ws[nxt()]), 20)
+        b_ms, b_by = dmac_bound(Bt, M, K, N)
+        rows.append(dict(shape=name, Bt=Bt, M=M, K=K, N=N, ms=ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by))
+        log(f"time B5 {name:22s} {Bt}x({M}x{K} @ {K}x{N}): kernel {ms:.4f} "
+            f"ms, twin {plain:.4f} ms, torch.matmul f32 {lib:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        del x, ws, xc, wcs
+    return rows
+
+
+def _to_dev(torch, hb, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in hb.items()}
+
+
+def top1(torch, cfg, params, batches, dev):
+    """Next-token top-1 accuracy of ``forward`` over ``batches`` (numpy)
+    (``benchmarks/common.py::top1_accuracy``)."""
+    from repro_torch.models import forward
+    hits = total = 0
+    with torch.no_grad():
+        for hb in batches:
+            b = _to_dev(torch, hb, dev)
+            logits, _ = forward(params, cfg, b)
+            hits += int((logits.argmax(-1) == b["labels"]).sum())
+            total += b["labels"].numel()
+    return hits / max(total, 1)
+
+
+def score_table1(torch, cfg, params, evals, dev):
+    """Table 1: top-1 under each mode over ``evals``, its delta against the
+    float baseline, seconds, and each kernel's launches a forward, which
+    must equal ``eval_launches``."""
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    rows, base = {}, None
+    want = {"dmac_mgs": "mgs_matmul_dmac",
+            "mgs_exact": "mgs_matmul_exact_fused"}
+    for name, q in table1_modes().items():
+        reset_launch_counts()
+        t0 = time.time()
+        acc = top1(torch, dataclasses.replace(cfg, quant=q), params, evals,
+                   dev)
+        secs = time.time() - t0
+        base = acc if base is None else base
+        per_fwd = {k: v // len(evals) for k, v in LAUNCHES.items() if v}
+        rows[name] = dict(top1=acc, delta_vs_fp32=acc - base, seconds=secs,
+                          launches_per_forward=per_fwd)
+        pred = {want[name]: eval_launches(cfg)} if name in want else {}
+        if per_fwd != pred or any(v % len(evals) for v in LAUNCHES.values()):
+            raise AssertionError(f"table 1 {name}: launches "
+                                 f"{dict(LAUNCHES)} over {len(evals)} "
+                                 f"forwards, predicted {pred} each")
+        log(f"table1 {name:16s} top1={acc:.4f} delta_vs_fp32="
+            f"{acc - base:+.4f} ({secs:.1f} s, launches a forward "
+            f"{per_fwd})")
+    return rows
+
+
+def score_fig9(torch, cfg, params, batch, dev):
+    """Fig. 9 on one batch: int8 ``clip`` / ``wrap`` at each narrow width
+    against int8 ``mgs_exact`` (exact at any width; its x coordinate the
+    average accumulator bits of the integer dMAC on 16 sampled dots of
+    d_model int8 pairs, seeded by the width)."""
+    import numpy as np
+    from repro_torch.core import int_dmac
+    from repro_torch.quant import QuantConfig as Q
+    rows = {"fp32_baseline": dict(top1=top1(torch, cfg, params, [batch],
+                                            dev))}
+    log(f"fig9 fp32_baseline top1={rows['fp32_baseline']['top1']:.4f}")
+    for nb in FIG9_WIDTHS:
+        for accum in ("clip", "wrap", "mgs_exact"):
+            t0 = time.time()
+            q = Q(dtype="int8", accum=accum, narrow_bits=nb)
+            acc = top1(torch, dataclasses.replace(cfg, quant=q), params,
+                       [batch], dev)
+            row = dict(top1=acc, seconds=time.time() - t0)
+            if accum == "mgs_exact":
+                rng = np.random.default_rng(nb)
+                n_narrow = n_wide = 0
+                for _ in range(16):
+                    w = torch.as_tensor(rng.integers(-127, 128, cfg.d_model))
+                    x = torch.as_tensor(rng.integers(-127, 128, cfg.d_model))
+                    _, st = int_dmac.int_dot_dmac(w, x, narrow_bits=nb)
+                    n_narrow += int(st.narrow_adds)
+                    n_wide += int(st.wide_flushes) + 1
+                row["avg_bits"] = float(int_dmac.average_accumulator_bits(
+                    n_narrow, n_wide, nb, 32))
+            rows[f"{accum}/narrow{nb}b"] = row
+            log(f"fig9 {accum:9s} narrow {nb}b top1={acc:.4f}"
+                + (f" avg_bits={row['avg_bits']:.2f}" if "avg_bits" in row
+                   else "") + f" ({row['seconds']:.1f} s)")
+    return rows
+
+
+def train_eval_gpu_vs_cpu(torch):
+    """Reduced mgs-paper-eval (float32 compute), one numpy parameter set:
+    the teacher-forced forward under ``dmac_mgs`` (B5) and ``mgs_exact``
+    (B1) on the card and under their twins on the CPU give the same greedy
+    token at every position, logits within the engine bar."""
+    import numpy as np
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import forward, init_params
+    cfg = dataclasses.replace(reduced_config(TRAIN_ARCH),
+                              compute_dtype="float32")
+    params = init_params(cfg, SEED)
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (4, 32)).astype(np.int32)
+    for name in ("dmac_mgs", "mgs_exact"):
+        qcfg = dataclasses.replace(cfg, quant=table1_modes()[name])
+        out = {}
+        for dev in ("cuda", "cpu"):
+            with torch.no_grad():
+                logits, _ = forward(_tree_to(params, dev), qcfg,
+                                    {"tokens": torch.from_numpy(tokens).to(
+                                        dev)})
+            out[dev] = logits.cpu().numpy()
+        g, c = out["cuda"], out["cpu"]
+        scale = np.abs(c).max()
+        err = np.abs(g - c)
+        if not np.array_equal(g.argmax(-1), c.argmax(-1)) or \
+                err.max() > 5e-2 * scale or err.mean() > 1e-2 * scale:
+            raise AssertionError(f"reduced {TRAIN_ARCH} {name}: GPU and CPU "
+                                 f"greedy tokens or logits differ (max "
+                                 f"{err.max() / scale:.3g} of scale)")
+        log(f"reduced {TRAIN_ARCH} forward {name}: GPU kernels == CPU twins "
+            f"greedy tokens at all {tokens.size} positions, max logit diff "
+            f"{err.max():.3g}")
+
+
+def train_mgs_paper_eval(torch, dev):
+    """``train_loop`` on full-width mgs-paper-eval with checkpoints in a
+    temporary directory; the loss must descend by more than 0.3 (mean of
+    the last 5 against the first 5); the last checkpoint restores to the
+    final state bitwise. Returns (cfg, params, history, step row)."""
+    import io
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainLoopConfig, train_loop
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.train import OptConfig
+    from repro_torch.tree import leaves as tree_leaves
+    # no remat: the reference's trained_tiny_lm trains without it (its
+    # reduced config), and 41 M parameters need none; granite-moe below
+    # trains with it
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), remat="none")
+    opt = OptConfig(lr=3e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+    with tempfile.TemporaryDirectory() as d:
+        loop = TrainLoopConfig(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                               seq_len=TRAIN_SEQ, log_every=1,
+                               ckpt_every=50, ckpt_dir=d, seed=SEED)
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = train_loop(cfg, loop, device=dev, opt_cfg=opt)
+        secs = time.time() - t0
+        step, restored, extra = ckpt.restore(d, template=out["state"])
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(restored), tree_leaves(out["state"])))
+        if step != TRAIN_STEPS or not same or \
+                extra["data"]["step"] != TRAIN_STEPS:
+            raise AssertionError(f"checkpoint at step {step} does not "
+                                 "restore the final state")
+    losses = [h["loss"] for h in out["history"]]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    ms = sorted(h["ms"] for h in out["history"][1:])
+    log(f"train {TRAIN_ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens): {TRAIN_STEPS} "
+        f"steps in {secs:.1f} s, step {ms[len(ms) // 2]:.1f} ms median, loss "
+        f"{first:.4f} -> {last:.4f} (first / last 5), checkpoint at step "
+        f"{step} restores bitwise")
+    if not last < first - 0.3:
+        raise AssertionError(f"loss did not descend: {first} -> {last}")
+    return cfg, out["state"]["params"], losses, dict(
+        seconds=secs, step_ms_median=ms[len(ms) // 2], loss_first5=first,
+        loss_last5=last)
+
+
+def profile_train_step(torch, cfg, params, batch, label):
+    """One step's time and device breakdown (``profile_step``) of
+    ``make_train_step(cfg)`` from ``params`` and fresh AdamW moments at
+    ``batch`` (every call takes the same step)."""
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+    state = init_train_state(params)
+    step_fn = make_train_step(cfg, OptConfig())
+    return profile_step(torch, lambda: step_fn(state, batch), label)
+
+
+def train_moe(torch, dev):
+    """granite-moe-1b-a400m at full width, ``remat="layer"``: ``MOE_STEPS``
+    train steps (the last profiled) of ``MOE_BATCH`` x ``MOE_SEQ`` tokens;
+    finite losses, a positive aux loss, the peak device memory."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+    from repro_torch.tree import leaves as tree_leaves
+    cfg = get_config(MOE_TRAIN_ARCH)
+    assert cfg.remat == "layer"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state = init_train_state(init_params(cfg, SEED, device=dev))
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    step_fn = make_train_step(cfg, OptConfig(lr=3e-4, warmup_steps=1,
+                                             total_steps=MOE_STEPS))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MOE_SEQ,
+                                  global_batch=MOE_BATCH, seed=SEED))
+    rows = []
+    for i in range(MOE_STEPS - 1):
+        batch = _to_dev(torch, data.make_batch(i), dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        rows.append(dict(step=i, ms=(time.perf_counter() - t1) * 1e3,
+                         **{k: float(v) for k, v in m.items()}))
+    batch = _to_dev(torch, data.make_batch(MOE_STEPS - 1), dev)
+    t1 = time.time()
+    prof = device_breakdown(torch, lambda: step_fn(state, batch))
+    prof_s = time.time() - t1
+    state, m = prof.pop("result")
+    rows.append(dict(step=MOE_STEPS - 1, ms=prof["profiled_step_ms"],
+                     **{k: float(v) for k, v in m.items()}))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for r in rows:
+        log(f"train {MOE_TRAIN_ARCH} step {r['step']}: loss {r['loss']:.4f} "
+            f"aux {r['aux_loss']:.4f} grad norm {r['grad_norm']:.3f} "
+            f"{r['ms']:.1f} ms")
+    if not all(math.isfinite(r["loss"]) and r["aux_loss"] > 0 for r in rows):
+        raise AssertionError(f"{MOE_TRAIN_ARCH}: a non-finite loss or no "
+                             "aux loss")
+    log(f"train {MOE_TRAIN_ARCH} ({cfg.n_layers} layers, {n_params / 1e9:.3f}"
+        f" B parameters, {MOE_BATCH} x {MOE_SEQ} tokens, remat per layer): "
+        f"init {init_s:.1f} s, {MOE_STEPS} steps in {time.time() - t0:.1f} s "
+        f"(the profiled one {prof_s:.1f} s with the trace's summing), peak "
+        f"device memory {peak:.1f} GiB; profiled step: "
+        + _breakdown_text(prof))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=rows, peak_gib=peak, params=n_params, profile=prof)
+
+
+def train_phase(torch, dev, gen):
+    """Phase 12: B1 / B5 == twin at the eval forward's shapes; full-width
+    mgs-paper-eval trained through ``train_loop``; Table 1 over the
+    held-out batches and Fig. 9 on one, launches counted; the reduced
+    model's forward on the card and the CPU; granite-moe-1b-a400m's full-
+    width train steps."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.quant import clear_prepared_cache
+    clear_prepared_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = {}
+    t0 = time.time()
+    shapes = eval_b1_shapes(get_config(TRAIN_ARCH))
+    b1_err = check_family_b1(torch, dev, gen, shapes)
+    b5_err = check_eval_b5(torch, dev, gen, shapes)
+    secs["kernels"] = time.time() - t0
+    log(f"train kernels: B1 and B5 == twin at the eval forward's "
+        f"{len(shapes)} shapes ({secs['kernels']:.1f} s)")
+
+    t0 = time.time()
+    cfg, params, losses, train = train_mgs_paper_eval(torch, dev)
+    secs["train"] = time.time() - t0
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=SEED))
+    evals = [data.make_batch(10_000 + i) for i in range(EVAL_BATCHES)]
+    train["profile"] = profile_train_step(
+        torch, cfg, params, _to_dev(torch, evals[0], dev),
+        f"train step {TRAIN_ARCH} ({TRAIN_BATCH} x {TRAIN_SEQ})")
+
+    t0 = time.time()
+    mgs = dataclasses.replace(cfg, quant=table1_modes()["mgs_exact"])
+    with recording_b1() as seen, recording_b5() as seen5:
+        top1(torch, mgs, params, evals[:1], dev)
+        top1(torch, dataclasses.replace(
+            cfg, quant=table1_modes()["dmac_mgs"]), params, evals[:1], dev)
+    missed = unchecked_b1(seen, shapes)
+    missed5 = {c for c in seen5 if c not in {s[1:5] for s in shapes}}
+    if missed or missed5:
+        raise AssertionError(f"eval forward launched B1 / B5 at unchecked "
+                             f"shapes: {sorted(missed, key=str)} "
+                             f"{sorted(missed5)}")
+    table1 = score_table1(torch, cfg, params, evals, dev)
+    secs["table1"] = time.time() - t0
+    t0 = time.time()
+    fig9 = score_fig9(torch, cfg, params, evals[0], dev)
+    secs["fig9"] = time.time() - t0
+    t0 = time.time()
+    train_eval_gpu_vs_cpu(torch)
+    secs["gpu_vs_cpu"] = time.time() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    moe = train_moe(torch, dev)
+    secs["moe"] = time.time() - t0
+    b_rows = time_b1(torch, dev, gen, shapes)
+    b5_rows = time_b5(torch, dev, gen, shapes)
+    log("phase 12 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in secs.items()))
+    return dict(b1_err=b1_err, b5_err=b5_err, train=train, losses=losses,
+                table1=table1, fig9=fig9, moe=moe, b1_shapes=b_rows,
+                b5_shapes=b5_rows, seconds=secs,
+                eval_launches=eval_launches(cfg))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=30,
@@ -2417,6 +2888,13 @@ def main() -> int:
     log(f"phase 11: the paper's accumulation analysis checked on the card "
         f"({time.time() - t0:.1f} s)")
 
+    t0 = time.time()
+    training = train_phase(torch, dev, gen)
+    b1_err = max(b1_err, training["b1_err"])
+    b5_err = max(b5_err, training["b5_err"])
+    log(f"phase 12: trained, scored Table 1 / Fig. 9 and trained "
+        f"{MOE_TRAIN_ARCH} ({time.time() - t0:.1f} s)")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
@@ -2426,11 +2904,16 @@ def main() -> int:
     main_b1 = next(r for r in b1_rows if r["shape"] == "decode wg/wu")
     main_b3 = next(r for r in b3_rows if r["shape"] == "decode wg/wu")
     main_b45 = next(r for r in b45_rows if r["shape"] == "decode wg/wu")
+    eval_fwd = {"mgs_matmul_exact_fused": "mgs_exact",
+                "mgs_matmul_dmac": "dmac_mgs"}
     by_path = {k: {"group": group_run.get(k, 0),
                    "continuous": launches[k],
                    **{f"group_{c}": runs[c]["launches"][k]
                       for c in ("a", "b", "d")},
-                   **{p: fam_launches[p][k] for p in fam_launches}}
+                   **{p: fam_launches[p][k] for p in fam_launches},
+                   "eval_forward": training["table1"].get(
+                       eval_fwd.get(k), {}).get(
+                           "launches_per_forward", {}).get(k, 0)}
                for k in launches}
     kernels = [
         dict(name="mgs_matmul_exact_fused", route="cuda",
@@ -2491,6 +2974,8 @@ def main() -> int:
                     "late_families": {k: v for k, v in late.items()
                                       if not k.endswith("_err")},
                     "analysis": analysis,
+                    "training": {k: v for k, v in training.items()
+                                 if not k.endswith("_err")},
                     "layers": args.layers}))
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -70,16 +70,19 @@ def int_dot_dmac(xq: torch.Tensor, wq: torch.Tensor, narrow_bits: int = 8):
                                     wide_flushes=n_ovf)
 
 
-def int_dot_clip(xq: torch.Tensor, wq: torch.Tensor, narrow_bits: int = 8):
+def int_dot_clip(xq: torch.Tensor, wq: torch.Tensor, narrow_bits: int = 8,
+                 *, count: bool = True):
     """Saturation arithmetic: every partial sum clips into the narrow
-    range (§2.1). Returns ``(value, n_clips)``."""
+    range (§2.1). Returns ``(value, n_clips)``; ``count=False`` skips the
+    clip count (``None``), the loop's bits unchanged."""
     lo, hi = _range(narrow_bits)
     lead, K, prod = _products(xq, wq)
     acc = torch.zeros(lead, dtype=torch.int32, device=xq.device)
-    n_clip = torch.zeros_like(acc)
+    n_clip = torch.zeros_like(acc) if count else None
     for k in range(K):
         t = acc + prod(k)
-        n_clip += (t > hi) | (t < lo)
+        if count:
+            n_clip += (t > hi) | (t < lo)
         acc = t.clamp(lo, hi)
     return acc, n_clip
 
@@ -87,13 +90,15 @@ def int_dot_clip(xq: torch.Tensor, wq: torch.Tensor, narrow_bits: int = 8):
 def int_dot_wrap(xq: torch.Tensor, wq: torch.Tensor, narrow_bits: int = 8):
     """Wraparound (two's complement modular) narrow accumulation: each
     step ``((t + half) mod span) - half`` with a floor modulo
-    (``torch.remainder``, as jnp's ``%``)."""
+    (``torch.remainder``, as jnp's ``%``). The loop carries ``acc + half``,
+    which is the floor modulo of the shifted sum itself, and subtracts
+    ``half`` once at the end: the same integers in fewer ops a step."""
     span, half = 1 << narrow_bits, 1 << (narrow_bits - 1)
     lead, K, prod = _products(xq, wq)
-    acc = torch.zeros(lead, dtype=torch.int32, device=xq.device)
+    shifted = torch.full(lead, half, dtype=torch.int32, device=xq.device)
     for k in range(K):
-        acc = torch.remainder(acc + prod(k) + half, span) - half
-    return acc
+        shifted = torch.remainder(shifted + prod(k), span)
+    return shifted - half
 
 
 def int_dot_exact(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:

@@ -21,8 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import (E4M3, FPFormat, decompose,
-                                      round_to_format)
+from repro_torch.core.formats import E4M3, FPFormat, decompose
 from repro_torch.core.mgs import bin_sums, combine_bins, round_product
 from .mgs_matmul import _limb_split, _fixed_point, _class_int32
 
@@ -73,28 +72,49 @@ def wide_matmul_ref(x, w, dtype=torch.float32):
 
 def swamp_matmul_ref(x, w, fmt: FPFormat = E4M3, acc_mantissa_bits: int = 4,
                      acc_ebits: int = 4):
-    """Sequential narrow-accumulator matmul, the Fig. 3 failure mode.
+    """Sequential narrow-accumulator matmul, the Fig. 3 failure mode:
+    ``(..., M, K) @ (..., K, N)``, leading dims independent slices.
 
     Every product is rounded to ``fmt`` (subnormal products gated), and
     every partial sum to an ``acc_mantissa_bits``-significant-bit
     accumulator (swamping), saturating at its max (overflow). The products
     round one by one, so they are formed a block of K-steps at a time (at
     most ``_SWAMP_BLOCK`` elements): the reference's bits without its
-    ``M x K x N`` product tensor.
+    ``M x K x N`` product tensor. Slices walk K together, elementwise, so
+    each slice's bits are its own call's.
     """
     acc_fmt = FPFormat(f"acc{acc_mantissa_bits}", ebits=acc_ebits,
                        mbits=acc_mantissa_bits - 1)
     x, w = x.to(torch.float32), w.to(torch.float32)
-    M, K = x.shape
-    N = w.shape[1]
-    acc = torch.zeros((M, N), dtype=torch.float32, device=x.device)
-    kb = max(1, _SWAMP_BLOCK // max(M * N, 1))
+    K = x.shape[-1]
+    lead = torch.broadcast_shapes(x.shape[:-2], w.shape[:-2])
+    shape = tuple(lead) + (x.shape[-2], w.shape[-1])
+    acc = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    kb = max(1, _SWAMP_BLOCK // max(acc.numel(), 1))
     for k0 in range(0, K, kb):
         k1 = min(K, k0 + kb)
-        p, _ = round_product(x[:, k0:k1, None] * w[None, k0:k1], fmt, True)
+        p, _ = round_product(x[..., k0:k1, None] * w[..., None, k0:k1, :],
+                             fmt, True)
         for j in range(k1 - k0):
-            acc = round_to_format(acc + p[:, j], acc_fmt)
+            acc = _round_finite(acc + p[..., j, :], acc_fmt)
     return acc
+
+
+def _round_finite(x, fmt: FPFormat):
+    """:func:`round_to_format` of finite float32 ``x``, bit for bit, in
+    half its kernels (the swamp loop's body: a launch-bound walk over K).
+
+    Zero needs no case of its own (it rounds to itself at any quantum, its
+    sign kept by ``copysign``) and finite inputs no NaN case; the quantum
+    ``2**(clamp(floor(log2|x|), emin, emax) - mbits)`` is assembled from
+    ``frexp``'s exponent in one add, one clamp and one shift."""
+    ax = x.abs()
+    off = 126 - fmt.mbits           # frexp's exponent is floor(log2) + 1
+    e = torch.clamp(torch.frexp(ax).exponent + off,
+                    fmt.emin_unbiased + off + 1, fmt.emax_unbiased + off + 1)
+    q = (e << 23).view(torch.float32)
+    return torch.copysign(torch.clamp_max(torch.round(ax / q) * q,
+                                          fmt.max_finite), x)
 
 
 #: products a block of :func:`swamp_matmul_ref` holds at once

@@ -1,8 +1,8 @@
-"""The model stack of the port: init, serving caches, prefill, decode,
-and the paged slot pool of continuous batching with its speculative
-draft / verify / rewind steps (``repro.models.transformer``; every family:
-dense, MoE, pure SSM, the attention / Mamba hybrid, encoder-decoder and the
-vision-prefix decoder).
+"""The model stack of the port: init, the teacher-forced forward and its
+loss, serving caches, prefill, decode, and the paged slot pool of
+continuous batching with its speculative draft / verify / rewind steps
+(``repro.models.transformer``; every family: dense, MoE, pure SSM, the
+attention / Mamba hybrid, encoder-decoder and the vision-prefix decoder).
 
 Layers run in a Python loop over the stacked parameters (the reference's
 ``lax.scan``): :func:`layer_params` indexes one layer of every stacked
@@ -23,6 +23,8 @@ import math
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.quant import (PagedKVCache, PreparedWeight,
@@ -36,8 +38,9 @@ from .linear import proj
 from .mamba import SSMCache, mamba_apply, mamba_decode_step
 from .moe import moe_apply
 
-__all__ = ["init_params", "init_cache", "prefill", "decode_step",
-           "layer_params", "cast_params", "init_paged_cache", "adopt_slot",
+__all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill",
+           "decode_step", "layer_params", "cast_params", "init_paged_cache",
+           "adopt_slot",
            "release_slot", "decode_step_paged", "verify_step_paged",
            "draft_step_paged", "rewind_slots"]
 
@@ -176,6 +179,12 @@ def cast_params(params, cfg: ModelConfig):
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
+    """The embedding rows of ``tokens`` times ``sqrt(d_model)``.
+
+    The reference's training forward takes a one-hot matmul lookup for MoE
+    stacks with ``vocab % 128 == 0`` (``for_train``; a sharding choice for
+    its gradient). Each of its outputs is a single term, so its values are
+    the gather's: the port always gathers."""
     cdt = dtype_of(cfg.compute_dtype)
     x = params["embed"][tokens].to(cdt)
     # the reference multiplies by sqrt(d_model) rounded to the compute dtype
@@ -198,6 +207,17 @@ def _logits(params, cfg: ModelConfig, x):
 def _dense_body(pl, x, positions, cfg: ModelConfig, is_global, cache,
                 cache_pos, block_table=None, lengths=None, cross_kv=None,
                 cross_p=None):
+    """One dense / MoE layer (serving: the MoE aux loss is dropped)."""
+    return _dense_body_aux(pl, x, positions, cfg, is_global, cache,
+                           cache_pos, block_table, lengths, cross_kv,
+                           cross_p)[0]
+
+
+def _dense_body_aux(pl, x, positions, cfg: ModelConfig, is_global, cache,
+                    cache_pos, block_table=None, lengths=None, cross_kv=None,
+                    cross_p=None):
+    """One dense / MoE layer. Returns (x, the MoE aux loss: ``0.0`` for a
+    dense FFN)."""
     h, _ = attention_apply(pl["attn"], rms_norm(x, pl["ln1"], cfg.norm_eps),
                            cfg, positions=positions, is_global=is_global,
                            cache=cache, cache_pos=cache_pos,
@@ -210,19 +230,28 @@ def _dense_body(pl, x, positions, cfg: ModelConfig, is_global, cache,
         x = x + h
     xn = rms_norm(x, pl["ln2"], cfg.norm_eps)
     if "moe" in pl:
-        h, _ = moe_apply(pl["moe"], xn, cfg)    # serving drops the aux loss
+        h, aux = moe_apply(pl["moe"], xn, cfg)
     else:
-        h = ffn_apply(pl["ffn"], xn, cfg)
-    return x + h
+        h, aux = ffn_apply(pl["ffn"], xn, cfg), 0.0
+    return x + h, aux
 
 
 def _hybrid_group_body(pg, x, positions, cfg: ModelConfig, attn_cache,
                        cache_pos, ssm_cache, decode: bool):
+    """:func:`_hybrid_group_aux` without the aux loss (serving)."""
+    return _hybrid_group_aux(pg, x, positions, cfg, attn_cache, cache_pos,
+                             ssm_cache, decode)[:2]
+
+
+def _hybrid_group_aux(pg, x, positions, cfg: ModelConfig, attn_cache,
+                      cache_pos, ssm_cache, decode: bool):
     """One hybrid period: attention on sublayer 0, Mamba on the others, MoE
     on sublayers ``j % moe_every == moe_offset`` and the dense FFN on the
-    rest. Returns (x, the period's new SSM state, stacked over sublayers)."""
+    rest. Returns (x, the period's new SSM state, stacked over sublayers,
+    the period's MoE aux loss)."""
     eps = cfg.norm_eps
     hs, convs = [], []
+    aux = 0.0
     i_ffn = i_moe = 0
     for j in range(cfg.attn_every):
         xn = rms_norm(x, pg["ln_mix"][j], eps)
@@ -242,13 +271,14 @@ def _hybrid_group_body(pg, x, positions, cfg: ModelConfig, attn_cache,
         x = x + h
         xf = rms_norm(x, pg["ln_ffn"][j], eps)
         if j % cfg.moe_every == cfg.moe_offset:
-            h, _ = moe_apply(layer_params(pg["moe"], i_moe), xf, cfg)
+            h, a = moe_apply(layer_params(pg["moe"], i_moe), xf, cfg)
+            aux = aux + a
             i_moe += 1
         else:
             h = ffn_apply(layer_params(pg["ffn"], i_ffn), xf, cfg)
             i_ffn += 1
         x = x + h
-    return x, SSMCache(torch.stack(hs), torch.stack(convs))
+    return x, SSMCache(torch.stack(hs), torch.stack(convs)), aux
 
 
 def _ssm_body(pl, x, cfg: ModelConfig, cache, decode: bool):
@@ -276,6 +306,160 @@ def _encode(params, cfg: ModelConfig, audio_embeds):
         x = x + ffn_apply(pl["ffn"], rms_norm(x, pl["ln2"], cfg.norm_eps),
                           cfg)
     return rms_norm(x, params["encoder_norm"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Teacher-forced forward and loss (training and evaluation)
+# ---------------------------------------------------------------------------
+
+
+def _maybe_remat(cfg: ModelConfig):
+    """``fn(*args)``, or under ``cfg.remat == "layer"`` while autograd
+    records, the same call rematerialized in the backward pass (the
+    reference's ``jax.checkpoint`` of each scanned layer body)."""
+    if cfg.remat == "layer" and torch.is_grad_enabled():
+        return lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)
+    return lambda fn, *a: fn(*a)
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
+            return_features: bool = False):
+    """Teacher-forced logits. ``batch``: ``tokens`` (B, T) [+
+    ``vision_embeds`` (B, P, d) / ``audio_embeds`` (B, encoder_len, d) per
+    family]. Returns (logits (B, T, V) float32, the summed MoE aux loss) —
+    or (features (B, T, d), aux) with ``return_features`` (the streamed
+    cross entropy's input).
+
+    Layers run one at a time, a hybrid one period at a time, each
+    checkpointed under ``cfg.remat == "layer"``. The reference barriers the
+    scanned carry (``grad_barrier``: an XLA optimization barrier with an
+    identity gradient, which keeps the saved carry in bf16); eager PyTorch
+    keeps every tensor in the dtype it was made in, so here it is the
+    identity and is left out. An encoder-decoder projects each decoder
+    layer's cross K / V from the encoder output inside that layer; a VLM's
+    vision prefix is prepended, then sliced off before the logits."""
+    params = cast_params(params, cfg)
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    x = _embed_tokens(params, cfg, tokens)
+    prefix = 0
+    if cfg.vision_prefix:
+        ve = batch["vision_embeds"].to(x.dtype)
+        prefix = ve.shape[1]
+        x = torch.cat([ve, x], dim=1)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    run = _maybe_remat(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if cfg.is_hybrid:
+        def gbody(x, pg):
+            x, _, a = _hybrid_group_aux(pg, x, positions, cfg, None, 0, None,
+                                        False)
+            return x, a
+        for g in range(_hybrid_groups(cfg)):
+            x, a = run(gbody, x, layer_params(params["layers"], g))
+            aux = aux + a
+    elif cfg.is_ssm_only:
+        def sbody(x, pl):
+            return _ssm_body(pl, x, cfg, None, False)[0]
+        for i in range(cfg.n_layers):
+            x = run(sbody, x, layer_params(params["layers"], i))
+    elif cfg.encoder_layers:
+        enc = _encode(params, cfg, batch["audio_embeds"])
+
+        def dbody(x, pl, pc):
+            ckv = KVCache(k=proj(enc, pc["attn"]["wk"], cfg.quant),
+                          v=proj(enc, pc["attn"]["wv"], cfg.quant))
+            return _dense_body(pl, x, positions, cfg, True, None, 0,
+                               cross_kv=ckv, cross_p=pc)
+        for i in range(cfg.n_layers):
+            x = run(dbody, x, layer_params(params["layers"], i),
+                    layer_params(params["cross"], i))
+    else:
+        def body(x, pl, is_global):
+            return _dense_body_aux(pl, x, positions, cfg, is_global, None, 0)
+        for i in range(cfg.n_layers):
+            x, a = run(body, x, layer_params(params["layers"], i),
+                       cfg.layer_is_global_attn(i))
+            aux = aux + a
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if prefix:
+        x = x[:, prefix:]
+    if return_features:
+        return x, aux
+    return _logits(params, cfg, x), aux
+
+
+_CE_CHUNK_THRESHOLD = 65536  # stream the CE over vocab chunks above this
+_CE_VCHUNK = 16384
+
+
+def _streamed_ce(x, table, labels):
+    """Per-token cross entropy without the (tokens, V) logits.
+
+    Walks the (tied) embedding ``table`` in ``_CE_VCHUNK``-row chunks (the
+    tail padded and masked) carrying a running (max, sumexp, label
+    logit); each chunk is rematerialized in the backward pass, so the
+    peak is O(tokens x chunk). Returns the nll, shaped as ``labels``."""
+    B, T, D = x.shape
+    V = table.shape[0]
+    n = -(-V // _CE_VCHUNK)
+    chunks = F.pad(table, (0, 0, 0, n * _CE_VCHUNK - V)).reshape(
+        n, _CE_VCHUNK, D)
+    labels = labels.to(torch.int64)
+    cols = torch.arange(_CE_VCHUNK, device=x.device)
+    neg_inf = torch.full((), float("-inf"), device=x.device)
+
+    def step(m, s, ll, tc, base: int):
+        logits = torch.einsum("btd,vd->btv", x.to(torch.float32),
+                              tc.to(x.dtype).to(torch.float32))
+        logits = torch.where((base + cols < V)[None, None], logits, neg_inf)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        s = s * torch.exp(m - m_new) + torch.exp(
+            logits - m_new[..., None]).sum(-1)
+        hit = cols[None, None] == (labels - base)[..., None]
+        ll = ll + torch.where(hit, logits, torch.zeros_like(logits)).sum(-1)
+        return m_new, s, ll
+
+    remat = torch.is_grad_enabled()
+    m = torch.full((B, T), float("-inf"), device=x.device)
+    s = torch.zeros((B, T), device=x.device)
+    ll = torch.zeros((B, T), device=x.device)
+    for i in range(n):
+        if remat:
+            m, s, ll = checkpoint(step, m, s, ll, chunks[i], i * _CE_VCHUNK,
+                                  use_reentrant=False)
+        else:
+            m, s, ll = step(m, s, ll, chunks[i], i * _CE_VCHUNK)
+    return (m + torch.log(s)) - ll
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Next-token cross entropy over ``batch["labels"]`` (weighted by an
+    optional ``loss_mask``) plus 0.01 x the MoE load-balance aux loss.
+    Tied vocabularies past 65536 take the streamed cross entropy. Returns
+    (total, {"loss", "aux_loss", "tokens"})."""
+    labels = batch["labels"].to(torch.int64)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    if cfg.vocab > _CE_CHUNK_THRESHOLD and cfg.tie_embeddings:
+        x, aux = forward(params, cfg, batch, return_features=True)
+        nll = _streamed_ce(x, params["embed"], labels) * mask
+    else:
+        logits, aux = forward(params, cfg, batch)
+        logits = logits.to(torch.float32)
+        m = logits.amax(dim=-1, keepdim=True)
+        lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(-1))
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+        nll = (lse - ll) * mask
+    tokens = mask.sum()
+    loss = nll.sum() / torch.clamp_min(tokens, 1.0)
+    return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux,
+                               "tokens": tokens}
 
 
 def _n_attn_layers(cfg: ModelConfig) -> int:

@@ -234,11 +234,11 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
 
 
 def _swamp(xq, w_vals, fmt, acc_mantissa_bits: int, batched: bool):
-    """The swamp accumulation over ``(..., K)`` rows (slice by slice under
-    ``batched``)."""
+    """The swamp accumulation over ``(..., K)`` rows (every slice at once
+    under ``batched``)."""
     if batched:
-        return torch.stack([_swamp(xq[b], w_vals[b], fmt, acc_mantissa_bits,
-                                   False) for b in range(xq.shape[0])])
+        return kref.swamp_matmul_ref(xq, w_vals, fmt,
+                                     acc_mantissa_bits=acc_mantissa_bits)
     out = kref.swamp_matmul_ref(xq.reshape(-1, xq.shape[-1]), w_vals, fmt,
                                 acc_mantissa_bits=acc_mantissa_bits)
     return out.reshape(xq.shape[:-1] + (w_vals.shape[-1],))
@@ -285,7 +285,8 @@ def _int_qmatmul(x, w, cfg: QuantConfig, out_dtype, bias, activation: str,
         xr = qx.q if batched else qx.q.reshape(-1, qx.q.shape[-1])
         wt = qw.q.transpose(-1, -2).unsqueeze(-3)
         if cfg.accum == "clip":
-            out = int_dot_clip(xr.unsqueeze(-2), wt, cfg.narrow_bits)[0]
+            out = int_dot_clip(xr.unsqueeze(-2), wt, cfg.narrow_bits,
+                               count=False)[0]
         else:
             out = int_dot_wrap(xr.unsqueeze(-2), wt, cfg.narrow_bits)
         if not batched:

@@ -747,3 +747,74 @@ def test_qmatmul_swamp_and_int_on_the_card_equal_cpu(dev, kw):
     xb = torch.randn((3, 5, 256), generator=g)
     wb = torch.randn((3, 256, 64), generator=g)
     _card_equals_cpu(lambda a, b: qmatmul(a, b, cfg, batched=True), xb, wb)
+
+
+# the teacher-forced forward of full-width mgs-paper-eval over 8 x 64 tokens
+# (chip_smoke.eval_b1_shapes): projections over 512 rows, the score / value
+# contractions over 8 x 6 (batch, kv head) slices, the tied 32768 head
+_EVAL_SHAPES = [(1, 512, 384, 384, "none"), (1, 512, 384, 1536, "silu"),
+                (1, 512, 1536, 384, "none"), (48, 64, 64, 64, "none"),
+                (1, 512, 384, 32768, "none")]
+
+
+@pytest.mark.parametrize("Bt,M,K,N,act", _EVAL_SHAPES)
+def test_b1_and_b5_at_eval_forward_shapes(dev, Bt, M, K, N, act):
+    xc, wc = _codes((Bt, M, K), E4M3, 5, dev), _codes((Bt, K, N), E4M3, 6, dev)
+    s = torch.full((Bt, 1, 1), 1e-3, device=dev)
+    for kw in ({}, {"scale": s, "activation": act}):
+        out = mgs_matmul_exact_fused(xc, wc, E4M3, **kw)
+        twin = mgs_matmul_exact_fused_plain(xc, wc, E4M3, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, twin), kw
+    g = torch.Generator().manual_seed(7)
+    x = round_to_format(torch.randn((Bt, M, K), generator=g) / 16, E4M3)
+    w = round_to_format(torch.randn((Bt, K, N), generator=g) / 16, E4M3)
+    xc5, wc5 = encode_bits(x, E4M3).to(dev), encode_bits(w, E4M3).to(dev)
+    n0 = LAUNCHES["mgs_matmul_dmac"]
+    out = mgs_matmul_dmac_codes(xc5, wc5, E4M3)
+    assert LAUNCHES["mgs_matmul_dmac"] == n0 + 1
+    twin = mgs_matmul_dmac_codes_plain(xc5, wc5, E4M3)
+    torch.cuda.synchronize()
+    assert torch.equal(out, twin)
+
+
+def test_train_step_on_the_card_matches_cpu(dev):
+    """One ``make_train_step`` on reduced deepseek-7b, float32 compute, the
+    same parameters and batch: loss and grad norm within 1e-5 (relative),
+    updated parameters within 1e-6 in >= 99.9% of each leaf's entries and
+    within 2 x lr everywhere (AdamW's first step is g / |g|, whose sign
+    near a zero gradient follows the sums' last bits)."""
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+    from repro_torch.tree import flatten_with_paths
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced_config("deepseek-7b"),
+                              compute_dtype="float32")
+    params = init_params(cfg, seed=0)
+    hb = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4,
+                                seed=0)).make_batch(0)
+    step = make_train_step(cfg, OptConfig(lr=3e-3, warmup_steps=0,
+                                          schedule="const"))
+    out = {}
+    for d in ("cpu", dev):
+        state = init_train_state(_tree_to(params, d))
+        new, m = step(state, {k: torch.from_numpy(v).to(d)
+                              for k, v in hb.items()})
+        out[str(d)] = (flatten_with_paths(new["params"]),
+                       {k: float(v) for k, v in m.items()})
+    (pc, mc), (pg, mg) = out["cpu"], out[str(dev)]
+    for k in ("loss", "grad_norm"):
+        assert mg[k] == pytest.approx(mc[k], rel=1e-5), k
+    for k, v in pc.items():
+        diff = (pg[k].cpu() - v).abs()
+        assert (diff <= 1e-6).float().mean() >= 0.999, k
+        assert diff.max() <= 2 * 3e-3, k
+
+
+def _tree_to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, d) for k, v in tree.items()}
+    return tree.to(d)
