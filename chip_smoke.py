@@ -23,7 +23,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    in E3M4, and at a long context (lengths 4096, 0, 2000, 1);
 4. serve 8 requests (batch 4, prompt 32, 16 new tokens) through
    ``repro_torch.launch.serve.ServeEngine`` with deepseek-7b at full width
-   under ``FP8_MGS_SERVE_KV`` in bf16 (``--layers`` of its 30 layers, all
+   under ``FP8_MGS_SERVE_KV`` in bf16 (``--layers`` of its 30 layers, 12
    by default), counting each kernel's launches; then a reduced model
    served on the GPU and on the CPU (twins) must give the same tokens;
 5. time B1 and B2 (median of per-call CUDA-event times; B2 also through
@@ -139,9 +139,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU gives the same greedy tokens; granite-moe-1b-a400m (24 layers,
    1.33 B parameters) takes 3 full-width train steps of 8 x 512 tokens
    with ``remat="layer"`` and its aux loss, the last profiled, peak memory
-   printed; B1 / B5 timed at the forward's shapes. Last, print the card's
-   name and power limit, a JSON line of kernel results, and ``{"ok": true,
-   "device": {...}}``.
+   printed; B1 / B5 timed at the forward's shapes;
+13. the replica fleet (``launch.replica.ReplicaServeDriver``), run right
+   after phase 8 while phases 4 and 6's prepared weights are alive
+   (nothing prepared again), its replicas on slots of the one card
+   (``launch.mesh.virtual_devices``), a CUDA stream each: 2 replicas over
+   4 slots serve phase 4's 8 requests twice with slot 0 poisoned at decode
+   step 2 of replica 0's second group (tokens bitwise phase 4's, nothing
+   dropped, one failover, one rebuild on 1 slot without slot 0, no retry,
+   both replicas healthy), then the 8 again, a group on each replica,
+   the rebuilt one's included (tokens bitwise, its prefill logits bitwise
+   one engine's); one engine serves the same requests, timed beside the
+   fleet; a transient fault on replica 1 at decode step 2 is retried in
+   place; a calibration push under traffic (``calibrate()``, then
+   ``apply_calibration`` of a second table) with slot 0 poisoned at
+   replica 0's second group: the rebuilt replica holds its donor's table
+   versions and replays a v1 request with the donor's bits; 2 continuous
+   replicas serve phase 6's ragged traffic at its arrival times (tokens
+   bitwise phase 6's); each run's B1 / B2 / B3 launches equal the
+   prediction (the continuous fleet's from the engines' own decode-step
+   count, held inside the traffic's bounds), ``PREP_STATS`` and the builds
+   stay flat; each wall beside one engine's, ``busy_s``
+   and ``recovery_s`` printed. Last, print the card's name and power
+   limit, a JSON line of kernel results, and ``{"ok": true, "device":
+   {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -166,6 +187,9 @@ SRC = HERE / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 SEED = 0
+# deepseek-7b layers the serving phases (4-8, 13) run by default, of 30:
+# depth is cut so that the script stays well inside its time limit
+DEPTH = 12
 
 
 def log(*a):
@@ -613,7 +637,7 @@ def serve_full(torch, arch: str, layers: int):
     FP8_MGS_SERVE_KV through the group engine: 8 requests of 32 prompt
     tokens at batch 4, 16 new tokens each. Launch counts equal
     ``group_launches``, ``PREP_STATS`` and the builds stay flat, 8 x 16
-    finite logits rows. Returns (launches, stats, engine)."""
+    finite logits rows. Returns (launches, stats, engine, requests)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
     from repro_torch.launch.serve import Request, ServeEngine
@@ -662,7 +686,7 @@ def serve_full(torch, arch: str, layers: int):
                                  "not finite")
         if not all(0 <= t < cfg.vocab for t in r.out_tokens):
             raise AssertionError("token out of range")
-    return launches, stats, eng
+    return launches, stats, eng, reqs
 
 
 def serve_reduced_gpu_vs_cpu(torch, quant=None, label="FP8_MGS_SERVE_KV",
@@ -1062,6 +1086,8 @@ def serve_continuous(torch, layers: int):
     if dict(PREP_STATS) != prep0 or dict(BUILDS) != builds0:
         raise AssertionError("serving re-prepared weights or rebuilt a "
                              "kernel")
+    # phase 13 serves this traffic again
+    a["requests"], a["arrivals"], a["launches"] = ra, arrivals, launches
     return eng, launches, a, c
 
 
@@ -1888,7 +1914,7 @@ def serve_family(torch, arch: str, layers: int, checks=None):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     with recording_b1() as seen:
-        launches, stats, eng = serve_full(torch, arch, layers)
+        launches, stats, eng, _ = serve_full(torch, arch, layers)
         _, (b1_step, b2_step) = group_launches(eng.cfg)
         step = profile_decode_step(torch, eng)
     if (step["B1_kernels"], step["B2_kernels"]) != (b1_step, b2_step):
@@ -2762,10 +2788,406 @@ def train_phase(torch, dev, gen):
                 eval_launches=eval_launches(cfg))
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the replica fleet (run after phase 8, on its live weights)
+# ---------------------------------------------------------------------------
+
+
+FLEET_SLOTS = 4
+
+
+def card_name(torch) -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and \
+        smi.stdout.strip() else f"{torch.cuda.get_device_name(0)}, n/a"
+
+
+def fleet_group_launches(cfg, new: int, full: int, partial: int):
+    """Predicted launches of ``full`` whole groups (a prefill and ``new -
+    1`` decode steps each) and ``partial`` runs of a prefill and one decode
+    step (an attempt cut at decode step 2, a rebuild's warmup)."""
+    want, (dec, b2) = group_launches(cfg)
+    pre = want["mgs_matmul_exact_fused"] // 2 - 15 * dec
+    return {"mgs_matmul_exact_fused": full * (pre + (new - 1) * dec)
+            + partial * (pre + dec),
+            "mgs_flash_attention": full * (new - 1) * b2 + partial * b2}
+
+
+def _launches_or_raise(what, got, want):
+    got = {k: v for k, v in got.items() if v or k in want}
+    want = {k: want.get(k, 0) for k in got}
+    log(f"fleet {what}: launches {got}, predicted {want}")
+    if got != want:
+        raise AssertionError(f"fleet {what}: launches {got} != predicted "
+                             f"{want}")
+
+
+def _fleet_run(driver, reqs):
+    """``driver.run``: this run's stats (wall included) and the replicas'
+    health after it; raises if a request was dropped or cut."""
+    out = driver.run(reqs, timeout=600)
+    if any(len(r.out_tokens) != r.max_new_tokens for r in reqs):
+        raise AssertionError("the fleet dropped or cut a request")
+    out["health"] = [h["state"] for h in driver.stats()["health"]]
+    return out
+
+
+def _group_prefill_logits(torch, eng, prompts):
+    from repro_torch.models import init_cache
+    import numpy as np
+    toks = np.stack(prompts)
+    cache = init_cache(eng.cfg, toks.shape[0], eng.max_len,
+                       device=eng.device)
+    with torch.no_grad():
+        lg, _ = eng._prefill(toks, cache, eng._calib_state)
+    return lg.float().cpu()
+
+
+def fleet_group(torch, params, served, layers: int):
+    """Phase 13 (a) and (b): a fleet of 2 replicas over 4 slots of the card
+    serves 16 of phase 4's requests (its 8 twice: 4 groups) with slot 0
+    poisoned at decode step 2 of replica 0's second group, then its 8 again
+    (a group each, the rebuilt replica's included); one engine serves the
+    same requests on the same weights, timed in the same run; then a fleet
+    over 2 slots serves the 8 with a transient fault on replica 1 retried
+    in place. Every request's tokens are held to phase 4's single engine
+    (``served``), which ran the same groups."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
+    from repro_torch.launch.mesh import virtual_devices
+    from repro_torch.launch.replica import ReplicaServeDriver
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.quant import PREP_STATS
+    from repro_torch.quant.config import FP8_MGS_SERVE_KV
+    from repro_torch.runtime.fault_tolerance import FaultInjector, FaultSpec
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=layers,
+                              quant=FP8_MGS_SERVE_KV)
+    n, new = len(served), served[0].max_new_tokens
+    max_len = 32 + new + 1          # phase 4's engine: the same shapes
+
+    def reqs(k):
+        return [Request(rid=i, prompt=served[i % n].prompt.copy(),
+                        max_new_tokens=new) for i in range(k)]
+
+    def same(got, what):
+        bad = [r.rid for r in got
+               if r.out_tokens != served[r.rid % n].out_tokens]
+        if bad:
+            raise AssertionError(f"fleet {what}: requests {bad} differ from "
+                                 "one engine's tokens")
+        log(f"fleet {what}: tokens bitwise phase 4's one engine for all "
+            f"{len(got)} requests")
+
+    def check(what, run, want):
+        got = {k: run[k] for k in want}
+        if got != want:
+            raise AssertionError(f"fleet {what}: {got} != {want}")
+
+    prep0, builds0 = dict(PREP_STATS), dict(BUILDS)
+    inj = FaultInjector([FaultSpec(kind="poison", replica=0, group=1,
+                                   after_decode_steps=2, device_ids=(0,))])
+    driver = ReplicaServeDriver(
+        cfg, 2, batch=4, max_len=max_len, params=params, model_parallel=1,
+        devices=virtual_devices("cuda:0", FLEET_SLOTS), injector=inj,
+        backoff_base_s=0.001)
+    try:
+        driver.warmup(prompt_len=32, max_new=1)
+        reset_launch_counts()
+        got = reqs(2 * n)
+        poisoned = _fleet_run(driver, got)
+        launches = dict(LAUNCHES)
+        events = driver.events()
+        same(got, "poisoned slot")
+        ids = driver.meshes[0].ids
+        reset_launch_counts()
+        got = reqs(n)
+        rebuilt = _fleet_run(driver, got)
+        launches_rebuilt = dict(LAUNCHES)
+        same(got, "after the rebuild")
+        prompts = [r.prompt for r in served[:4]]
+        lg_rebuilt = _group_prefill_logits(torch, driver.engines[0], prompts)
+    finally:
+        driver.close(600)
+    recovery = [e["recovery_s"] for e in events if e["event"] == "rebuilt"]
+    log(f"fleet poisoned slot: {inj.fired()[0]}, stats {poisoned}, rebuilt "
+        f"replica 0 on slots {ids}, recovery_s {recovery}; after the "
+        f"rebuild: stats {rebuilt}")
+    # replica 0's second group is requeued onto replica 1; then a group each
+    check("poisoned slot", poisoned, dict(
+        failovers=1, rebuilds=1, retries=0, requeued_requests=4,
+        groups_per_replica=[1, 3], health=["healthy", "healthy"],
+        decode_steps=4 * (new - 1)))
+    check("after the rebuild", rebuilt, dict(
+        failovers=0, rebuilds=0, retries=0, groups_per_replica=[1, 1],
+        health=["healthy", "healthy"], decode_steps=2 * (new - 1)))
+    if 0 in ids or len(ids) != 1:
+        raise AssertionError(f"rebuilt replica on slots {ids}")
+
+    # one engine on the same weights and requests, no fault: the walls the
+    # fleet's are set against
+    single = ServeEngine(cfg, batch=4, max_len=max_len, params=params)
+    single.warmup([32], max_new=1)
+    ref = reqs(2 * n)
+    t0 = time.perf_counter()
+    single.run(ref[:n])
+    torch.cuda.synchronize()
+    single_first = time.perf_counter() - t0
+    single.run(ref[n:])
+    torch.cuda.synchronize()
+    single_all = time.perf_counter() - t0
+    same(ref, "one engine (timed)")
+    if not torch.equal(lg_rebuilt,
+                       _group_prefill_logits(torch, single, prompts)):
+        raise AssertionError("the rebuilt replica's prefill logits differ "
+                             "from one engine's")
+    log("fleet poisoned slot: the rebuilt replica's prefill logits bitwise "
+        "one engine's")
+    # 4 whole groups, the poisoned attempt (prefill + 1 decode step) and
+    # the rebuild's warmup replay (prefill + 1 decode step); then 2 groups
+    _launches_or_raise("poisoned slot", launches,
+                       fleet_group_launches(cfg, new, 4, 2))
+    _launches_or_raise("after the rebuild", launches_rebuilt,
+                       fleet_group_launches(cfg, new, 2, 0))
+
+    inj = FaultInjector([FaultSpec(kind="raise", replica=1, group=0,
+                                   after_decode_steps=2)])
+    driver = ReplicaServeDriver(
+        cfg, 2, batch=4, max_len=max_len, params=params,
+        devices=virtual_devices("cuda:0", 2), injector=inj,
+        backoff_base_s=0.001)
+    try:
+        reset_launch_counts()
+        got = reqs(n)
+        retry = _fleet_run(driver, got)
+        launches_retry = dict(LAUNCHES)
+    finally:
+        driver.close(600)
+    same(got, "transient fault")
+    log(f"fleet transient fault: {inj.fired()[0]}, stats {retry}")
+    check("transient fault", retry, dict(
+        retries=1, failovers=0, rebuilds=0, groups_per_replica=[1, 1],
+        health=["healthy", "healthy"], decode_steps=2 * (new - 1)))
+    # two whole groups and replica 1's attempt cut at decode step 2
+    _launches_or_raise("transient fault", launches_retry,
+                       fleet_group_launches(cfg, new, 2, 1))
+    _flat_or_raise("fleet", prep0, builds0)
+    return {"poisoned": poisoned, "recovery_s": recovery,
+            "rebuilt_slots": ids, "rebuilt": rebuilt, "retry": retry,
+            "single_wall_s": {"requests_16": single_all,
+                              "requests_8": single_first},
+            "launches": {"fleet_poisoned": launches,
+                         "fleet_rebuilt": launches_rebuilt,
+                         "fleet_retry": launches_retry}}
+
+
+def fleet_calibration(torch, params, layers: int):
+    """Phase 13 (c): ``calibrate()`` once, a no-drain push of a second table
+    while traffic flows, slot 0 poisoned at replica 0's second group; the
+    rebuilt replica holds the donor's versions, and a v1 request replays
+    on it with the donor's bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
+    from repro_torch.launch.mesh import virtual_devices
+    from repro_torch.launch.replica import ReplicaServeDriver
+    from repro_torch.launch.serve import Request
+    from repro_torch.quant import PREP_STATS
+    from repro_torch.quant.config import FP8_MGS_SERVE_KV
+    from repro_torch.runtime.fault_tolerance import FaultInjector, FaultSpec
+    import numpy as np
+    cfg = dataclasses.replace(
+        get_config("deepseek-7b"), n_layers=layers,
+        quant=FP8_MGS_SERVE_KV.replace(flush_target=1e-6))
+    new = 4
+    rng = np.random.default_rng(SEED + 8)
+
+    def reqs(rid0, n):
+        return [Request(rid=rid0 + i, prompt=rng.integers(
+            1, cfg.vocab, 32).astype(np.int32), max_new_tokens=new)
+            for i in range(n)]
+
+    prep0, builds0 = dict(PREP_STATS), dict(BUILDS)
+    inj = FaultInjector([FaultSpec(kind="poison", replica=0, group=1,
+                                   device_ids=(0,))])
+    driver = ReplicaServeDriver(
+        cfg, 2, batch=4, max_len=32 + new + 1, params=params,
+        model_parallel=1, devices=virtual_devices("cuda:0", FLEET_SLOTS),
+        injector=inj, backoff_base_s=0.001)
+    try:
+        t0 = time.perf_counter()
+        t1 = driver.calibrate()
+        calib_s = time.perf_counter() - t0
+        reset_launch_counts()
+        first = reqs(0, 4)          # replica 0's first group, on v1
+        run1 = _fleet_run(driver, first)
+        second = reqs(10, 8)        # replica 1's first, replica 0's second
+        base = driver.stats()
+        futs = driver.submit_many(second[:4])
+        v2 = driver.apply_calibration(
+            t1.refreshed([(s, v * 1.5) for s, v in t1.to_pairs()]))
+        futs += driver.submit_many(second[4:])
+        driver.drain(600)
+        for f in futs:
+            f.result(600)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        st = driver.stats()
+        engines = list(driver.engines)
+        tables = [{v: t.to_pairs() for v, t in e._tables.items()}
+                  for e in engines]
+        versions = [e.table_version for e in engines]
+        rep0, st0 = engines[0].replay(first[0], group=first[:4])
+        rep1, st1 = engines[1].replay(first[0], group=first[:4])
+    finally:
+        driver.close(600)
+    stamps = [r.table_version for r in first + second]
+    log(f"fleet calibration: calibrate() {calib_s:.3f} s -> v1 on both "
+        f"replicas, push of v{v2} under traffic, stamps {stamps}; "
+        f"failovers {st['failovers'] - base['failovers']}, rebuilds "
+        f"{st['rebuilds'] - base['rebuilds']}; versions {versions}, tables "
+        f"{[sorted(t) for t in tables]}")
+    if (st["failovers"], st["rebuilds"]) != (1, 1) or versions != [2, 2] \
+            or sorted(tables[0]) != [1, 2] or tables[0] != tables[1] \
+            or set(stamps[:4]) != {1} or not set(stamps[4:]) <= {1, 2}:
+        raise AssertionError("fleet calibration: the rebuilt replica does "
+                             "not hold its donor's tables")
+    same_logits = all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+                      for a, b in zip(st0["logits"][first[0].rid],
+                                      st1["logits"][first[0].rid]))
+    if rep0.out_tokens != first[0].out_tokens or \
+            rep1.out_tokens != first[0].out_tokens or not same_logits:
+        raise AssertionError("fleet calibration: replay of a v1 request on "
+                             "the rebuilt replica is not the donor's bits")
+    log(f"fleet calibration: request {first[0].rid} (v1) replayed on the "
+        "rebuilt replica: tokens as served, logits bitwise the donor's")
+    # 3 whole groups of 4 tokens; the poison fires at group start
+    _launches_or_raise("calibration", launches,
+                       fleet_group_launches(cfg, new, 3, 0))
+    _flat_or_raise("fleet calibration", prep0, builds0)
+    return {"calibrate_s": calib_s, "first_run": run1, "stamps": stamps,
+            "versions": versions, "launches": launches}
+
+
+def fleet_continuous(torch, params, run_a, layers: int):
+    """Phase 13 (d): 2 continuous replicas over 2 slots serve phase 6's
+    ragged traffic (its prompts, arrival times and 16 new tokens); tokens
+    bitwise phase 6's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
+    from repro_torch.launch.mesh import virtual_devices
+    from repro_torch.launch.replica import ReplicaServeDriver
+    from repro_torch.launch.serve import Request
+    from repro_torch.quant import PREP_STATS
+    from repro_torch.quant.config import FP8_MGS_SERVE_PAGED
+    cfg = dataclasses.replace(
+        get_config("deepseek-7b"), n_layers=layers,
+        quant=FP8_MGS_SERVE_PAGED.replace(schedule="activation"))
+    ref, arrivals = run_a["requests"], run_a["arrivals"]
+    prep0, builds0 = dict(PREP_STATS), dict(BUILDS)
+    got = [Request(rid=r.rid, prompt=r.prompt.copy(),
+                   max_new_tokens=r.max_new_tokens) for r in ref]
+    slots = 4
+    driver = ReplicaServeDriver(cfg, 2, batch=slots, max_len=256,
+                                params=params, continuous=True,
+                                devices=virtual_devices("cuda:0", 2))
+    try:
+        driver.warmup(plen_buckets=[64, 128, 192])
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = []
+        for r, at in zip(got, arrivals):
+            time.sleep(max(0.0, at - (time.perf_counter() - t0)))
+            futs.append(driver.submit(r))
+        driver.drain(600)
+        for f in futs:
+            f.result(600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        st = driver.stats()         # this run's: the warmup is not counted
+    finally:
+        driver.close(600)
+    bad = [r.rid for r, w in zip(got, ref) if r.out_tokens != w.out_tokens]
+    if bad:
+        raise AssertionError(f"continuous fleet: requests {bad} differ from "
+                             "phase 6's")
+    log(f"fleet continuous: {len(got)} ragged requests over 2 replicas in "
+        f"{wall:.2f} s (busy {st['busy_s']:.2f} s, groups per replica "
+        f"{st['groups_per_replica']}, {st['decode_steps']} decode steps); "
+        f"tokens bitwise phase 6's for all {len(got)}")
+    # the step count depends on scheduling (which replica takes a request,
+    # who shares its steps), so it is the engines' own count, held inside
+    # what the traffic allows: each request takes max_new - 1 steps on its
+    # replica, at most `slots` of them a step
+    steps = st["decode_steps"]
+    need = [r.max_new_tokens - 1 for r in got]
+    lo, hi = max(max(need), -(-sum(need) // slots)), sum(need)
+    if not lo <= steps <= hi:
+        raise AssertionError(f"continuous fleet: {steps} decode steps, "
+                             f"outside [{lo}, {hi}]")
+    # a request's prefill launches depend on its bucket only, so they are
+    # phase 6's (all its B1, its B3 less 7L + 1 a decode step); every decode
+    # step launches 7L + 1 B3 and L B2
+    L, ref_l = layers, run_a["launches"]
+    b3 = "mgs_matmul_exact_fused_stationary"
+    want = {"mgs_matmul_exact_fused": ref_l["mgs_matmul_exact_fused"],
+            b3: ref_l[b3] + (steps - run_a["steps"]) * (7 * L + 1),
+            "mgs_flash_attention": steps * L}
+    _launches_or_raise(f"continuous ({steps} decode steps, traffic bounds "
+                       f"[{lo}, {hi}])", launches, want)
+    _flat_or_raise("continuous fleet", prep0, builds0)
+    return {"wall_s": wall, "busy_s": st["busy_s"], "steps": steps,
+            "step_bounds": [lo, hi],
+            "groups_per_replica": st["groups_per_replica"],
+            "launches": launches}
+
+
+def fleet_phase(torch, group_params, group_reqs, cont_params, run_a,
+                layers: int):
+    """Phase 13: the replica fleet on the card, on phase 4's and phase 6's
+    prepared weights (nothing prepared again) and their traffic."""
+    t = {}
+    t0 = time.time()
+    group = fleet_group(torch, group_params, group_reqs, layers)
+    t["group"] = time.time() - t0
+    t0 = time.time()
+    calib = fleet_calibration(torch, group_params, layers)
+    t["calibration"] = time.time() - t0
+    t0 = time.time()
+    cont = fleet_continuous(torch, cont_params, run_a, layers)
+    t["continuous"] = time.time() - t0
+    # each fleet wall beside one engine's on the same requests and weights,
+    # timed in this run (phase 6's (a) run is the continuous one's)
+    one = group["single_wall_s"]
+    for what, run, single in (
+            ("poisoned slot (16 requests, a failover and a rebuild)",
+             group["poisoned"], one["requests_16"]),
+            ("after the rebuild (8 requests)", group["rebuilt"],
+             one["requests_8"]),
+            ("transient fault (8 requests, a retry)", group["retry"],
+             one["requests_8"]),
+            ("continuous (phase 6's traffic)", cont, run_a["wall_s"])):
+        log(f"fleet {what}: wall {run['wall_s']:.2f} s against one "
+            f"engine's {single:.2f} s (ratio {run['wall_s'] / single:.2f}); "
+            f"busy_s {run['busy_s']:.2f} s (busy_s / wall "
+            f"{run['busy_s'] / run['wall_s']:.2f}), groups per replica "
+            f"{run['groups_per_replica']}")
+    log(f"fleet: card {card_name(torch)}; phase 13 seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in t.items()))
+    launches = {**group.pop("launches"),
+                "fleet_calibration": calib.pop("launches"),
+                "fleet_continuous": cont.pop("launches")}
+    return {"group": group, "calibration": calib, "continuous": cont,
+            "seconds": t, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=30,
-                    help="deepseek-7b layers to serve (of 30)")
+    ap.add_argument("--layers", type=int, default=DEPTH,
+                    help=f"deepseek-7b layers to serve (of 30; {DEPTH} by "
+                    "default)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2808,7 +3230,8 @@ def main() -> int:
         f"({time.time() - t0:.1f} s)")
 
     t0 = time.time()
-    group_run, stats, eng = serve_full(torch, "deepseek-7b", args.layers)
+    group_run, stats, eng, group_reqs = serve_full(torch, "deepseek-7b",
+                                                   args.layers)
     serve_reduced_gpu_vs_cpu(torch)
     log(f"phase 4: served ({time.time() - t0:.1f} s)")
 
@@ -2861,9 +3284,17 @@ def main() -> int:
         "group": calibrate_group(torch, group_params, args.layers),
         "continuous": calibrate_continuous(torch, cont_params, args.layers,
                                            paged_step)}
-    del group_params, cont_params
     log(f"phase 8: calibration served, swapped, fenced and replayed on "
         f"both engines ({time.time() - t0:.1f} s)")
+
+    # phase 13 runs here, while phases 4 and 6's prepared weights are alive
+    t0 = time.time()
+    fleet = fleet_phase(torch, group_params, group_reqs, cont_params, run_a,
+                        args.layers)
+    del group_params, cont_params
+    log(f"phase 13: the replica fleet served through a poisoned slot, a "
+        f"retry, a calibration push and continuous traffic "
+        f"({time.time() - t0:.1f} s)")
 
     t0 = time.time()
     fam = family_phase(torch, dev, gen)
@@ -2895,12 +3326,7 @@ def main() -> int:
     log(f"phase 12: trained, scored Table 1 / Fig. 9 and trained "
         f"{MOE_TRAIN_ARCH} ({time.time() - t0:.1f} s)")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and \
-        smi.stdout.strip() else f"{torch.cuda.get_device_name(0)}, n/a"
-    log(f"card: {card}")
+    log(f"card: {card_name(torch)}")
     main_b1 = next(r for r in b1_rows if r["shape"] == "decode wg/wu")
     main_b3 = next(r for r in b3_rows if r["shape"] == "decode wg/wu")
     main_b45 = next(r for r in b45_rows if r["shape"] == "decode wg/wu")
@@ -2911,6 +3337,8 @@ def main() -> int:
                    **{f"group_{c}": runs[c]["launches"][k]
                       for c in ("a", "b", "d")},
                    **{p: fam_launches[p][k] for p in fam_launches},
+                   **{p: fleet["launches"][p].get(k, 0)
+                      for p in fleet["launches"]},
                    "eval_forward": training["table1"].get(
                        eval_fwd.get(k), {}).get(
                            "launches_per_forward", {}).get(k, 0)}
@@ -2976,6 +3404,7 @@ def main() -> int:
                     "analysis": analysis,
                     "training": {k: v for k, v in training.items()
                                  if not k.endswith("_err")},
+                    "fleet": fleet,
                     "layers": args.layers}))
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

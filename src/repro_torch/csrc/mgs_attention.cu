@@ -735,7 +735,7 @@ int launch(Params a, int N, cudaStream_t stream) {
   // opt into the card's whole per-block limit once per instantiation and
   // device (the kernel has no static shared memory); the wrapper refuses a
   // call that needs more
-  static bool attr_set[kMaxDevices] = {};
+  static std::atomic<bool> attr_set[kMaxDevices];
   int dev = 0;
   cudaError_t err = current_device(dev);
   if (err == cudaSuccess)

@@ -12,6 +12,7 @@
 // -fmad=false, so no a*b+c is ever contracted into one rounding.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -35,11 +36,14 @@ inline cudaError_t current_device(int& dev) {
 // returned, and a failed call is retried by the next launch.
 template <class F>
 inline cudaError_t smem_opt_in_once(F kern, int bytes,
-                                    bool (&done)[kMaxDevices], int dev) {
-  if (done[dev]) return cudaSuccess;
+                                    std::atomic<bool> (&done)[kMaxDevices],
+                                    int dev) {
+  // host threads of a replica fleet launch at once: a race only repeats
+  // the (idempotent) attribute call
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done[dev] = true;
+  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
   return err;
 }
 

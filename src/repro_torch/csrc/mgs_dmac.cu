@@ -226,7 +226,7 @@ int run(const uint8_t* x, const uint8_t* w, const uint8_t* tbl, float* out,
   auto kern = dmac_kernel<F, RG>;
   constexpr int smem = smem_bytes<F, RG>();
   // beyond the 48 KB default: set once per instantiation and device
-  static bool attr_set[kMaxDevices] = {};
+  static std::atomic<bool> attr_set[kMaxDevices];
   int dev = 0;
   cudaError_t err = current_device(dev);
   if (err == cudaSuccess) err = smem_opt_in_once(kern, smem, attr_set, dev);

@@ -871,7 +871,7 @@ template <bool LIMBS, int EB, int MB, class T>
 int launch_exact(const Args& g, int Bt, cudaStream_t stream) {
   using L = Layout<LIMBS, T>;
   auto kern = exact_kernel<LIMBS, EB, MB, T>;
-  static bool attr_set[kMaxDevices] = {};
+  static std::atomic<bool> attr_set[kMaxDevices];
   int dev = 0;
   cudaError_t err = current_device(dev);
   if (err == cudaSuccess) err = smem_opt_in_once(kern, L::BYTES, attr_set, dev);
@@ -889,7 +889,7 @@ template <int EB, int MB, class T, int CACHE>
 int launch_stationary(const Args& g, int Bt, const StatPlan& p,
                       cudaStream_t stream) {
   auto kern = exact_fused_stationary_kernel<EB, MB, T, CACHE>;
-  static bool attr_set[kMaxDevices] = {};
+  static std::atomic<bool> attr_set[kMaxDevices];
   int dev = 0;
   cudaError_t err = current_device(dev);
   if (err == cudaSuccess)

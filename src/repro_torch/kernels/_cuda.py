@@ -24,8 +24,8 @@ from typing import Dict, Iterable, Optional
 import torch
 
 __all__ = ["SMEM_LIMIT", "SOURCES", "LAUNCHES", "BUILDS",
-           "reset_launch_counts", "build_all", "load", "check", "stream_ptr",
-           "build_dir"]
+           "reset_launch_counts", "count_launch", "build_all", "load",
+           "check", "stream_ptr", "build_dir"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
@@ -52,11 +52,20 @@ BUILDS = {"nvcc": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# the replica fleet's workers launch from several threads at once
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel wrapper ``name`` (thread-safe)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _hash() -> str:

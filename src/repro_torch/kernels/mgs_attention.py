@@ -230,7 +230,7 @@ def mgs_flash_blocks(q_codes, k_pool, v_pool, bt, live, qk_scale, v_scale,
             *(a.data_ptr() for a in args), out.data_ptr(), N, T, D, chunk,
             nb, rs, _KERNEL_FMTS[fmt.name], _cuda.stream_ptr(dev))
         _cuda.check(err, "mgs_flash_attention")
-        _cuda.LAUNCHES["mgs_flash_attention"] += 1
+        _cuda.count_launch("mgs_flash_attention")
     return out
 
 

@@ -65,6 +65,7 @@ Two more kernels share this module:
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -104,6 +105,7 @@ _DMAC_N_CHUNK = 4096
 _DMAC_PRODUCTS = 1 << 24
 # B5's device rounding tables, (device index, format, gate) -> (128, 128)
 _DMAC_TABLES: dict = {}
+_DMAC_TABLES_LOCK = threading.Lock()
 SCHEDULES = ("output", "weight", "activation")
 # the widest edge of tile_shape()
 _MAX_EDGE = 64
@@ -136,6 +138,7 @@ _STAT_BYTES = _cuda.SMEM_LIMIT - _STATIC_RESERVE
 _PAIR_BYTES = (233472 - 2 * 1024) // 2 - _STATIC_RESERVE
 # split-K workspace and tile counters, (device index, stream) -> tensors
 _SPLIT_WS: dict = {}
+_SPLIT_WS_LOCK = threading.Lock()
 
 
 def _relu(r):
@@ -582,12 +585,16 @@ def _split_workspace(dev, plan, Bt: int, M: int, N: int) -> list:
     bm, bn = exact_tile(M)
     cnt_len = Bt * -(-M // bm) * -(-N // bn)
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    ws, cnt = _SPLIT_WS.get(key, (None, None))
-    if ws is None or ws.numel() < ws_len:
-        ws = torch.zeros(ws_len, dtype=torch.int32, device=dev)
-    if cnt is None or cnt.numel() < cnt_len:
-        cnt = torch.zeros(cnt_len, dtype=torch.int32, device=dev)
-    _SPLIT_WS[key] = (ws, cnt)
+    # a workspace shared by two streams would mix their partial sums with
+    # no error: one per stream, updated under the lock (the replica fleet
+    # launches from several threads, each on a stream of its own)
+    with _SPLIT_WS_LOCK:
+        ws, cnt = _SPLIT_WS.get(key, (None, None))
+        if ws is None or ws.numel() < ws_len:
+            ws = torch.zeros(ws_len, dtype=torch.int32, device=dev)
+        if cnt is None or cnt.numel() < cnt_len:
+            cnt = torch.zeros(cnt_len, dtype=torch.int32, device=dev)
+        _SPLIT_WS[key] = (ws, cnt)
     return [ws.data_ptr(), ws.numel(), cnt.data_ptr(), cnt.numel()]
 
 
@@ -676,7 +683,7 @@ def mgs_matmul_exact_fused(x_codes, w_codes, fmt: FPFormat = E4M3, *,
                 *([int(schedule == "weight")] if stationary else []),
                 *_split_workspace(dev, plan, Bt, M, N), _cuda.stream_ptr(dev))
             _cuda.check(err, name)
-            _cuda.LAUNCHES[name] += 1
+            _cuda.count_launch(name)
     return out[0] if squeeze else out
 
 
@@ -788,7 +795,7 @@ def mgs_matmul_exact(x_limbs, w_limbs, fmt: FPFormat = E4M3, *,
                                   M, N),
                 _cuda.stream_ptr(xl.device))
             _cuda.check(err, "mgs_matmul_exact")
-            _cuda.LAUNCHES["mgs_matmul_exact"] += 1
+            _cuda.count_launch("mgs_matmul_exact")
     return out[0] if squeeze else out
 
 
@@ -889,17 +896,18 @@ def dmac_table(device, fmt: FPFormat = E4M3,
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     key = (device.index, fmt.name, bool(gate_subnormal))
-    tbl = _DMAC_TABLES.get(key)
-    if tbl is None:
-        tbl = torch.empty((128, 128), dtype=torch.uint8, device=device)
-        fn = _dmac_lib("mgs_dmac_table", [ctypes.c_void_p, ctypes.c_int,
-                                          ctypes.c_int, ctypes.c_void_p])
-        _cuda.check(fn(tbl.data_ptr(), _DMAC_FMTS[fmt.name],
-                       int(gate_subnormal), _cuda.stream_ptr(device)),
-                    "mgs_dmac_table")
-        # later launches may run on other streams
-        torch.cuda.current_stream(device).synchronize()
-        _DMAC_TABLES[key] = tbl
+    with _DMAC_TABLES_LOCK:
+        tbl = _DMAC_TABLES.get(key)
+        if tbl is None:
+            tbl = torch.empty((128, 128), dtype=torch.uint8, device=device)
+            fn = _dmac_lib("mgs_dmac_table", [ctypes.c_void_p, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_void_p])
+            _cuda.check(fn(tbl.data_ptr(), _DMAC_FMTS[fmt.name],
+                           int(gate_subnormal), _cuda.stream_ptr(device)),
+                        "mgs_dmac_table")
+            # later launches may run on other streams
+            torch.cuda.current_stream(device).synchronize()
+            _DMAC_TABLES[key] = tbl
     return tbl
 
 
@@ -925,7 +933,7 @@ def _dmac_launch(xc, wc, fmt: FPFormat, gate_subnormal: bool):
                  K * N if w3.shape[0] == Bt else 0, _DMAC_FMTS[fmt.name],
                  _cuda.stream_ptr(x3.device))
         _cuda.check(err, "mgs_matmul_dmac")
-        _cuda.LAUNCHES["mgs_matmul_dmac"] += 1
+        _cuda.count_launch("mgs_matmul_dmac")
     return out[0] if squeeze else out
 
 

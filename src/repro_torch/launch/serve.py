@@ -27,13 +27,17 @@ prepares nothing. ``enable_streaming`` + ``maybe_refresh_calibration``
 refresh the table from gated shadow passes over live traffic.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
-(the tests do); a default-device engine without CUDA raises. The replica
-fleet is a later slice (ROADMAP A12).
+(the tests do); a default-device engine without CUDA raises. ``run``'s
+``injector`` / ``deadline_s`` / ``should_abort`` are the seam of the
+replica fleet (``launch.replica``), which ``--replicas`` serves through;
+in-engine sharding (``--mesh``, ``--no-deterministic``) is ROADMAP A12.2.
 
   python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
       --batch 4 --prompt-len 32 --max-new 16 --quant fp8-mgs-serve-kv
   python -m repro_torch.launch.serve --reduced --continuous --spec-k 2 \\
       --draft-layers 1 --quant fp8-mgs-serve-paged --device cpu
+  python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
+      --replicas 2 --device cpu
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from repro_torch.quant import (BlockAllocator, PreparedWeight, calibrating,
                                prepare_logits_head, prepare_params)
 from repro_torch.quant.calibrate import CalibrationTable, applied_calib_state
 from repro_torch.quant.streaming import StreamingCalibrator, sample_gate
+from repro_torch.runtime.fault_tolerance import DeadlineExceeded
 
 __all__ = ["ServeEngine", "ContinuousBatchingEngine", "Request",
            "bucket_for", "make_engine", "main", "resolve_device"]
@@ -342,7 +347,7 @@ class ServeEngine:
                 cur = logits.argmax(dim=-1)[:, None]
                 logits, cache = self._decode(cur, cache, self._calib_state)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
         self._buckets = buckets
         return buckets
 
@@ -500,31 +505,59 @@ class ServeEngine:
 
     @torch.no_grad()
     def run(self, requests: List[Request], *, injector=None,
+            deadline_s: Optional[float] = None, should_abort=None,
             record_logits: bool = False) -> Dict[str, Any]:
         """Serve ``requests`` in fixed-size groups; fills ``out_tokens``.
 
         Each group runs under one snapshot of the runtime calibration
         state, stamped on its requests (``table_version``): a swap landing
-        mid-group takes effect at the next group. ``injector``: an object
-        with ``before_group()`` and ``on_decode(step)`` hooks, called as
-        each group starts and before each decode step.
+        mid-group takes effect at the next group.
 
-        Returns stats (``prefill_tokens``, ``decode_tokens``, ``wall_s``,
-        ``decode_tok_per_s``), plus the float32 logits row behind every
-        emitted token under ``logits`` when ``record_logits``.
+        The fault-tolerance seam the replica fleet threads through
+        (``runtime.fault_tolerance``):
+
+        * ``injector`` — an object with ``before_group()`` and
+          ``on_decode(step)`` hooks, called as each group starts and
+          before each decode step (a bound ``FaultInjector`` view);
+        * ``deadline_s`` — per-group watchdog: a group (prefill + decode)
+          past this wall-clock budget raises ``DeadlineExceeded`` at the
+          next step boundary (cooperative: it catches hangs that surface
+          between device calls);
+        * ``should_abort`` — a callable polled at the same boundaries; True
+          raises ``DeadlineExceeded`` (the supervisor's abort).
+
+        After a raise the engine stays serviceable (each group builds its
+        cache afresh), but the group's requests may hold partial
+        ``out_tokens``: the caller resets them before a re-run.
+
+        Returns stats (``prefill_tokens``, ``decode_tokens``, ``steps``
+        (decode steps run), ``wall_s``, ``decode_tok_per_s``), plus the
+        float32 logits row behind every emitted token under ``logits`` when
+        ``record_logits``.
         """
         t_start = time.time()
-        n_prefill = n_decode = 0
+        n_prefill = n_decode = n_steps = 0
         logits_log: Dict[int, List[np.ndarray]] = {}
         for i in range(0, len(requests), self.batch):
             group = requests[i:i + self.batch]
+            t_group = time.time()
             with self._calib_lock:
                 cs = self._calib_state
                 ver = self.table_version
             for r in group:
                 r.table_version = ver
+
+            def watchdog():
+                if should_abort is not None and should_abort():
+                    raise DeadlineExceeded("aborted by supervisor")
+                if (deadline_s is not None
+                        and time.time() - t_group > deadline_s):
+                    raise DeadlineExceeded(
+                        f"group exceeded deadline_s={deadline_s}")
+
             if injector is not None:
                 injector.before_group()
+            watchdog()
             plen = bucket_for(max(len(r.prompt) for r in group),
                               self._buckets)
             max_new = max(r.max_new_tokens for r in group)
@@ -537,10 +570,12 @@ class ServeEngine:
                                device=self.device)
             logits, cache = self._prefill(toks, cache, cs)
             n_prefill += plen * len(group)
+            watchdog()
             cur = logits.argmax(dim=-1)[:, None]
             for step in range(max_new):
                 if injector is not None:
                     injector.on_decode(step + 1)
+                watchdog()
                 cur_h = cur.cpu().numpy()
                 rows = logits.float().cpu().numpy() if record_logits else None
                 for j, r in enumerate(group):
@@ -557,15 +592,19 @@ class ServeEngine:
                        for r in group):
                     break
                 logits, cache = self._decode(cur, cache, cs)
+                n_steps += 1
                 cur = logits.argmax(dim=-1)[:, None]
             for r in group:
                 r.done = True
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            # this thread's stream only: a fleet's replicas share a card
+            # on streams of their own
+            torch.cuda.current_stream(self.device).synchronize()
         dt = time.time() - t_start
         stats: Dict[str, Any] = {
             "prefill_tokens": n_prefill, "decode_tokens": n_decode,
-            "wall_s": dt, "decode_tok_per_s": n_decode / max(dt, 1e-9)}
+            "steps": n_steps, "wall_s": dt,
+            "decode_tok_per_s": n_decode / max(dt, 1e-9)}
         if record_logits:
             stats["logits"] = logits_log
         return stats
@@ -931,7 +970,8 @@ class ContinuousBatchingEngine(ServeEngine):
         return self.serve(copies, record_logits=True)
 
     def run(self, requests: List[Request], **kw) -> Dict[str, Any]:
-        """The group-mode entry point is replaced by :meth:`serve`."""
+        """The group-mode entry point is replaced by :meth:`serve`; the
+        fault-injection / deadline seams are group-mode only."""
         if kw:
             raise NotImplementedError(
                 "the continuous engine serves via .serve(); "
@@ -989,16 +1029,30 @@ def main(argv=None):
     ap.add_argument("--draft-layers", type=int, default=0,
                     help="layers of the self-draft pass (0 = half the "
                          "stack)")
-    for flag in ("--mesh", "--replicas", "--scheduler"):
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through R replica engines "
+                         "(launch.replica.ReplicaServeDriver): every request "
+                         "stays bitwise equal to one engine's; on --device "
+                         "cpu they take R CPU slots, on the card one visible "
+                         "card each")
+    ap.add_argument("--scheduler", default="round_robin",
+                    choices=("round_robin", "least_loaded"),
+                    help="replica dispatch policy (--replicas > 1)")
+    ap.add_argument("--mesh", default="1x1", help=argparse.SUPPRESS)
     ap.add_argument("--no-deterministic", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    later = [f for f in ("mesh", "replicas", "scheduler", "no_deterministic")
-             if getattr(args, f) not in (None, False)]
-    if later:
-        ap.error(f"--{later[0].replace('_', '-')} belongs to a later slice "
-                 "of the port (ROADMAP A12)")
+    if args.replicas > 1 and args.no_deterministic:
+        ap.error("--no-deterministic is incompatible with --replicas > 1: "
+                 "the replica driver exists to provide data-parallel "
+                 "throughput *with* the deterministic layout")
+    if args.mesh != "1x1" or args.no_deterministic:
+        flag = "--mesh" if args.mesh != "1x1" else "--no-deterministic"
+        ap.error(f"{flag} belongs to the sharded runtime, a later slice of "
+                 "the port (ROADMAP A12.2)")
+    if args.continuous and args.replicas > 1:
+        ap.error("--continuous is a single-engine mode here (use "
+                 "ReplicaServeDriver(continuous=True))")
 
     from repro_torch.quant import config as qconfig
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
@@ -1019,11 +1073,25 @@ def main(argv=None):
                                                ).astype(np.int32),
                     max_new_tokens=args.max_new)
             for i in range(args.n_requests)]
+    max_len = (cfg.vision_prefix + args.prompt_len + args.max_new + 1
+               + max(args.spec_k - 1, 0))
+    if args.replicas > 1:
+        from repro_torch.launch.mesh import virtual_devices
+        from repro_torch.launch.replica import ReplicaServeDriver
+        on_cpu = resolve_device(args.device).type == "cpu"
+        with ReplicaServeDriver(
+                cfg, args.replicas, batch=args.batch, max_len=max_len,
+                scheduler=args.scheduler,
+                devices=(virtual_devices("cpu", args.replicas) if on_cpu
+                         else None)) as driver:
+            driver.warmup(prompt_len=args.prompt_len, max_new=args.max_new)
+            stats = driver.run(reqs)
+        print(stats)
+        for r in reqs[:2]:
+            print(f"req {r.rid}: {r.out_tokens[:10]}")
+        return
     try:
-        engine = make_engine(cfg, batch=args.batch,
-                             max_len=(cfg.vision_prefix + args.prompt_len
-                                      + args.max_new + 1
-                                      + max(args.spec_k - 1, 0)),
+        engine = make_engine(cfg, batch=args.batch, max_len=max_len,
                              device=args.device, continuous=args.continuous,
                              spec_k=args.spec_k or None)
     except NotImplementedError as e:

@@ -9,7 +9,7 @@ without CUDA the default raises, and nothing falls back to the CPU.
       --steps 20 --device cpu
 
 One device only: a data / model mesh (``--mesh`` other than ``1x1``)
-belongs to the fleet slice of the port (ROADMAP A12).
+belongs to the sharded runtime, a later slice of the port (ROADMAP A12.2).
 """
 
 from __future__ import annotations
@@ -141,7 +141,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh != "1x1":
         ap.error(f"--mesh {args.mesh}: a device mesh belongs to a later "
-                 "slice of the port (ROADMAP A12); this driver trains on "
+                 "slice of the port (ROADMAP A12.2); this driver trains on "
                  "one device (--mesh 1x1)")
 
     cfg = (reduced_config(args.arch) if args.reduced

@@ -1,5 +1,6 @@
-"""Training runtime of the port: checkpoints and fault tolerance."""
+"""Runtime of the port: checkpoints, fault tolerance and elastic
+re-meshing."""
 
-from . import checkpoint, fault_tolerance
+from . import checkpoint, elastic, fault_tolerance
 
-__all__ = ["checkpoint", "fault_tolerance"]
+__all__ = ["checkpoint", "elastic", "fault_tolerance"]

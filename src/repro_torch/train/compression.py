@@ -7,7 +7,7 @@ all-reduce the int8 payload and keep the new residual, which re-enters on
 the next step. This module holds the per-shard pieces: the residual state
 and the quantizer. The collective itself (``compress_leaf_psum``,
 ``make_compressed_reduce``: a reduce over a device mesh) belongs to the
-fleet slice of the port (ROADMAP A12).
+sharded runtime, a later slice of the port (ROADMAP A12.2).
 """
 
 from __future__ import annotations

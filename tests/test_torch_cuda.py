@@ -818,3 +818,78 @@ def _tree_to(tree, d):
     if isinstance(tree, dict):
         return {k: _tree_to(v, d) for k, v in tree.items()}
     return tree.to(d)
+
+
+def _fleet_tokens(cfg, params, devices, n=8):
+    import numpy as np
+    from repro_torch.launch.replica import ReplicaServeDriver
+    from repro_torch.launch.serve import Request
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, 12).astype(
+        np.int32), max_new_tokens=6) for i in range(n)]
+    with ReplicaServeDriver(cfg, 2, batch=2, max_len=24,
+                            params=_tree_to(params, devices[0].device),
+                            devices=devices) as driver:
+        stats = driver.run(reqs, timeout=300)
+    return [r.out_tokens for r in reqs], stats
+
+
+def test_fleet_on_two_slots_of_the_card_equals_the_cpu_fleet(dev):
+    """R = 2 replicas on two slots of one card (a CUDA stream each) serve
+    reduced deepseek-7b (float32 compute, FP8_MGS_SERVE_KV, wo / wd x 8 so
+    tokens vary): the same tokens as the fleet on two CPU slots, with B1
+    and B2 launched from both workers."""
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.mesh import virtual_devices
+    from repro_torch.models import init_params
+    from repro_torch.quant.config import FP8_MGS_SERVE_KV
+    cfg = dataclasses.replace(reduced_config("deepseek-7b"),
+                              compute_dtype="float32",
+                              quant=FP8_MGS_SERVE_KV)
+    params = init_params(cfg, seed=0)
+    params["layers"]["attn"]["wo"] *= 8.0
+    params["layers"]["ffn"]["wd"] *= 8.0
+    want, _ = _fleet_tokens(cfg, params, virtual_devices("cpu", 2))
+    reset_launch_counts()
+    got, stats = _fleet_tokens(cfg, params, virtual_devices(dev, 2))
+    assert got == want
+    assert stats["groups_per_replica"] == [2, 2]
+    assert LAUNCHES["mgs_matmul_exact_fused"] > 0
+    assert LAUNCHES["mgs_flash_attention"] > 0
+
+
+def test_b1_split_k_stays_exact_with_two_streams_launching(dev):
+    """Two threads, each on a CUDA stream of its own, launch B1 at a
+    split-K decode shape at once: every result equals the twin (each
+    stream keeps its own zeroed workspace; a shared one would mix the
+    partial sums)."""
+    import threading
+    M, K, N = 4, 4096, 2048
+    assert split_plan(1, M, K, N, 128, None).splits > 1
+    xs = [_codes((M, K), E4M3, 10 + i, dev) for i in range(2)]
+    wc = _codes((K, N), E4M3, 12, dev)
+    twins = [mgs_matmul_exact_fused_plain(x, wc, E4M3) for x in xs]
+    torch.cuda.synchronize()
+    bad, errors = [], []
+
+    def worker(i):
+        try:
+            s = torch.cuda.Stream(dev)
+            with torch.cuda.stream(s):
+                for _ in range(40):
+                    out = mgs_matmul_exact_fused(xs[i], wc, E4M3)
+                    s.synchronize()
+                    if not torch.equal(out, twins[i]):
+                        bad.append(i)
+        except Exception as e:      # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and not bad

@@ -24,7 +24,9 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.quant",
            "repro_torch.core.mgs", "repro_torch.kernels.ref",
            "repro_torch.quant.prepared", "repro_torch.quant.qeinsum",
            "repro_torch.core.markov", "repro_torch.quant.calibrate",
-           "repro_torch.quant.streaming"]
+           "repro_torch.quant.streaming", "repro_torch.launch.mesh",
+           "repro_torch.launch.replica", "repro_torch.runtime.elastic",
+           "repro_torch.runtime.fault_tolerance"]
 
 
 def test_import_leaves_jax_and_repro_unloaded():

@@ -10,7 +10,7 @@ fault tolerance and the training loop (``repro_torch.data``,
   writer's crash; preemption (signal, off the main thread, context
   manager), backoff, recovery with its structured log line, stragglers;
   the data pipeline's determinism, resume and structure. (Elastic mesh
-  planning belongs to the fleet slice, ROADMAP A12.)
+  planning is held in ``tests/test_torch_fleet.py``.)
 * bfloat16 leaves round-trip bitwise as their 16-bit words with
   ``"bfloat16"`` in the manifest, and a reference bfloat16 checkpoint
   restores bitwise; ``AsyncCheckpointer.save`` copies a CPU tensor, so an

@@ -4,8 +4,8 @@
   quadratic, no decay of rank-1 leaves, gradient accumulation, loss
   descent on the synthetic task, int8 compression with error feedback,
   the factored second moment); its loss-descent case runs here at its
-  full 60 steps. The collective half of the compression goes to the fleet
-  slice (ROADMAP A12).
+  full 60 steps. The collective half of the compression goes to the
+  sharded runtime (ROADMAP A12.2).
 * ``schedule_lr`` (cosine, wsd, const at every step of a short run),
   ``clip_by_global_norm`` and ``adamw_update`` (plain and factored, three
   steps) against the reference on the same numpy trees: within a relative
