@@ -160,9 +160,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    prediction (the continuous fleet's from the engines' own decode-step
    count, held inside the traffic's bounds), ``PREP_STATS`` and the builds
    stay flat; each wall beside one engine's, ``busy_s``
-   and ``recovery_s`` printed. Last, print the card's name and power
-   limit, a JSON line of kernel results, and ``{"ok": true, "device":
-   {...}}``.
+   and ``recovery_s`` printed;
+14. sharded serving, run last (after phase 12, with phase 4's tokens and
+   logits and phase 9's granite-moe tokens): B1's partials entry over K
+   cut into 2 and 3 pieces at offsets that are no multiple of
+   ``block_k``, the pieces' int32 partials summed, and its flush entry ==
+   one B1 call == the twin at decode wd and prefill wg/wu, flush periods
+   1, 4, the 1e-6 plan and none; B2 over 128 slices == two launches of 64;
+   both entries timed at rank 0's half of decode wd; then deepseek-7b
+   (``--layers``) and granite-moe-1b-a400m (24 layers) at full width on a
+   1x2 mesh of ``torch.distributed`` ranks sharing the card over gloo
+   (``parallel.comm.launch(share_device=True)``; the ranks load phase 1's
+   build) serve phase 4's traffic: tokens bitwise the one-card runs',
+   deepseek's every logits row bitwise phase 4's, launches by entry and
+   collectives (calls, bytes, bytes staged through the host) a decode step
+   and a run == ``sharded_prediction``, ``PREP_STATS`` and the builds
+   flat; it prints what a shared card cannot show (NCCL, inter-GPU
+   bandwidth, any speed of tensor parallelism). Last, print the card's
+   name and power limit, a JSON line of kernel results, and ``{"ok":
+   true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -637,7 +653,8 @@ def serve_full(torch, arch: str, layers: int):
     FP8_MGS_SERVE_KV through the group engine: 8 requests of 32 prompt
     tokens at batch 4, 16 new tokens each. Launch counts equal
     ``group_launches``, ``PREP_STATS`` and the builds stay flat, 8 x 16
-    finite logits rows. Returns (launches, stats, engine, requests)."""
+    finite logits rows. Returns (launches, stats, engine, requests, the
+    logits rows behind each request's tokens)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
     from repro_torch.launch.serve import Request, ServeEngine
@@ -686,7 +703,7 @@ def serve_full(torch, arch: str, layers: int):
                                  "not finite")
         if not all(0 <= t < cfg.vocab for t in r.out_tokens):
             raise AssertionError("token out of range")
-    return launches, stats, eng, reqs
+    return launches, stats, eng, reqs, logits
 
 
 def serve_reduced_gpu_vs_cpu(torch, quant=None, label="FP8_MGS_SERVE_KV",
@@ -1914,7 +1931,7 @@ def serve_family(torch, arch: str, layers: int, checks=None):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     with recording_b1() as seen:
-        launches, stats, eng, _ = serve_full(torch, arch, layers)
+        launches, stats, eng, reqs, _ = serve_full(torch, arch, layers)
         _, (b1_step, b2_step) = group_launches(eng.cfg)
         step = profile_decode_step(torch, eng)
     if (step["B1_kernels"], step["B2_kernels"]) != (b1_step, b2_step):
@@ -1933,7 +1950,9 @@ def serve_family(torch, arch: str, layers: int, checks=None):
     gc.collect()
     torch.cuda.empty_cache()
     return dict(launches=launches, stats=stats, decode_step=step,
-                peak_gib=peak, layers=layers)
+                peak_gib=peak, layers=layers,
+                prompts=[r.prompt.tolist() for r in reqs],
+                tokens=[r.out_tokens for r in reqs])
 
 
 def _scale_ssm_out(params):
@@ -2239,8 +2258,9 @@ def analysis_table3(torch):
     """Table 3's sparsity sweep (``benchmarks/table3_energy.py``) with FP8
     dMAC counters at K 4096: 32 dots a level in one call, counters on the
     card == the CPU's, fed to ``FP8_MODEL.savings``. The reference draws
-    its weights from a trained tiny LM (training is not ported); here the
-    pool is seeded normal values. Then the paper-rate rows."""
+    its weights from a trained tiny LM (training is ported, phase 12, but
+    the trained weight pool for Table 3 is still to come, ROADMAP A13's
+    rest); here the pool is seeded normal values. Then the paper-rate rows."""
     import numpy as np
     from repro_torch.core import energy, formats, mgs
     E4M3 = formats.E4M3
@@ -3183,6 +3203,382 @@ def fleet_phase(torch, group_params, group_reqs, cont_params, run_a,
             "seconds": t, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: sharded serving on a (data, model) mesh of ranks
+# ---------------------------------------------------------------------------
+
+# (name, Bt, M, K, N, the cuts of K into 2 and 3 pieces; offsets not
+# multiples of block_k)
+SHARD_CUTS = [
+    ("decode wd", 1, 4, 11008, 4096, ((0, 5000), (0, 3001, 7777))),
+    ("prefill wg/wu", 1, 128, 4096, 11008, ((0, 2000), (0, 1111, 2900))),
+]
+# the flush periods the partials are checked at: 1, 4, the Markov plan at
+# phase 8's 1e-6 target, and the engine's (no target: the worst case)
+SHARD_MESH = (1, 2)
+
+
+def shard_periods():
+    from repro_torch.core.markov import plan_flush_period
+    return (1, 4, plan_flush_period(128, target_overflow=1e-6), None)
+
+
+def check_partials(torch, dev, gen):
+    """B1's partials entry over each cut of K, the pieces' partials summed
+    as int32 and the flush entry == one B1 call == the twin (on the card's
+    tensors), with a per-column scale and the silu epilogue, at every
+    period of ``shard_periods``. Returns the largest error (0.0)."""
+    from repro_torch.core.formats import E4M3
+    from repro_torch.kernels.mgs_matmul import (
+        mgs_matmul_exact_flush, mgs_matmul_exact_fused,
+        mgs_matmul_exact_partials)
+    worst = 0.0
+    for name, Bt, M, K, N, cuts in SHARD_CUTS:
+        x = fp8_codes(torch, (Bt, M, K), dev, gen)
+        w = fp8_codes(torch, (Bt, K, N), dev, gen)
+        sc = torch.rand((Bt, 1, N), generator=gen, device=dev) * 1e-3
+        for fp in shard_periods():
+            kw = dict(block_k=128, flush_period=fp)
+            one = mgs_matmul_exact_fused(x, w, E4M3, scale=sc,
+                                         activation="silu", **kw)
+            twin = b1_twin(torch, x, w, E4M3, scale=sc, activation="silu",
+                           **kw)
+            for cut in cuts:
+                edges = list(cut) + [K]
+                part = sum(mgs_matmul_exact_partials(
+                    x[..., a:b].contiguous(), w[:, a:b].contiguous(), E4M3,
+                    k_offset=a, k_total=K, **kw)
+                    for a, b in zip(edges[:-1], edges[1:]))
+                got = mgs_matmul_exact_flush(part, E4M3, scale=sc,
+                                             activation="silu")
+                torch.cuda.synchronize()
+                err = (got - one).abs().max().item()
+                worst = max(worst, err)
+                ok = torch.equal(got, one) and torch.equal(one, twin)
+                log(f"B1 partials {name} {Bt}x({M}x{K} @ {K}x{N}) cut at "
+                    f"{edges[1:-1]}, flush_period={fp}: {part.shape[0]} "
+                    f"segments, == B1 == twin {ok}")
+                if not ok:
+                    raise AssertionError(f"B1 partials + flush at {name}, "
+                                         f"cut {edges}, fp {fp} != B1")
+        del x, w
+    return worst
+
+
+def time_partials(torch, dev, gen):
+    """Both entries at decode wd, rank 0's cut of a 1x2 mesh (the first
+    half of K), beside B1's one call over the whole K, the twins, the
+    bound and a PyTorch yardstick (the f32 product of the cut)."""
+    from repro_torch.core.formats import E4M3, decode_bits
+    from repro_torch.kernels.mgs_matmul import (
+        mgs_matmul_exact_flush, mgs_matmul_exact_flush_plain,
+        mgs_matmul_exact_fused, mgs_matmul_exact_partials,
+        mgs_matmul_exact_partials_plain)
+    Bt, M, K, N = 1, 4, 11008, 4096
+    Kl = K // 2
+    copies = 8
+    xs = fp8_codes(torch, (Bt, M, K), dev, gen)
+    ws = [fp8_codes(torch, (Bt, K, N), dev, gen) for _ in range(copies)]
+    wl = [w[:, :Kl].contiguous() for w in ws]
+    xl = xs[..., :Kl].contiguous()
+    sc = torch.full((Bt, 1, 1), 1e-4, device=dev)
+    it = iter(range(10**9))
+    part = mgs_matmul_exact_partials(xl, wl[0], E4M3, k_total=K)
+    nseg = part.shape[0]
+
+    def partials():
+        mgs_matmul_exact_partials(xl, wl[next(it) % copies], E4M3,
+                                  k_total=K)
+
+    def flush():
+        mgs_matmul_exact_flush(part, E4M3, scale=sc)
+
+    def one():
+        mgs_matmul_exact_fused(xs, ws[next(it) % copies], E4M3, scale=sc)
+    xv = decode_bits(xl, E4M3)
+    wv = [decode_bits(w, E4M3) for w in wl]
+
+    def lib():
+        torch.matmul(xv, wv[next(it) % copies])
+    row = dict(shape="decode wd, half K", Bt=Bt, M=M, K=K, K_cut=Kl, N=N,
+               segments=nseg)
+    row["partials_ms"] = time_ms(torch, partials, 20)
+    row["flush_ms"] = time_ms(torch, flush, 20)
+    row["b1_ms"] = time_ms(torch, one, 20)
+    row["partials_plain_ms"] = time_ms(
+        torch, lambda: mgs_matmul_exact_partials_plain(
+            xl, wl[0], E4M3, k_total=K), 3, warmup=1)
+    row["flush_plain_ms"] = time_ms(
+        torch, lambda: mgs_matmul_exact_flush_plain(part, E4M3, scale=sc), 5,
+        warmup=1)
+    row["library_ms"] = time_ms(torch, lib, 20)
+    pbytes = nseg * 5 * Bt * M * N * 4
+    row["partials_bound_ms"], row["partials_bound_by"] = bound(
+        Bt * M * Kl + Bt * Kl * N + pbytes, 9 * 2 * Bt * M * N * Kl)
+    row["flush_bound_ms"], row["flush_bound_by"] = bound(
+        pbytes + Bt * M * N * 4 + 4, 5 * nseg * 2 * Bt * M * N)
+    log(f"time B1 partials decode wd {M}x({Kl} of {K}) @ {Kl}x{N}: "
+        f"{row['partials_ms']:.4f} ms (twin {row['partials_plain_ms']:.3f}, "
+        f"torch.matmul f32 {row['library_ms']:.4f}, bound "
+        f"{row['partials_bound_ms']:.4f} {row['partials_bound_by']}); flush "
+        f"{nseg} segment(s) -> {M}x{N}: {row['flush_ms']:.4f} ms (twin "
+        f"{row['flush_plain_ms']:.3f}, bound {row['flush_bound_ms']:.5f} "
+        f"{row['flush_bound_by']}); B1's one call over all K "
+        f"{row['b1_ms']:.4f} ms")
+    return row
+
+
+def check_b2_heads(torch, dev, gen):
+    """B2 over 128 slices in one launch == the same slices in two launches
+    of 64 (tensor parallelism launches each rank's heads alone): its key
+    split does not follow the slice count."""
+    from repro_torch.core.formats import E4M3
+    from repro_torch.kernels import mgs_attention as ma
+    a = b2_inputs(torch, dev, gen)
+    args = [a[k] for k in ("q_codes", "k_pool", "v_pool", "bt", "live",
+                           "qk_scale", "v_scale", "bias")]
+    whole = ma.mgs_flash_blocks(*args, E4M3)
+    half = a["q_codes"].shape[0] // 2
+    per = [ma.mgs_flash_blocks(*[t if i in (1, 2) else t[s]
+                                 for i, t in enumerate(args)], E4M3)
+           for s in (slice(0, half), slice(half, None))]
+    if not torch.equal(whole, torch.cat(per)):
+        raise AssertionError("B2 over half the slices != B2 over all")
+    log(f"B2: {2 * half} slices in one launch == two launches of {half}")
+
+
+def sharded_prediction(cfg, model: int = 2, batch: int = 4,
+                       prompt: int = 32, new: int = 16, requests: int = 8,
+                       staged: bool = True) -> dict:
+    """Per rank of a ``1 x model`` mesh serving phase 4's traffic
+    (``requests`` of ``prompt`` tokens at ``batch``, ``new`` tokens each,
+    ``FP8_MGS_SERVE_KV``): kernel launches and collectives (calls by kind,
+    bytes sent, bytes staged through the host by gloo when ``staged``: an
+    all-reduce's payload down and back, an all-gather's down and the
+    ``model`` shards back) of one decode step and of the run. Heads / kv
+    heads, ffn, experts and vocab are cut where ``model`` divides them
+    (the serve rules); a K-sharded ``wd`` reduces a per-tensor activation
+    max and one flush segment of int32 partials."""
+    import torch
+    from repro_torch.kernels.mgs_matmul import partial_segments
+    from repro_torch.models.common import dtype_of
+    from repro_torch.models.moe import _n_groups
+    act = dtype_of(cfg.compute_dtype).itemsize
+    L, H, KV, hd, d = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_model)
+    heads = H % model == 0 and KV % model == 0
+    experts = cfg.is_moe and cfg.n_experts % model == 0
+    ffn = cfg.d_ff % model == 0 and not experts
+    vocab = cfg.vocab % model == 0
+    _, nseg = partial_segments(cfg.d_ff, cfg.quant.block_k, None)
+    _, (dec_b1, _) = group_launches(cfg, prompt)
+    pre_b1 = group_launches(cfg, prompt)[0]["mgs_matmul_exact_fused"] // 2
+    pre_b1 = (pre_b1 - 15 * dec_b1)
+
+    def forward(T: int):
+        rows = batch * T
+        coll = []                       # (kind, bytes)
+        if heads:
+            coll.append(("all_gather", rows * (H // model) * hd * act))
+        if cfg.is_moe:
+            G = _n_groups(rows, cfg)
+            g = rows // G
+            E, k = cfg.n_experts, cfg.top_k
+            C = max(1, int(math.ceil(k * g * cfg.capacity_factor / E)))
+            if experts:
+                coll.append(("all_gather", G * g * (E // model) * 4))
+                coll.append(("all_gather",
+                             G * (E // model) * C * d * act))
+            elif ffn:
+                coll.append(("all_reduce_max", E * 4))
+                coll.append(("all_reduce_sum", nseg * 5 * E * G * C * d * 4))
+        elif ffn:
+            coll.append(("all_reduce_max", 4))
+            coll.append(("all_reduce_sum", nseg * 5 * rows * d * 4))
+        coll = coll * L
+        if vocab:
+            coll.append(("all_gather", batch * (cfg.vocab // model) * 4))
+        out = {"calls": len(coll), "bytes": sum(b for _, b in coll),
+               "host_bytes": staged * sum(
+                   b * (model + 1) if k == "all_gather" else 2 * b
+                   for k, b in coll),
+               "all_gather": 0, "all_reduce_max": 0, "all_reduce_sum": 0}
+        for kind, _ in coll:
+            out[kind] += 1
+        return out
+
+    part = L if ffn else 0
+    step = forward(1)
+    step_k = {"mgs_matmul_exact_fused": dec_b1 - part,
+              "mgs_matmul_exact_partials": part,
+              "mgs_matmul_exact_flush": part,
+              "mgs_flash_attention": L}
+    pre = forward(prompt)
+    groups = requests // batch
+    run = {k: groups * (pre[k] + (new - 1) * step[k]) for k in step}
+    run_k = {"mgs_matmul_exact_fused":
+             groups * (pre_b1 - part + (new - 1) * (dec_b1 - part)),
+             "mgs_matmul_exact_partials": groups * new * part,
+             "mgs_matmul_exact_flush": groups * new * part,
+             "mgs_flash_attention": groups * (new - 1) * L}
+    return {"step_launches": step_k, "step_comm": step,
+            "run_launches": run_k, "run_comm": run}
+
+
+def _sharded_rank(rank: int, arch: str, layers: int, prompts, record: bool):
+    """One rank of phase 14: ``arch`` at full width (``layers`` deep) on
+    the world's ``1 x world`` serve mesh, phase 4's traffic, counted."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.parallel.comm import (COMM_STATS, rank_device,
+                                           reset_comm_stats)
+    from repro_torch.quant import PREP_STATS
+    from repro_torch.quant.config import FP8_MGS_SERVE_KV
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers, quant=FP8_MGS_SERVE_KV)
+    mesh = make_serve_mesh()
+    t0 = time.time()
+    eng = ServeEngine(cfg, batch=4, max_len=cfg.vision_prefix + 32 + 16 + 1,
+                      seed=SEED, device=rank_device(), mesh=mesh)
+    torch.cuda.synchronize()
+    prep_s, prep_comm = time.time() - t0, dict(COMM_STATS)
+    eng.warmup([32], max_new=1)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    prep0, builds0 = dict(PREP_STATS), dict(BUILDS)
+    reset_launch_counts()
+    reset_comm_stats()
+    stats = eng.run(reqs, record_logits=record)
+    run_launches, run_comm = dict(LAUNCHES), dict(COMM_STATS)
+    logits = stats.pop("logits", None)
+    flat = dict(PREP_STATS) == prep0 and dict(BUILDS) == builds0
+    # one decode step alone, counted
+    toks = np.stack([np.asarray(p, np.int64) for p in prompts[:4]])
+    cache = eng._init_cache(4)
+    lg, cache = eng._prefill(toks, cache, eng._calib_state)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reset_comm_stats()
+    eng._decode(lg.argmax(dim=-1)[:, None], cache, eng._calib_state)
+    torch.cuda.synchronize()
+    out = dict(stats=stats, run_launches=run_launches, run_comm=run_comm,
+               step_launches=dict(LAUNCHES), step_comm=dict(COMM_STATS),
+               tokens=[r.out_tokens for r in reqs], flat=flat,
+               prep_s=prep_s, prep_comm=prep_comm, coord=mesh.coord,
+               backend=mesh.backend, staged=mesh.staged,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if record and rank == 0:
+        out["logits"] = {k: np.stack(v) for k, v in logits.items()}
+    return out
+
+
+def _nonzero(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
+
+
+def serve_sharded(torch, arch: str, layers: int, prompts, want_tokens,
+                  want_logits=None) -> dict:
+    """``arch`` served on a ``SHARD_MESH`` of ranks sharing the card over
+    gloo: tokens (and, given, every logits row) bitwise the one-card
+    engine's, launches and collectives == ``sharded_prediction``, every
+    entry of the path launched, ``PREP_STATS`` and the builds flat."""
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.comm import launch
+    import numpy as np
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    world = SHARD_MESH[0] * SHARD_MESH[1]
+    want = sharded_prediction(cfg, model=SHARD_MESH[1])
+    t0 = time.time()
+    res = launch(_sharded_rank, world,
+                 args=(arch, layers, list(prompts), want_logits is not None),
+                 device="cuda", share_device=True, timeout=600.0)
+    wall = time.time() - t0
+    r0 = res[0]
+    for r, out in enumerate(res):
+        if out["tokens"] != want_tokens:
+            raise AssertionError(f"{arch} on {SHARD_MESH}: rank {r} tokens "
+                                 "differ from the one-card engine's")
+        if not out["flat"]:
+            raise AssertionError(f"{arch}: rank {r} prepared or built "
+                                 "while serving")
+        for key in ("run", "step"):
+            got_k = _nonzero(out[f"{key}_launches"])
+            got_c = {k: out[f"{key}_comm"][k] for k in want[f"{key}_comm"]}
+            if got_k != _nonzero(want[f"{key}_launches"]) or \
+                    got_c != want[f"{key}_comm"]:
+                raise AssertionError(
+                    f"{arch} rank {r} {key}: launches {got_k} collectives "
+                    f"{got_c} != predicted {want[f'{key}_launches']} "
+                    f"{want[f'{key}_comm']}")
+    if want_logits is not None:
+        same = all(np.array_equal(r0["logits"][i], want_logits[i])
+                   for i in range(len(prompts)))
+        if not same:
+            raise AssertionError(f"{arch} on {SHARD_MESH}: logits differ "
+                                 "from the one-card engine's")
+    used = [k for k, v in want["run_launches"].items() if v]
+    if any(r0["run_launches"].get(k, 0) == 0 for k in used):
+        raise AssertionError(f"{arch}: a kernel of the path never launched")
+    log(f"sharded {arch} ({layers} layers) on a {SHARD_MESH[0]}x"
+        f"{SHARD_MESH[1]} mesh, {world} ranks on one card over "
+        f"{r0['backend']} (staged through the host: {r0['staged']}): tokens "
+        "bitwise the one-card engine's"
+        + (", every logits row bitwise" if want_logits is not None else ""))
+    log(f"sharded {arch}: per rank, run launches "
+        f"{_nonzero(r0['run_launches'])}, decode step "
+        f"{_nonzero(r0['step_launches'])}, == prediction")
+    log(f"sharded {arch}: per rank, run collectives {r0['run_comm']}, decode "
+        f"step {r0['step_comm']}, == prediction")
+    log(f"sharded {arch}: serve wall {r0['stats']['wall_s']:.2f} s, "
+        f"preparation {r0['prep_s']:.1f} s ({r0['prep_comm']['calls']} "
+        f"collectives), launch + join {wall:.1f} s, peak device memory "
+        f"{max(o['peak_gib'] for o in res):.1f} GiB a rank")
+    return dict(arch=arch, layers=layers, mesh=list(SHARD_MESH),
+                stats=r0["stats"], run_launches=_nonzero(r0["run_launches"]),
+                step_launches=_nonzero(r0["step_launches"]),
+                run_comm=r0["run_comm"], step_comm=r0["step_comm"],
+                prediction=want, prep_s=r0["prep_s"], wall_s=wall,
+                peak_gib=max(o["peak_gib"] for o in res))
+
+
+def sharded_phase(torch, dev, gen, layers: int, group_reqs, group_logits,
+                  moe_tokens):
+    """Phase 14: B1's partials / flush entries, then deepseek-7b (phase 4's
+    traffic, tokens and logits) and granite-moe-1b-a400m (phase 9's
+    tokens) on a 1x2 mesh of ranks sharing the card."""
+    t0 = time.time()
+    err = check_partials(torch, dev, gen)
+    check_b2_heads(torch, dev, gen)
+    row = time_partials(torch, dev, gen)
+    secs = {"kernels": time.time() - t0}
+    import numpy as np
+    from repro_torch.configs import get_config
+    t0 = time.time()
+    dense = serve_sharded(torch, "deepseek-7b", layers,
+                          [r.prompt for r in group_reqs],
+                          [r.out_tokens for r in group_reqs],
+                          [np.stack(group_logits[r.rid])
+                           for r in group_reqs])
+    secs["dense"] = time.time() - t0
+    t0 = time.time()
+    arch = FAMILY_ARCHS[0]
+    moe = serve_sharded(torch, arch, get_config(arch).n_layers,
+                        moe_tokens["prompts"], moe_tokens["tokens"])
+    secs["moe"] = time.time() - t0
+    log("sharded: not shown here: NCCL (two ranks on one card run gloo, "
+        "every collective staged through the host), inter-GPU bandwidth, "
+        "and any speed of tensor parallelism (the ranks share one card's "
+        "SMs)")
+    log(f"sharded: card {card_name(torch)}; phase 14 seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return dict(b1_partials_err=err, timing=row, dense=dense, moe=moe,
+                seconds=secs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=DEPTH,
@@ -3230,8 +3626,8 @@ def main() -> int:
         f"({time.time() - t0:.1f} s)")
 
     t0 = time.time()
-    group_run, stats, eng, group_reqs = serve_full(torch, "deepseek-7b",
-                                                   args.layers)
+    group_run, stats, eng, group_reqs, group_logits = serve_full(
+        torch, "deepseek-7b", args.layers)
     serve_reduced_gpu_vs_cpu(torch)
     log(f"phase 4: served ({time.time() - t0:.1f} s)")
 
@@ -3326,6 +3722,14 @@ def main() -> int:
     log(f"phase 12: trained, scored Table 1 / Fig. 9 and trained "
         f"{MOE_TRAIN_ARCH} ({time.time() - t0:.1f} s)")
 
+    t0 = time.time()
+    sharded = sharded_phase(torch, dev, gen, args.layers, group_reqs,
+                            group_logits, fam["runs"][FAMILY_ARCHS[0]])
+    del group_logits
+    log(f"phase 14: B1's partials and flush entries checked and timed; "
+        f"deepseek-7b and {FAMILY_ARCHS[0]} served on a 1x2 mesh of ranks "
+        f"bitwise their one-card runs ({time.time() - t0:.1f} s)")
+
     log(f"card: {card_name(torch)}")
     main_b1 = next(r for r in b1_rows if r["shape"] == "decode wg/wu")
     main_b3 = next(r for r in b3_rows if r["shape"] == "decode wg/wu")
@@ -3390,6 +3794,22 @@ def main() -> int:
              library_ms=main_b45["library_ms"],
              launches_by_path=by_path["mgs_matmul_dmac"]),
     ]
+    part = sharded["timing"]
+    for name, key in (("mgs_matmul_exact_partials", "partials"),
+                      ("mgs_matmul_exact_flush", "flush")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/mgs_matmul.cu",
+            replaces="src/repro/kernels/mgs_matmul.py:295",
+            launches=sharded["dense"]["run_launches"][name],
+            max_abs_err=sharded["b1_partials_err"], ms=part[f"{key}_ms"],
+            plain_ms=part[f"{key}_plain_ms"],
+            bound_ms=part[f"{key}_bound_ms"],
+            bound_by=part[f"{key}_bound_by"],
+            library_ms=part["library_ms"] if key == "partials" else None,
+            launches_by_path={"sharded_dense": sharded["dense"][
+                "run_launches"].get(name, 0), "sharded_moe": sharded["moe"][
+                "run_launches"].get(name, 0)}))
     log(json.dumps({"b1_shapes": b1_rows, "b3_shapes": b3_rows,
                     "b45_shapes": b45_rows, "serve": stats,
                     "decode_step": step, "continuous": cont,
@@ -3405,6 +3825,8 @@ def main() -> int:
                     "training": {k: v for k, v in training.items()
                                  if not k.endswith("_err")},
                     "fleet": fleet,
+                    "sharded": {k: v for k, v in sharded.items()
+                                if k != "b1_partials_err"},
                     "layers": args.layers}))
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

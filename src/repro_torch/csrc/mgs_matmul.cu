@@ -68,6 +68,17 @@
 // must fill the SMs; the splits then reduce exactly as B1's. Which shapes
 // run B3 at all is the schedules' admission rule (kStripeBudget), not this
 // layout.
+//
+// Sharded serving cuts K across ranks, and a float32 output per rank cannot
+// be added back into B1's bits. So B1 has a second pair of entries: the
+// partials entry runs exact_body (PART) over one cut of K, given where the
+// cut starts in the whole K, and writes the int32 class partials of every
+// flush segment of the whole K ([segment][class][slice][M][N], the split-K
+// workspace layout; each block adds its piece of one segment by atomicAdd)
+// and flushes nothing; the ranks sum these partials (an integer all-reduce,
+// exact in any order), and the flush entry (flush_kernel) adds the segments
+// in ascending order and the classes in ascending order with flush_classes,
+// then runs B1's epilogue. Any cut of K then gives the one call's bits.
 #include "mgs_common.cuh"
 
 using namespace mgs;
@@ -98,6 +109,8 @@ struct Args {
   bool async = false;
   // B3: the resident stripe's lines and the swept tiles of a block
   int lines = 0, pg = 1;
+  // the partials entry: where this cut of K starts in the whole K
+  int k_off = 0;
 };
 
 // ACTIVATIONS of the twin (kernels/mgs_matmul.py), op for op.
@@ -634,8 +647,11 @@ __device__ __forceinline__ void mma_step(
 
 // B1 (codes), B4 (LIMBS: limb planes) and B3 (CACHE). Grid, B1 / B4:
 // (column tiles, row tiles or K splits, slices); B3: (sweep groups, cached
-// tiles x K splits, slices).
-template <bool LIMBS, int EB, int MB, class T, int CACHE>
+// tiles x K splits, slices). PART (the partials entry): every block takes
+// one piece of one flush segment of the whole K (part_plan) and adds its
+// class partials into g.ws at that segment; nothing is flushed. Grid:
+// (column tiles, row tiles x pieces, slices).
+template <bool LIMBS, int EB, int MB, class T, int CACHE, bool PART = false>
 __device__ __forceinline__ void exact_body(const Args& g) {
   using L = Layout<LIMBS, T, CACHE>;
   constexpr int TA = T::TA, TB = T::TB;
@@ -650,10 +666,10 @@ __device__ __forceinline__ void exact_body(const Args& g) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ya = warp % T::WA, yb = warp / T::WA;  // the warp's place
   const int bz = blockIdx.z;
-  const bool split = g.splits > 1;
+  const bool split = PART || g.splits > 1;
   // the block's K split, and its output tiles: B1 / B4 one, B3 a run of pg
   // tiles along the swept operand from s0, beside cached tile ct
-  const int sp = CACHE ? blockIdx.y % g.splits : blockIdx.y;
+  const int sp = CACHE || PART ? blockIdx.y % g.splits : blockIdx.y;
   const int ct = CACHE ? blockIdx.y / g.splits : 0;
   const int s0 = CACHE ? blockIdx.x * g.pg : 0;
   const int ntile =
@@ -668,14 +684,22 @@ __device__ __forceinline__ void exact_body(const Args& g) {
       m0 = (s0 + j) * T::BM;
       n0 = ct * T::BN;
     } else {
-      m0 = split ? 0 : blockIdx.y * T::BM;
+      m0 = PART ? blockIdx.y / g.splits * T::BM
+                : split ? 0 : blockIdx.y * T::BM;
       n0 = blockIdx.x * T::BN;
     }
   };
   const int seg_len = 32 * g.seg;
-  // this block's K range: all of K, or one split inside one flush segment
+  // this block's K range: all of K, or one split inside one flush segment;
+  // PART: one run of the piece of (global) segment seg that this cut holds
   int seg = 0, k0 = 0, k1 = g.K;
-  if (split) {
+  if (PART) {
+    seg = g.k_off / seg_len + sp / g.per;
+    const int ps = max(seg * seg_len - g.k_off, 0);
+    const int pe = min((seg + 1) * seg_len - g.k_off, g.K);
+    k0 = min(ps + (sp % g.per) * 32 * g.run, pe);
+    k1 = min(k0 + 32 * g.run, pe);
+  } else if (split) {
     seg = sp / g.per;
     k0 = seg * seg_len + (sp % g.per) * 32 * g.run;
     k1 = min(min(k0 + 32 * g.run, seg_len * (seg + 1)), g.K);
@@ -816,6 +840,7 @@ __device__ __forceinline__ void exact_body(const Args& g) {
             acc[c][ta][tb][i] = 0;
           }
         }
+    if constexpr (PART) continue;   // the flush entry flushes
     // the barrier orders the block's partials before thread 0's fence,
     // which releases them with the arrival (and acquires the other splits'
     // for the last arrival): the grid-barrier pattern of cooperative groups
@@ -855,10 +880,33 @@ __device__ __forceinline__ void exact_body(const Args& g) {
   }
 }
 
-template <bool LIMBS, int EB, int MB, class T>
+template <bool LIMBS, int EB, int MB, class T, bool PART = false>
 __global__ void __launch_bounds__(T::NT, (Layout<LIMBS, T>::MINB))
     exact_kernel(Args g) {
-  exact_body<LIMBS, EB, MB, T, 0>(g);
+  exact_body<LIMBS, EB, MB, T, 0, PART>(g);
+}
+
+// The flush entry: output o adds the segments' class partials in ascending
+// segment order, each with flush_classes, then B1's epilogue. part is
+// [segment][class][slice][M][N].
+template <int EB, int MB>
+__global__ void __launch_bounds__(256)
+    flush_kernel(Args g, const int* part, int nseg, int Bt) {
+  const long long mn = (long long)g.M * g.N, total = mn * Bt;
+  for (long long o = blockIdx.x * 256LL + threadIdx.x; o < total;
+       o += (long long)gridDim.x * 256) {
+    const int bz = int(o / mn);
+    const long long r = o - bz * mn;
+    float acc = 0.f;
+    for (int s = 0; s < nseg; ++s) {
+      int cl[kClasses];
+#pragma unroll
+      for (int c = 0; c < kClasses; ++c)
+        cl[c] = part[(long long)(s * kClasses + c) * total + o];
+      acc = flush_classes(acc, cl);
+    }
+    finish<EB, MB>(g, bz, int(r / g.N), int(r % g.N), acc);
+  }
 }
 
 template <int EB, int MB, class T, int CACHE>
@@ -867,17 +915,18 @@ __global__ void __launch_bounds__(T::NT, (Layout<false, T, CACHE>::MINB))
   exact_body<false, EB, MB, T, CACHE>(g);
 }
 
-template <bool LIMBS, int EB, int MB, class T>
+template <bool LIMBS, int EB, int MB, class T, bool PART = false>
 int launch_exact(const Args& g, int Bt, cudaStream_t stream) {
   using L = Layout<LIMBS, T>;
-  auto kern = exact_kernel<LIMBS, EB, MB, T>;
+  auto kern = exact_kernel<LIMBS, EB, MB, T, PART>;
   static std::atomic<bool> attr_set[kMaxDevices];
   int dev = 0;
   cudaError_t err = current_device(dev);
   if (err == cudaSuccess) err = smem_opt_in_once(kern, L::BYTES, attr_set, dev);
   if (err != cudaSuccess) return int(err);
   const long long gx = (g.N + T::BN - 1) / T::BN;
-  const long long gy = g.splits > 1 ? g.splits : (g.M + T::BM - 1) / T::BM;
+  const long long mt = (g.M + T::BM - 1) / T::BM;
+  const long long gy = PART ? mt * g.splits : g.splits > 1 ? g.splits : mt;
   if (gx > 2147483647LL || gy > 65535 || Bt > 65535)
     return int(cudaErrorInvalidConfiguration);
   kern<<<dim3(unsigned(gx), unsigned(gy), unsigned(Bt)), T::NT, L::BYTES,
@@ -921,11 +970,63 @@ bool take_split(Args& g, const Plan& p, int Bt, int bm, int bn,
   return g.ws && g.cnt && ws_len >= ws_need && cnt_len >= cnt_need;
 }
 
-// The staging path: cp.async where every row is 16-byte aligned.
+// The staging path: cp.async where every row is 16-byte aligned (and, for
+// the partials entry, every piece starts on 16 elements: the cut's offset).
 void take_async(Args& g) {
   g.async = ((reinterpret_cast<uintptr_t>(g.x) |
               reinterpret_cast<uintptr_t>(g.w)) & 15) == 0 &&
-            g.K % 16 == 0 && g.N % 16 == 0;
+            g.K % 16 == 0 && g.N % 16 == 0 && g.k_off % 16 == 0;
+}
+
+// The partials entry's pieces: the flush segments of the whole K that this
+// cut [k_off, k_off + K) touches, each cut into per runs of run units (at
+// decode, where the tiles leave SMs idle, as split_plan cuts a segment;
+// else one run a piece). A run lies inside one segment's piece.
+Plan part_plan(int Bt, int M, int K, int N, int block_k, int fp, int k_off) {
+  const int seg = fp * (block_k / 32), seg_len = 32 * seg;
+  const long long nseg =
+      ((long long)k_off + K - 1) / seg_len - k_off / seg_len + 1;
+  const int units = (K + 31) / 32;
+  const long long span = units < seg ? units : seg;
+  long long per = 1, least = 1;
+  if (M <= kDecodeRows) {
+    const long long tiles =
+        (long long)Bt * ((N + kDecodeCols - 1) / kDecodeCols);
+    per = kSplitTarget / (tiles * nseg);
+    if (per < 1) per = 1;
+    least = kMinRun;
+  }
+  long long run = (span + per - 1) / per;
+  if (run < least) run = least;
+  per = (span + run - 1) / run;
+  return {int(nseg * per), int(per), int(run), seg};
+}
+
+template <int EB, int MB>
+int launch_part_fmt(Args g, int Bt, cudaStream_t stream) {
+  const Plan p = part_plan(Bt, g.M, g.K, g.N, g.block_k, g.flush_period,
+                           g.k_off);
+  g.splits = p.splits;
+  g.per = p.per;
+  g.run = p.run;
+  g.seg = p.seg;
+  take_async(g);
+  if (g.M <= 8)
+    return launch_exact<false, EB, MB, Decode8, true>(g, Bt, stream);
+  if (g.M <= kDecodeRows)
+    return launch_exact<false, EB, MB, Decode16, true>(g, Bt, stream);
+  return launch_exact<false, EB, MB, Prefill, true>(g, Bt, stream);
+}
+
+template <int EB, int MB>
+int launch_flush(const Args& g, const int* part, int nseg, int Bt,
+                 cudaStream_t stream) {
+  const long long total = (long long)g.M * g.N * Bt;
+  long long blocks = (total + 255) / 256;
+  if (blocks > 16 * kSMs) blocks = 16 * kSMs;
+  flush_kernel<EB, MB><<<unsigned(blocks), 256, 0, stream>>>(g, part, nseg,
+                                                              Bt);
+  return int(cudaGetLastError());
 }
 
 // Plan the split, check the workspace, pick the staging path and the tile.
@@ -1097,4 +1198,40 @@ extern "C" int mgs_matmul_exact(const void* x, const void* w, void* out,
   auto st = static_cast<cudaStream_t>(stream);
   return fmt == 0 ? launch_exact_fmt<true, 4, 3>(g, Bt, ws_len, cnt_len, st)
                   : launch_exact_fmt<true, 3, 4>(g, Bt, ws_len, cnt_len, st);
+}
+
+// The partials entry. x: (Bt, M, K) u8 codes, w: (Bt, K, N) u8 codes (or one
+// shared (K, N) with w_bs = 0) holding K elements [k_off, k_off + K) of the
+// whole K; flush_period: the whole K's, clamped as B1 clamps it. part:
+// (segments of the whole K, 5, Bt, M, N) int32, zero on entry; this cut's
+// class partials are added at their segments. fmt and block_k as for B1.
+extern "C" int mgs_matmul_exact_partials(const void* x, const void* w,
+                                         void* part, int Bt, int M, int K,
+                                         int N, long long x_bs,
+                                         long long w_bs, int fmt, int block_k,
+                                         int flush_period, int k_off,
+                                         void* stream) {
+  Args g = codes_args(x, w, nullptr, nullptr, nullptr, M, K, N, x_bs, w_bs, 0,
+                      0, 0, 0, 0, block_k, flush_period);
+  g.ws = static_cast<int*>(part);
+  g.k_off = k_off;
+  auto st = static_cast<cudaStream_t>(stream);
+  return fmt == 0 ? launch_part_fmt<4, 3>(g, Bt, st)
+                  : launch_part_fmt<3, 4>(g, Bt, st);
+}
+
+// The flush entry. part: (nseg, 5, Bt, M, N) int32 summed partials; out:
+// (Bt, M, N) f32 = act(flushed * 2^-2(bias+mbits) * scale + bias), scale /
+// bias strided as for B1.
+extern "C" int mgs_matmul_exact_flush(const void* part, const void* scale,
+                                      const void* bias, void* out, int nseg,
+                                      int Bt, int M, int N, int s_bs,
+                                      int s_ns, int b_bs, int b_ns, int fmt,
+                                      int act, void* stream) {
+  Args g = codes_args(nullptr, nullptr, scale, bias, out, M, 0, N, 0, 0, s_bs,
+                      s_ns, b_bs, b_ns, act, 32, 1);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(part);
+  return fmt == 0 ? launch_flush<4, 3>(g, p, nseg, Bt, st)
+                  : launch_flush<3, 4>(g, p, nseg, Bt, st);
 }

@@ -41,6 +41,8 @@ SOURCES = {"mgs_matmul": "mgs_matmul.cu",
 LAUNCHES: Dict[str, int] = {"mgs_matmul_exact_fused": 0,
                             "mgs_matmul_exact_fused_stationary": 0,
                             "mgs_matmul_exact": 0,
+                            "mgs_matmul_exact_partials": 0,
+                            "mgs_matmul_exact_flush": 0,
                             "mgs_matmul_dmac": 0,
                             "mgs_flash_attention": 0}
 

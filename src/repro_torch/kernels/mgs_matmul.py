@@ -87,7 +87,9 @@ __all__ = ["ACTIVATIONS", "SCHEDULES", "WS_STRIPE_BUDGET_BYTES",
            "mgs_matmul_exact", "mgs_matmul_exact_plain", "mgs_matmul_dmac",
            "mgs_matmul_dmac_plain", "mgs_matmul_dmac_codes",
            "mgs_matmul_dmac_codes_plain", "dmac_table", "dmac_table_plain",
-           "out_scale"]
+           "out_scale", "partial_segments", "mgs_matmul_exact_partials",
+           "mgs_matmul_exact_partials_plain", "mgs_matmul_exact_flush",
+           "mgs_matmul_exact_flush_plain"]
 
 _LIMB_BASE = 7
 _N_LIMBS = 3
@@ -419,7 +421,9 @@ def _class_int32(c: torch.Tensor) -> torch.Tensor:
 
 
 def _flush_classes(acc, acc_f: torch.Tensor) -> torch.Tensor:
-    """The wide-accumulator add, ascending class order."""
+    """The wide-accumulator add, ascending class order: ``acc`` holds the 5
+    class sums of one flush segment (exact float64 sums, or the int32
+    partials of :func:`mgs_matmul_exact_partials`)."""
     tot = acc_f
     for c in range(_N_CLASSES):
         tot = tot + _class_int32(acc[c]).to(torch.float32) * float(
@@ -431,19 +435,27 @@ def _limbs64(codes: torch.Tensor, fmt: FPFormat) -> List[torch.Tensor]:
     return [l.to(torch.float64) for l in _decode_limbs(codes, fmt)]
 
 
+def _segment_classes(lx, lw, k0: int, k1: int) -> List[torch.Tensor]:
+    """The exact class sums of K elements ``[k0, k1)`` of decoded limb
+    planes ``lx`` (3 x (B, M, K)) and ``lw`` (3 x (B, K, N)), as float64
+    integers."""
+    acc = [torch.zeros(lx[0].shape[:-1] + lw[0].shape[-1:],
+                       dtype=torch.float64, device=lx[0].device)
+           ] * _N_CLASSES
+    _accumulate_classes(acc, [l[..., k0:k1] for l in lx],
+                        [l[..., k0:k1, :] for l in lw])
+    return acc
+
+
 def _walk(lx, lw, block_k: int, fp: int, acc_f: torch.Tensor):
-    """The K loop over decoded limb planes ``lx`` (3 x (B, M, K)) and
-    ``lw`` (3 x (B, K, N)): exact class sums over ``fp`` K-steps of
-    ``block_k``, each group flushed into ``acc_f`` in ascending class
-    order. Returns the new ``acc_f``."""
+    """The K loop: exact class sums over ``fp`` K-steps of ``block_k``
+    (:func:`_segment_classes`), each segment flushed into ``acc_f`` in
+    ascending class order (:func:`_flush_classes`). Returns the new
+    ``acc_f``."""
     K = lx[0].shape[-1]
     for s0 in range(0, -(-K // block_k), fp):
         k0, k1 = s0 * block_k, min(K, (s0 + fp) * block_k)
-        acc = [torch.zeros(acc_f.shape, dtype=torch.float64,
-                           device=acc_f.device)] * _N_CLASSES
-        _accumulate_classes(acc, [l[..., k0:k1] for l in lx],
-                            [l[..., k0:k1, :] for l in lw])
-        acc_f = _flush_classes(acc, acc_f)
+        acc_f = _flush_classes(_segment_classes(lx, lw, k0, k1), acc_f)
     return acc_f
 
 
@@ -685,6 +697,198 @@ def mgs_matmul_exact_fused(x_codes, w_codes, fmt: FPFormat = E4M3, *,
             _cuda.check(err, name)
             _cuda.count_launch(name)
     return out[0] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
+# B1 over a cut of K: class partials, then the flush
+# ---------------------------------------------------------------------------
+
+
+def partial_segments(k_total: int, block_k: int,
+                     flush_period: Optional[int]) -> Tuple[int, int]:
+    """``(segment length in K elements, segments)`` of a B1 call over the
+    whole ``k_total``: the flush period clamped as that call clamps it
+    (:func:`flush_steps` over ``ceil(k_total / block_k)`` K-steps)."""
+    fp = flush_steps(flush_period, block_k, -(-k_total // block_k))
+    seg_len = fp * block_k
+    return seg_len, max(1, -(-k_total // seg_len))
+
+
+def _check_cut(K: int, k_offset: int, k_total: Optional[int]) -> int:
+    k_total = K if k_total is None else int(k_total)
+    if k_offset < 0 or k_offset + K > k_total:
+        raise ValueError(f"K range [{k_offset}, {k_offset + K}) outside "
+                         f"the global K {k_total}")
+    return k_total
+
+
+def mgs_matmul_exact_partials_plain(x_codes, w_codes, fmt: FPFormat = E4M3,
+                                    *, block_k: int = 128,
+                                    flush_period: Optional[int] = None,
+                                    k_offset: int = 0,
+                                    k_total: Optional[int] = None):
+    """Plain twin of :func:`mgs_matmul_exact_partials` (same bits)."""
+    _check_operands(x_codes, w_codes, "none", block_k)
+    xc, wc = _as_3d(x_codes), _as_3d(w_codes)
+    Bt = max(xc.shape[0], wc.shape[0])
+    M, K = xc.shape[1:]
+    N = wc.shape[-1]
+    Kg = _check_cut(K, k_offset, k_total)
+    seg_len, nseg = partial_segments(Kg, block_k, flush_period)
+    out = torch.zeros((nseg, _N_CLASSES, Bt, M, N), dtype=torch.int32,
+                      device=xc.device)
+    if K == 0:
+        return out
+    lx = _limbs64(xc, fmt)
+    first, last = k_offset // seg_len, (k_offset + K - 1) // seg_len
+    for n0 in range(0, N, _PLAIN_N_CHUNK):
+        n1 = min(N, n0 + _PLAIN_N_CHUNK)
+        lw = _limbs64(wc[..., n0:n1], fmt)
+        for s in range(first, last + 1):
+            k0 = max(s * seg_len - k_offset, 0)
+            k1 = min((s + 1) * seg_len - k_offset, K)
+            acc = _segment_classes(lx, lw, k0, k1)
+            for c in range(_N_CLASSES):
+                out[s, c, :, :, n0:n1] = _class_int32(acc[c])
+    return out
+
+
+def mgs_matmul_exact_flush_plain(partials, fmt: FPFormat = E4M3, *,
+                                 scale=None, bias=None,
+                                 activation: str = "none"):
+    """Plain twin of :func:`mgs_matmul_exact_flush` (same bits)."""
+    _check_partials(partials, activation)
+    nseg, _, Bt, M, N = partials.shape
+    acc_f = torch.zeros((Bt, M, N), dtype=torch.float32,
+                        device=partials.device)
+    for s in range(nseg):
+        acc_f = _flush_classes(partials[s], acc_f)
+    dev = partials.device
+    return _epilogue(acc_f * out_scale(fmt), _rows(scale, Bt, N, dev),
+                     _rows(bias, Bt, N, dev), activation)
+
+
+def _check_partials(partials, activation: str):
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"activation {activation!r} not in "
+                         f"{sorted(ACTIVATIONS)}")
+    if partials.dtype != torch.int32 or partials.dim() != 5 or \
+            partials.shape[1] != _N_CLASSES:
+        raise ValueError(f"(segments, 5, Bt, M, N) int32 partials "
+                         f"expected, got {tuple(partials.shape)} "
+                         f"{partials.dtype}")
+
+
+def _lib_fn(name: str, argtypes):
+    fn = getattr(_cuda.load("mgs_matmul"), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_PART_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                  + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p])
+_FLUSH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+
+
+def mgs_matmul_exact_partials(x_codes, w_codes, fmt: FPFormat = E4M3, *,
+                              block_k: int = 128,
+                              flush_period: Optional[int] = None,
+                              k_offset: int = 0,
+                              k_total: Optional[int] = None):
+    """B1's exact class sums over one cut of K, unflushed.
+
+    ``x_codes`` ``(M, K)`` / ``(Bt, M, K)`` and ``w_codes`` ``(K, N)`` /
+    ``(Bt, K, N)`` hold K elements ``[k_offset, k_offset + K)`` of a
+    product whose whole K is ``k_total`` (default ``K``). Every quantity
+    that one B1 call derives from K comes from ``k_total``: the clamped
+    flush period and the flush segments (:func:`partial_segments`). Returns
+    the int32 class partials of every segment, ``(segments, 5, Bt, M, N)``
+    (B1's split-K workspace layout), zero outside this cut. Integer sums do
+    not depend on their order (int32 wraps alike in every order), so the
+    sum of the partials of any cut of K, flushed by
+    :func:`mgs_matmul_exact_flush`, is B1's one call, bit for bit.
+
+    A CPU tensor runs the twin; a CUDA tensor launches
+    ``csrc/mgs_matmul.cu::mgs_matmul_exact_partials`` or raises.
+    """
+    if x_codes.device.type == "cpu":
+        return mgs_matmul_exact_partials_plain(
+            x_codes, w_codes, fmt, block_k=block_k,
+            flush_period=flush_period, k_offset=k_offset, k_total=k_total)
+    if x_codes.device.type != "cuda" or w_codes.device != x_codes.device:
+        raise ValueError(f"codes on {x_codes.device} / {w_codes.device}: "
+                         "the kernel runs on one CUDA device")
+    _check_operands(x_codes, w_codes, "none", block_k)
+    if fmt.name not in _KERNEL_FMTS:
+        raise ValueError(f"the exact kernel takes E4M3/E3M4, got {fmt.name}")
+    if block_k % 32:
+        raise ValueError(f"block_k={block_k} must be a multiple of 32 on "
+                         "the card (the kernels step through K 32 deep)")
+    xc, wc = _as_3d(x_codes).contiguous(), _as_3d(w_codes).contiguous()
+    if wc.shape[0] not in (1, xc.shape[0]):
+        raise ValueError(f"slice counts {xc.shape[0]} vs {wc.shape[0]}")
+    Bt, M, K = xc.shape
+    N = wc.shape[-1]
+    Kg = _check_cut(K, k_offset, k_total)
+    seg_len, nseg = partial_segments(Kg, block_k, flush_period)
+    dev = xc.device
+    out = torch.zeros((nseg, _N_CLASSES, Bt, M, N), dtype=torch.int32,
+                      device=dev)
+    if Bt and M and N and K:
+        err = _lib_fn("mgs_matmul_exact_partials", _PART_ARGTYPES)(
+            xc.data_ptr(), wc.data_ptr(), out.data_ptr(), Bt, M, K, N,
+            M * K, K * N if wc.shape[0] == Bt else 0,
+            _KERNEL_FMTS[fmt.name], block_k, seg_len // block_k, k_offset,
+            _cuda.stream_ptr(dev))
+        _cuda.check(err, "mgs_matmul_exact_partials")
+        _cuda.count_launch("mgs_matmul_exact_partials")
+    return out
+
+
+def mgs_matmul_exact_flush(partials, fmt: FPFormat = E4M3, *, scale=None,
+                           bias=None, activation: str = "none"):
+    """B1's flush and epilogue over summed class partials.
+
+    ``partials``: ``(segments, 5, Bt, M, N)`` int32, the sum over every cut
+    of K of :func:`mgs_matmul_exact_partials`. Each output adds the
+    segments in ascending order, each segment's classes in ascending order
+    into the float32 wide accumulator (``flush_classes``), then runs B1's
+    epilogue (``scale`` / ``bias`` rows broadcastable to ``(Bt, 1, N)``,
+    ``activation``). Returns float32 ``(Bt, M, N)``.
+
+    A CPU tensor runs the twin; a CUDA tensor launches
+    ``csrc/mgs_matmul.cu::mgs_matmul_exact_flush`` or raises.
+    """
+    if partials.device.type == "cpu":
+        return mgs_matmul_exact_flush_plain(partials, fmt, scale=scale,
+                                            bias=bias, activation=activation)
+    if partials.device.type != "cuda":
+        raise ValueError(f"partials on {partials.device}: the kernel runs "
+                         "on one CUDA device")
+    _check_partials(partials, activation)
+    if fmt.name not in _KERNEL_FMTS:
+        raise ValueError(f"the exact kernel takes E4M3/E3M4, got {fmt.name}")
+    part = partials.contiguous()
+    nseg, _, Bt, M, N = part.shape
+    dev = part.device
+    out = torch.empty((Bt, M, N), dtype=torch.float32, device=dev)
+    if Bt and M and N:
+        sc, bi = _rows(scale, Bt, N, dev), _rows(bias, Bt, N, dev)
+        err = _lib_fn("mgs_matmul_exact_flush", _FLUSH_ARGTYPES)(
+            part.data_ptr(), None if sc is None else sc.data_ptr(),
+            None if bi is None else bi.data_ptr(), out.data_ptr(), nseg, Bt,
+            M, N, 0 if sc is None else sc.stride(0),
+            0 if sc is None else sc.stride(2),
+            0 if bi is None else bi.stride(0),
+            0 if bi is None else bi.stride(2), _KERNEL_FMTS[fmt.name],
+            _ACT_CODES[activation], _cuda.stream_ptr(dev))
+        _cuda.check(err, "mgs_matmul_exact_flush")
+        _cuda.count_launch("mgs_matmul_exact_flush")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,16 @@ device id. :func:`visible_devices` gives one slot per CUDA device;
 :func:`virtual_devices` gives ``n`` slots on one physical device (the
 counterpart of the forced host device count, and nothing more).
 
-A :class:`SubMesh` is a ``(data, model)`` grid of slots. In-engine tensor
-parallelism (``model > 1``) is the sharded runtime's (ROADMAP A12.2); this
-module raises for it.
+A :class:`SubMesh` is a ``(data, model)`` grid of slots. The fleet runs its
+replicas as threads of one process, and a tensor-parallel replica is a
+process group of its own, so :func:`carve_submeshes` serves ``model == 1``
+only (ROADMAP A12.2c).
+
+Sharded serving runs one ``torch.distributed`` rank per mesh position:
+:func:`make_mesh`, :func:`make_serve_mesh` and
+:func:`make_production_mesh` build a
+:class:`~repro_torch.parallel.comm.RankMesh` over the initialized world
+(``repro_torch.parallel.comm.launch`` starts the ranks).
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ import numpy as np
 import torch
 
 __all__ = ["Slot", "SubMesh", "visible_devices", "virtual_devices",
-           "carve_submeshes", "batch_axes"]
+           "carve_submeshes", "batch_axes", "make_mesh", "make_serve_mesh",
+           "make_production_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +97,8 @@ def carve_submeshes(replicas: int, *, model_parallel: Optional[int] = None,
       replicas: number of sub-meshes R. Must divide the slot count.
       model_parallel: model axis width of each sub-mesh; default all of the
         replica's slots (the reference's pure tensor parallelism). Must
-        divide the slots per replica; only 1 is served in this slice.
+        divide the slots per replica; only 1 is served (a tensor-parallel
+        replica is a process group: ROADMAP A12.2c).
       devices: the slots to carve (default :func:`visible_devices`), in
         contiguous runs per replica.
       exclude: slot ids to drop before carving (known-bad slots); the
@@ -113,8 +122,9 @@ def carve_submeshes(replicas: int, *, model_parallel: Optional[int] = None,
                          f"{per} devices per replica")
     if mp > 1:
         raise NotImplementedError(
-            f"model_parallel={mp}: in-engine tensor parallelism is the "
-            "sharded runtime's (ROADMAP A12.2); pass model_parallel=1")
+            f"model_parallel={mp}: a tensor-parallel replica is a process "
+            "group of its own, and the fleet runs its replicas as threads "
+            "of one process (ROADMAP A12.2c); pass model_parallel=1")
     return [SubMesh(np.asarray(devs[r * per:(r + 1) * per], dtype=object)
                     .reshape(per // mp, mp))
             for r in range(replicas)]
@@ -123,3 +133,33 @@ def carve_submeshes(replicas: int, *, model_parallel: Optional[int] = None,
 def batch_axes(mesh) -> tuple:
     """The data-parallel axes of a mesh (pod included when present)."""
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def make_mesh(shape, axes, *, device=None):
+    """A mesh of the world's ranks (``parallel.comm.RankMesh``): rank ``r``
+    at row-major position ``r`` of ``shape``. Raises unless the world has
+    exactly ``prod(shape)`` ranks (one rank needs no process group)."""
+    from repro_torch.parallel.comm import RankMesh
+    return RankMesh(tuple(shape), tuple(axes), device=device)
+
+
+def make_serve_mesh(model_parallel: Optional[int] = None, *, device=None):
+    """The ``(data, model)`` serving mesh over every rank of the world:
+    ``model_parallel`` (default: all ranks, pure tensor parallelism) must
+    divide the world size; the rest is the data axis."""
+    import torch.distributed as dist
+    n = (dist.get_world_size() if dist.is_available()
+         and dist.is_initialized() else 1)
+    mp = model_parallel if model_parallel is not None else n
+    if mp < 1 or n % mp:
+        raise ValueError(f"model_parallel={mp} does not divide the "
+                         f"{n} visible devices")
+    return make_mesh((n // mp, mp), ("data", "model"), device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The reference's production topology over the world's ranks:
+    ``(data=16, model=16)``, with a leading ``pod=2`` axis for two pods."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device=device)

@@ -29,8 +29,19 @@ refresh the table from gated shadow passes over live traffic.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the tests do); a default-device engine without CUDA raises. ``run``'s
 ``injector`` / ``deadline_s`` / ``should_abort`` are the seam of the
-replica fleet (``launch.replica``), which ``--replicas`` serves through;
-in-engine sharding (``--mesh``, ``--no-deterministic``) is ROADMAP A12.2.
+replica fleet (``launch.replica``), which ``--replicas`` serves through.
+
+Sharded serving: ``ServeEngine(..., mesh=)`` on a
+:class:`~repro_torch.parallel.comm.RankMesh` (one ``torch.distributed``
+rank per mesh position, each constructing the engine) serves dense and MoE
+stacks under the reference's ``make_rules(mesh, "serve",
+shard_batch=False)``: every rank builds its slice of the prepared planes,
+batch-indexed activations are replicated, and each request's logits and
+tokens are bitwise the one-device engine's. ``--mesh DxM`` starts the
+ranks (``parallel.comm.launch``; ``--share-device`` puts them all on one
+card over gloo) and rank 0's result is printed. The continuous engine, the
+other families, unquantized or non-B1 numerics, calibration and
+``--no-deterministic`` on a mesh are ROADMAP A12.2c.
 
   python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
       --batch 4 --prompt-len 32 --max-new 16 --quant fp8-mgs-serve-kv
@@ -38,6 +49,8 @@ in-engine sharding (``--mesh``, ``--no-deterministic``) is ROADMAP A12.2.
       --draft-layers 1 --quant fp8-mgs-serve-paged --device cpu
   python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
       --replicas 2 --device cpu
+  python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
+      --mesh 1x2 --quant fp8-mgs-serve-kv --device cpu
 """
 
 from __future__ import annotations
@@ -61,7 +74,8 @@ from repro_torch.models import (adopt_slot, cast_params, decode_step,
                                 init_cache, init_paged_cache, init_params,
                                 prefill, release_slot, rewind_slots,
                                 verify_step_paged)
-from repro_torch.models.transformer import _require_paged_arch
+from repro_torch.models.transformer import _require_paged_arch, param_dims
+from repro_torch.parallel.sharding import make_rules, use_rules
 from repro_torch.quant import (BlockAllocator, PreparedWeight, calibrating,
                                prepare_logits_head, prepare_params)
 from repro_torch.quant.calibrate import CalibrationTable, applied_calib_state
@@ -69,7 +83,8 @@ from repro_torch.quant.streaming import StreamingCalibrator, sample_gate
 from repro_torch.runtime.fault_tolerance import DeadlineExceeded
 
 __all__ = ["ServeEngine", "ContinuousBatchingEngine", "Request",
-           "bucket_for", "make_engine", "main", "resolve_device"]
+           "bucket_for", "make_engine", "main", "resolve_device",
+           "mesh_refusal"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -118,6 +133,24 @@ def _stamp_act_sigmas(params, table: CalibrationTable):
     return walk(params, ())
 
 
+def mesh_refusal(cfg: ModelConfig) -> Optional[str]:
+    """Why ``cfg`` cannot be served on a mesh of ranks in this slice
+    (``None``: it can)."""
+    q = cfg.quant
+    if (cfg.is_hybrid or cfg.is_ssm_only or cfg.encoder_layers
+            or cfg.vision_prefix):
+        return (f"{cfg.name}: sharded serving covers dense and MoE stacks; "
+                "SSM / hybrid / encoder-decoder / VLM on a mesh is ROADMAP "
+                "A12.2c")
+    if not (q.is_fp8 and q.accum == "mgs_exact" and q.use_kernel and q.fused
+            and q.schedule == "output"):
+        return ("sharded serving runs B1's exact numerics (fp8, mgs_exact, "
+                "use_kernel, fused, schedule='output'; --quant fp8-mgs-serve"
+                "[-kv]): raw float weights, B3 / B4 / B5 and the integer "
+                "configs on a mesh are ROADMAP A12.2c")
+    return None
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -146,13 +179,35 @@ class ServeEngine:
         to start from (installed as version 1, or its own version if
         higher); later tables go through :meth:`apply_calibration`.
       device: ``"cuda"`` (default) or ``"cpu"``.
+      mesh: a :class:`~repro_torch.parallel.comm.RankMesh` of this
+        process's rank (``launch.mesh.make_mesh`` / ``make_serve_mesh``);
+        every rank constructs the engine on the same ``params`` (or
+        ``seed``) and serves the same requests. Dense and MoE stacks under
+        B1's numerics (``use_kernel``, ``fused``, ``mgs_exact``); the rest
+        raises (ROADMAP A12.2c). Raw leaves (embedding table, norms) stay
+        whole on every rank: the lookup is a gather, and a table cut over
+        vocab would need a masked sum that turns -0.0 into +0.0.
     """
 
     def __init__(self, cfg: ModelConfig, *, batch: int, max_len: int,
                  params=None, seed: int = 0, eos_id: Optional[int] = None,
                  calibration: Optional[CalibrationTable] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.size == 1:
+            mesh = None
+        self.mesh = mesh
+        self.rules = None
+        if mesh is not None:
+            why = mesh_refusal(cfg)
+            if why is None and calibration is not None:
+                why = "calibration on a mesh is ROADMAP A12.2c"
+            if why is not None:
+                raise NotImplementedError(why)
+            if mesh.device != self.device:
+                raise ValueError(f"the mesh's rank runs on {mesh.device}, "
+                                 f"the engine on {self.device}")
+            self.rules = make_rules(mesh, "serve", shard_batch=False)
         if calibration is not None:
             cfg = dataclasses.replace(
                 cfg, quant=cfg.quant.with_calibration(calibration))
@@ -163,9 +218,12 @@ class ServeEngine:
         self._buckets: Optional[List[int]] = None
         if params is None:
             params = init_params(cfg, seed, device=self.device)
-        params = prepare_params(params, cfg.quant, hybrid=cfg.is_hybrid)
+        dims = param_dims(cfg) if mesh is not None else None
+        params = prepare_params(params, cfg.quant, hybrid=cfg.is_hybrid,
+                                dims=dims, rules=self.rules)
         params = prepare_logits_head(params, cfg.quant,
-                                     tied=cfg.tie_embeddings)
+                                     tied=cfg.tie_embeddings,
+                                     rules=self.rules)
         if calibration is not None:
             params = _stamp_act_sigmas(params, calibration)
         self.params = cast_params(params, cfg)
@@ -321,13 +379,17 @@ class ServeEngine:
                 + f" out of range for max_len={self.max_len}")
 
     def _prefill(self, toks: np.ndarray, cache, cs):
-        with applied_calib_state(cs):
+        with applied_calib_state(cs), use_rules(self.rules):
             return prefill(self.params, self.cfg, self._make_batch(toks),
                            cache)
 
     def _decode(self, cur: torch.Tensor, cache, cs):
-        with applied_calib_state(cs):
+        with applied_calib_state(cs), use_rules(self.rules):
             return decode_step(self.params, self.cfg, cur, cache)
+
+    def _init_cache(self, batch: int):
+        return init_cache(self.cfg, batch, self.max_len, device=self.device,
+                          rules=self.rules)
 
     @torch.no_grad()
     def warmup(self, plen_buckets, *, max_new: int = 1, seed: int = 0):
@@ -340,8 +402,7 @@ class ServeEngine:
         rng = np.random.default_rng(seed)
         for plen in buckets:
             toks = rng.integers(1, self.cfg.vocab, (self.batch, plen))
-            cache = init_cache(self.cfg, self.batch, self.max_len,
-                               device=self.device)
+            cache = self._init_cache(self.batch)
             logits, cache = self._prefill(toks, cache, self._calib_state)
             for _ in range(max_new):
                 cur = logits.argmax(dim=-1)[:, None]
@@ -395,6 +456,10 @@ class ServeEngine:
         """One prefill + one decode step over ``toks`` under
         ``calibrating(recorder)``, outside any applied state, on the
         engine's device and kernels; returns the recorder."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "calibration on a mesh (per-rank histograms of K-sharded "
+                "activations summed) is ROADMAP A12.2c")
         cache = init_cache(self.cfg, toks.shape[0], self.max_len,
                            device=self.device)
         with calibrating(recorder) as rec:
@@ -439,6 +504,9 @@ class ServeEngine:
         ``calibrating(recorder)``, beside the served pass, whose bits it
         never touches. ``thresholds`` go to :class:`StreamingCalibrator`.
         """
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "streaming calibration on a mesh is ROADMAP A12.2c")
         if calibrator is None:
             calibrator = StreamingCalibrator(
                 self._tables.get(self.table_version,
@@ -566,8 +634,7 @@ class ServeEngine:
             for j, r in enumerate(group):
                 toks[j, plen - len(r.prompt):] = r.prompt   # left-pad
             self._maybe_shadow(toks)
-            cache = init_cache(self.cfg, self.batch, self.max_len,
-                               device=self.device)
+            cache = self._init_cache(self.batch)
             logits, cache = self._prefill(toks, cache, cs)
             n_prefill += plen * len(group)
             watchdog()
@@ -983,11 +1050,16 @@ def make_engine(cfg: ModelConfig, *, batch: int, max_len: int, params=None,
                 seed: int = 0, eos_id: Optional[int] = None, device=None,
                 calibration: Optional[CalibrationTable] = None,
                 continuous: bool = False,
-                spec_k: Optional[int] = None) -> ServeEngine:
+                spec_k: Optional[int] = None, mesh=None) -> ServeEngine:
     """Engine factory: a :class:`ServeEngine`, or with ``continuous=True`` a
     :class:`ContinuousBatchingEngine` with ``batch`` decode slots
     (``spec_k`` turns on speculative decoding there); ``calibration``
-    starts either pre-calibrated."""
+    starts either pre-calibrated. ``mesh``: this rank's
+    :class:`~repro_torch.parallel.comm.RankMesh` (group engine only)."""
+    if continuous and mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            "the continuous engine on a mesh (B3's partials, the paged pool "
+            "by kv heads) is ROADMAP A12.2c")
     if continuous:
         return ContinuousBatchingEngine(
             cfg, slots=batch, max_len=max_len, params=params, seed=seed,
@@ -998,7 +1070,41 @@ def make_engine(cfg: ModelConfig, *, batch: int, max_len: int, params=None,
                          "decoding runs on the paged continuous engine")
     return ServeEngine(cfg, batch=batch, max_len=max_len, params=params,
                        seed=seed, eos_id=eos_id, calibration=calibration,
-                       device=device)
+                       device=device, mesh=mesh)
+
+
+def _parse_mesh(text: str, device) -> Optional[tuple]:
+    """``"DxM"`` -> ``(D, M)``; ``"auto"`` -> ``(1, visible cards)``;
+    ``None`` for ``1x1``."""
+    if text == "auto":
+        if resolve_device(device).type != "cuda":
+            raise ValueError("--mesh auto takes every visible card; on the "
+                             "CPU give the shape (--mesh DxM)")
+        shape = (1, torch.cuda.device_count())
+    else:
+        try:
+            shape = tuple(int(v) for v in text.lower().split("x"))
+        except ValueError:
+            shape = ()
+        if len(shape) != 2 or min(shape) < 1:
+            raise ValueError(f"--mesh {text!r}: expected DxM (data x "
+                             "model ranks) or auto")
+    return None if shape == (1, 1) else shape
+
+
+def _serve_rank(rank: int, shape, cfg: ModelConfig, batch: int,
+                max_len: int, reqs: List[Request]):
+    """One rank of ``--mesh``: the engine on this rank's slice, the
+    requests served; returns (stats, tokens per request)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.comm import COMM_STATS, rank_device
+    mesh = make_mesh(shape, ("data", "model"))
+    engine = ServeEngine(cfg, batch=batch, max_len=max_len,
+                         device=rank_device(), mesh=mesh)
+    stats = engine.run(reqs)
+    stats["mesh"] = f"{shape[0]}x{shape[1]}"
+    stats["collectives"] = COMM_STATS["calls"]
+    return stats, [r.out_tokens for r in reqs]
 
 
 _QUANTS = {"none": "NONE", "fp8-mgs-serve": "FP8_MGS_SERVE",
@@ -1038,7 +1144,13 @@ def main(argv=None):
     ap.add_argument("--scheduler", default="round_robin",
                     choices=("round_robin", "least_loaded"),
                     help="replica dispatch policy (--replicas > 1)")
-    ap.add_argument("--mesh", default="1x1", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh", default="1x1",
+                    help="serve on a DxM (data x model) mesh of ranks, or "
+                         "auto (1 x every visible card): tokens bitwise the "
+                         "1x1 engine's")
+    ap.add_argument("--share-device", action="store_true",
+                    help="with --mesh on the card: every rank on one card, "
+                         "over gloo (NCCL needs a card per rank)")
     ap.add_argument("--no-deterministic", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -1046,10 +1158,19 @@ def main(argv=None):
         ap.error("--no-deterministic is incompatible with --replicas > 1: "
                  "the replica driver exists to provide data-parallel "
                  "throughput *with* the deterministic layout")
-    if args.mesh != "1x1" or args.no_deterministic:
-        flag = "--mesh" if args.mesh != "1x1" else "--no-deterministic"
-        ap.error(f"{flag} belongs to the sharded runtime, a later slice of "
-                 "the port (ROADMAP A12.2)")
+    if args.no_deterministic:
+        ap.error("--no-deterministic (batch over data: K-sharded weights "
+                 "then need gathering) is ROADMAP A12.2c")
+    try:
+        mesh_shape = _parse_mesh(args.mesh, args.device)
+    except ValueError as e:
+        ap.error(str(e))
+    if mesh_shape is not None and args.continuous:
+        ap.error("--mesh with --continuous (B3's partials, the paged pool "
+                 "by kv heads) is ROADMAP A12.2c")
+    if mesh_shape is not None and args.replicas > 1:
+        ap.error("--mesh with --replicas (the fleet over tensor-parallel "
+                 "sub-meshes) is ROADMAP A12.2c")
     if args.continuous and args.replicas > 1:
         ap.error("--continuous is a single-engine mode here (use "
                  "ReplicaServeDriver(continuous=True))")
@@ -1068,6 +1189,8 @@ def main(argv=None):
         ap.error("--spec-k requires --continuous (speculation runs on the "
                  "paged continuous engine)")
     cfg = dataclasses.replace(cfg, quant=quant)
+    if mesh_shape is not None and mesh_refusal(cfg) is not None:
+        ap.error(f"--mesh: {mesh_refusal(cfg)}")
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, args.prompt_len
                                                ).astype(np.int32),
@@ -1075,6 +1198,19 @@ def main(argv=None):
             for i in range(args.n_requests)]
     max_len = (cfg.vision_prefix + args.prompt_len + args.max_new + 1
                + max(args.spec_k - 1, 0))
+    if mesh_shape is not None:
+        from repro_torch.parallel.comm import launch
+        dev = resolve_device(args.device)
+        results = launch(_serve_rank, mesh_shape[0] * mesh_shape[1],
+                         args=(mesh_shape, cfg, args.batch, max_len, reqs),
+                         device=dev, share_device=args.share_device,
+                         threads=1 if dev.type == "cpu" else None,
+                         timeout=3600.0)
+        stats, tokens = results[0]      # rank 0 reports
+        print(stats)
+        for r, toks in list(zip(reqs, tokens))[:2]:
+            print(f"req {r.rid}: {toks[:10]}")
+        return
     if args.replicas > 1:
         from repro_torch.launch.mesh import virtual_devices
         from repro_torch.launch.replica import ReplicaServeDriver

@@ -16,6 +16,15 @@ written in place. Every contraction carries the reference's calibration
 site (``attn.wq`` ... ``attn.wo``, ``attn.scores``, ``attn.values``); the
 decode query's absmax is observed at ``attn.q`` and, under
 ``quant.static_q_scale``, replaced by the calibrated amax.
+
+On a mesh of ranks (tensor parallelism): where ``wq`` and ``wk`` / ``wv``
+shard their heads over the same axes (the kv heads divide the model
+axis), each rank projects and attends its own heads, whole kv groups, with
+the cache holding those heads; the attention output is all-gathered over
+the heads before the replicated ``wo``. Otherwise every rank attends every
+head. A cache whose sequence is sharded (``kv_seq``, :class:`KVSeqShard`)
+takes each position's entries on the rank holding it, and decode
+all-gathers the shards before the flash kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.quant.prepared import PreparedWeight
 from repro_torch.kernels.mgs_attention import (mgs_flash_attention,
                                                mgs_paged_flash_attention,
                                                mgs_paged_verify_attention)
@@ -47,6 +57,37 @@ _POS_SENTINEL = 2**30
 class KVCache(NamedTuple):
     k: torch.Tensor  # (B, S_max, KV, hd)
     v: torch.Tensor  # (B, S_max, KV, hd)
+
+
+class KVSeqShard(NamedTuple):
+    """A serving cache whose sequence axis is cut over mesh ``axes``: this
+    rank holds positions ``[start, start + length)``."""
+    mesh: object
+    axes: tuple
+    start: int
+    length: int
+
+
+def _heads_axes(p) -> tuple:
+    """The mesh axes this rank's heads are cut over: those of ``wq``'s
+    output when ``wk`` and ``wv`` cut theirs alike, else ``()`` (every
+    rank takes every head)."""
+    lays = [w.layout if isinstance(w, PreparedWeight) else None
+            for w in (p["wq"], p.get("wk"), p.get("wv"))]
+    if any(l is None for l in lays):
+        return ()
+    axes = lays[0].n_axes
+    return axes if all(l.n_axes == axes for l in lays[1:]) else ()
+
+
+def _local_window(seq: KVSeqShard, pos: int, T: int):
+    """The positions of ``[pos, pos + T)`` this rank holds, as (first,
+    last + 1) clipped to its range (empty: first >= last + 1)."""
+    return max(pos, seq.start), min(pos + T, seq.start + seq.length)
+
+
+def _gather_seq(t: torch.Tensor, dim: int, seq):
+    return t if seq is None else seq.mesh.all_gather(t, dim, seq.axes)
 
 
 def _mask(q_pos, k_pos, *, causal: bool, window: int, is_global):
@@ -326,7 +367,8 @@ def _decode_bias(positions, S: int, causal: bool, cfg: ModelConfig,
 
 def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
                     causal: bool = True, cache=None, cache_pos=0,
-                    block_table=None, lengths=None, cross_kv=None):
+                    block_table=None, lengths=None, cross_kv=None,
+                    kv_seq=None):
     """Self- or cross-attention. x: (B, T, d); positions: (B, T) int.
 
     ``cache``: a float :class:`KVCache`, a packed
@@ -344,13 +386,18 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
     (:class:`QuantizedKVCache`, decode only) through the flash kernel over
     the first ``cfg.encoder_len`` keys, the padded tail masked; float
     (:class:`KVCache`) by the dense or chunked path.
+    ``kv_seq``: the :class:`KVSeqShard` of a sequence-sharded group cache.
     Returns (out (B, T, d), cache | None).
     """
     B, T, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
+    heads_axes = () if cross_kv is not None else _heads_axes(p)
+    local = bool(heads_axes)
 
-    q = proj(x, p["wq"], cfg.quant, site="attn.wq")
+    q = proj(x, p["wq"], cfg.quant, site="attn.wq", gather=not local)
+    H_l = q.shape[-2]
+    KV = H_l // G
     q = apply_rope(q, positions, cfg.rope_theta).reshape(B, T, KV, G, hd)
 
     packed_out = None
@@ -375,9 +422,9 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
         k_pos = torch.arange(S, device=x.device)[None].expand(B, S)
         causal = False
     else:
-        k = proj(x, p["wk"], cfg.quant, site="attn.wk")
+        k = proj(x, p["wk"], cfg.quant, site="attn.wk", gather=not local)
         k = apply_rope(k, positions, cfg.rope_theta)
-        v = proj(x, p["wv"], cfg.quant, site="attn.wv")
+        v = proj(x, p["wv"], cfg.quant, site="attn.wv", gather=not local)
         if isinstance(cache, PagedKVCache):
             paged_append_kv(cache, k, v, cache_pos, block_table,
                             cfg.quant.kv_fmt)
@@ -390,11 +437,20 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
                 packed_out = _sdpa_paged_verify(q, cache, block_table, bias3,
                                                 positions, lengths, cfg.quant)
         elif isinstance(cache, QuantizedKVCache):
-            append_kv(cache, k, v, cache_pos, cfg.quant.kv_fmt)
+            if kv_seq is None:
+                append_kv(cache, k, v, cache_pos, cfg.quant.kv_fmt)
+            else:
+                a, b = _local_window(kv_seq, cache_pos, T)
+                if a < b:
+                    append_kv(cache, k[:, a - cache_pos:b - cache_pos],
+                              v[:, a - cache_pos:b - cache_pos],
+                              a - kv_seq.start, cfg.quant.kv_fmt)
             if T == 1:
-                bias3 = _decode_bias(positions, cache.k_codes.shape[2],
+                full = QuantizedKVCache(
+                    *(_gather_seq(t, 2, kv_seq) for t in cache))
+                bias3 = _decode_bias(positions, full.k_codes.shape[2],
                                      causal, cfg, is_global)
-                packed_out = _sdpa_packed_cache(q, cache, bias3, cfg.quant,
+                packed_out = _sdpa_packed_cache(q, full, bias3, cfg.quant,
                                                 lengths=positions[:, -1] + 1)
             else:
                 if cache_pos != 0:
@@ -403,9 +459,16 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
                         "== 0 only")
                 k_pos = positions
         elif cache is not None:
-            cache.k[:, cache_pos:cache_pos + T] = k.to(cache.k.dtype)
-            cache.v[:, cache_pos:cache_pos + T] = v.to(cache.v.dtype)
-            k, v = cache.k, cache.v
+            a, b = ((cache_pos, cache_pos + T) if kv_seq is None
+                    else _local_window(kv_seq, cache_pos, T))
+            o = 0 if kv_seq is None else kv_seq.start
+            if a < b:
+                cache.k[:, a - o:b - o] = k[:, a - cache_pos:b - cache_pos
+                                            ].to(cache.k.dtype)
+                cache.v[:, a - o:b - o] = v[:, a - cache_pos:b - cache_pos
+                                            ].to(cache.v.dtype)
+            k = _gather_seq(cache.k, 1, kv_seq)
+            v = _gather_seq(cache.v, 1, kv_seq)
             k_pos = _live_positions(positions, k.shape[1])
         else:
             k_pos = positions
@@ -424,6 +487,8 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
         out = _sdpa_dense(q, k.to(q.dtype), v.to(q.dtype), bias,
                           quant=cfg.quant)
 
-    out = out.reshape(B, T, H, hd)
+    out = out.reshape(B, T, H_l, hd)
+    if local:
+        out = p["wq"].layout.mesh.all_gather(out, 2, heads_axes)
     y = qeinsum("bthd,hdo->bto", out, p["wo"], cfg.quant, site="attn.wo")
     return y, cache

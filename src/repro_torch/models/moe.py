@@ -13,6 +13,14 @@ even deterministic). Over-capacity selections are dropped.
 The expert contractions go through :func:`~repro_torch.quant.qeinsum`
 with the expert axis as a batch index: one batched launch over every
 expert, each expert slice quantized with its own scale.
+
+On a mesh the reference's constraint sites are honoured: routing runs on
+replicated activations (every rank computes it identically), the dispatched
+rows are cut to this rank's experts where the experts divide the model
+axis (``experts_act``), the batched launches run over those experts, and
+the expert outputs are all-gathered along the expert axis before the
+rank-order combine. Where the experts do not divide, ``ffn`` is sharded
+instead (the FFN's tensor parallelism).
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import (constrain, current_rules,
+                                           replicate)
 from repro_torch.quant import qeinsum
 
 __all__ = ["moe_apply"]
@@ -83,9 +93,10 @@ def moe_apply(p, x, cfg: ModelConfig):
     C = max(1, int(math.ceil(k * g * cfg.capacity_factor / E)))
     dtype = x.dtype
 
-    xg = x.reshape(G, g, d)
-    logits = qeinsum("gtd,de->gte", xg, p["wr"], cfg.quant, site="moe.wr",
-                     out_dtype=torch.float32)
+    xg = constrain(x.reshape(G, g, d), ("batch", None, None))
+    logits = constrain(
+        qeinsum("gtd,de->gte", xg, p["wr"], cfg.quant, site="moe.wr",
+                out_dtype=torch.float32), ("batch", None, None))
     probs = torch.softmax(logits, dim=-1)
     gates, eidx, slot, sel, slot_token, claimed = _route(probs, k, C)
     density = F.one_hot(eidx[..., 0], E).to(torch.float32).mean(1)
@@ -93,18 +104,23 @@ def moe_apply(p, x, cfg: ModelConfig):
 
     xe = torch.gather(xg, 1, slot_token.reshape(G, E * C, 1).expand(
         G, E * C, d)).reshape(G, E, C, d)
-    xe = xe * claimed[..., None].to(dtype)
+    # the expert-parallel layout: this rank's experts where they divide
+    ep_dims = ("groups_act", "experts_act", None, None)
+    rules = current_rules()
+    ep = () if rules is None else rules.resolve(ep_dims, (G, E, C, d))
+    xe = constrain(xe * claimed[..., None].to(dtype), ep_dims)
     q = cfg.quant
     if cfg.act == "silu":
         h = qeinsum("gecd,edf->gecf", xe, p["wg"], q, site="moe.wg",
-                    activation="silu", out_dtype=dtype)
+                    activation="silu", out_dtype=dtype, gather=False)
         h = h * qeinsum("gecd,edf->gecf", xe, p["wu"], q, site="moe.wu",
-                        out_dtype=dtype)
+                        out_dtype=dtype, gather=False)
     else:
         h = qeinsum("gecd,edf->gecf", xe, p["wi"], q, site="moe.wi",
-                    activation="gelu", out_dtype=dtype)
-    ye = qeinsum("gecf,efd->gecd", h, p["wd"], q, site="moe.wd",
-                 out_dtype=dtype).reshape(G, E * C, d)
+                    activation="gelu", out_dtype=dtype, gather=False)
+    ye = constrain(qeinsum("gecf,efd->gecd", h, p["wd"], q, site="moe.wd",
+                           out_dtype=dtype), ep_dims, ep)
+    ye = replicate(ye, ep).reshape(G, E * C, d)
     # combine: each token's <= k expert rows, summed in rank order
     y = torch.zeros((G, g, d), dtype=torch.float32, device=x.device)
     row = (eidx * C + slot)[..., None]                       # (G, g, k, 1)

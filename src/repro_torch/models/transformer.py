@@ -15,6 +15,14 @@ A hybrid runs its periods (one attention and ``attn_every - 1`` Mamba
 sublayers, FFN / MoE alternating) in a loop over groups. Only plain dense
 stacks take the paged path; the other families serve on the group path,
 as the reference's do.
+
+On a mesh of ranks (dense and MoE stacks on the group path) every
+prepared weight holds this rank's slice of its planes, the residual stream
+and every batch-indexed activation are replicated (the reference's
+``shard_batch=False``), and the reference's constraint sites are
+honoured (``parallel.sharding.constrain``). The serving cache is built by
+its logical dims: this rank's kv heads and, where the rules cut it, its
+range of the sequence. The logits come out whole on every rank.
 """
 
 from __future__ import annotations
@@ -27,21 +35,24 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import (constrain, current_rules,
+                                           local_slices, replicate,
+                                           spec_axes, spec_entry)
 from repro_torch.quant import (PagedKVCache, PreparedWeight,
                                QuantizedKVCache, qeinsum)
 from repro_torch.quant.kvcache import (init_paged_kv, init_quantized_kv,
                                        paged_rollback_kv, quantize_kv)
-from .attention import KVCache, attention_apply
+from .attention import KVCache, KVSeqShard, attention_apply
 from .common import dtype_of, normal_param, rms_norm
 from .ffn import ffn_apply
 from .linear import proj
 from .mamba import SSMCache, mamba_apply, mamba_decode_step
 from .moe import moe_apply
 
-__all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill",
-           "decode_step", "layer_params", "cast_params", "init_paged_cache",
-           "adopt_slot",
-           "release_slot", "decode_step_paged", "verify_step_paged",
+__all__ = ["init_params", "param_dims", "forward", "loss_fn", "init_cache",
+           "prefill", "decode_step", "layer_params", "cast_params",
+           "init_paged_cache", "adopt_slot", "release_slot",
+           "decode_step_paged", "verify_step_paged",
            "draft_step_paged", "rewind_slots"]
 
 
@@ -135,6 +146,73 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     return params
 
 
+def param_dims(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical dims of every leaf of :func:`init_params`'s tree (the
+    reference's ``param_dims``): a tuple of dim names per leaf, stacks led
+    by ``"layers"`` (a hybrid's by ``"groups"`` and, below it, ``"sub"``),
+    MoE expert weights by ``"experts"``. The sharding rules resolve them
+    into layouts (``parallel.sharding``)."""
+
+    def attn():
+        return {"wq": ("embed", "heads", "head_dim"),
+                "wk": ("embed", "kv_heads", "head_dim"),
+                "wv": ("embed", "kv_heads", "head_dim"),
+                "wo": ("heads", "head_dim", "embed")}
+
+    def ffn():
+        mlp = ({"wg": ("embed", "ffn"), "wu": ("embed", "ffn")}
+               if cfg.act == "silu" else {"wi": ("embed", "ffn")})
+        mlp["wd"] = ("ffn", "embed")
+        return mlp
+
+    def moe():
+        mlp = ({"wg": ("experts", "embed", "ffn"),
+                "wu": ("experts", "embed", "ffn")} if cfg.act == "silu"
+               else {"wi": ("experts", "embed", "ffn")})
+        mlp.update(wr=("embed", "experts"), wd=("experts", "ffn", "embed"))
+        return mlp
+
+    def ssm():
+        return {"wx": ("embed", "inner"), "wz": ("embed", "inner"),
+                "conv_w": ("conv_k", "inner"), "conv_b": ("inner",),
+                "wdt_down": ("inner", "dt_rank"),
+                "wdt_up": ("dt_rank", "inner"), "dt_bias": ("inner",),
+                "wB": ("inner", "ssm_state"), "wC": ("inner", "ssm_state"),
+                "A_log": ("inner", "ssm_state"), "D": ("inner",),
+                "wo": ("inner", "embed")}
+
+    def lead(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: lead(v, prefix) for k, v in tree.items()}
+        return tuple(prefix) + tree
+
+    def dense_layer(moe_layer: bool):
+        return {"ln1": ("embed",), "attn": attn(), "ln2": ("embed",),
+                "moe" if moe_layer else "ffn": moe() if moe_layer else ffn()}
+
+    dims: Dict[str, Any] = {"embed": ("vocab", "embed"),
+                            "final_norm": ("embed",)}
+    if not cfg.tie_embeddings:
+        dims["unembed"] = ("embed", "vocab")
+    if cfg.is_hybrid:
+        dims["layers"] = lead({
+            "ln_mix": ("sub", "embed"), "ln_ffn": ("sub", "embed"),
+            "attn": attn(), "ssm": lead(ssm(), ("sub",)),
+            "ffn": lead(ffn(), ("sub",)), "moe": lead(moe(), ("sub",))},
+            ("groups",))
+    elif cfg.is_ssm_only:
+        dims["layers"] = lead({"ln1": ("embed",), "ssm": ssm()},
+                              ("layers",))
+    else:
+        dims["layers"] = lead(dense_layer(cfg.is_moe), ("layers",))
+    if cfg.encoder_layers:
+        dims["encoder"] = lead(dense_layer(False), ("layers",))
+        dims["encoder_norm"] = ("embed",)
+        dims["cross"] = lead({"ln": ("embed",), "attn": attn()},
+                             ("layers",))
+    return dims
+
+
 def _hybrid_groups(cfg: ModelConfig) -> int:
     """A hybrid's periods: one attention and ``attn_every - 1`` Mamba
     sublayers each."""
@@ -192,8 +270,24 @@ def _embed_tokens(params, cfg: ModelConfig, tokens):
     return x * s
 
 
+_LOGIT_DIMS = ("batch", "seq", "vocab_act")
+
+
 def _logits(params, cfg: ModelConfig, x):
     pw = params.get("unembed_prepared")
+    if pw is None and isinstance(params.get("unembed"), PreparedWeight):
+        pw = params["unembed"]
+    if pw is not None and pw.layout is not None:
+        # this rank's vocab columns, at the reference's constraint site,
+        # then whole for the caller (the engine's argmax, the host)
+        out = qeinsum("btd,dv->btv", x, pw, cfg.quant, site="logits",
+                      out_dtype=torch.float32, gather=False)
+        src = (None, None, spec_entry(pw.layout.n_axes))
+        out = constrain(out, _LOGIT_DIMS, src)
+        rules = current_rules()
+        dst = rules.resolve(_LOGIT_DIMS, tuple(out.shape[:2])
+                            + (pw.layout.shape[-1],)) if rules else src
+        return replicate(out, dst, pw.layout.mesh)
     if pw is not None:
         return qeinsum("btd,dv->btv", x, pw, cfg.quant, site="logits",
                        out_dtype=torch.float32)
@@ -206,23 +300,24 @@ def _logits(params, cfg: ModelConfig, x):
 
 def _dense_body(pl, x, positions, cfg: ModelConfig, is_global, cache,
                 cache_pos, block_table=None, lengths=None, cross_kv=None,
-                cross_p=None):
+                cross_p=None, kv_seq=None):
     """One dense / MoE layer (serving: the MoE aux loss is dropped)."""
     return _dense_body_aux(pl, x, positions, cfg, is_global, cache,
                            cache_pos, block_table, lengths, cross_kv,
-                           cross_p)[0]
+                           cross_p, kv_seq)[0]
 
 
 def _dense_body_aux(pl, x, positions, cfg: ModelConfig, is_global, cache,
                     cache_pos, block_table=None, lengths=None, cross_kv=None,
-                    cross_p=None):
+                    cross_p=None, kv_seq=None):
     """One dense / MoE layer. Returns (x, the MoE aux loss: ``0.0`` for a
     dense FFN)."""
     h, _ = attention_apply(pl["attn"], rms_norm(x, pl["ln1"], cfg.norm_eps),
                            cfg, positions=positions, is_global=is_global,
                            cache=cache, cache_pos=cache_pos,
-                           block_table=block_table, lengths=lengths)
-    x = x + h
+                           block_table=block_table, lengths=lengths,
+                           kv_seq=kv_seq)
+    x = constrain(x + h, ("batch", "seq", "embed_act"))
     if cross_p is not None:
         h, _ = attention_apply(cross_p["attn"],
                                rms_norm(x, cross_p["ln"], cfg.norm_eps), cfg,
@@ -233,7 +328,7 @@ def _dense_body_aux(pl, x, positions, cfg: ModelConfig, is_global, cache,
         h, aux = moe_apply(pl["moe"], xn, cfg)
     else:
         h, aux = ffn_apply(pl["ffn"], xn, cfg), 0.0
-    return x + h, aux
+    return constrain(x + h, ("batch", "seq", "embed_act")), aux
 
 
 def _hybrid_group_body(pg, x, positions, cfg: ModelConfig, attn_cache,
@@ -478,7 +573,22 @@ def _n_ssm_layers(cfg: ModelConfig) -> int:
     return 0
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
+def _local_planes(shape, dims, rules):
+    """(this rank's shape, the :class:`KVSeqShard` or None) of a cache
+    plane of global ``shape`` with logical ``dims`` under ``rules``."""
+    if rules is None or getattr(rules.mesh, "size", 1) == 1:
+        return tuple(shape), None
+    spec = rules.resolve(dims, tuple(shape))
+    sl = local_slices(spec, tuple(shape), rules.mesh)
+    i = dims.index("kv_seq")
+    seq = (KVSeqShard(rules.mesh, spec_axes(spec, i), sl[i].start,
+                      sl[i].stop - sl[i].start)
+           if spec_axes(spec, i) else None)
+    return tuple(s.stop - s.start for s in sl), seq
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
+               rules=None):
     """The serving cache: ``{"pos": 0}`` plus, per family, the attention
     planes ``"k", "v"[, "k_scale", "v_scale"]``, the SSM state
     ``"ssm_h", "ssm_conv"`` and the cross-attention planes ``"cross_k",
@@ -493,19 +603,40 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
     period. SSM: the recurrent state ``(L, B, d_inner, N)`` in float32 and
     the conv state ``(L, B, d_conv - 1, d_inner)`` in bfloat16, as the
     reference keeps them; a hybrid's lead with ``(groups, sub)``.
+
+    With ``rules`` on a mesh of ranks (dense / MoE stacks) the attention
+    planes are this rank's part under their logical dims
+    (``("layers", "batch", "kv_heads", "kv_seq", "head_dim")`` packed,
+    ``("layers", "batch", "kv_seq", "kv_heads", "head_dim")`` float), and
+    ``cache["kv_seq"]`` is the :class:`KVSeqShard` where the sequence is
+    cut.
     """
     cache: Dict[str, Any] = {"pos": 0}
     packed = cfg.quant.quantized_kv
     chunk = cfg.quant.block_k
     La = _n_attn_layers(cfg)
+    if rules is not None and getattr(rules.mesh, "size", 1) > 1 and (
+            _n_ssm_layers(cfg) or cfg.encoder_layers):
+        raise NotImplementedError(
+            f"{cfg.name}: a serving cache on a mesh covers dense and MoE "
+            "stacks (SSM / hybrid / encoder-decoder: ROADMAP A12.2c)")
     if La and packed:
         s_alloc = -(-max_len // chunk) * chunk
-        qkv = init_quantized_kv((La, batch), cfg.n_kv_heads, s_alloc,
-                                cfg.head_dim, device=device)
+        (_, _, kv, s_loc, _), seq = _local_planes(
+            (La, batch, cfg.n_kv_heads, s_alloc, cfg.head_dim),
+            ("layers", "batch", "kv_heads", "kv_seq", "head_dim"), rules)
+        qkv = init_quantized_kv((La, batch), kv, s_loc, cfg.head_dim,
+                                device=device)
         cache.update(k=qkv.k_codes, v=qkv.v_codes, k_scale=qkv.k_scale,
                      v_scale=qkv.v_scale)
+        if seq is not None:
+            cache["kv_seq"] = seq
     elif La:
-        shape = (La, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        shape, seq = _local_planes(
+            (La, batch, max_len, cfg.n_kv_heads, cfg.head_dim),
+            ("layers", "batch", "kv_seq", "kv_heads", "head_dim"), rules)
+        if seq is not None:
+            cache["kv_seq"] = seq
         kv_dtype = dtype_of(cfg.kv_cache_dtype)
         cache.update(k=torch.zeros(shape, dtype=kv_dtype, device=device),
                      v=torch.zeros(shape, dtype=kv_dtype, device=device))
@@ -600,7 +731,8 @@ def _run_layers(params, cfg: ModelConfig, x, positions, cache, pos: int,
                         if enc is not None else _cross_cache(cache, i))
         x = _dense_body(layer_params(params["layers"], i), x, positions, cfg,
                         cfg.layer_is_global_attn(i), _layer_cache(cache, i),
-                        pos, cross_kv=cross_kv, cross_p=cross_p)
+                        pos, cross_kv=cross_kv, cross_p=cross_p,
+                        kv_seq=cache.get("kv_seq"))
     return x
 
 

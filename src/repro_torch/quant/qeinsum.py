@@ -14,6 +14,14 @@ A :class:`PreparedWeight` ``w`` must already be in canonical
 ``batch + k + n`` order. ``cfg.dtype == "none"`` is a plain float32
 ``torch.einsum``. ``site`` names the call site for calibration
 statistics and per-site flush planning (``quant.calibrate``).
+
+A prepared weight sharded over a mesh of ranks (``w.layout``) contracts
+this rank's part: an x whose batch dim the weight shards is sliced to this
+rank's slices (an x already holding them is taken as is), an x holding
+this rank's K range goes to ``qmatmul``'s K-sharded path, and the output
+holds this rank's batch slices and columns. ``gather=True`` (default)
+all-gathers the columns; ``gather=False`` leaves them this rank's (the
+attention heads and the FFN hidden of tensor parallelism).
 """
 
 from __future__ import annotations
@@ -123,26 +131,56 @@ def _sizes_of(plan: QeinsumPlan, x, w) -> Dict[str, int]:
                 f"{plan.batch!r}")
         assign(plan.batch, stack, "w.codes stack")
         k_flat = math.prod(sizes[i] for i in plan.k)
-        if k_flat != int(w.codes.shape[-2]):
+        k_ok = {int(w.codes.shape[-2])}
+        if w.layout is not None:
+            k_ok.add(int(w.layout.shape[-2]))
+        if k_flat not in k_ok:
             raise ValueError(f"contracted size {k_flat} != prepared K "
                              f"{int(w.codes.shape[-2])}")
-        assign(plan.n, w.tail, "w.tail")
+        assign(plan.n, w.local_tail, "w.tail")
     else:
         assign(plan.w_ix, w.shape, "w")
     return sizes
 
 
+def _local_batch(plan: QeinsumPlan, x, w: PreparedWeight):
+    """``x`` with every batch dim the weight shards cut to this rank's
+    slices (an x already holding them is returned as is)."""
+    lay = w.layout
+    for j, i in enumerate(plan.batch):
+        axes = lay.axes(j)
+        if not axes:
+            continue
+        d = plan.x_ix.index(i)
+        a, b = lay.range(j)
+        if x.shape[d] == lay.shape[j]:
+            x = x.narrow(d, a, b - a)
+        elif x.shape[d] != b - a:
+            raise ValueError(f"x's batch dim {i!r} of {x.shape[d]} is "
+                             f"neither the plane's {lay.shape[j]} nor this "
+                             f"rank's {b - a}")
+    return x
+
+
 def qeinsum(spec: str, x, w, cfg: QuantConfig, *, bias=None,
             activation: str = "none", out_dtype=None,
-            flush_period: Optional[int] = None, site: Optional[str] = None):
+            flush_period: Optional[int] = None, site: Optional[str] = None,
+            gather: bool = True):
     """Quantized 2-operand einsum under the numerics of ``cfg``.
 
     ``bias`` is a flattened-N row and, like ``activation``, requires the
     output to end with the n indices; both run in the kernel epilogue on
-    the fused exact path and after the output cast otherwise.
+    the fused exact path and after the output cast otherwise. ``gather``:
+    a sharded weight's columns all-gathered (module docstring).
     """
     plan = plan_qeinsum(spec)
     prepared = isinstance(w, PreparedWeight)
+    lay = w.layout if prepared else None
+    if lay is not None:
+        x = _local_batch(plan, x, w)
+        if bias is not None and lay.n_axes:
+            a, b = lay.range(-1)
+            bias = bias.reshape(-1)[a:b]
     sizes = _sizes_of(plan, x, w)
     if out_dtype is None:
         out_dtype = x.dtype
@@ -181,13 +219,16 @@ def qeinsum(spec: str, x, w, cfg: QuantConfig, *, bias=None,
                        flush_period=flush_period, site=site)
     else:
         if prepared:
+            if lay is not None and len(batch_shape) != 1:
+                raise NotImplementedError(
+                    "a sharded prepared weight takes one batch index")
             s_tail = tuple(w.scale.shape[len(batch_shape):])
             wb = PreparedWeight(
                 w.codes.reshape((B,) + tuple(w.codes.shape[-2:])),
                 w.scale.reshape((B,) + s_tail), w.fmt_name, w.tail,
                 None if w.limbs is None else
                 w.limbs.reshape((B,) + tuple(w.limbs.shape[-3:])),
-                w.limb_sigma, w.act_sigma)
+                w.limb_sigma, w.act_sigma, lay)
         else:
             wb = w.permute(plan.w_perm).reshape(B, K, N)
         out2 = qmatmul(xt.reshape(B, M, K), wb, cfg, out_dtype=out_dtype,
@@ -195,6 +236,9 @@ def qeinsum(spec: str, x, w, cfg: QuantConfig, *, bias=None,
                        flush_period=flush_period, site=site)
 
     out = out2.reshape(batch_shape + m_shape + n_shape)
+    if gather and lay is not None and lay.n_axes:
+        out = lay.mesh.all_gather(out, len(batch_shape) + len(m_shape),
+                                  lay.n_axes)
     if plan.out_perm != tuple(range(out.dim())):
         out = out.permute(plan.out_perm)
     if not fuse:

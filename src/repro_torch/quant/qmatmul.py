@@ -52,6 +52,18 @@ applied after it (the same float32 ops).
 An integer config takes raw weights only (a ``PreparedWeight`` raises
 ``ValueError``, as in the reference).
 
+A prepared weight sharded over a mesh of ranks (``PreparedWeight.layout``)
+holds this rank's columns and / or K range. Cut along N only, it runs the
+call above on its columns (the output is this rank's columns). Cut along
+K, the output cannot be a sum of per-rank float32 results, so the exact
+sum is reduced as integers (:func:`_sharded_exact`): the activation's
+scale is maxed over the K group first, this rank's K range is encoded,
+B1's class partials over it (``mgs_matmul_exact_partials``) are summed by
+an int32 all-reduce over the K group, then flushed with the epilogue
+(``mgs_matmul_exact_flush``) — the one-device bits for any cut of K. That
+path is B1's (``use_kernel``, ``fused``, ``schedule="output"``); the other
+kernels on a K-sharded plane raise (ROADMAP A12.2c).
+
 ``site`` names the call site (``"ffn.wg"``, ``"attn.scores"``, ...) for
 calibration: under ``quant.calibrate.calibrating()`` the quantized
 activation's limb histogram is recorded per site (``mgs_exact`` and
@@ -69,7 +81,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.formats import encode_bits
+from repro_torch.core.formats import encode_bits, round_to_format
 from repro_torch.core.int_dmac import int_dot_clip, int_dot_wrap
 from repro_torch.core.markov import plan_flush_period
 from repro_torch.kernels import ops as kops
@@ -77,11 +89,13 @@ from repro_torch.kernels import ref as kref
 from repro_torch.kernels.mgs_matmul import (limb_decompose,
                                             mgs_matmul_dmac_codes,
                                             mgs_matmul_exact,
-                                            mgs_matmul_exact_fused)
-from .calibrate import current_calib_state, observe
+                                            mgs_matmul_exact_flush,
+                                            mgs_matmul_exact_fused,
+                                            mgs_matmul_exact_partials)
+from .calibrate import current_calib_state, current_recorder, observe
 from .config import QuantConfig
 from .prepared import PreparedWeight
-from .quantize import quantize_fp8, quantize_int
+from .quantize import TINY, quantize_fp8, quantize_int, recip
 
 __all__ = ["qmatmul"]
 
@@ -115,6 +129,18 @@ def _exact_flush_period(cfg: QuantConfig, w_sigma, x_sigma, site):
         sigma_limb_w=w_sigma))
 
 
+def _site_flush_period(cfg: QuantConfig, w, site):
+    """The exact kernels' period for ``w`` at ``site`` (no explicit one):
+    the site's calibrated act sigma, else a prepared weight's stamped one,
+    into :func:`_exact_flush_period`."""
+    prepared = isinstance(w, PreparedWeight)
+    x_sigma = cfg.act_sigma(site)
+    if x_sigma is None and prepared:
+        x_sigma = w.act_sigma
+    return _exact_flush_period(cfg, w.limb_sigma if prepared else None,
+                               x_sigma, site)
+
+
 def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
             activation: str = "none", batched: bool = False,
             flush_period: Optional[int] = None, site: Optional[str] = None):
@@ -146,6 +172,9 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
         x_axis = -1
     else:
         x_axis = tuple(range(1, x.dim())) if batched else None
+    if prepared and w.layout is not None and w.layout.k_axes:
+        return _sharded_exact(x, w, cfg, x_axis, out_dtype, bias,
+                              activation, batched, flush_period, site)
     qx = quantize_fp8(x, fmt, axis=x_axis, margin=margin)
     if cfg.accum in ("mgs_exact", "mgs_dmac"):
         observe(site, qx.q, fmt, batched=batched)
@@ -185,11 +214,7 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
         out = kops.apply_epilogue(out * scale, None, bias, activation)
         return out.to(out_dtype)
     if flush_period is None:
-        x_sigma = cfg.act_sigma(site)
-        if x_sigma is None and prepared:
-            x_sigma = w.act_sigma
-        flush_period = _exact_flush_period(
-            cfg, w.limb_sigma if prepared else None, x_sigma, site)
+        flush_period = _site_flush_period(cfg, w, site)
     in_kernel = not cfg.per_row_act
     if cfg.use_kernel and cfg.fused and batched:
         # one launch over every slice: the B1 kernel's batch axis
@@ -228,6 +253,68 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
             scale=scale if in_kernel else None,
             bias=bias if in_kernel else None,
             activation=activation if in_kernel else "none")
+    if not in_kernel:
+        out = kops.apply_epilogue(out, scale, bias, activation)
+    return out.to(out_dtype)
+
+
+def _sharded_exact(x, w: PreparedWeight, cfg: QuantConfig, x_axis,
+                   out_dtype, bias, activation: str, batched: bool,
+                   flush_period: Optional[int], site: Optional[str]):
+    """``x @ w`` for a plane cut along K over a mesh of ranks (module
+    docstring, steps (i)-(v)); ``x`` holds the whole K or this rank's
+    range of it. Returns this rank's columns."""
+    lay = w.layout
+    if not (cfg.accum == "mgs_exact" and cfg.use_kernel and cfg.fused
+            and cfg.schedule == "output"):
+        raise NotImplementedError(
+            f"a K-sharded plane runs B1's partials (mgs_exact, use_kernel, "
+            f"fused, schedule='output'); accum={cfg.accum} "
+            f"use_kernel={cfg.use_kernel} fused={cfg.fused} "
+            f"schedule={cfg.schedule} on a K-sharded plane is ROADMAP "
+            "A12.2c")
+    if current_recorder() is not None:
+        raise NotImplementedError("calibration on a mesh is ROADMAP A12.2c")
+    fmt = cfg.fmt
+    K = lay.shape[-2]
+    k0, k1 = lay.range(-2)
+    xf = x.to(torch.float32)
+    if xf.shape[-1] == K:                  # replicated: take this K range
+        q = quantize_fp8(xf, fmt, axis=x_axis, margin=cfg.fp8_margin)
+        xq, x_scale = q.q[..., k0:k1], q.scale
+    elif xf.shape[-1] == k1 - k0:          # already this rank's K range
+        # (i) the scale is a max over the whole K: the K group's
+        amax = (xf.abs().amax() if x_axis is None
+                else xf.abs().amax(dim=x_axis, keepdim=True))
+        amax = torch.clamp_min(lay.mesh.all_reduce(amax, "max", lay.k_axes),
+                               TINY)
+        x_scale = amax * recip(fmt.max_finite * cfg.fp8_margin)
+        xq = round_to_format(xf / x_scale, fmt)
+    else:
+        raise ValueError(f"x's K {xf.shape[-1]} is neither the plane's "
+                         f"{K} nor this rank's {k1 - k0}")
+    w_scale = w.scale
+    if batched and w_scale.dim() == 1:     # per-slice scalars
+        w_scale = w_scale.reshape(-1, 1, 1)
+    scale = x_scale * w_scale
+    if flush_period is None:
+        flush_period = _site_flush_period(cfg, w, site)
+    in_kernel = not cfg.per_row_act
+    # (ii) encode this K range, (iii) B1's partials over it, (iv) the exact
+    # int32 sum over the K group, (v) the flush and the epilogue
+    xc = encode_bits(xq, fmt)
+    lead = xc.shape[:-1]
+    x3 = xc if batched else xc.reshape(-1, xc.shape[-1])
+    part = mgs_matmul_exact_partials(x3, w.codes, fmt, block_k=cfg.block_k,
+                                     flush_period=flush_period, k_offset=k0,
+                                     k_total=K)
+    part = lay.mesh.all_reduce(part, "sum", lay.k_axes)
+    out = mgs_matmul_exact_flush(
+        part, fmt, scale=scale if in_kernel else None,
+        bias=bias if in_kernel else None,
+        activation=activation if in_kernel else "none")
+    if not batched:
+        out = out[0].reshape(tuple(lead) + (out.shape[-1],))
     if not in_kernel:
         out = kops.apply_epilogue(out, scale, bias, activation)
     return out.to(out_dtype)

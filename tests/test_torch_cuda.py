@@ -893,3 +893,89 @@ def test_b1_split_k_stays_exact_with_two_streams_launching(dev):
         t.join(300)
     assert not any(t.is_alive() for t in threads)
     assert not errors and not bad
+
+
+# ---------------------------------------------------------------------------
+# sharded serving: B1's partials / flush entries, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 70])
+@pytest.mark.parametrize("fmt", [E4M3, E3M4])
+def test_b1_partials_and_flush_equal_b1_and_the_twin(dev, M, fmt):
+    from repro_torch.kernels.mgs_matmul import (mgs_matmul_exact_flush,
+                                                mgs_matmul_exact_partials)
+    K, N = 1000, 200
+    xc, wc = _codes((2, M, K), fmt, 2, dev), _codes((2, K, N), fmt, 3, dev)
+    s = torch.rand(2, 1, N, device=dev) * 1e-2
+    for fp in (None, 1, 3):
+        kw = dict(block_k=64, flush_period=fp)
+        one = mgs_matmul_exact_fused(xc, wc, fmt, scale=s,
+                                     activation="silu", **kw)
+        twin = mgs_matmul_exact_fused_plain(xc, wc, fmt, scale=s,
+                                            activation="silu", **kw)
+        for cut in ((0, 37), (0, 333, 555), (0, 16, 48)):
+            edges = list(cut) + [K]
+            n0 = LAUNCHES["mgs_matmul_exact_partials"]
+            part = sum(mgs_matmul_exact_partials(
+                xc[..., a:b].contiguous(), wc[:, a:b].contiguous(), fmt,
+                k_offset=a, k_total=K, **kw)
+                for a, b in zip(edges[:-1], edges[1:]))
+            assert LAUNCHES["mgs_matmul_exact_partials"] == n0 + len(cut)
+            got = mgs_matmul_exact_flush(part, fmt, scale=s,
+                                         activation="silu")
+            torch.cuda.synchronize()
+            assert torch.equal(got, one) and torch.equal(one, twin), (fp, cut)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _shared_card_rank(rank, cfg, params):
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.parallel.comm import rank_device
+    return _served(ServeEngine(cfg, batch=2, max_len=24,
+                               params=_to(params, rank_device()),
+                               device=rank_device(), mesh=make_serve_mesh()))
+
+
+def _served(eng):
+    import numpy as np
+    from repro_torch.launch.serve import Request
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(1, eng.cfg.vocab, 8).astype(
+        np.int32), max_new_tokens=4) for i in range(4)]
+    st = eng.run(reqs, record_logits=True)
+    return [r.out_tokens for r in reqs], {
+        k: np.stack(v) for k, v in st["logits"].items()}
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "granite-moe-1b-a400m"])
+def test_two_ranks_sharing_the_card_equal_the_cpu_run(dev, arch, tmp_path):
+    """Tokens equal the CPU's (the twins); logits bitwise one engine on the
+    card (the card's float ops are not the CPU's)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import init_params
+    from repro_torch.parallel.comm import launch
+    from repro_torch.quant import FP8_MGS_SERVE_KV
+    cfg = dataclasses.replace(reduced_config(arch), compute_dtype="float32",
+                              quant=FP8_MGS_SERVE_KV.replace(block_k=32))
+    params = init_params(cfg, 0)
+    toks, _ = _served(ServeEngine(cfg, batch=2, max_len=24, params=params,
+                                  device="cpu"))
+    card_toks, logits = _served(ServeEngine(
+        cfg, batch=2, max_len=24, params=_to(params, dev), device=dev))
+    assert card_toks == toks
+    res = launch(_shared_card_rank, 2, args=(cfg, params), device="cuda",
+                 share_device=True, timeout=300.0, store_dir=str(tmp_path))
+    for got_toks, got_logits in res:
+        assert got_toks == toks
+        for k in logits:
+            np.testing.assert_array_equal(got_logits[k], logits[k])

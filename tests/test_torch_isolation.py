@@ -26,7 +26,8 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.quant",
            "repro_torch.core.markov", "repro_torch.quant.calibrate",
            "repro_torch.quant.streaming", "repro_torch.launch.mesh",
            "repro_torch.launch.replica", "repro_torch.runtime.elastic",
-           "repro_torch.runtime.fault_tolerance"]
+           "repro_torch.runtime.fault_tolerance", "repro_torch.parallel",
+           "repro_torch.parallel.sharding", "repro_torch.parallel.comm"]
 
 
 def test_import_leaves_jax_and_repro_unloaded():
