@@ -161,7 +161,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    count, held inside the traffic's bounds), ``PREP_STATS`` and the builds
    stay flat; each wall beside one engine's, ``busy_s``
    and ``recovery_s`` printed;
-14. sharded serving, run last (after phase 12, with phase 4's tokens and
+14. sharded serving, after phase 12 (with phase 4's tokens and
    logits and phase 9's granite-moe tokens): B1's partials entry over K
    cut into 2 and 3 pieces at offsets that are no multiple of
    ``block_k``, the pieces' int32 partials summed, and its flush entry ==
@@ -176,7 +176,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    collectives (calls, bytes, bytes staged through the host) a decode step
    and a run == ``sharded_prediction``, ``PREP_STATS`` and the builds
    flat; it prints what a shared card cannot show (NCCL, inter-GPU
-   bandwidth, any speed of tensor parallelism). Last, print the card's
+   bandwidth, any speed of tensor parallelism);
+15. training on meshes of ranks sharing the card over gloo
+   (``train_sharded_phase``), every compared run a process of its own
+   under ``torch.use_deterministic_algorithms`` (``CUBLAS_WORKSPACE_CONFIG``
+   set before the spawns): mgs-paper-eval at full width (no remat, 8 x 64
+   tokens) trains 4 steps on a 2x2 mesh (``launch.train.train_loop`` on
+   each rank's slice by the train specs, batch over (data, model): D =
+   4) with a checkpoint, ``runtime.elastic.make_elastic_mesh(2)`` over 4
+   slots with 2 excluded gives 1x2 (D = 2), the ranks restore from the
+   checkpoint (``shardings=``) and train 4 more; every step's loss / aux /
+   tokens / grad norm, every rank's final slices and the final checkpoint
+   are bitwise one card at ``grad_accum`` 4 then 2 through its own
+   checkpoint, and the final params' ``mgs_exact`` (B1) logits bitwise;
+   granite-moe-1b-a400m at full width but 6 of its 24 layers
+   (``MOE_TRAIN_LAYERS``; remat per layer, 8 x 512) takes one step on the
+   same 1x2 ranks bitwise one card at ``grad_accum`` 2, peak memory a rank
+   printed; the one-card process runs both parts beside the meshes;
+   every step's collectives (calls, bytes, host bytes) ==
+   ``train_sharded_prediction``; it prints what a shared card cannot show
+   (NCCL, 2+ cards, any speed of data parallelism). Last, print the card's
    name and power limit, a JSON line of kernel results, and ``{"ok":
    true, "device": {...}}``.
 
@@ -190,6 +209,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3579,6 +3599,494 @@ def sharded_phase(torch, dev, gen, layers: int, group_reqs, group_logits,
                 seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training on a mesh of ranks, elastic resharding
+# ---------------------------------------------------------------------------
+
+# (a) mgs-paper-eval: TRAIN_HALF steps on a 2x2 mesh (batch over (data,
+# model): D = 4), a checkpoint, the elastic 1x2 mesh of 4 slots with 2
+# excluded (D = 2), TRAIN_HALF more steps; (b) granite-moe-1b-a400m: one
+# step on 1x2 (D = 2) at phase 12's MOE_BATCH x MOE_SEQ, on the same two
+# ranks
+TRAIN_MESH, ELASTIC_SLOTS, ELASTIC_EXCLUDE, TRAIN_HALF = (2, 2), 4, (2, 3), 4
+MOE_MESH = (1, 2)
+# granite-moe's depth in phase 15, of 24 (full width): at 24 layers its
+# one-step part alone took 142.5 s of a 252.5 s phase on an H100
+MOE_TRAIN_LAYERS = 6
+
+
+def _spec_gathers(spec, shape, sizes, itemsize, staged):
+    """(calls, bytes, host bytes) of gathering a leaf of ``shape`` laid
+    out by ``spec`` whole: one all-gather per sharded dim, in dim order,
+    each sending what this rank holds by then."""
+    cur = [int(s) for s in shape]
+    for i, e in enumerate(spec):
+        if e is not None:
+            cur[i] //= math.prod(sizes[a] for a in
+                                 (e if isinstance(e, tuple) else (e,)))
+    calls = nbytes = host = 0
+    for i, e in enumerate(spec):
+        if e is None:
+            continue
+        n = math.prod(sizes[a] for a in (e if isinstance(e, tuple) else (e,)))
+        nb = math.prod(cur) * itemsize
+        calls, nbytes = calls + 1, nbytes + nb
+        host += staged * nb * (1 + n)
+        cur[i] *= n
+    return calls, nbytes, host
+
+
+def train_sharded_prediction(cfg, shape, batch: int, seq: int,
+                             grad_accum: int = 1, staged: bool = True):
+    """Per rank of a ``shape`` (data, model) mesh training ``cfg`` on
+    ``batch`` x ``seq`` tokens (``make_train_step(..., mesh=)`` in
+    ``train_loop``): the collectives (calls by kind, bytes sent, bytes
+    staged through the host by gloo when ``staged``: a gather's payload
+    down and the ``n`` parts back, an all-reduce's down and back) of a
+    step with its agreed stop flag (``step``), and of a checkpoint's
+    gathers (``save``). A step gathers every parameter whole (a gather a
+    sharded dim), gathers each gradient leaf over the ``D`` batch shards
+    (its dtype: the parameter's at ``grad_accum`` 1, the accumulator's
+    otherwise) and the (A, 3) float32 metrics, gathers a factored leaf's
+    row / column factors, and max-reduces one int32 stop flag."""
+    import torch
+    from repro_torch.models.common import dtype_of
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.parallel.sharding import MeshShape, train_rules
+    from repro_torch.train.train_step import batch_shards, train_state_specs
+    from repro_torch.tree import flatten_with_paths
+    mesh = MeshShape(("data", "model"), tuple(shape))
+    sizes = mesh.shape
+    rules = train_rules(mesh)
+    factored = cfg.opt_factored
+    specs = train_state_specs(cfg, rules, factored)
+    shapes = flatten_with_paths(param_shapes(cfg))
+    pspec = flatten_with_paths(specs["params"])
+    nu_specs = flatten_with_paths(specs["opt"]["nu"])
+    pdt = dtype_of(cfg.param_dtype)
+    _, D = batch_shards(rules, batch, seq)
+    kinds = ("all_gather", "all_reduce_max", "all_reduce_sum", "barrier")
+
+    def blank():
+        return dict(calls=0, bytes=0, host_bytes=0, **{k: 0 for k in kinds})
+
+    def add(out, kind, calls, nb, host):
+        out["calls"] += calls
+        out[kind] += calls
+        out["bytes"] += nb
+        out["host_bytes"] += host
+
+    step, save = blank(), blank()
+    f32 = 4
+    for k, s in shapes.items():
+        add(step, "all_gather", *_spec_gathers(pspec[k], s, sizes,
+                                                pdt.itemsize, staged))
+        if D > 1:
+            gdt = (torch.float32 if grad_accum > 1 and len(s) < 2 else pdt)
+            nb = math.prod(s) * gdt.itemsize
+            add(step, "all_gather", 1, nb, staged * nb * (1 + D))
+        if factored and len(s) >= 2:
+            for part, fs in (("row", s[:-1]), ("col", s[:-2] + s[-1:])):
+                add(step, "all_gather", *_spec_gathers(
+                    nu_specs[f"{k}/{part}"], fs, sizes, f32, staged))
+    if D > 1:
+        nb = grad_accum * 3 * f32
+        add(step, "all_gather", 1, nb, staged * nb * (1 + D))
+    add(step, "all_reduce_max", 1, 4, staged * 8)
+    # a checkpoint gathers every state leaf whole
+    flat_specs = flatten_with_paths(specs)
+    for k, spec in flat_specs.items():
+        if k.startswith("params/"):
+            s, isz = shapes[k[7:]], pdt.itemsize
+        elif k.startswith("opt/mu/"):
+            s = shapes[k[7:]]
+            isz = 2 if factored and len(s) >= 2 else f32
+        elif k.startswith("opt/nu/"):
+            name = k[7:]
+            if name in shapes:
+                s = shapes[name]
+            else:
+                base, part = name.rsplit("/", 1)
+                s = shapes[base][:-1] if part == "row" else \
+                    shapes[base][:-2] + shapes[base][-1:]
+            isz = f32
+        else:                       # opt/step: replicated
+            continue
+        add(save, "all_gather", *_spec_gathers(spec, s, sizes, isz, staged))
+    return {"step": step, "save": save, "D": D}
+
+
+class _CommRecorder:
+    """A stop handler that never stops: it snapshots ``COMM_STATS`` at each
+    poll (once a step, just before the loop's stop flag)."""
+
+    def __init__(self, stats):
+        self.stats, self.snaps = stats, [dict(stats)]
+
+    @property
+    def should_stop(self):
+        self.snaps.append(dict(self.stats))
+        return False
+
+    def deltas(self):
+        """Each step's collectives from the second step on (with the stop
+        flag of the step before it, and the checkpoint's gathers when the
+        step wrote one)."""
+        return [{k: b[k] - a[k] for k in a}
+                for a, b in zip(self.snaps[1:], self.snaps[2:])]
+
+
+def _checksum(t) -> int:
+    """A position-weighted 64-bit sum of a tensor's bits, taken on its
+    device: element ``i``'s bits times ``2 i + 1``, summed modulo 2**64.
+    Any one element that differs changes it (an odd weight times a
+    nonzero difference below 2**64 is not 0 modulo 2**64)."""
+    import torch
+    flat = t.detach().contiguous().reshape(-1)
+    bits = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[flat.element_size()])
+    total, chunk = 0, 1 << 24
+    for i in range(0, bits.numel(), chunk):
+        b = bits[i:i + chunk].to(torch.int64)
+        w = torch.arange(2 * i + 1, 2 * (i + b.numel()), 2,
+                         dtype=torch.int64, device=b.device)
+        total = (total + int((b * w).sum())) % (1 << 64)
+    return total
+
+
+def _slice_checksums(cfg, state, shape, factored):
+    """{coord: {leaf: checksum of that rank's slice}} of a whole state for
+    every rank of a ``shape`` mesh."""
+    import itertools
+    from types import SimpleNamespace
+    from repro_torch.parallel.sharding import (MeshShape, local_slices,
+                                               train_rules)
+    from repro_torch.train.train_step import train_state_specs
+    from repro_torch.tree import flatten_with_paths
+    specs = flatten_with_paths(train_state_specs(
+        cfg, train_rules(MeshShape(("data", "model"), tuple(shape))),
+        factored))
+    flat = flatten_with_paths(state)
+    out = {}
+    for c in itertools.product(*(range(s) for s in shape)):
+        m = SimpleNamespace(shape=dict(zip(("data", "model"), shape)),
+                            coord=dict(zip(("data", "model"), c)))
+        out[c] = {k: _checksum(v[local_slices(specs[k], tuple(v.shape), m)])
+                  for k, v in flat.items()}
+    return out
+
+
+def _train_sharded_rank(rank: int, shape, parts):
+    """One rank of phase 15 on the world's ``shape`` mesh, or (``shape``
+    None) the one-card process. Each of ``parts`` (arch, layers, remat,
+    runs of (loop, resume step, opt), the mesh shape whose slices to
+    checksum or None) in turn, through ``train_loop`` under deterministic
+    algorithms: each run's history, per-step and whole collectives and
+    seconds; checksums of this rank's final state leaves (of every rank's
+    slice of the whole state for the one-card process); peak device
+    memory."""
+    t_enter = time.time()
+    import gc
+    import torch
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.parallel import comm
+    from repro_torch.tree import flatten_with_paths
+    mesh = make_mesh(shape, ("data", "model")) if shape else None
+    dev = comm.rank_device()
+    out = {"coord": tuple(mesh.coord.values()) if mesh else None,
+           "t_enter": t_enter, "t_ready": time.time(), "parts": []}
+    for arch, layers, remat, runs, sum_shape in parts:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  remat=remat)
+        torch.cuda.reset_peak_memory_stats(dev)
+        done = []
+        for loop, resume, opt in runs:
+            rec = _CommRecorder(comm.COMM_STATS)
+            t0 = time.time()
+            res = train_loop(cfg, loop, device=dev, mesh=mesh, opt_cfg=opt,
+                             resume_step=resume, handler=rec)
+            torch.cuda.synchronize(dev)
+            done.append(dict(
+                history=res["history"], deltas=rec.deltas(),
+                total={k: comm.COMM_STATS[k] - rec.snaps[0][k]
+                       for k in rec.snaps[0]},
+                seconds=time.time() - t0))
+        t0 = time.time()
+        state = res.pop("state")
+        part = dict(runs=done, peak_gib=torch.cuda.max_memory_allocated(
+            dev) / 2**30, sums={k: _checksum(v) for k, v in
+                                flatten_with_paths(state).items()})
+        if sum_shape is not None:
+            part["slice_sums"] = _slice_checksums(cfg, state, sum_shape,
+                                                  runs[-1][2].factored)
+        part["check_s"] = time.time() - t0
+        out["parts"].append(part)
+        del state, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _same_history(what, ranks, one_runs, part: int):
+    """Every rank's every step's loss, aux loss, tokens and grad norm in
+    ``part`` == the one-card run's, bitwise; returns those."""
+    keys = ("loss", "aux_loss", "tokens", "grad_norm")
+    want = [tuple(h[k] for k in keys) for r in one_runs for h in r["history"]]
+    for rank in ranks:
+        got = [tuple(h[k] for k in keys) for r in rank["parts"][part]["runs"]
+               for h in r["history"]]
+        if got != want:
+            raise AssertionError(f"{what}: rank {rank['coord']}'s per-step "
+                                 f"metrics {got} != the one card's {want}")
+    return want
+
+
+def _same_sums(what, ranks, part: int, one_part):
+    for r in ranks:
+        want = one_part["slice_sums"][r["coord"]]
+        got = r["parts"][part]["sums"]
+        if got != want:
+            bad = sorted(k for k in want if got.get(k) != want[k])
+            raise AssertionError(f"{what}: rank {r['coord']} state differs "
+                                 f"from the one-card run's slice: {bad[:5]}")
+
+
+def _check_comm(what, ranks, part: int, pred, saves_per_run):
+    """Per rank: every step's collectives after the first == the
+    prediction (the step that wrote a checkpoint: step + save), each run's
+    whole == steps x step (+ save + the writer's barrier)."""
+    barrier = dict.fromkeys(pred["step"], 0)
+    barrier.update(calls=1, barrier=1)
+    for r in ranks:
+        for run, saves in zip(r["parts"][part]["runs"], saves_per_run):
+            n = len(run["history"])
+            want_steps = [pred["step"]] * (n - 1)
+            if saves:
+                want_steps[-1] = {k: pred["step"][k] + pred["save"][k]
+                                  for k in pred["step"]}
+            got_steps = [{k: d[k] for k in pred["step"]}
+                         for d in run["deltas"]]
+            want_total = {k: n * pred["step"][k]
+                          + saves * (pred["save"][k] + barrier[k])
+                          for k in pred["step"]}
+            got_total = {k: run["total"][k] for k in pred["step"]}
+            if got_steps != want_steps or got_total != want_total:
+                raise AssertionError(
+                    f"{what} rank {r['coord']}: collectives {got_steps} / "
+                    f"{got_total} != predicted {want_steps} / {want_total}")
+
+
+def _eval_logits(torch, cfg, directory, batch, dev):
+    """Logits of the params of ``directory``'s newest checkpoint under
+    ``mgs_exact`` (B1) on ``batch``, and the kernels' launches."""
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.models import forward
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.tree import unflatten
+    _, flat, _ = ckpt.restore(directory)
+    params = unflatten(param_shapes(cfg), {
+        k[len("params/"):]: v.to(dev) for k, v in flat.items()
+        if k.startswith("params/")})
+    qcfg = dataclasses.replace(cfg, quant=table1_modes()["mgs_exact"])
+    reset_launch_counts()
+    with torch.no_grad():
+        logits, _ = forward(params, qcfg, batch)
+    torch.cuda.synchronize()
+    return logits, dict(LAUNCHES)
+
+
+def _launch_train(shape, parts):
+    """(every rank's result, launch + join seconds, each rank's seconds
+    from the launch to its rank function) of ``parts`` on a ``shape``
+    mesh of ranks sharing the card (``None``: one process)."""
+    from repro_torch.parallel.comm import launch
+    t0 = time.time()
+    res = launch(_train_sharded_rank, math.prod(shape) if shape else 1,
+                 args=(shape, parts), device="cuda", share_device=True,
+                 timeout=900.0)
+    return res, time.time() - t0, [r["t_enter"] - t0 for r in res]
+
+
+def train_sharded_phase(torch, dev, moe_layers: int = MOE_TRAIN_LAYERS):
+    """Phase 15. (a) full-width mgs-paper-eval: TRAIN_HALF steps on
+    TRAIN_MESH (D = 4) with a checkpoint, then TRAIN_HALF on the elastic
+    1x2 mesh (D = 2) restored from it; (b) granite-moe-1b-a400m at full
+    width (``moe_layers`` deep), remat per layer, one step of MOE_BATCH x
+    MOE_SEQ on MOE_MESH (D = 2). Held against one card at grad_accum 4
+    then 2 through its own checkpoint, and at grad_accum 2, in a process of
+    its own run beside the meshes: every step's metrics and every rank's
+    final slices bitwise, (a)'s final checkpoints and the ``mgs_exact``
+    logits of its final params bitwise, collectives ==
+    ``train_sharded_prediction``."""
+    import gc
+    import tempfile
+    import threading
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import virtual_devices
+    from repro_torch.launch.train import TrainLoopConfig
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime.elastic import make_elastic_mesh
+    from repro_torch.train import OptConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    # cuBLAS reads it when a process creates its handle: every compared run
+    # is spawned after this
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    t_phase = time.time()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), remat="none")
+    moe_full = get_config(MOE_TRAIN_ARCH)
+    moe_cfg = dataclasses.replace(moe_full, n_layers=moe_layers)
+    if moe_layers != moe_full.n_layers:
+        log(f"train sharded {MOE_TRAIN_ARCH}: cut to {moe_layers} of its "
+            f"{moe_full.n_layers} layers (full width, {MOE_BATCH} x "
+            f"{MOE_SEQ} tokens): at {moe_full.n_layers} layers this part "
+            "alone took 142.5 s on an H100")
+    sub = make_elastic_mesh(2, devices=virtual_devices(dev, ELASTIC_SLOTS),
+                            exclude=ELASTIC_EXCLUDE)
+    elastic = tuple(sub.shape.values())
+    assert elastic == MOE_MESH, (elastic, MOE_MESH)
+    opt = OptConfig(lr=3e-3, warmup_steps=2, total_steps=2 * TRAIN_HALF)
+    moe_opt = OptConfig(lr=3e-4, warmup_steps=1, total_steps=1)
+    pa = train_sharded_prediction(cfg, TRAIN_MESH, TRAIN_BATCH, TRAIN_SEQ)
+    pb = train_sharded_prediction(cfg, elastic, TRAIN_BATCH, TRAIN_SEQ)
+    pm = train_sharded_prediction(moe_cfg, MOE_MESH, MOE_BATCH, MOE_SEQ)
+    moe_loop = TrainLoopConfig(steps=1, global_batch=MOE_BATCH,
+                               seq_len=MOE_SEQ, log_every=1, seed=SEED)
+    dense = (TRAIN_ARCH, cfg.n_layers, "none")
+    moe = (MOE_TRAIN_ARCH, moe_layers, "layer")
+    with tempfile.TemporaryDirectory() as d:
+        mesh_dir, one_dir = os.path.join(d, "mesh"), os.path.join(d, "one")
+        a = TrainLoopConfig(steps=TRAIN_HALF, global_batch=TRAIN_BATCH,
+                            seq_len=TRAIN_SEQ, log_every=1,
+                            ckpt_every=TRAIN_HALF, ckpt_dir=mesh_dir,
+                            seed=SEED)
+        b = dataclasses.replace(a, steps=2 * TRAIN_HALF)
+        one_parts = [
+            (*dense, [(dataclasses.replace(a, ckpt_dir=one_dir,
+                                           grad_accum=pa["D"]), None, opt),
+                      (dataclasses.replace(b, ckpt_dir=one_dir,
+                                           grad_accum=pb["D"]), TRAIN_HALF,
+                       opt)], elastic),
+            (*moe, [(dataclasses.replace(moe_loop, grad_accum=pm["D"]),
+                     None, moe_opt)], MOE_MESH)]
+        box = {}
+
+        def one_card():
+            try:
+                box["one"] = _launch_train(None, one_parts)
+            except BaseException as e:      # re-raised below
+                box["error"] = e
+        beside = threading.Thread(target=one_card)
+        beside.start()
+        try:
+            ra, wall_a, spawn_a = _launch_train(
+                TRAIN_MESH, [(*dense, [(a, None, opt)], None)])
+            rb, wall_b, spawn_b = _launch_train(
+                elastic, [(*dense, [(b, TRAIN_HALF, opt)], None),
+                          (*moe, [(moe_loop, None, moe_opt)], None)])
+        finally:
+            beside.join()
+        if "error" in box:
+            raise box["error"]
+        (one,), wall_one, spawn_one = box["one"]
+        one_a, one_m = one["parts"]
+        metrics = _same_history(f"{TRAIN_ARCH} on {TRAIN_MESH}", ra,
+                                one_a["runs"][:1], 0)
+        metrics += _same_history(f"{TRAIN_ARCH} on {elastic}", rb,
+                                 one_a["runs"][1:], 0)
+        _same_sums(f"{TRAIN_ARCH} on {elastic}", rb, 0, one_a)
+        _, fm, em = ckpt.restore(mesh_dir)
+        _, fo, eo = ckpt.restore(one_dir)
+        if sorted(fm) != sorted(fo) or em != eo or not all(
+                torch.equal(fm[k], fo[k]) for k in fo):
+            raise AssertionError(f"{TRAIN_ARCH}: the mesh's final checkpoint "
+                                 "differs from the one card's")
+        del fm, fo
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=SEED))
+        batch = _to_dev(torch, data.make_batch(10_000), dev)
+        lm, launches = _eval_logits(torch, cfg, mesh_dir, batch, dev)
+        lo, _ = _eval_logits(torch, cfg, one_dir, batch, dev)
+    want_l = {"mgs_matmul_exact_fused": eval_launches(cfg)}
+    if not torch.equal(lm, lo) or _nonzero(launches) != want_l:
+        raise AssertionError(f"{TRAIN_ARCH}: mgs_exact logits of the mesh-"
+                             f"trained params differ, or B1 launched "
+                             f"{launches} != {want_l}")
+    _check_comm(f"{TRAIN_ARCH} {TRAIN_MESH}", ra, 0, pa, [1])
+    _check_comm(f"{TRAIN_ARCH} {elastic}", rb, 0, pb, [1])
+    moe_metrics = _same_history(MOE_TRAIN_ARCH, rb, one_m["runs"], 1)
+    _same_sums(f"{MOE_TRAIN_ARCH} on {MOE_MESH}", rb, 1, one_m)
+    _check_comm(f"{MOE_TRAIN_ARCH} {MOE_MESH}", rb, 1, pm, [0])
+
+    def med(runs):
+        return statistics.median(h["ms"] for r in runs
+                                 for h in r["history"][1:])
+    step_ms = {"2x2": med(ra[0]["parts"][0]["runs"]),
+               "1x2": med(rb[0]["parts"][0]["runs"]),
+               "one_card": med(one_a["runs"])}
+    moe_ms = {"1x2": [r["parts"][1]["runs"][0]["history"][0]["ms"]
+                      for r in rb],
+              "one_card": one_m["runs"][0]["history"][0]["ms"]}
+    peak = {"2x2": [r["parts"][0]["peak_gib"] for r in ra],
+            "1x2_dense": [r["parts"][0]["peak_gib"] for r in rb],
+            "1x2_moe": [r["parts"][1]["peak_gib"] for r in rb],
+            "one_card_dense": one_a["peak_gib"],
+            "one_card_moe": one_m["peak_gib"]}
+    secs = {"phase": time.time() - t_phase, "wall_2x2": wall_a,
+            "wall_1x2": wall_b, "wall_one_card": wall_one,
+            "spawn_2x2": max(spawn_a), "spawn_1x2": max(spawn_b),
+            "spawn_one_card": spawn_one[0],
+            "ready_2x2": max(r["t_ready"] - r["t_enter"] for r in ra),
+            "runs_2x2": ra[0]["parts"][0]["runs"][0]["seconds"],
+            "runs_1x2": [p["runs"][0]["seconds"] for p in rb[0]["parts"]],
+            "runs_one_card": [r["seconds"] for p in one["parts"]
+                              for r in p["runs"]],
+            "checksums": [p["check_s"] for p in one["parts"]]}
+    log(f"train sharded {TRAIN_ARCH} ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {TRAIN_BATCH} x {TRAIN_SEQ}): {TRAIN_HALF} steps on "
+        f"{TRAIN_MESH[0]}x{TRAIN_MESH[1]} (D = {pa['D']}), checkpoint, "
+        f"make_elastic_mesh(2) over {ELASTIC_SLOTS} slots without "
+        f"{list(ELASTIC_EXCLUDE)} -> {elastic[0]}x{elastic[1]} (D = "
+        f"{pb['D']}), restore, {TRAIN_HALF} more: every step's loss / aux / "
+        f"tokens / grad norm, every rank's final slices and the final "
+        f"checkpoint bitwise one card at grad_accum {pa['D']} then "
+        f"{pb['D']}; the final params' mgs_exact logits bitwise "
+        f"({want_l['mgs_matmul_exact_fused']} B1 launches a forward)")
+    log(f"train sharded {TRAIN_ARCH}: losses {[m[0] for m in metrics]}")
+    log(f"train sharded {MOE_TRAIN_ARCH} ({moe_layers} layers, "
+        f"{MOE_BATCH} x {MOE_SEQ}, remat per layer): one step on "
+        f"{MOE_MESH[0]}x{MOE_MESH[1]} (D = {pm['D']}) bitwise one card at "
+        f"grad_accum {pm['D']} (loss {moe_metrics[0][0]}, aux "
+        f"{moe_metrics[0][1]}, grad norm {moe_metrics[0][3]}), every "
+        "rank's slices bitwise")
+    log(f"train sharded: collectives a step per rank == prediction: "
+        f"{TRAIN_ARCH} {TRAIN_MESH} {pa['step']}, {elastic} {pb['step']} "
+        f"(a checkpoint {pa['save']} / {pb['save']}); {MOE_TRAIN_ARCH} "
+        f"{MOE_MESH} {pm['step']}")
+    log(f"train sharded: median step ms {TRAIN_ARCH} {step_ms}; "
+        f"{MOE_TRAIN_ARCH} {moe_ms}; peak device memory GiB {peak} (the "
+        f"one-card process ran beside the meshes)")
+    log("train sharded: not shown here: NCCL (the ranks share one card over "
+        "gloo, every collective staged through the host), 2+ cards, and any "
+        "speed of data parallelism (the ranks share one card's SMs)")
+    log(f"train sharded: card {card_name(torch)}; phase 15 seconds {secs}")
+    return dict(dense=dict(arch=TRAIN_ARCH, mesh=list(TRAIN_MESH),
+                           elastic=list(elastic), metrics=metrics,
+                           prediction={"2x2": pa, "1x2": pb},
+                           step_ms=step_ms, launches_per_forward=want_l),
+                moe=dict(arch=MOE_TRAIN_ARCH, layers=moe_layers,
+                         seq=MOE_SEQ, mesh=list(MOE_MESH),
+                         metrics=moe_metrics, prediction=pm, step_ms=moe_ms),
+                peak_gib=peak, seconds=secs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=DEPTH,
@@ -3730,6 +4238,12 @@ def main() -> int:
         f"deepseek-7b and {FAMILY_ARCHS[0]} served on a 1x2 mesh of ranks "
         f"bitwise their one-card runs ({time.time() - t0:.1f} s)")
 
+    t0 = time.time()
+    train_sharded = train_sharded_phase(torch, dev)
+    log(f"phase 15: {TRAIN_ARCH} trained on a 2x2 mesh, resharded onto an "
+        f"elastic 1x2 and trained on, and {MOE_TRAIN_ARCH} trained on 1x2, "
+        f"bitwise their one-card grad_accum runs ({time.time() - t0:.1f} s)")
+
     log(f"card: {card_name(torch)}")
     main_b1 = next(r for r in b1_rows if r["shape"] == "decode wg/wu")
     main_b3 = next(r for r in b3_rows if r["shape"] == "decode wg/wu")
@@ -3827,6 +4341,7 @@ def main() -> int:
                     "fleet": fleet,
                     "sharded": {k: v for k, v in sharded.items()
                                 if k != "b1_partials_err"},
+                    "train_sharded": train_sharded,
                     "layers": args.layers}))
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

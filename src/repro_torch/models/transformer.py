@@ -49,7 +49,8 @@ from .linear import proj
 from .mamba import SSMCache, mamba_apply, mamba_decode_step
 from .moe import moe_apply
 
-__all__ = ["init_params", "param_dims", "forward", "loss_fn", "init_cache",
+__all__ = ["init_params", "param_shapes", "param_dims", "forward", "loss_fn",
+           "init_cache",
            "prefill", "decode_step", "layer_params", "cast_params",
            "init_paged_cache", "adopt_slot", "release_slot",
            "decode_step_paged", "verify_step_paged",
@@ -70,8 +71,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     pdt = dtype_of(cfg.param_dtype)
-    L, d, H, KV, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
-                       cfg.n_kv_heads, cfg.head_dim)
 
     def w(shape, fan_in, scale=None):
         return normal_param(gen, shape, dtype=pdt, device=device,
@@ -82,6 +81,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
 
     def zeros(shape):
         return torch.zeros(shape, dtype=pdt, device=device)
+
+    def a_log(shape):
+        rates = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                       device=device))
+        return rates.expand(shape).to(pdt).contiguous()
+
+    return _param_tree(cfg, w, ones, zeros, a_log)
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The shape of every leaf of :func:`init_params`'s tree, as tuples,
+    with nothing allocated (what a mesh lays out before any rank holds a
+    leaf)."""
+    def shape(s, *_, **__):
+        return tuple(s)
+    return _param_tree(cfg, shape, shape, shape, shape)
+
+
+def _param_tree(cfg: ModelConfig, w, ones, zeros, a_log):
+    """:func:`init_params`'s tree with each leaf made by ``w(shape, fan_in[,
+    scale])``, ``ones(shape)``, ``zeros(shape)`` or ``a_log(shape)``, in
+    the order the generator draws them."""
+    L, d, H, KV, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                       cfg.n_kv_heads, cfg.head_dim)
 
     def attn(n):
         return {"wq": w(n + (d, H, hd), d), "wk": w(n + (d, KV, hd), d),
@@ -105,15 +128,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
 
     def ssm(n):
         di, N, r, k = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.d_conv
-        a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
-                                       device=device))
         return {"wx": w(n + (d, di), d), "wz": w(n + (d, di), d),
                 "conv_w": w(n + (k, di), k, 1.0 / k),
                 "conv_b": zeros(n + (di,)),
                 "wdt_down": w(n + (di, r), di), "wdt_up": w(n + (r, di), r),
                 "dt_bias": zeros(n + (di,)),
                 "wB": w(n + (di, N), di), "wC": w(n + (di, N), di),
-                "A_log": a_log.expand(n + (di, N)).to(pdt).contiguous(),
+                "A_log": a_log(n + (di, N)),
                 "D": ones(n + (di,)), "wo": w(n + (di, d), di)}
 
     params: Dict[str, Any] = {

@@ -8,9 +8,11 @@ per mesh position and writes those collectives out. This module owns:
   ranks: this rank's coordinate, one process group per set of mesh axes
   (the ranks that differ only along those axes), and the collectives the
   model needs, each over a named set of axes: an integer sum and a float
-  max (:meth:`RankMesh.all_reduce`) and an all-gather along a dim
+  max (:meth:`RankMesh.all_reduce`), an all-gather along a dim
   (:meth:`RankMesh.all_gather`, shards concatenated in the spec's
-  row-major order);
+  row-major order), the same gather as a list of the ranks' tensors in
+  shard order (:meth:`RankMesh.all_gather_parts`: what an ordered float
+  sum adds up) and a barrier (:meth:`RankMesh.barrier`);
 * :data:`COMM_STATS` — calls, bytes and bytes staged through the host, per
   process;
 * :func:`launch` — starts N ranks (``torch.multiprocessing``, spawn) that
@@ -49,7 +51,7 @@ __all__ = ["RankMesh", "COMM_STATS", "reset_comm_stats", "launch",
 #: CUDA tensors: down and back up)
 COMM_STATS: Dict[str, int] = {"calls": 0, "bytes": 0, "host_bytes": 0,
                               "all_reduce_sum": 0, "all_reduce_max": 0,
-                              "all_gather": 0}
+                              "all_gather": 0, "barrier": 0}
 _STATS_LOCK = threading.Lock()
 _RANK_DEVICE: Optional[torch.device] = None
 
@@ -182,13 +184,13 @@ class RankMesh:
         _count("all_reduce_" + op, nb, 2 * nb if self.staged else 0)
         return out
 
-    def all_gather(self, x: torch.Tensor, dim: int,
-                   axes: Sequence[str]) -> torch.Tensor:
-        """The shards of ``x`` along ``axes`` concatenated on ``dim`` in
-        row-major shard order of ``axes`` (as listed)."""
+    def _gather(self, x: torch.Tensor, axes: Sequence[str]):
+        """The ranks' ``x`` along ``axes`` in row-major shard order of
+        ``axes`` (as listed), on the host when staged; ``None`` when the
+        axes span one rank."""
         g = self._group(axes)
         if g is None:
-            return x
+            return None
         group, members = g
         h = x.contiguous().cpu() if self.staged else x.contiguous()
         parts = [torch.empty_like(h) for _ in members]
@@ -196,13 +198,45 @@ class RankMesh:
         order = [None] * len(members)
         for r, p in zip(members, parts):
             order[self._shard_index(r, axes)] = p
-        out = torch.cat(order, dim)
+        return order
+
+    def _count_gather(self, x: torch.Tensor, n: int) -> None:
         nb = x.numel() * x.element_size()
+        _count("all_gather", nb, nb * (1 + n) if self.staged else 0)
+
+    def all_gather(self, x: torch.Tensor, dim: int,
+                   axes: Sequence[str]) -> torch.Tensor:
+        """The shards of ``x`` along ``axes`` concatenated on ``dim`` in
+        row-major shard order of ``axes`` (as listed)."""
+        order = self._gather(x, axes)
+        if order is None:
+            return x
+        out = torch.cat(order, dim)
         if self.staged:
             out = out.to(x.device)
-        _count("all_gather", nb,
-               (nb + out.numel() * out.element_size()) if self.staged else 0)
+        self._count_gather(x, len(order))
         return out
+
+    def all_gather_parts(self, x: torch.Tensor,
+                         axes: Sequence[str]) -> List[torch.Tensor]:
+        """Every rank's ``x`` along ``axes`` (any dtype, bits unchanged),
+        in row-major shard order of ``axes``: ``[x]`` when they span one
+        rank. One all-gather, counted as one."""
+        order = self._gather(x, axes)
+        if order is None:
+            return [x]
+        if self.staged:
+            order = [p.to(x.device) for p in order]
+        self._count_gather(x, len(order))
+        return order
+
+    def barrier(self, axes: Optional[Sequence[str]] = None) -> None:
+        """Wait until every rank along ``axes`` (default: all) is here."""
+        g = self._group(self.axis_names if axes is None else axes)
+        if g is None:
+            return
+        dist.barrier(group=g[0])
+        _count("barrier", 0, 0)
 
     def __repr__(self):
         return (f"RankMesh(shape={self.shape}, rank={self.rank}, "

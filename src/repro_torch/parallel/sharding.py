@@ -33,12 +33,13 @@ import contextlib
 import dataclasses
 import math
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 __all__ = ["MeshShape", "Rules", "TRAIN_RULES", "make_rules", "train_rules",
            "use_rules", "current_rules", "constrain", "resolve_spec",
-           "spec_axes", "spec_entry", "local_slices", "reshard",
-           "replicate", "prepared_plane_dims", "prepared_specs"]
+           "Sharding", "named_sharding", "spec_axes", "spec_entry",
+           "local_slices", "reshard", "replicate", "prepared_plane_dims",
+           "prepared_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +210,20 @@ def resolve_spec(dims_tree, shapes_tree, rules: Rules):
         return {k: resolve_spec(v, shapes_tree[k], rules)
                 for k, v in dims_tree.items()}
     return rules.resolve(tuple(dims_tree), tuple(shapes_tree))
+
+
+class Sharding(NamedTuple):
+    """A leaf's layout: its spec on a mesh (``NamedSharding``'s
+    counterpart)."""
+    spec: tuple
+    mesh: Any
+
+
+def named_sharding(specs, mesh):
+    """A tree of specs -> the tree of :class:`Sharding` on ``mesh``."""
+    if isinstance(specs, dict):
+        return {k: named_sharding(v, mesh) for k, v in specs.items()}
+    return Sharding(tuple(specs), mesh)
 
 
 # ---------------------------------------------------------------------------

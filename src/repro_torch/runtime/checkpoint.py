@@ -15,6 +15,14 @@
   share storage with a tensor the caller may update in place) and writes
   in a background thread.
 * **Self-pruning**: keeps the newest ``keep`` checkpoints.
+* **Sharded state** (``shardings=``, a tree of
+  :class:`~repro_torch.parallel.sharding.Sharding`: a spec on a mesh of
+  ranks per leaf): ``save`` all-gathers every leaf whole on every rank, in
+  the caller's thread (a collective never runs in the writer thread); rank
+  0 writes the layout above and the others wait at a barrier. So a mesh
+  checkpoint is the one-device checkpoint of the same state: it restores
+  on one device, in the reference's ``restore``, and on any other mesh,
+  where ``restore(..., shardings=)`` hands each rank its slice.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import local_slices, replicate
 from repro_torch.tree import flatten_with_paths, unflatten
 
 __all__ = ["save", "restore", "latest_step", "AsyncCheckpointer"]
@@ -57,11 +66,31 @@ def _snapshot(tree) -> Dict[str, Tuple[np.ndarray, str]]:
     return {k: _host(v) for k, v in flatten_with_paths(tree).items()}
 
 
+def _whole(tree, shardings):
+    """(every leaf of ``tree`` gathered whole by its sharding, the mesh)."""
+    flat_sh = flatten_with_paths(shardings)
+    mesh = next(iter(flat_sh.values())).mesh
+    out = {k: replicate(v, flat_sh[k].spec, flat_sh[k].mesh)
+           for k, v in flatten_with_paths(tree).items()}
+    return unflatten(tree, out), mesh
+
+
 def save(directory: str, step: int, tree, extra: Optional[Dict] = None,
-         keep: int = 3) -> str:
+         keep: int = 3, shardings=None) -> str:
     """Blocking atomic save of a nested dict of tensors (or numpy arrays).
-    Returns the final checkpoint path."""
-    return _write(directory, step, _snapshot(tree), extra, keep)
+    Returns the final checkpoint path. With ``shardings`` every rank of the
+    mesh calls it with its slices: the leaves are gathered whole, rank 0
+    writes, and every rank returns once the checkpoint is published."""
+    if shardings is None:
+        return _write(directory, step, _snapshot(tree), extra, keep)
+    whole, mesh = _whole(tree, shardings)
+    path = os.path.join(directory, f"step_{step:08d}")
+    try:
+        if mesh.rank == 0:
+            path = _write(directory, step, _snapshot(whole), extra, keep)
+    finally:
+        mesh.barrier()
+    return path
 
 
 def _write(directory: str, step: int, snap, extra, keep: int) -> str:
@@ -127,13 +156,17 @@ def _load(path: str, meta: Dict[str, Any]) -> torch.Tensor:
 
 
 def restore(directory: str, step: Optional[int] = None,
-            template: Any = None) -> Tuple[int, Any, Dict]:
+            template: Any = None,
+            shardings: Any = None) -> Tuple[int, Any, Dict]:
     """Restore (step, tree, extra); ``step`` None takes the newest.
 
     With a ``template`` (a tree of tensors of the target structure) each
     leaf is cast to the template leaf's dtype and placed on its device; a
-    key the checkpoint lacks raises ``KeyError``. Without one, the checkpoint's leaves come back as a flat
-    ``{key: tensor}`` dict on the CPU."""
+    key the checkpoint lacks raises ``KeyError``. Without one, the
+    checkpoint's leaves come back as a flat ``{key: tensor}`` dict on the
+    CPU. ``shardings`` (with a template; a tree of ``Sharding``, on any
+    mesh): each leaf comes back as this rank's slice of it (the
+    reference's ``device_put`` onto new shardings: elastic resharding)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -149,8 +182,15 @@ def restore(directory: str, step: Optional[int] = None,
     missing = set(flat) - set(keys)
     if missing:
         raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
-    out = {k: _load(path, keys[k]).to(device=leaf.device, dtype=leaf.dtype)
-           for k, leaf in flat.items()}
+    flat_sh = (flatten_with_paths(shardings) if shardings is not None
+               else {})
+    out = {}
+    for k, leaf in flat.items():
+        arr = _load(path, keys[k])
+        if k in flat_sh:
+            spec, mesh = flat_sh[k]
+            arr = arr[local_slices(spec, tuple(arr.shape), mesh)].clone()
+        out[k] = arr.to(device=leaf.device, dtype=leaf.dtype)
     return step, unflatten(template, out), manifest["extra"]
 
 
@@ -169,15 +209,24 @@ class AsyncCheckpointer:
     ``save`` blocks only while it copies every leaf to host memory;
     serialization and IO run on the worker thread. ``wait()`` joins the
     save in flight and re-raises its error (call it before exit and before
-    reading the directory)."""
+    reading the directory). With ``shardings`` every rank calls ``save``:
+    the leaves are gathered whole in the caller's thread, rank 0 writes in
+    the background, and ``wait()`` ends at a barrier of every rank, so the
+    checkpoint is published when any rank's ``wait()`` returns."""
 
     def __init__(self, keep: int = 3):
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = None
 
-    def save(self, directory: str, step: int, tree, extra=None):
+    def save(self, directory: str, step: int, tree, extra=None,
+             shardings=None):
         self.wait()
+        if shardings is not None:
+            tree, self._mesh = _whole(tree, shardings)
+            if self._mesh.rank != 0:
+                return
         snap = _snapshot(tree)
 
         def _work():
@@ -189,10 +238,17 @@ class AsyncCheckpointer:
         self._thread = threading.Thread(target=_work, daemon=True)
         self._thread.start()
 
-    def wait(self):
+    def wait(self, sync: bool = True):
+        """Join the save in flight and re-raise its error; after a sharded
+        save, meet every rank at a barrier unless ``sync`` is False (on the
+        way out of a failure, when the other ranks may never arrive)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            if sync:
+                mesh.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

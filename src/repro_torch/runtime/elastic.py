@@ -1,21 +1,33 @@
-"""Elastic re-meshing over device slots (the port's ``repro.runtime.elastic``,
-fleet half).
+"""Elastic re-meshing and resharding (the port of
+``repro.runtime.elastic``).
+
+Checkpoints store whole (global) leaves (``runtime.checkpoint``), so
+scaling is: (1) pick a new mesh from the surviving slots, keeping the model
+axis intact (the data axis is the elastic one): :func:`make_elastic_mesh`;
+(2) start a rank per position of it and resolve the same rules there; (3)
+hand each rank its slice on restore (``checkpoint.restore(...,
+shardings=)``) or from a host tree (:func:`reshard`). The data pipeline is
+step-indexed, so the token stream is unchanged under re-sharding.
 
 A replica whose slots fail is rebuilt on the survivors of its own
-sub-mesh: the model axis keeps its width and the data axis shrinks.
-:func:`plan_mesh` is the reference's arithmetic; :func:`replacement_mesh`
-works on :class:`~repro_torch.launch.mesh.SubMesh` slot grids.
+sub-mesh (:func:`replacement_mesh`: the data axis shrinks to a divisor of
+its old width). :func:`plan_mesh` is the reference's arithmetic; both
+meshes are :class:`~repro_torch.launch.mesh.SubMesh` slot grids.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.launch.mesh import SubMesh
+from repro_torch.launch.mesh import SubMesh, visible_devices
+from repro_torch.parallel.sharding import local_slices
+from repro_torch.tree import tree_map
 
-__all__ = ["plan_mesh", "replacement_mesh"]
+__all__ = ["plan_mesh", "make_elastic_mesh", "reshard", "replacement_mesh"]
 
 
 def plan_mesh(n_devices: int, model_parallel: int,
@@ -35,6 +47,34 @@ def plan_mesh(n_devices: int, model_parallel: int,
                  multi_pod_threshold // model_parallel, model_parallel),
                 ("pod", "data", "model"))
     return ((data, model_parallel), ("data", "model"))
+
+
+def make_elastic_mesh(model_parallel: int,
+                      devices: Optional[Sequence] = None,
+                      exclude: Sequence[int] = ()) -> SubMesh:
+    """The largest healthy mesh: the slots (default
+    :func:`~repro_torch.launch.mesh.visible_devices`) but the ids in
+    ``exclude``, shaped by :func:`plan_mesh` (excess slots idle). The
+    ranks of the new mesh are then started, one a slot
+    (``parallel.comm.launch``)."""
+    devs = list(devices if devices is not None else visible_devices())
+    bad = set(exclude)
+    healthy = [d for d in devs if d.id not in bad]
+    shape, axes = plan_mesh(len(healthy), model_parallel)
+    grid = np.asarray(healthy[:math.prod(shape)], dtype=object)
+    return SubMesh(grid.reshape(shape), axes)
+
+
+def reshard(tree, specs, mesh):
+    """A whole ``tree`` (tensors or numpy arrays) as this rank's slices on
+    ``mesh`` (a ``RankMesh``) by the matching tree of specs, copied onto
+    the mesh's device (the reference's ``device_put`` onto new
+    shardings)."""
+    def one(x, spec):
+        t = torch.as_tensor(x)
+        return t[local_slices(tuple(spec), tuple(t.shape), mesh)].clone().to(
+            mesh.device)
+    return tree_map(one, tree, specs)
 
 
 def replacement_mesh(mesh: SubMesh, exclude: Sequence[int] = (),

@@ -10,6 +10,11 @@ passed in is never written.
 Schedules: linear-warmup cosine, WSD (warmup-stable-decay, minicpm-2b's),
 and constant. With ``factored``, leaves of rank >= 2 keep bfloat16 first
 moments and Adafactor-style row / column second-moment factors.
+
+:func:`opt_state_dims` names the dims of the state's leaves, so that the
+sharding rules lay the moments out as the parameters (the reference's
+ZeRO layout); :func:`adamw_leaf` updates one leaf, or the slice of it a
+rank holds (``train_step``'s mesh step).
 """
 
 from __future__ import annotations
@@ -22,8 +27,9 @@ import torch
 
 from repro_torch.tree import leaves, tree_map
 
-__all__ = ["OptConfig", "init_opt_state", "adamw_update", "schedule_lr",
-           "global_norm", "clip_by_global_norm"]
+__all__ = ["OptConfig", "init_opt_state", "opt_state_dims", "adamw_update",
+           "adamw_scalars", "adamw_leaf", "schedule_lr", "global_norm",
+           "clip_by_global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +102,26 @@ def init_opt_state(params, factored: bool = False) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _shape_of(leaf) -> tuple:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
+def opt_state_dims(pdims, params_shapes, factored: bool = False):
+    """The logical dims of :func:`init_opt_state`'s tree (the reference's
+    ``opt_state_dims``): ``mu`` and an unfactored ``nu`` take each
+    parameter's dims; a factored ``nu`` (leaves of rank >= 2) has ``row``
+    (the dims but the last) and ``col`` (all but the second to last);
+    ``step`` is ``(None,)``. ``params_shapes`` holds a tensor or a shape
+    per leaf."""
+    def nu_dims(d, p):
+        if factored and len(_shape_of(p)) >= 2:
+            return {"row": tuple(d[:-1]), "col": tuple(d[:-2]) + (d[-1],)}
+        return d
+
+    return {"mu": pdims, "nu": tree_map(nu_dims, pdims, params_shapes),
+            "step": (None,)}
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares."""
     sums = [torch.sum(torch.square(x.to(torch.float32)))
@@ -112,6 +138,52 @@ def clip_by_global_norm(tree, max_norm: float):
                     tree), norm
 
 
+def adamw_scalars(state_step, cfg: OptConfig):
+    """(the new step, its learning rate, the bias corrections ``c1``,
+    ``c2``) of one AdamW step from the state's ``step``."""
+    step = state_step + 1
+    lr = schedule_lr(cfg, step)
+    step32 = step.to(torch.float32)
+    c1 = 1.0 - torch.pow(_f32(cfg.beta1, step.device), step32)
+    c2 = 1.0 - torch.pow(_f32(cfg.beta2, step.device), step32)
+    return step, lr, c1, c2
+
+
+def adamw_leaf(p, g, mu, nu, lr, c1, c2, cfg: OptConfig, part=None):
+    """One leaf's AdamW update: (new p, new mu, new nu).
+
+    ``part`` (a ``slice`` per dim) says that ``p``, ``mu`` and an
+    unfactored ``nu`` hold that part of the leaf while ``g`` and a factored
+    ``nu``'s ``row`` / ``col`` are whole: the factors' means run over the
+    whole leaf, then the update is taken on the part. Every op is
+    elementwise or one of those means, so the part of the update is the
+    same bits as the whole update's part."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    g_all = g.to(torch.float32)
+    g32 = g_all if part is None else g_all[part]
+    new_mu = b1 * mu.to(torch.float32) + (1 - b1) * g32
+    mhat = new_mu / c1
+    if isinstance(nu, dict):  # factored
+        g2 = torch.square(g_all) + 1e-30
+        row = b2 * nu["row"] + (1 - b2) * g2.mean(-1)
+        col = b2 * nu["col"] + (1 - b2) * g2.mean(-2)
+        den = torch.clamp_min(row.mean(-1, keepdim=True)[..., None], 1e-30)
+        r, c = row, col
+        if part is not None:
+            r, c, den = row[part[:-1]], col[part[:-2] + part[-1:]], \
+                den[part[:-2]]
+        vhat = (r[..., None] * c[..., None, :] / den) / c2
+        new_nu = {"row": row, "col": col}
+    else:
+        new_nu = b2 * nu + (1 - b2) * torch.square(g32)
+        vhat = new_nu / c2
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+    if p.dim() > 1:
+        delta = delta + cfg.weight_decay * p.to(torch.float32)
+    return ((p.to(torch.float32) - lr * delta).to(p.dtype),
+            new_mu.to(mu.dtype), new_nu)
+
+
 def adamw_update(params, grads, state, cfg: OptConfig):
     """One AdamW step: (new params, new state). Decay is skipped for leaves
     of rank <= 1 (norms, biases).
@@ -119,35 +191,10 @@ def adamw_update(params, grads, state, cfg: OptConfig):
     With ``cfg.factored``, leaves of rank >= 2 keep Adafactor-style row /
     column second-moment factors (``v_ij = R_i C_j / mean(R)``) and
     bfloat16 momentum."""
-    step = state["step"] + 1
-    lr = schedule_lr(cfg, step)
-    b1, b2 = cfg.beta1, cfg.beta2
-    step32 = step.to(torch.float32)
-    c1 = 1.0 - torch.pow(_f32(b1, step.device), step32)
-    c2 = 1.0 - torch.pow(_f32(b2, step.device), step32)
-
-    def upd(p, g, mu, nu):
-        g32 = g.to(torch.float32)
-        new_mu = b1 * mu.to(torch.float32) + (1 - b1) * g32
-        mhat = new_mu / c1
-        if isinstance(nu, dict):  # factored
-            g2 = torch.square(g32) + 1e-30
-            row = b2 * nu["row"] + (1 - b2) * g2.mean(-1)
-            col = b2 * nu["col"] + (1 - b2) * g2.mean(-2)
-            vhat = (row[..., None] * col[..., None, :]
-                    / torch.clamp_min(row.mean(-1, keepdim=True)[..., None],
-                                      1e-30)) / c2
-            new_nu = {"row": row, "col": col}
-        else:
-            new_nu = b2 * nu + (1 - b2) * torch.square(g32)
-            vhat = new_nu / c2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if p.dim() > 1:
-            delta = delta + cfg.weight_decay * p.to(torch.float32)
-        return ((p.to(torch.float32) - lr * delta).to(p.dtype),
-                new_mu.to(mu.dtype), new_nu)
-
-    out = tree_map(upd, params, grads, state["mu"], state["nu"])
+    step, lr, c1, c2 = adamw_scalars(state["step"], cfg)
+    out = tree_map(lambda p, g, mu, nu: adamw_leaf(p, g, mu, nu, lr, c1, c2,
+                                                   cfg),
+                   params, grads, state["mu"], state["nu"])
     new_p, new_mu, new_nu = (tree_map(lambda o, i=i: o[i], out)
                              for i in range(3))
     return new_p, {"mu": new_mu, "nu": new_nu, "step": step}

@@ -979,3 +979,72 @@ def test_two_ranks_sharing_the_card_equal_the_cpu_run(dev, arch, tmp_path):
         assert got_toks == toks
         for k in logits:
             np.testing.assert_array_equal(got_logits[k], logits[k])
+
+
+def _train_on_card(rank, shape):
+    """One rank of a ``shape`` train mesh on the card (``None``: the
+    one-card ``grad_accum = 2`` step), deterministic algorithms on: two
+    steps of reduced deepseek-7b on a 4 x 16 batch."""
+    import numpy as np
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.parallel.comm import rank_device
+    from repro_torch.parallel.sharding import train_rules
+    from repro_torch.runtime.elastic import reshard
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+    from repro_torch.train.train_step import train_state_specs
+    from repro_torch.tree import flatten_with_paths
+    torch.use_deterministic_algorithms(True)
+    dev = rank_device()
+    cfg = reduced_config("deepseek-7b")
+    opt = OptConfig(lr=1e-2, warmup_steps=0, schedule="const")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(
+        np.int32)).to(dev) for k in ("tokens", "labels")}
+    state = init_train_state(init_params(cfg, 0, device=dev))
+    mesh = None
+    if shape is not None:
+        mesh = make_mesh(shape, ("data", "model"))
+        state = reshard(state, train_state_specs(cfg, train_rules(mesh)),
+                        mesh)
+    step = make_train_step(cfg, opt, grad_accum=2 if mesh is None else 1,
+                           mesh=mesh)
+    ms = []
+    for _ in range(2):
+        state, m = step(state, batch)
+        ms.append({k: float(v) for k, v in m.items()})
+    return ms, {k: v.float().cpu().numpy() for k, v in
+                flatten_with_paths(state).items()}, (
+        mesh.coord if mesh is not None else None)
+
+
+def test_two_ranks_sharing_the_card_train_as_grad_accum_2(dev, tmp_path,
+                                                          monkeypatch):
+    """A 1x2 train mesh on one card (gloo; batch over model: D = 2) is
+    bitwise the one-card ``grad_accum = 2`` step: metrics and each rank's
+    slice of the state (each run a process of its own)."""
+    from types import SimpleNamespace
+    import numpy as np
+    from repro_torch.configs import reduced_config
+    from repro_torch.parallel.comm import launch
+    from repro_torch.parallel.sharding import (MeshShape, local_slices,
+                                               train_rules)
+    from repro_torch.train.train_step import train_state_specs
+    from repro_torch.tree import flatten_with_paths
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    (one_ms, one_state, _), = launch(_train_on_card, 1, args=(None,),
+                                     device="cuda", share_device=True,
+                                     timeout=300.0, store_dir=str(tmp_path))
+    res = launch(_train_on_card, 2, args=((1, 2),), device="cuda",
+                 share_device=True, timeout=300.0, store_dir=str(tmp_path))
+    specs = flatten_with_paths(train_state_specs(
+        reduced_config("deepseek-7b"),
+        train_rules(MeshShape(("data", "model"), (1, 2)))))
+    for ms, state, coord in res:
+        assert ms == one_ms
+        mesh = SimpleNamespace(shape={"data": 1, "model": 2}, coord=coord)
+        for k, w in one_state.items():
+            np.testing.assert_array_equal(
+                state[k], w[local_slices(specs[k], w.shape, mesh)],
+                err_msg=k)
