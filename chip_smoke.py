@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. build the hand-written kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, started together);
+   ``nvcc`` per source or compile unit, all started together);
 2. B1 (exact limb-fused matmul) against its plain twin with
    ``torch.equal`` at the group path's shapes, the verify step's 16 rows
    and an unaligned shape with a shared weight, each with no epilogue,
@@ -162,21 +162,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    stay flat; each wall beside one engine's, ``busy_s``
    and ``recovery_s`` printed;
 14. sharded serving, after phase 12 (with phase 4's tokens and
-   logits and phase 9's granite-moe tokens): B1's partials entry over K
-   cut into 2 and 3 pieces at offsets that are no multiple of
-   ``block_k``, the pieces' int32 partials summed, and its flush entry ==
-   one B1 call == the twin at decode wd and prefill wg/wu, flush periods
-   1, 4, the 1e-6 plan and none; B2 over 128 slices == two launches of 64;
-   both entries timed at rank 0's half of decode wd; then deepseek-7b
-   (``--layers``) and granite-moe-1b-a400m (24 layers) at full width on a
-   1x2 mesh of ``torch.distributed`` ranks sharing the card over gloo
+   logits, phase 6's run (a) and phase 9's granite-moe tokens): B1's
+   partials entry over K cut into 2 and 3 pieces at offsets that are no
+   multiple of ``block_k``, the pieces' int32 partials summed, and its
+   flush entry == one B1 call == the twin at decode wd and prefill wg/wu,
+   flush periods 1, 4, the 1e-6 plan and none; B3's partials entry the
+   same way in both stationary schedules at decode wd, the verify's 16
+   rows and a short K whose pieces admit the weight-stationary stripe
+   (each piece on B3's partials where its stripe is admitted, else B1's);
+   B2 over 128 slices == two launches of 64; the entries timed at rank 0's
+   half of decode wd; then deepseek-7b (``--layers``) and
+   granite-moe-1b-a400m (24 layers) at full width on a 1x2 mesh of
+   ``torch.distributed`` ranks sharing the card over gloo
    (``parallel.comm.launch(share_device=True)``; the ranks load phase 1's
    build) serve phase 4's traffic: tokens bitwise the one-card runs',
    deepseek's every logits row bitwise phase 4's, launches by entry and
    collectives (calls, bytes, bytes staged through the host) a decode step
-   and a run == ``sharded_prediction``, ``PREP_STATS`` and the builds
-   flat; it prints what a shared card cannot show (NCCL, inter-GPU
-   bandwidth, any speed of tensor parallelism);
+   and a run == ``sharded_prediction``; the deepseek ranks then serve
+   phase 6's weights and traffic on the continuous engine, sequential and
+   ``spec_k=4`` with 8 draft layers: every token and logits row bitwise
+   phase 6's run (a), the ranks' scheduling rounds alike, launches and
+   collectives a decode step, a speculative round and a run ==
+   ``continuous_sharded_prediction``; ``PREP_STATS`` and the builds flat;
+   it prints what a shared card cannot show (NCCL, inter-GPU bandwidth,
+   any speed of tensor parallelism);
 15. training on meshes of ranks sharing the card over gloo
    (``train_sharded_phase``), every compared run a process of its own
    under ``torch.use_deterministic_algorithms`` (``CUBLAS_WORKSPACE_CONFIG``
@@ -1018,34 +1027,56 @@ def _logits_equal(a, b) -> bool:
         x.shape == y.shape and (x == y).all() for x, y in zip(a, b))
 
 
-def serve_continuous(torch, layers: int):
-    """Phase 6 (a)-(e). Returns the engine, the launches of run (a), its
-    stats and the speculative run's stats.
+#: phase 6's engine: 4 slots over a pool of max_len 256, prompt buckets
+CONT_SLOTS, CONT_MAX_LEN, CONT_BUCKETS = 4, 256, [64, 128, 192]
+# phase 14's speculative run serves four of phase 6's 8 requests, not all
+# (the script's time): rids 1, 2, 5 and 6 (buckets 128, 128, 64, 64; two
+# at the start, two 1 and 1.5 s later). Rids 3-7 accept every draft, so
+# two of rids 0-2 go in for a rewind. Its prefills are predicted from the
+# requests SPEC_ALONE served alone in phase 6, one of each bucket
+SPEC_RIDS, SPEC_ALONE = (1, 2, 5, 6), (1, 6)
 
-    The weights are the seed-0 random init with the residual output
+
+def continuous_cfg(layers: int):
+    """Phase 6's configuration: deepseek-7b at full width, ``layers`` deep,
+    under FP8_MGS_SERVE_PAGED activation-stationary (B3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.quant.config import FP8_MGS_SERVE_PAGED
+    return dataclasses.replace(
+        get_config("deepseek-7b"), n_layers=layers,
+        quant=FP8_MGS_SERVE_PAGED.replace(schedule="activation"))
+
+
+def continuous_params(cfg, device):
+    """Phase 6's weights: the seed-0 random init with the residual output
     projections (``wo``, ``wd``) scaled by 8: at the plain init the tied
     embeddings dominate the residual, every request repeats one token and
     every draft is accepted, so neither the speculative rewind nor a
     mid-flight admission would run."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
-    from repro_torch.launch.serve import ContinuousBatchingEngine, Request
     from repro_torch.models import init_params
-    from repro_torch.quant import PREP_STATS
-    from repro_torch.quant.config import FP8_MGS_SERVE_PAGED
-    import numpy as np
-    quant = FP8_MGS_SERVE_PAGED.replace(schedule="activation")
-    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=layers,
-                              quant=quant)
-    params = init_params(cfg, SEED, device="cuda")
+    params = init_params(cfg, SEED, device=device)
     params["layers"]["attn"]["wo"] *= 8.0
     params["layers"]["ffn"]["wd"] *= 8.0
-    buckets = [64, 128, 192]
+    return params
+
+
+def serve_continuous(torch, layers: int):
+    """Phase 6 (a)-(e). Returns the engine, the launches of run (a), its
+    stats and the speculative run's stats."""
+    from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import (ContinuousBatchingEngine, Request,
+                                          bucket_for)
+    from repro_torch.quant import PREP_STATS
+    import numpy as np
+    cfg = continuous_cfg(layers)
+    quant = cfg.quant
+    params = continuous_params(cfg, "cuda")
+    buckets = CONT_BUCKETS
 
     def engine(q, params, **kw):
         eng = ContinuousBatchingEngine(
-            dataclasses.replace(cfg, quant=q), slots=4, max_len=256,
-            params=params, **kw)
+            dataclasses.replace(cfg, quant=q), slots=CONT_SLOTS,
+            max_len=CONT_MAX_LEN, params=params, **kw)
         eng.warmup(buckets)
         torch.cuda.synchronize()
         return eng
@@ -1113,24 +1144,30 @@ def serve_continuous(torch, layers: int):
     same(c, rc, "(c) spec_k=4")
     del eng_c
     alone = []
-    for i in (1, 6):
+    for i in SPEC_ALONE:
         r = Request(rid=i, prompt=prompts[i].copy(), max_new_tokens=16)
-        alone.append((r, eng.serve([r], record_logits=True)))
-    for r, st in alone:
+        reset_launch_counts()
+        alone.append((r, eng.serve([r], record_logits=True),
+                      dict(LAUNCHES)))
+    for r, st, _ in alone:
         same(st, [r], f"(d) request {r.rid} alone")
     log(f"continuous (e): PREP_STATS {PREP_STATS} (before {prep0}), nvcc "
         f"builds {BUILDS} (before {builds0})")
     if dict(PREP_STATS) != prep0 or dict(BUILDS) != builds0:
         raise AssertionError("serving re-prepared weights or rebuilt a "
                              "kernel")
-    # phase 13 serves this traffic again
+    # phase 13 serves this traffic again; phase 14 predicts its cut
+    # speculative run's prefills from the runs alone, by bucket
     a["requests"], a["arrivals"], a["launches"] = ra, arrivals, launches
+    a["alone"] = {bucket_for(len(r.prompt), buckets, block=quant.block_k):
+                  dict(launches=got, steps=st["steps"])
+                  for r, st, got in alone}
     return eng, launches, a, c
 
 
-def profile_paged_step(torch, eng):
-    """Four slots admitted, then the host-clock time of 5 paged decode
-    steps and one step under ``torch.profiler`` by kernel."""
+def four_slots(eng):
+    """Admit four requests into ``eng``'s slots (outside ``serve``); returns
+    the decode step's current tokens."""
     from repro_torch.launch.serve import Request
     import numpy as np
     rng = np.random.default_rng(SEED + 1)
@@ -1145,7 +1182,13 @@ def profile_paged_step(torch, eng):
     cur = np.zeros((eng.slots, 1), np.int64)
     for slot, st in active.items():
         cur[slot, 0] = st.cur
-    cur = eng._tokens(cur)
+    return eng._tokens(cur)
+
+
+def profile_paged_step(torch, eng):
+    """Four slots admitted, then the host-clock time of 5 paged decode
+    steps and one step under ``torch.profiler`` by kernel."""
+    cur = four_slots(eng)
     return profile_step(torch, lambda: eng._decode_paged(cur),
                         f"paged decode step ({eng.cfg.n_layers} layers, "
                         "4 slots)")
@@ -3285,10 +3328,84 @@ def check_partials(torch, dev, gen):
     return worst
 
 
+# B3's partials: (name, Bt, M, K, N, cuts of K into 2 and 3 pieces); 16 rows
+# are the spec_k=4 verify's 4 slots x 4 tokens; the short K's pieces admit
+# the weight-stationary stripe (3 x Kp x 64 bytes), the long ones do not
+STAT_CUTS = [
+    ("decode wd", 1, 4, 11008, 4096, ((0, 5000), (0, 3001, 7777))),
+    ("verify wd", 1, 16, 11008, 4096, ((0, 5000), (0, 3001, 7777))),
+    ("short K", 1, 16, 1000, 4096, ((0, 450), (0, 333, 777))),
+]
+
+
+def check_stationary_partials(torch, dev, gen):
+    """B3's partials entry over each cut of ``STAT_CUTS``, in both
+    stationary schedules: each piece runs B3's partials where the stripe
+    of its cut is admitted (``kernels.ops._fused_schedule``), else B1's;
+    the pieces' int32 partials summed and flushed == one call under the
+    same schedule (B3, or B1 where the whole K's stripe is refused) == the
+    twin, with a per-column scale and the silu epilogue, at every period
+    of ``shard_periods``. Returns the largest error (0.0) and the pieces
+    B3's partials ran, by schedule (each must be > 0)."""
+    from repro_torch.core.formats import E4M3
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.mgs_matmul import (
+        mgs_matmul_exact_flush, mgs_matmul_exact_fused,
+        mgs_matmul_exact_partials)
+    from repro_torch.kernels.ops import _fused_schedule
+    worst, ran = 0.0, {"activation": 0, "weight": 0}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the fallbacks' notices
+        for name, Bt, M, K, N, cuts in STAT_CUTS:
+            x = fp8_codes(torch, (Bt, M, K), dev, gen)
+            w = fp8_codes(torch, (Bt, K, N), dev, gen)
+            sc = torch.rand((Bt, 1, N), generator=gen, device=dev) * 1e-3
+            for fp in shard_periods():
+                kw = dict(block_k=128, flush_period=fp)
+                twin = b1_twin(torch, x, w, E4M3, scale=sc,
+                               activation="silu", **kw)
+                for sched in ran:
+                    whole = _fused_schedule(sched, M, K, 128)
+                    one = mgs_matmul_exact_fused(
+                        x, w, E4M3, scale=sc, activation="silu",
+                        schedule=whole, **kw)
+                    for cut in cuts:
+                        edges = list(cut) + [K]
+                        n0 = LAUNCHES["mgs_matmul_stationary_partials"]
+                        part = sum(mgs_matmul_exact_partials(
+                            x[..., a:b].contiguous(),
+                            w[:, a:b].contiguous(), E4M3, k_offset=a,
+                            k_total=K,
+                            schedule=_fused_schedule(sched, M, b - a, 128),
+                            **kw) for a, b in zip(edges[:-1], edges[1:]))
+                        n = LAUNCHES["mgs_matmul_stationary_partials"] - n0
+                        ran[sched] += n
+                        got = mgs_matmul_exact_flush(part, E4M3, scale=sc,
+                                                     activation="silu")
+                        torch.cuda.synchronize()
+                        worst = max(worst, (got - one).abs().max().item())
+                        ok = torch.equal(got, one) and torch.equal(one,
+                                                                   twin)
+                        log(f"B3 partials {sched} {name} {Bt}x({M}x{K} @ "
+                            f"{K}x{N}) cut at {edges[1:-1]}, flush_period="
+                            f"{fp}: {n} of {len(edges) - 1} pieces on B3's "
+                            f"partials, == one call ({whole}) == twin {ok}")
+                        if not ok:
+                            raise AssertionError(
+                                f"B3 partials {sched} at {name}, cut "
+                                f"{edges}, fp {fp} != one call")
+            del x, w
+    if not all(ran.values()):
+        raise AssertionError(f"B3's partials did not run in every schedule: "
+                             f"{ran}")
+    return worst, ran
+
+
 def time_partials(torch, dev, gen):
-    """Both entries at decode wd, rank 0's cut of a 1x2 mesh (the first
-    half of K), beside B1's one call over the whole K, the twins, the
-    bound and a PyTorch yardstick (the f32 product of the cut)."""
+    """B1's two entries and B3's partials (activation-stationary) at decode
+    wd, rank 0's cut of a 1x2 mesh (the first half of K), beside B1's one
+    call over the whole K, the twins, the bound and a PyTorch yardstick
+    (the f32 product of the cut)."""
     from repro_torch.core.formats import E4M3, decode_bits
     from repro_torch.kernels.mgs_matmul import (
         mgs_matmul_exact_flush, mgs_matmul_exact_flush_plain,
@@ -3310,6 +3427,10 @@ def time_partials(torch, dev, gen):
         mgs_matmul_exact_partials(xl, wl[next(it) % copies], E4M3,
                                   k_total=K)
 
+    def stationary():
+        mgs_matmul_exact_partials(xl, wl[next(it) % copies], E4M3,
+                                  k_total=K, schedule="activation")
+
     def flush():
         mgs_matmul_exact_flush(part, E4M3, scale=sc)
 
@@ -3323,6 +3444,10 @@ def time_partials(torch, dev, gen):
     row = dict(shape="decode wd, half K", Bt=Bt, M=M, K=K, K_cut=Kl, N=N,
                segments=nseg)
     row["partials_ms"] = time_ms(torch, partials, 20)
+    row["stationary_ms"] = time_ms(torch, stationary, 20)
+    row["stationary_plain_ms"] = time_ms(
+        torch, lambda: mgs_matmul_exact_partials_plain(
+            xl, wl[0], E4M3, k_total=K, schedule="activation"), 3, warmup=1)
     row["flush_ms"] = time_ms(torch, flush, 20)
     row["b1_ms"] = time_ms(torch, one, 20)
     row["partials_plain_ms"] = time_ms(
@@ -3345,6 +3470,11 @@ def time_partials(torch, dev, gen):
         f"{row['flush_plain_ms']:.3f}, bound {row['flush_bound_ms']:.5f} "
         f"{row['flush_bound_by']}); B1's one call over all K "
         f"{row['b1_ms']:.4f} ms")
+    log(f"time B3 partials (activation-stationary), the same cut: "
+        f"{row['stationary_ms']:.4f} ms (B1's partials "
+        f"{row['partials_ms']:.4f}, twin {row['stationary_plain_ms']:.3f}, "
+        f"torch.matmul f32 {row['library_ms']:.4f}, bound "
+        f"{row['partials_bound_ms']:.4f} {row['partials_bound_by']})")
     return row
 
 
@@ -3445,7 +3575,193 @@ def sharded_prediction(cfg, model: int = 2, batch: int = 4,
             "run_launches": run_k, "run_comm": run}
 
 
-def _sharded_rank(rank: int, arch: str, layers: int, prompts, record: bool):
+def _stationary_ok(M: int, K: int, block_k: int) -> bool:
+    """An activation-stationary call of ``M`` rows over ``K`` runs B3 (its
+    stripe admitted), not B1 (``kernels.ops._fused_schedule``)."""
+    from repro_torch.kernels.mgs_matmul import (WS_STRIPE_BUDGET_BYTES,
+                                                stationary_block,
+                                                ws_stripe_bytes)
+    return ws_stripe_bytes(K, stationary_block("activation", M),
+                           block_k) <= WS_STRIPE_BUDGET_BYTES
+
+
+def continuous_sharded_prediction(cfg, ref_launches, ref_steps: int,
+                                  buckets, steps: int, rounds: int,
+                                  model: int = 2, slots: int = CONT_SLOTS,
+                                  spec_k: int = 0, staged: bool = True
+                                  ) -> dict:
+    """Per rank of a ``1 x model`` mesh serving phase 6's traffic on the
+    continuous engine (``continuous_cfg``, dense, heads / kv heads / ffn /
+    vocab cut over ``model``): launches and collectives of one decode step
+    of ``slots`` rows or, with ``spec_k``, one speculative round
+    (``spec_k - 1`` draft steps through ``cfg.quant.draft_layers`` layers,
+    one verify of ``slots x spec_k`` rows), and of a run of ``steps`` such
+    steps or rounds, ``rounds`` scheduling rounds (one agreement each) and
+    one prefill a prompt bucket of ``buckets``.
+
+    Launches of a forward of M rows: each of the six whole-K projections
+    (q, k, v, o, g, u) and the head is B3 where its stripe is admitted at
+    M rows (``_stationary_ok``), else B1; the K-cut ``wd`` is B3's
+    partials where the cut's stripe is admitted, else B1's, then the
+    flush; B2 once a layer at decode. A prefill's launches depend on its
+    bucket alone: they are phase 6's (``ref_launches`` of a one-card run of
+    ``ref_steps`` decode steps, less the steps': 7L + 1 B3 at 4 rows),
+    each prefill's ``wd`` moved to the partials and the flush.
+    Collectives of a forward: a layer all-gathers the attention heads
+    (bf16), all-reduces ``wd``'s per-row amax (max, float32) and its int32
+    partials (sum, the segments of the whole K); the head all-gathers the
+    vocab (float32 rows: M, one at a prefill's last position). gloo on one
+    card stages every payload through the host (``staged``): an all-reduce
+    down and back, an all-gather down and the ``model`` shards back."""
+    from repro_torch.kernels.mgs_matmul import partial_segments
+    L, H, hd, d = cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.d_model
+    bk = cfg.quant.block_k
+    kcut = cfg.d_ff // model
+    _, nseg = partial_segments(cfg.d_ff, bk, None)
+    keys = ("mgs_matmul_exact_fused", "mgs_matmul_exact_fused_stationary",
+            "mgs_matmul_exact_partials", "mgs_matmul_stationary_partials",
+            "mgs_matmul_exact_flush", "mgs_flash_attention")
+    kinds = ("all_gather", "all_reduce_max", "all_reduce_sum", "agree")
+
+    def blank():
+        return ({k: 0 for k in keys},
+                dict(calls=0, bytes=0, host_bytes=0, **dict.fromkeys(kinds,
+                                                                    0)))
+
+    def add(out, other, times=1):
+        for a, b in zip(out, other):
+            for k in a:
+                a[k] += times * b[k]
+
+    def coll(c, kind, nb):
+        c["calls"] += 1
+        c[kind] += 1
+        c["bytes"] += nb
+        c["host_bytes"] += staged * (nb * (model + 1) if kind == "all_gather"
+                                     else 2 * nb)
+
+    def forward(M: int, layers: int, head_rows: int, b2: bool):
+        k, c = blank()
+        projs = (d, d, d, H * hd, d, d)
+        stat = sum(_stationary_ok(M, K, bk) for K in projs)
+        head = _stationary_ok(head_rows, d, bk)
+        k["mgs_matmul_exact_fused_stationary"] = layers * stat + head
+        k["mgs_matmul_exact_fused"] = layers * (6 - stat) + 1 - head
+        part = ("mgs_matmul_stationary_partials" if _stationary_ok(M, kcut, bk)
+                else "mgs_matmul_exact_partials")
+        k[part] = k["mgs_matmul_exact_flush"] = layers
+        k["mgs_flash_attention"] = layers * b2
+        for _ in range(layers):
+            coll(c, "all_gather", M * (H // model) * hd * 2)
+            coll(c, "all_reduce_max", M * 4)
+            coll(c, "all_reduce_sum", nseg * 5 * M * d * 4)
+        coll(c, "all_gather", head_rows * (cfg.vocab // model) * 4)
+        return k, c
+
+    if spec_k:
+        Ld = min(cfg.quant.draft_layers or L, L)
+        step = blank()
+        add(step, forward(slots, Ld, slots, True), spec_k - 1)
+        add(step, forward(slots * spec_k, L, slots * spec_k, True))
+    else:
+        step = forward(slots, L, slots, True)
+    run = blank()
+    add(run, step, steps)
+    b3 = "mgs_matmul_exact_fused_stationary"
+    # the one-card decode step: the seven projections over their whole K
+    one = (L * sum(_stationary_ok(slots, K, bk)
+                   for K in (d, d, d, H * hd, d, d, cfg.d_ff))
+           + _stationary_ok(slots, d, bk))
+    run[0][b3] += ref_launches[b3] - ref_steps * one
+    run[0]["mgs_matmul_exact_fused"] += (ref_launches["mgs_matmul_exact_fused"]
+                                         - ref_steps * (7 * L + 1 - one))
+    for b in buckets:
+        pk, pc = forward(b, L, 1, False)
+        add(run, (blank()[0], pc))
+        # the one-card prefill's wd, B3 or B1 over the whole K, becomes
+        # the cut's partials and the flush
+        whole = b3 if _stationary_ok(b, cfg.d_ff, bk) else \
+            "mgs_matmul_exact_fused"
+        run[0][whole] -= L
+        for key in ("mgs_matmul_exact_partials",
+                    "mgs_matmul_stationary_partials",
+                    "mgs_matmul_exact_flush"):
+            run[0][key] += pk[key]
+    run[1]["calls"] += rounds
+    run[1]["agree"] += rounds
+    run[1]["bytes"] += 4 * rounds
+    return {"step_launches": step[0], "step_comm": step[1],
+            "run_launches": run[0], "run_comm": run[1]}
+
+
+def _continuous_rank(mesh, layers: int, traffic, record: bool):
+    """Phase 14's continuous half on one rank: phase 6's engine, weights
+    and traffic (prompts, arrival offsets, 16 new tokens) on this rank's
+    slice, sequential, then ``spec_k=4`` with 8 draft layers (on the first
+    engine's prepared weights) over the requests ``SPEC_RIDS``, their
+    arrivals moved up by the first one's; each run counted; then a decode
+    step and a speculative round alone over four admitted slots,
+    counted."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import (ContinuousBatchingEngine, Request,
+                                          bucket_for)
+    from repro_torch.parallel.comm import (COMM_STATS, rank_device,
+                                           reset_comm_stats)
+    from repro_torch.quant import PREP_STATS
+    cfg = continuous_cfg(layers)
+    dev = rank_device()
+    params, eng, out = continuous_params(cfg, dev), None, {}
+    for key, spec_k in (("seq", None), ("spec", 4)):
+        q = cfg.quant.replace(draft_layers=8) if spec_k else cfg.quant
+        t0 = time.time()
+        eng = ContinuousBatchingEngine(
+            dataclasses.replace(cfg, quant=q), slots=CONT_SLOTS,
+            max_len=CONT_MAX_LEN, params=params if eng is None
+            else eng.params, device=dev, mesh=mesh, spec_k=spec_k)
+        params = None
+        eng.warmup(CONT_BUCKETS)
+        torch.cuda.synchronize()
+        ready_s = time.time() - t0
+        rids = SPEC_RIDS if spec_k else range(len(traffic["prompts"]))
+        reqs = [Request(rid=i, prompt=np.asarray(traffic["prompts"][i],
+                                                 np.int32).copy(),
+                        max_new_tokens=16) for i in rids]
+        arrivals = [traffic["arrivals"][i] - traffic["arrivals"][rids[0]]
+                    for i in rids]
+        prep0, builds0 = dict(PREP_STATS), dict(BUILDS)
+        reset_launch_counts()
+        reset_comm_stats()
+        st = eng.serve(reqs, arrivals=arrivals, record_logits=record)
+        torch.cuda.synchronize()
+        run_l, run_c = dict(LAUNCHES), dict(COMM_STATS)
+        flat = dict(PREP_STATS) == prep0 and dict(BUILDS) == builds0
+        cur = four_slots(eng)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        reset_comm_stats()
+        if spec_k:
+            eng._spec_round(cur)
+        else:
+            eng._decode_paged(cur)
+        torch.cuda.synchronize()
+        logits = st.pop("logits", None)
+        st.pop("step_s")
+        res = dict(stats=st, run_launches=run_l, run_comm=run_c,
+                   step_launches=dict(LAUNCHES), step_comm=dict(COMM_STATS),
+                   tokens=[r.out_tokens for r in reqs], flat=flat,
+                   ready_s=ready_s, buckets=[
+                       bucket_for(len(r.prompt), eng._buckets,
+                                  block=eng.block_size) for r in reqs])
+        if record and mesh.rank == 0:
+            res["logits"] = {k: np.stack(v) for k, v in logits.items()}
+        out[key] = res
+    return out
+
+
+def _sharded_rank(rank: int, arch: str, layers: int, prompts, record: bool,
+                  traffic=None):
     """One rank of phase 14: ``arch`` at full width (``layers`` deep) on
     the world's ``1 x world`` serve mesh, phase 4's traffic, counted."""
     import numpy as np
@@ -3493,6 +3809,11 @@ def _sharded_rank(rank: int, arch: str, layers: int, prompts, record: bool):
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     if record and rank == 0:
         out["logits"] = {k: np.stack(v) for k, v in logits.items()}
+    if traffic is not None:
+        del eng, cache, lg
+        torch.cuda.empty_cache()
+        out["continuous"] = _continuous_rank(mesh, layers, traffic, record)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return out
 
 
@@ -3501,21 +3822,28 @@ def _nonzero(d: dict) -> dict:
 
 
 def serve_sharded(torch, arch: str, layers: int, prompts, want_tokens,
-                  want_logits=None) -> dict:
+                  want_logits=None, cont=None) -> dict:
     """``arch`` served on a ``SHARD_MESH`` of ranks sharing the card over
     gloo: tokens (and, given, every logits row) bitwise the one-card
     engine's, launches and collectives == ``sharded_prediction``, every
-    entry of the path launched, ``PREP_STATS`` and the builds flat."""
+    entry of the path launched, ``PREP_STATS`` and the builds flat. With
+    ``cont`` (phase 6's run (a): requests, arrivals, logits, launches,
+    steps) the same ranks then serve phase 6's traffic on the continuous
+    engine (``check_continuous_sharded``)."""
     from repro_torch.configs import get_config
     from repro_torch.parallel.comm import launch
     import numpy as np
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     world = SHARD_MESH[0] * SHARD_MESH[1]
     want = sharded_prediction(cfg, model=SHARD_MESH[1])
+    traffic = None if cont is None else {
+        "prompts": [r.prompt for r in cont["requests"]],
+        "arrivals": list(cont["arrivals"])}
     t0 = time.time()
     res = launch(_sharded_rank, world,
-                 args=(arch, layers, list(prompts), want_logits is not None),
-                 device="cuda", share_device=True, timeout=600.0)
+                 args=(arch, layers, list(prompts), want_logits is not None,
+                       traffic),
+                 device="cuda", share_device=True, timeout=900.0)
     wall = time.time() - t0
     r0 = res[0]
     for r, out in enumerate(res):
@@ -3557,21 +3885,126 @@ def serve_sharded(torch, arch: str, layers: int, prompts, want_tokens,
         f"preparation {r0['prep_s']:.1f} s ({r0['prep_comm']['calls']} "
         f"collectives), launch + join {wall:.1f} s, peak device memory "
         f"{max(o['peak_gib'] for o in res):.1f} GiB a rank")
-    return dict(arch=arch, layers=layers, mesh=list(SHARD_MESH),
-                stats=r0["stats"], run_launches=_nonzero(r0["run_launches"]),
-                step_launches=_nonzero(r0["step_launches"]),
-                run_comm=r0["run_comm"], step_comm=r0["step_comm"],
-                prediction=want, prep_s=r0["prep_s"], wall_s=wall,
-                peak_gib=max(o["peak_gib"] for o in res))
+    out = dict(arch=arch, layers=layers, mesh=list(SHARD_MESH),
+               stats=r0["stats"], run_launches=_nonzero(r0["run_launches"]),
+               step_launches=_nonzero(r0["step_launches"]),
+               run_comm=r0["run_comm"], step_comm=r0["step_comm"],
+               prediction=want, prep_s=r0["prep_s"], wall_s=wall,
+               peak_gib=max(o["peak_gib"] for o in res))
+    if cont is not None:
+        out["continuous"] = check_continuous_sharded(
+            [o["continuous"] for o in res], cont, layers)
+    return out
+
+
+def check_continuous_sharded(ranks, cont, layers: int) -> dict:
+    """Phase 14's continuous runs against phase 6's run (a): every rank's
+    tokens, sequential (every request) and ``spec_k=4`` (``SPEC_RIDS``),
+    == (a)'s; rank 0's every logits row bitwise (a)'s; the ranks'
+    scheduling rounds and admissions alike; launches and collectives of a
+    decode step, a speculative round and each run ==
+    ``continuous_sharded_prediction`` (the sequential run's prefills from
+    (a), the speculative run's from phase 6's requests served alone, the
+    one of each request's bucket); every kernel of the path launched;
+    ``PREP_STATS`` and the builds flat."""
+    import numpy as np
+    cfg = continuous_cfg(layers)
+    alone = cont["alone"]
+    summary = {}
+    for key, spec_k in (("seq", 0), ("spec", 4)):
+        r0 = ranks[0][key]
+        what = f"sharded continuous ({key})"
+        reqs = [cont["requests"][i] for i in SPEC_RIDS] if spec_k \
+            else cont["requests"]
+        want_tokens = [r.out_tokens for r in reqs]
+        if spec_k:
+            # each request's prefill: that of the run alone in its bucket
+            if not set(r0["buckets"]) <= set(alone):
+                raise AssertionError(f"{what}: buckets {r0['buckets']}, "
+                                     f"runs alone in {sorted(alone)}")
+            runs = [alone[b] for b in r0["buckets"]]
+            ref_l = {k: sum(x["launches"][k] for x in runs)
+                     for k in runs[0]["launches"]}
+            ref_steps = sum(x["steps"] for x in runs)
+        else:
+            ref_l, ref_steps = cont["launches"], cont["steps"]
+        for r, out in enumerate(ranks):
+            o = out[key]
+            if o["tokens"] != want_tokens:
+                raise AssertionError(f"{what}: rank {r} tokens differ from "
+                                     "phase 6's")
+            if not o["flat"]:
+                raise AssertionError(f"{what}: rank {r} prepared or built "
+                                     "while serving")
+            if (o["stats"]["rounds"], o["stats"]["admit_rounds"]) != (
+                    r0["stats"]["rounds"], r0["stats"]["admit_rounds"]):
+                raise AssertionError(f"{what}: the ranks scheduled apart")
+        same = set(r0["logits"]) == {r.rid for r in reqs} and all(
+            np.array_equal(r0["logits"][r.rid],
+                           np.stack(cont["logits"][r.rid])) for r in reqs)
+        if not same:
+            raise AssertionError(f"{what}: logits differ from phase 6's")
+        q = cfg.quant.replace(draft_layers=8) if spec_k else cfg.quant
+        want = continuous_sharded_prediction(
+            dataclasses.replace(cfg, quant=q), ref_l, ref_steps,
+            r0["buckets"], r0["stats"]["steps"],
+            r0["stats"]["rounds"], model=SHARD_MESH[1], spec_k=spec_k)
+        for r, out in enumerate(ranks):
+            o = out[key]
+            for part in ("run", "step"):
+                got_k = _nonzero(o[f"{part}_launches"])
+                got_c = {k: o[f"{part}_comm"][k]
+                         for k in want[f"{part}_comm"]}
+                if got_k != _nonzero(want[f"{part}_launches"]) or \
+                        got_c != want[f"{part}_comm"]:
+                    raise AssertionError(
+                        f"{what} rank {r} {part}: launches {got_k} "
+                        f"collectives {got_c} != predicted "
+                        f"{_nonzero(want[f'{part}_launches'])} "
+                        f"{want[f'{part}_comm']}")
+        missing = [k for k in ("mgs_matmul_exact_fused",
+                               "mgs_matmul_exact_fused_stationary",
+                               "mgs_matmul_exact_partials",
+                               "mgs_matmul_stationary_partials",
+                               "mgs_matmul_exact_flush", "mgs_flash_attention")
+                   if r0["run_launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"{what}: {missing} never launched")
+        st = r0["stats"]
+        step = "round" if spec_k else "decode step"
+        log(f"{what}: tokens of {len(want_tokens)} requests on every rank "
+            f"and rank 0's {sum(len(t) for t in want_tokens)} logits rows "
+            f"bitwise phase 6's (a); {st['steps']} {step}s, {st['rounds']} "
+            "scheduling rounds (one agreement each), mid-flight admissions "
+            f"{st['mid_flight_admissions']}"
+            + (f", acceptance {st['spec']['acceptance_rate']:.3f}"
+               if spec_k else ""))
+        log(f"{what}: per rank, run launches {_nonzero(r0['run_launches'])}, "
+            f"a {step} {_nonzero(r0['step_launches'])}, == prediction")
+        log(f"{what}: per rank, run collectives {r0['run_comm']}, a {step} "
+            f"{r0['step_comm']}, == prediction")
+        log(f"{what}: serve wall {st['wall_s']:.2f} s, decode tokens/s "
+            f"{st['decode_tok_per_s']:.2f}, engine + warmup "
+            f"{r0['ready_s']:.1f} s")
+        summary[key] = dict(stats=st, prediction=want,
+                            run_launches=_nonzero(r0["run_launches"]),
+                            step_launches=_nonzero(r0["step_launches"]),
+                            run_comm=r0["run_comm"],
+                            step_comm=r0["step_comm"],
+                            ready_s=r0["ready_s"])
+    return summary
 
 
 def sharded_phase(torch, dev, gen, layers: int, group_reqs, group_logits,
-                  moe_tokens):
-    """Phase 14: B1's partials / flush entries, then deepseek-7b (phase 4's
-    traffic, tokens and logits) and granite-moe-1b-a400m (phase 9's
-    tokens) on a 1x2 mesh of ranks sharing the card."""
+                  moe_tokens, run_a):
+    """Phase 14: B1's partials / flush entries and B3's partials, then
+    deepseek-7b (phase 4's traffic, tokens and logits; then phase 6's on
+    the continuous engine, sequential and speculative, against run (a))
+    and granite-moe-1b-a400m (phase 9's tokens) on a 1x2 mesh of ranks
+    sharing the card."""
     t0 = time.time()
     err = check_partials(torch, dev, gen)
+    stat_err, stat_ran = check_stationary_partials(torch, dev, gen)
     check_b2_heads(torch, dev, gen)
     row = time_partials(torch, dev, gen)
     secs = {"kernels": time.time() - t0}
@@ -3582,7 +4015,7 @@ def sharded_phase(torch, dev, gen, layers: int, group_reqs, group_logits,
                           [r.prompt for r in group_reqs],
                           [r.out_tokens for r in group_reqs],
                           [np.stack(group_logits[r.rid])
-                           for r in group_reqs])
+                           for r in group_reqs], cont=run_a)
     secs["dense"] = time.time() - t0
     t0 = time.time()
     arch = FAMILY_ARCHS[0]
@@ -3595,8 +4028,9 @@ def sharded_phase(torch, dev, gen, layers: int, group_reqs, group_logits,
         "SMs)")
     log(f"sharded: card {card_name(torch)}; phase 14 seconds "
         + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
-    return dict(b1_partials_err=err, timing=row, dense=dense, moe=moe,
-                seconds=secs)
+    return dict(b1_partials_err=err, b3_partials_err=stat_err,
+                b3_partials_pieces=stat_ran, timing=row, dense=dense,
+                moe=moe, seconds=secs)
 
 
 # ---------------------------------------------------------------------------
@@ -4232,11 +4666,13 @@ def main() -> int:
 
     t0 = time.time()
     sharded = sharded_phase(torch, dev, gen, args.layers, group_reqs,
-                            group_logits, fam["runs"][FAMILY_ARCHS[0]])
+                            group_logits, fam["runs"][FAMILY_ARCHS[0]],
+                            run_a)
     del group_logits
-    log(f"phase 14: B1's partials and flush entries checked and timed; "
-        f"deepseek-7b and {FAMILY_ARCHS[0]} served on a 1x2 mesh of ranks "
-        f"bitwise their one-card runs ({time.time() - t0:.1f} s)")
+    log(f"phase 14: B1's partials and flush entries and B3's partials "
+        f"checked and timed; deepseek-7b (group and continuous, sequential "
+        f"and speculative) and {FAMILY_ARCHS[0]} served on a 1x2 mesh of "
+        f"ranks bitwise their one-card runs ({time.time() - t0:.1f} s)")
 
     t0 = time.time()
     train_sharded = train_sharded_phase(torch, dev)
@@ -4309,21 +4745,39 @@ def main() -> int:
              launches_by_path=by_path["mgs_matmul_dmac"]),
     ]
     part = sharded["timing"]
-    for name, key in (("mgs_matmul_exact_partials", "partials"),
-                      ("mgs_matmul_exact_flush", "flush")):
+    shard_cont = sharded["dense"]["continuous"]
+    for name, key, replaces, err in (
+            ("mgs_matmul_exact_partials", "partials", 295,
+             sharded["b1_partials_err"]),
+            ("mgs_matmul_stationary_partials", "stationary", 321,
+             sharded["b3_partials_err"]),
+            ("mgs_matmul_exact_flush", "flush", 295,
+             sharded["b1_partials_err"])):
+        # the main path of this slice: the continuous engine on the mesh
         kernels.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/mgs_matmul.cu",
-            replaces="src/repro/kernels/mgs_matmul.py:295",
-            launches=sharded["dense"]["run_launches"][name],
-            max_abs_err=sharded["b1_partials_err"], ms=part[f"{key}_ms"],
+            replaces=f"src/repro/kernels/mgs_matmul.py:{replaces}",
+            launches=shard_cont["seq"]["run_launches"].get(name, 0),
+            max_abs_err=err, ms=part[f"{key}_ms"],
             plain_ms=part[f"{key}_plain_ms"],
-            bound_ms=part[f"{key}_bound_ms"],
-            bound_by=part[f"{key}_bound_by"],
-            library_ms=part["library_ms"] if key == "partials" else None,
-            launches_by_path={"sharded_dense": sharded["dense"][
-                "run_launches"].get(name, 0), "sharded_moe": sharded["moe"][
-                "run_launches"].get(name, 0)}))
+            bound_ms=part[f"{'flush' if key == 'flush' else 'partials'}"
+                          "_bound_ms"],
+            bound_by=part[f"{'flush' if key == 'flush' else 'partials'}"
+                          "_bound_by"],
+            library_ms=None if key == "flush" else part["library_ms"],
+            launches_by_path={
+                "sharded_dense": sharded["dense"]["run_launches"].get(name, 0),
+                "sharded_moe": sharded["moe"]["run_launches"].get(name, 0),
+                "sharded_continuous": shard_cont["seq"]["run_launches"].get(
+                    name, 0),
+                "sharded_spec": shard_cont["spec"]["run_launches"].get(
+                    name, 0)}))
+    for k in kernels[:3]:           # B1, B3, B2 on this slice's main path
+        k["launches_by_path"].update(
+            sharded_continuous=shard_cont["seq"]["run_launches"].get(
+                k["name"], 0),
+            sharded_spec=shard_cont["spec"]["run_launches"].get(k["name"], 0))
     log(json.dumps({"b1_shapes": b1_rows, "b3_shapes": b3_rows,
                     "b45_shapes": b45_rows, "serve": stats,
                     "decode_step": step, "continuous": cont,
@@ -4340,7 +4794,7 @@ def main() -> int:
                                  if not k.endswith("_err")},
                     "fleet": fleet,
                     "sharded": {k: v for k, v in sharded.items()
-                                if k != "b1_partials_err"},
+                                if not k.endswith("_err")},
                     "train_sharded": train_sharded,
                     "layers": args.layers}))
     log(f"total {time.time() - t_all:.1f} s")

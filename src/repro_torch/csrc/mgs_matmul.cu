@@ -79,6 +79,11 @@
 // exact in any order), and the flush entry (flush_kernel) adds the segments
 // in ascending order and the classes in ascending order with flush_classes,
 // then runs B1's epilogue. Any cut of K then gives the one call's bits.
+// B3 has the same partials entry (exact_body with CACHE and PART): each block
+// keeps the cached operand's stripe over its run of the rank's K range only,
+// and writes its piece of a segment of the whole K as B1's partials do. It is
+// admitted by the stationary rule over the cut's K (the dispatch falls back to
+// B1's partials first), and planned as B3 plans (stationary_part_plan).
 #include "mgs_common.cuh"
 
 using namespace mgs;
@@ -268,29 +273,29 @@ StatLayout stat_layout(int M, int N) {
           T::BM, T::BN};
 }
 
-StatPlan stationary_plan(int Bt, int M, int K, int N, int block_k, int fp,
-                         bool cw) {
-  const StatLayout s =
-      M <= 8 ? (cw ? stat_layout<Decode8, 2>(M, N)
-                   : stat_layout<Decode8, 1>(M, N))
-      : M <= kDecodeRows ? (cw ? stat_layout<Decode16, 2>(M, N)
-                               : stat_layout<Decode16, 1>(M, N))
-                         : (cw ? stat_layout<Prefill, 2>(M, N)
-                               : stat_layout<Prefill, 1>(M, N));
-  const int fixed = s.fixed, lines = s.lines, minb = s.minb, bm = s.bm,
-            bn = s.bn;
-  const long long mt = (M + bm - 1) / bm, nt = (N + bn - 1) / bn;
+StatLayout stat_layout_of(int M, int N, bool cw) {
+  return M <= 8 ? (cw ? stat_layout<Decode8, 2>(M, N)
+                      : stat_layout<Decode8, 1>(M, N))
+         : M <= kDecodeRows ? (cw ? stat_layout<Decode16, 2>(M, N)
+                                  : stat_layout<Decode16, 1>(M, N))
+                            : (cw ? stat_layout<Prefill, 2>(M, N)
+                                  : stat_layout<Prefill, 1>(M, N));
+}
+
+// The K split of B3 over span units of a flush segment (nseg segments): runs
+// short enough that the stripe fits, and more while the blocks do not fill
+// the SMs; then the sweep groups, the stripe's lines and a block's bytes.
+// piece: every segment is cut into pieces (the partials entry), even one.
+StatPlan stat_split(const StatLayout& s, int Bt, int M, int N, int units,
+                    int seg, long long nseg, bool cw, bool piece) {
+  const long long mt = (M + s.bm - 1) / s.bm, nt = (N + s.bn - 1) / s.bn;
   const long long cached = cw ? nt : mt, sweep = cw ? mt : nt;
-  const long long budget = minb == 2 ? kPairBytes : kStatBytes;
-  const long long target = (long long)minb * kSMs;
-  const int units = (K + 31) / 32, seg = fp * (block_k / 32);
+  const long long budget = s.minb == 2 ? kPairBytes : kStatBytes;
+  const long long target = (long long)s.minb * kSMs;
   // the units of K a block's part of the stripe may span
-  long long cap = (budget - fixed) / (96LL * lines);
+  long long cap = (budget - s.fixed) / (96LL * s.lines);
   if (cap < 1) cap = 1;
-  const long long nseg = (units + seg - 1) / seg;
   const long long span = units < seg ? units : seg;
-  // enough splits that the stripe fits, and more while the blocks do not
-  // fill the SMs
   long long per = (span + cap - 1) / cap;
   const long long fill = target / ((long long)Bt * cached * sweep * nseg);
   if (per < fill) per = fill;
@@ -299,17 +304,37 @@ StatPlan stationary_plan(int Bt, int M, int K, int N, int block_k, int fp,
   if (run < least) run = least;
   per = (span + run - 1) / run;
   StatPlan p;
-  p.k = nseg * per == 1 ? Plan{1, 1, units, seg}
-                        : Plan{int(nseg * per), int(per), int(run), seg};
+  p.k = nseg * per == 1 && !piece
+            ? Plan{1, 1, units, seg}
+            : Plan{int(nseg * per), int(per), int(run), seg};
   const long long items = (long long)Bt * cached * p.k.splits;
   long long groups = (target + items - 1) / items;
   if (groups > sweep) groups = sweep;
   const long long pg = (sweep + groups - 1) / groups;
   p.pg = int(pg);
   p.groups = int((sweep + pg - 1) / pg);
-  p.lines = lines;
-  p.bytes = int(fixed + 96LL * p.k.run * lines);
+  p.lines = s.lines;
+  p.bytes = int(s.fixed + 96LL * p.k.run * s.lines);
   return p;
+}
+
+StatPlan stationary_plan(int Bt, int M, int K, int N, int block_k, int fp,
+                         bool cw) {
+  const int units = (K + 31) / 32, seg = fp * (block_k / 32);
+  return stat_split(stat_layout_of(M, N, cw), Bt, M, N, units, seg,
+                    (units + seg - 1) / seg, cw, false);
+}
+
+// B3's partials entry: the pieces of the flush segments of the whole K that
+// the cut [k_off, k_off + K) touches (as part_plan), each cut into runs as
+// stationary_plan cuts a segment.
+StatPlan stationary_part_plan(int Bt, int M, int K, int N, int block_k,
+                              int fp, int k_off, bool cw) {
+  const int seg = fp * (block_k / 32), seg_len = 32 * seg;
+  const long long nseg =
+      ((long long)k_off + K - 1) / seg_len - k_off / seg_len + 1;
+  return stat_split(stat_layout_of(M, N, cw), Bt, M, N, (K + 31) / 32, seg,
+                    nseg, cw, true);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -647,10 +672,11 @@ __device__ __forceinline__ void mma_step(
 
 // B1 (codes), B4 (LIMBS: limb planes) and B3 (CACHE). Grid, B1 / B4:
 // (column tiles, row tiles or K splits, slices); B3: (sweep groups, cached
-// tiles x K splits, slices). PART (the partials entry): every block takes
-// one piece of one flush segment of the whole K (part_plan) and adds its
-// class partials into g.ws at that segment; nothing is flushed. Grid:
-// (column tiles, row tiles x pieces, slices).
+// tiles x K splits, slices). PART (the partials entries): every block takes
+// one piece of one flush segment of the whole K (part_plan, B3's
+// stationary_part_plan) and adds its class partials into g.ws at that
+// segment; nothing is flushed. Grid, B1: (column tiles, row tiles x pieces,
+// slices); B3: (sweep groups, cached tiles x pieces, slices).
 template <bool LIMBS, int EB, int MB, class T, int CACHE, bool PART = false>
 __device__ __forceinline__ void exact_body(const Args& g) {
   using L = Layout<LIMBS, T, CACHE>;
@@ -909,10 +935,10 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <int EB, int MB, class T, int CACHE>
+template <int EB, int MB, class T, int CACHE, bool PART = false>
 __global__ void __launch_bounds__(T::NT, (Layout<false, T, CACHE>::MINB))
     exact_fused_stationary_kernel(Args g) {
-  exact_body<false, EB, MB, T, CACHE>(g);
+  exact_body<false, EB, MB, T, CACHE, PART>(g);
 }
 
 template <bool LIMBS, int EB, int MB, class T, bool PART = false>
@@ -934,10 +960,10 @@ int launch_exact(const Args& g, int Bt, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-template <int EB, int MB, class T, int CACHE>
+template <int EB, int MB, class T, int CACHE, bool PART = false>
 int launch_stationary(const Args& g, int Bt, const StatPlan& p,
                       cudaStream_t stream) {
-  auto kern = exact_fused_stationary_kernel<EB, MB, T, CACHE>;
+  auto kern = exact_fused_stationary_kernel<EB, MB, T, CACHE, PART>;
   static std::atomic<bool> attr_set[kMaxDevices];
   int dev = 0;
   cudaError_t err = current_device(dev);
@@ -1043,11 +1069,41 @@ int launch_exact_fmt(Args g, int Bt, long long ws_len, long long cnt_len,
   return launch_exact<LIMBS, EB, MB, Prefill>(g, Bt, stream);
 }
 
-template <int EB, int MB, class T>
+template <int EB, int MB, class T, bool PART = false>
 int launch_stationary_tile(const Args& g, int Bt, const StatPlan& p, bool cw,
                            cudaStream_t stream) {
-  return cw ? launch_stationary<EB, MB, T, 2>(g, Bt, p, stream)
-            : launch_stationary<EB, MB, T, 1>(g, Bt, p, stream);
+  return cw ? launch_stationary<EB, MB, T, 2, PART>(g, Bt, p, stream)
+            : launch_stationary<EB, MB, T, 1, PART>(g, Bt, p, stream);
+}
+
+// The stationary schedules' admission rule over g.K (kStripeBudget).
+bool stripe_admitted(const Args& g, bool cw) {
+  const long long kp =
+      (long long)((g.K + g.block_k - 1) / g.block_k) * g.block_k;
+  const int edge = cw || g.M > kDecodeRows ? 64 : g.M <= 4 ? 4 : 16;
+  return 3 * kp * edge <= kStripeBudget;
+}
+
+// B3's partials: refuse what the admission rule refuses over the cut's K,
+// then plan the pieces, pick the staging path and the tile.
+template <int EB, int MB>
+int launch_stationary_part_fmt(Args g, int Bt, bool cw, cudaStream_t stream) {
+  if (!stripe_admitted(g, cw)) return int(cudaErrorInvalidValue);
+  const StatPlan p = stationary_part_plan(Bt, g.M, g.K, g.N, g.block_k,
+                                          g.flush_period, g.k_off, cw);
+  g.splits = p.k.splits;
+  g.per = p.k.per;
+  g.run = p.k.run;
+  g.seg = p.k.seg;
+  g.lines = p.lines;
+  g.pg = p.pg;
+  take_async(g);
+  if (g.M <= 8)
+    return launch_stationary_tile<EB, MB, Decode8, true>(g, Bt, p, cw, stream);
+  if (g.M <= kDecodeRows)
+    return launch_stationary_tile<EB, MB, Decode16, true>(g, Bt, p, cw,
+                                                          stream);
+  return launch_stationary_tile<EB, MB, Prefill, true>(g, Bt, p, cw, stream);
 }
 
 // B3: refuse what the admission rule refuses, then plan, check the
@@ -1055,10 +1111,7 @@ int launch_stationary_tile(const Args& g, int Bt, const StatPlan& p, bool cw,
 template <int EB, int MB>
 int launch_stationary_fmt(Args g, int Bt, bool cw, long long ws_len,
                           long long cnt_len, cudaStream_t stream) {
-  const long long kp =
-      (long long)((g.K + g.block_k - 1) / g.block_k) * g.block_k;
-  const int edge = cw || g.M > kDecodeRows ? 64 : g.M <= 4 ? 4 : 16;
-  if (3 * kp * edge > kStripeBudget) return int(cudaErrorInvalidValue);
+  if (!stripe_admitted(g, cw)) return int(cudaErrorInvalidValue);
   const StatPlan p = stationary_plan(Bt, g.M, g.K, g.N, g.block_k,
                                      g.flush_period, cw);
   const int bm = g.M <= 8 ? 8 : g.M <= kDecodeRows ? kDecodeRows : 64;
@@ -1218,6 +1271,23 @@ extern "C" int mgs_matmul_exact_partials(const void* x, const void* w,
   auto st = static_cast<cudaStream_t>(stream);
   return fmt == 0 ? launch_part_fmt<4, 3>(g, Bt, st)
                   : launch_part_fmt<3, 4>(g, Bt, st);
+}
+
+// B3's partials entry: the arguments of B1's plus cache_weight (as for B3).
+// Refuses (cudaErrorInvalidValue) a stripe over mgs_matmul_stripe_budget()
+// bytes for the cut's K (the dispatch falls back to B1's partials first).
+extern "C" int mgs_matmul_stationary_partials(
+    const void* x, const void* w, void* part, int Bt, int M, int K, int N,
+    long long x_bs, long long w_bs, int fmt, int block_k, int flush_period,
+    int k_off, int cache_weight, void* stream) {
+  Args g = codes_args(x, w, nullptr, nullptr, nullptr, M, K, N, x_bs, w_bs, 0,
+                      0, 0, 0, 0, block_k, flush_period);
+  g.ws = static_cast<int*>(part);
+  g.k_off = k_off;
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool cw = cache_weight != 0;
+  return fmt == 0 ? launch_stationary_part_fmt<4, 3>(g, Bt, cw, st)
+                  : launch_stationary_part_fmt<3, 4>(g, Bt, cw, st);
 }
 
 // The flush entry. part: (nseg, 5, Bt, M, N) int32 summed partials; out:

@@ -42,6 +42,7 @@ LAUNCHES: Dict[str, int] = {"mgs_matmul_exact_fused": 0,
                             "mgs_matmul_exact_fused_stationary": 0,
                             "mgs_matmul_exact": 0,
                             "mgs_matmul_exact_partials": 0,
+                            "mgs_matmul_stationary_partials": 0,
                             "mgs_matmul_exact_flush": 0,
                             "mgs_matmul_dmac": 0,
                             "mgs_flash_attention": 0}

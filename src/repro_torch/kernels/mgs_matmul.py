@@ -726,30 +726,48 @@ def mgs_matmul_exact_partials_plain(x_codes, w_codes, fmt: FPFormat = E4M3,
                                     *, block_k: int = 128,
                                     flush_period: Optional[int] = None,
                                     k_offset: int = 0,
-                                    k_total: Optional[int] = None):
-    """Plain twin of :func:`mgs_matmul_exact_partials` (same bits)."""
+                                    k_total: Optional[int] = None,
+                                    schedule: str = "output"):
+    """Plain twin of :func:`mgs_matmul_exact_partials` (same bits). A
+    stationary ``schedule`` walks B3's order, as
+    :func:`mgs_matmul_stationary_plain` does, and raises like the kernel
+    where the cut's stripe is over :data:`WS_STRIPE_BUDGET_BYTES`."""
     _check_operands(x_codes, w_codes, "none", block_k)
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule {schedule!r} not in {SCHEDULES}")
     xc, wc = _as_3d(x_codes), _as_3d(w_codes)
     Bt = max(xc.shape[0], wc.shape[0])
     M, K = xc.shape[1:]
     N = wc.shape[-1]
     Kg = _check_cut(K, k_offset, k_total)
+    check_stripe(schedule, M, K, block_k)
     seg_len, nseg = partial_segments(Kg, block_k, flush_period)
     out = torch.zeros((nseg, _N_CLASSES, Bt, M, N), dtype=torch.int32,
                       device=xc.device)
     if K == 0:
         return out
-    lx = _limbs64(xc, fmt)
     first, last = k_offset // seg_len, (k_offset + K - 1) // seg_len
-    for n0 in range(0, N, _PLAIN_N_CHUNK):
-        n1 = min(N, n0 + _PLAIN_N_CHUNK)
-        lw = _limbs64(wc[..., n0:n1], fmt)
+
+    def fill(lx, lw, m0, n0):
+        m1, n1 = m0 + lx[0].shape[-2], n0 + lw[0].shape[-1]
         for s in range(first, last + 1):
             k0 = max(s * seg_len - k_offset, 0)
             k1 = min((s + 1) * seg_len - k_offset, K)
             acc = _segment_classes(lx, lw, k0, k1)
             for c in range(_N_CLASSES):
-                out[s, c, :, :, n0:n1] = _class_int32(acc[c])
+                out[s, c, :, m0:m1, n0:n1] = _class_int32(acc[c])
+
+    C = _PLAIN_N_CHUNK
+    if schedule == "weight":        # w's chunks cached, x's sweep past
+        for n0 in range(0, N, C):
+            lw = _limbs64(wc[..., n0:n0 + C], fmt)
+            for m0 in range(0, M, C):
+                fill(_limbs64(xc[:, m0:m0 + C], fmt), lw, m0, n0)
+    else:                           # x decoded once, w's chunks sweep
+        for m0 in range(0, M, C):
+            lx = _limbs64(xc[:, m0:m0 + C], fmt)
+            for n0 in range(0, N, C):
+                fill(lx, _limbs64(wc[..., n0:n0 + C], fmt), m0, n0)
     return out
 
 
@@ -798,8 +816,9 @@ def mgs_matmul_exact_partials(x_codes, w_codes, fmt: FPFormat = E4M3, *,
                               block_k: int = 128,
                               flush_period: Optional[int] = None,
                               k_offset: int = 0,
-                              k_total: Optional[int] = None):
-    """B1's exact class sums over one cut of K, unflushed.
+                              k_total: Optional[int] = None,
+                              schedule: str = "output"):
+    """B1's (or B3's) exact class sums over one cut of K, unflushed.
 
     ``x_codes`` ``(M, K)`` / ``(Bt, M, K)`` and ``w_codes`` ``(K, N)`` /
     ``(Bt, K, N)`` hold K elements ``[k_offset, k_offset + K)`` of a
@@ -812,17 +831,26 @@ def mgs_matmul_exact_partials(x_codes, w_codes, fmt: FPFormat = E4M3, *,
     sum of the partials of any cut of K, flushed by
     :func:`mgs_matmul_exact_flush`, is B1's one call, bit for bit.
 
+    ``schedule``: ``"output"`` runs B1's partials; ``"weight"`` or
+    ``"activation"`` B3's, whose stripe covers this cut only and is
+    admitted by :func:`check_stripe` over the cut's K (``ValueError``
+    beyond it: the dispatch picks ``"output"`` first,
+    ``kernels.ops._fused_schedule``). The same bits under every schedule.
+
     A CPU tensor runs the twin; a CUDA tensor launches
-    ``csrc/mgs_matmul.cu::mgs_matmul_exact_partials`` or raises.
+    ``csrc/mgs_matmul.cu::mgs_matmul_exact_partials`` (or
+    ``::mgs_matmul_stationary_partials``) or raises.
     """
     if x_codes.device.type == "cpu":
         return mgs_matmul_exact_partials_plain(
             x_codes, w_codes, fmt, block_k=block_k,
-            flush_period=flush_period, k_offset=k_offset, k_total=k_total)
+            flush_period=flush_period, k_offset=k_offset, k_total=k_total,
+            schedule=schedule)
     if x_codes.device.type != "cuda" or w_codes.device != x_codes.device:
         raise ValueError(f"codes on {x_codes.device} / {w_codes.device}: "
                          "the kernel runs on one CUDA device")
     _check_operands(x_codes, w_codes, "none", block_k)
+    check_stripe(schedule, x_codes.shape[-2], x_codes.shape[-1], block_k)
     if fmt.name not in _KERNEL_FMTS:
         raise ValueError(f"the exact kernel takes E4M3/E3M4, got {fmt.name}")
     if block_k % 32:
@@ -839,13 +867,18 @@ def mgs_matmul_exact_partials(x_codes, w_codes, fmt: FPFormat = E4M3, *,
     out = torch.zeros((nseg, _N_CLASSES, Bt, M, N), dtype=torch.int32,
                       device=dev)
     if Bt and M and N and K:
-        err = _lib_fn("mgs_matmul_exact_partials", _PART_ARGTYPES)(
+        stationary = schedule != "output"
+        name = ("mgs_matmul_stationary_partials" if stationary
+                else "mgs_matmul_exact_partials")
+        err = _lib_fn(name, _PART_ARGTYPES[:-1] + [ctypes.c_int] * stationary
+                      + _PART_ARGTYPES[-1:])(
             xc.data_ptr(), wc.data_ptr(), out.data_ptr(), Bt, M, K, N,
             M * K, K * N if wc.shape[0] == Bt else 0,
             _KERNEL_FMTS[fmt.name], block_k, seg_len // block_k, k_offset,
+            *([int(schedule == "weight")] if stationary else []),
             _cuda.stream_ptr(dev))
-        _cuda.check(err, "mgs_matmul_exact_partials")
-        _cuda.count_launch("mgs_matmul_exact_partials")
+        _cuda.check(err, name)
+        _cuda.count_launch(name)
     return out
 
 

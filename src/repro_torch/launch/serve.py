@@ -37,10 +37,14 @@ rank per mesh position, each constructing the engine) serves dense and MoE
 stacks under the reference's ``make_rules(mesh, "serve",
 shard_batch=False)``: every rank builds its slice of the prepared planes,
 batch-indexed activations are replicated, and each request's logits and
-tokens are bitwise the one-device engine's. ``--mesh DxM`` starts the
-ranks (``parallel.comm.launch``; ``--share-device`` puts them all on one
-card over gloo) and rank 0's result is printed. The continuous engine, the
-other families, unquantized or non-B1 numerics, calibration and
+tokens are bitwise the one-device engine's.
+``ContinuousBatchingEngine(..., mesh=)`` does the same for the paged
+engine (dense stacks, speculation included): the pool holds the rank's kv
+heads, and the ranks agree once a scheduling round on how many waiting
+requests to admit. ``--mesh DxM`` starts the ranks
+(``parallel.comm.launch``; ``--share-device`` puts them all on one card
+over gloo) and rank 0's result is printed. The other families, numerics
+other than the fused exact kernels (B1 / B3), calibration, ``feed=`` and
 ``--no-deterministic`` on a mesh are ROADMAP A12.2c.
 
   python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
@@ -51,6 +55,9 @@ other families, unquantized or non-B1 numerics, calibration and
       --replicas 2 --device cpu
   python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
       --mesh 1x2 --quant fp8-mgs-serve-kv --device cpu
+  python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
+      --mesh 1x2 --continuous --spec-k 2 --quant fp8-mgs-serve-paged \\
+      --device cpu
 """
 
 from __future__ import annotations
@@ -142,11 +149,11 @@ def mesh_refusal(cfg: ModelConfig) -> Optional[str]:
         return (f"{cfg.name}: sharded serving covers dense and MoE stacks; "
                 "SSM / hybrid / encoder-decoder / VLM on a mesh is ROADMAP "
                 "A12.2c")
-    if not (q.is_fp8 and q.accum == "mgs_exact" and q.use_kernel and q.fused
-            and q.schedule == "output"):
-        return ("sharded serving runs B1's exact numerics (fp8, mgs_exact, "
-                "use_kernel, fused, schedule='output'; --quant fp8-mgs-serve"
-                "[-kv]): raw float weights, B3 / B4 / B5 and the integer "
+    if not (q.is_fp8 and q.accum == "mgs_exact" and q.use_kernel
+            and q.fused):
+        return ("sharded serving runs the fused exact kernels, B1 or B3 "
+                "(fp8, mgs_exact, use_kernel, fused; --quant fp8-mgs-serve"
+                "[-kv|-paged]): raw float weights, B4 / B5 and the integer "
                 "configs on a mesh are ROADMAP A12.2c")
     return None
 
@@ -183,8 +190,9 @@ class ServeEngine:
         process's rank (``launch.mesh.make_mesh`` / ``make_serve_mesh``);
         every rank constructs the engine on the same ``params`` (or
         ``seed``) and serves the same requests. Dense and MoE stacks under
-        B1's numerics (``use_kernel``, ``fused``, ``mgs_exact``); the rest
-        raises (ROADMAP A12.2c). Raw leaves (embedding table, norms) stay
+        the fused exact kernels (``use_kernel``, ``fused``, ``mgs_exact``;
+        B1, or B3 under a stationary ``schedule``); the rest raises
+        (ROADMAP A12.2c). Raw leaves (embedding table, norms) stay
         whole on every rank: the lookup is a gather, and a table cut over
         vocab would need a masked sum that turns -0.0 into +0.0.
     """
@@ -714,13 +722,26 @@ class ContinuousBatchingEngine(ServeEngine):
     device only at admission, release and swap), so a swap never moves a
     resident request's scale; a swap that changes the flush plan is fenced
     until the resident requests drain (:meth:`apply_calibration`).
+
+    ``mesh``: as for :class:`ServeEngine`. The pool holds this rank's kv
+    heads (``models.init_paged_cache(rules=)``; whole where they do not
+    divide the model axis), each prefill cache is built under the rules and
+    gathered whole along any cut of its sequence at adoption, and every
+    model call runs under the rules. Decisions taken from logits (argmax,
+    EOS, speculative acceptance, the rewind) are the same on every rank,
+    because the logits are gathered whole and bitwise alike. Admission
+    alone reads each rank's clock, so :meth:`serve` agrees once a
+    scheduling round on how many waiting requests to admit (the most any
+    rank's clock allows: ``RankMesh.agree``); slot and block availability
+    is the same on every rank, because the allocators see the same calls.
+    Calibration and ``feed=`` on a mesh are ROADMAP A12.2c.
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int,
                  n_blocks: Optional[int] = None, params=None, seed: int = 0,
                  eos_id: Optional[int] = None,
                  calibration: Optional[CalibrationTable] = None,
-                 spec_k: Optional[int] = None, device=None):
+                 spec_k: Optional[int] = None, device=None, mesh=None):
         _require_paged_arch(cfg)    # before any weight is drawn or prepared
         if not cfg.quant.per_row_act:
             raise ValueError(
@@ -734,7 +755,7 @@ class ContinuousBatchingEngine(ServeEngine):
         self.spec_k = spec_k
         super().__init__(cfg, batch=1, max_len=max_len, params=params,
                          seed=seed, eos_id=eos_id, calibration=calibration,
-                         device=device)
+                         device=device, mesh=mesh)
         self.slots = slots
         self.block_size = cfg.quant.block_k
         self.n_table = -(-max_len // self.block_size)
@@ -743,7 +764,7 @@ class ContinuousBatchingEngine(ServeEngine):
         self.n_blocks = (slots * self.n_table + 1 if n_blocks is None
                          else n_blocks)
         self.cache = init_paged_cache(cfg, slots, max_len, self.n_blocks,
-                                      device=self.device)
+                                      device=self.device, rules=self.rules)
         self.alloc = BlockAllocator(self.n_blocks)
         self._free_slots = deque(range(slots))
         self._cur = np.zeros((slots, 1), np.int64)
@@ -773,7 +794,7 @@ class ContinuousBatchingEngine(ServeEngine):
 
     def _decode_paged(self, cur: torch.Tensor):
         """One paged decode step over every slot under the pinned state."""
-        with applied_calib_state(self._cs_decode()):
+        with applied_calib_state(self._cs_decode()), use_rules(self.rules):
             logits, _ = decode_step_paged(self.params, self.cfg, cur,
                                           self.cache)
         return logits
@@ -831,7 +852,8 @@ class ContinuousBatchingEngine(ServeEngine):
             req.table_version = self.table_version
             self._set_slot_amax(slot, self._amax_value)
             cs = self._calib_state
-        pcache = init_cache(self.cfg, 1, bucket, device=self.device)
+        pcache = init_cache(self.cfg, 1, bucket, device=self.device,
+                            rules=self.rules)
         logits, pcache = self._prefill(toks, pcache, cs)
         phys = np.zeros(self.n_table, np.int32)       # tail -> trash block
         phys[:n_alloc] = blocks
@@ -865,7 +887,7 @@ class ContinuousBatchingEngine(ServeEngine):
         ``[cur, drafts]``, under the pinned state. Returns ``(tokens
         (slots, k), logits (slots, k, V))``."""
         toks = [cur]
-        with applied_calib_state(self._cs_decode()):
+        with applied_calib_state(self._cs_decode()), use_rules(self.rules):
             for j in range(self.spec_k - 1):
                 dlog, _ = draft_step_paged(self.params, self.cfg, toks[-1],
                                            self.cache, j)
@@ -883,9 +905,12 @@ class ContinuousBatchingEngine(ServeEngine):
 
         ``arrivals``: optional per-request arrival offsets in seconds (same
         order as ``requests``); a request becomes admissible once that much
-        wall-clock has elapsed (default: all at once, in list order).
+        wall-clock has elapsed (default: all at once, in list order). On a
+        mesh the ranks agree each round on how many to admit: a request is
+        admitted on every rank once any rank's clock has reached it.
         ``feed``: optional zero-arg callable polled once per scheduling
-        round; the requests it returns join the queue mid-flight.
+        round; the requests it returns join the queue mid-flight (not on a
+        mesh: ROADMAP A12.2c).
         ``on_done``: optional callback per finished request. A fenced
         table (:meth:`apply_calibration`) pauses admission until the
         resident requests drain, installs, and admission resumes under it.
@@ -894,12 +919,18 @@ class ContinuousBatchingEngine(ServeEngine):
         steps, or speculative rounds), ``step_s`` (host-clock seconds of
         each step or round, its logits read back included),
         ``mid_flight_admissions`` (requests admitted beside a resident one
-        after decoding began), ``wall_s``,
+        after decoding began), ``rounds`` (scheduling rounds; on a mesh,
+        one agreement each), ``admit_rounds[rid]`` (the round that
+        admitted each request), ``wall_s``,
         ``decode_tok_per_s``, per-request ``timing[rid] = (arrival_s,
         admit_s, done_s)``, ``spec`` under speculation, and the float32
         logits row behind every token under ``logits`` when
         ``record_logits``.
         """
+        if feed is not None and self.mesh is not None:
+            raise NotImplementedError(
+                "feed= on a mesh (each rank's feed would join its queue at "
+                "its own round) is ROADMAP A12.2c")
         if arrivals is None:
             arrivals = [0.0] * len(requests)
         if len(arrivals) != len(requests):
@@ -909,8 +940,9 @@ class ContinuousBatchingEngine(ServeEngine):
         waiting = deque(zip(arrivals, requests))
         active: Dict[int, _Slot] = {}
         timing: Dict[int, Any] = {}
+        admit_rounds: Dict[int, int] = {}
         step_s: List[float] = []
-        n_prefill = n_decode = n_mid = 0
+        n_prefill = n_decode = n_mid = rounds = 0
         n_drafted = n_accepted = 0
 
         def finish(req: Request, arrival: float, admit_s: float):
@@ -924,6 +956,7 @@ class ContinuousBatchingEngine(ServeEngine):
         try:
             while True:
                 now = time.monotonic() - t0
+                rounds += 1
                 if feed is not None:
                     for req in feed():
                         waiting.append((now, req))
@@ -934,13 +967,19 @@ class ContinuousBatchingEngine(ServeEngine):
                     ServeEngine.apply_calibration(self, self._pending)
                     self._pending = None
                 decoding = bool(active)      # residents of earlier rounds
-                while (waiting and waiting[0][0] <= now
-                       and (self._pending is None or self._replaying)):
+                ready = 0                    # the waiting whose time came
+                while ready < len(waiting) and waiting[ready][0] <= now:
+                    ready += 1
+                if self.mesh is not None:
+                    ready = self.mesh.agree([ready])[0]
+                while ready and (self._pending is None or self._replaying):
                     arr, req = waiting[0]
                     st = self._admit(req, arr, t0, active)
                     if st is None:
                         break
                     waiting.popleft()
+                    ready -= 1
+                    admit_rounds[req.rid] = rounds
                     n_mid += decoding
                     n_prefill += bucket_for(len(req.prompt), self._buckets,
                                             block=self.block_size)
@@ -999,7 +1038,8 @@ class ContinuousBatchingEngine(ServeEngine):
         stats: Dict[str, Any] = {
             "prefill_tokens": n_prefill, "decode_tokens": n_decode,
             "steps": len(step_s), "step_s": step_s,
-            "mid_flight_admissions": n_mid, "wall_s": dt,
+            "mid_flight_admissions": n_mid, "rounds": rounds,
+            "admit_rounds": admit_rounds, "wall_s": dt,
             "decode_tok_per_s": n_decode / max(dt, 1e-9),
             "timing": timing}
         if self.spec_k:
@@ -1055,16 +1095,12 @@ def make_engine(cfg: ModelConfig, *, batch: int, max_len: int, params=None,
     :class:`ContinuousBatchingEngine` with ``batch`` decode slots
     (``spec_k`` turns on speculative decoding there); ``calibration``
     starts either pre-calibrated. ``mesh``: this rank's
-    :class:`~repro_torch.parallel.comm.RankMesh` (group engine only)."""
-    if continuous and mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            "the continuous engine on a mesh (B3's partials, the paged pool "
-            "by kv heads) is ROADMAP A12.2c")
+    :class:`~repro_torch.parallel.comm.RankMesh`, for either engine."""
     if continuous:
         return ContinuousBatchingEngine(
             cfg, slots=batch, max_len=max_len, params=params, seed=seed,
             eos_id=eos_id, calibration=calibration, spec_k=spec_k,
-            device=device)
+            device=device, mesh=mesh)
     if spec_k is not None:
         raise ValueError("spec_k requires continuous=True: speculative "
                          "decoding runs on the paged continuous engine")
@@ -1092,16 +1128,30 @@ def _parse_mesh(text: str, device) -> Optional[tuple]:
     return None if shape == (1, 1) else shape
 
 
+def _serve_cli(engine: ServeEngine, reqs: List[Request], warm: int):
+    """The CLI's run: a continuous engine warmed at bucket ``warm``, then
+    served (its per-step times dropped); a group engine run."""
+    if not isinstance(engine, ContinuousBatchingEngine):
+        return engine.run(reqs)
+    engine.warmup([warm], max_new=1)
+    stats = engine.serve(reqs)
+    stats.pop("step_s")
+    return stats
+
+
 def _serve_rank(rank: int, shape, cfg: ModelConfig, batch: int,
-                max_len: int, reqs: List[Request]):
+                max_len: int, reqs: List[Request], continuous: bool = False,
+                spec_k: Optional[int] = None, warm: int = 0):
     """One rank of ``--mesh``: the engine on this rank's slice, the
-    requests served; returns (stats, tokens per request)."""
+    requests served (``_serve_cli``); returns (stats, tokens per
+    request)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.comm import COMM_STATS, rank_device
     mesh = make_mesh(shape, ("data", "model"))
-    engine = ServeEngine(cfg, batch=batch, max_len=max_len,
-                         device=rank_device(), mesh=mesh)
-    stats = engine.run(reqs)
+    stats = _serve_cli(make_engine(cfg, batch=batch, max_len=max_len,
+                                   device=rank_device(), mesh=mesh,
+                                   continuous=continuous, spec_k=spec_k),
+                       reqs, warm)
     stats["mesh"] = f"{shape[0]}x{shape[1]}"
     stats["collectives"] = COMM_STATS["calls"]
     return stats, [r.out_tokens for r in reqs]
@@ -1165,9 +1215,6 @@ def main(argv=None):
         mesh_shape = _parse_mesh(args.mesh, args.device)
     except ValueError as e:
         ap.error(str(e))
-    if mesh_shape is not None and args.continuous:
-        ap.error("--mesh with --continuous (B3's partials, the paged pool "
-                 "by kv heads) is ROADMAP A12.2c")
     if mesh_shape is not None and args.replicas > 1:
         ap.error("--mesh with --replicas (the fleet over tensor-parallel "
                  "sub-meshes) is ROADMAP A12.2c")
@@ -1202,7 +1249,9 @@ def main(argv=None):
         from repro_torch.parallel.comm import launch
         dev = resolve_device(args.device)
         results = launch(_serve_rank, mesh_shape[0] * mesh_shape[1],
-                         args=(mesh_shape, cfg, args.batch, max_len, reqs),
+                         args=(mesh_shape, cfg, args.batch, max_len, reqs,
+                               args.continuous, args.spec_k or None,
+                               args.prompt_len),
                          device=dev, share_device=args.share_device,
                          threads=1 if dev.type == "cpu" else None,
                          timeout=3600.0)
@@ -1232,12 +1281,7 @@ def main(argv=None):
                              spec_k=args.spec_k or None)
     except NotImplementedError as e:
         ap.error(f"{cfg.name}: {e}")
-    if args.continuous:
-        engine.warmup([args.prompt_len], max_new=1)
-        stats = engine.serve(reqs)
-        stats.pop("step_s")
-    else:
-        stats = engine.run(reqs)
+    stats = _serve_cli(engine, reqs, args.prompt_len)
     print(stats)
     for r in reqs[:2]:
         print(f"req {r.rid}: {r.out_tokens[:10]}")

@@ -20,9 +20,9 @@ decode query's absmax is observed at ``attn.q`` and, under
 On a mesh of ranks (tensor parallelism): where ``wq`` and ``wk`` / ``wv``
 shard their heads over the same axes (the kv heads divide the model
 axis), each rank projects and attends its own heads, whole kv groups, with
-the cache holding those heads; the attention output is all-gathered over
-the heads before the replicated ``wo``. Otherwise every rank attends every
-head. A cache whose sequence is sharded (``kv_seq``, :class:`KVSeqShard`)
+the cache (or the paged pool) holding those heads; the attention output is
+all-gathered over the heads before the replicated ``wo``. Otherwise every
+rank attends every head over a whole cache or pool. A cache whose sequence is sharded (``kv_seq``, :class:`KVSeqShard`)
 takes each position's entries on the rank holding it, and decode
 all-gathers the shards before the flash kernel.
 """

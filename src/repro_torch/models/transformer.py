@@ -37,7 +37,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import (constrain, current_rules,
                                            local_slices, replicate,
-                                           spec_axes, spec_entry)
+                                           resolve_spec, spec_axes,
+                                           spec_entry)
 from repro_torch.quant import (PagedKVCache, PreparedWeight,
                                QuantizedKVCache, qeinsum)
 from repro_torch.quant.kvcache import (init_paged_kv, init_quantized_kv,
@@ -819,19 +820,50 @@ def _require_paged_arch(cfg: ModelConfig):
                          "(the pool stores packed FP8 codes)")
 
 
+def _paged_shapes(cfg: ModelConfig, slots: int, max_len: int,
+                  n_blocks: int) -> Dict[str, tuple]:
+    bs = cfg.quant.block_k
+    full = (cfg.n_layers, n_blocks, cfg.n_kv_heads, bs, cfg.head_dim)
+    return {"k": full, "v": full, "k_scale": full[:-1],
+            "v_scale": full[:-1], "block_table": (slots, -(-max_len // bs)),
+            "pos": (slots,)}
+
+
+def paged_cache_specs(cfg: ModelConfig, slots: int, max_len: int,
+                      n_blocks: int, rules) -> Dict[str, tuple]:
+    """The spec of each entry of the pool under ``rules``, from the logical
+    dims the reference's ``init_paged_cache`` gives them (the serve rules
+    cut ``kv_heads`` over ``model`` where it divides, the rest whole)."""
+    d = ("layers", "blocks", "kv_heads", "block", "head_dim")
+    dims = {"k": d, "v": d, "k_scale": d[:-1], "v_scale": d[:-1],
+            "block_table": ("slots", "table"), "pos": ("slots",)}
+    return resolve_spec(dims, _paged_shapes(cfg, slots, max_len, n_blocks),
+                        rules)
+
+
 def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
-                     n_blocks: int, *, device=None):
+                     n_blocks: int, *, device=None, rules=None):
     """The paged decode state: one pool of ``n_blocks`` KV blocks (block
     size ``cfg.quant.block_k``, the flash kernel's chunk) shared by
     ``slots`` decode slots, each with a ``block_table`` row of width
     ``ceil(max_len / block_k)`` and a ``pos`` (next write position;
     ``pos == 0`` marks a free slot). Block 0 is the trash block.
+
+    With ``rules`` on a mesh of ranks the pool holds this rank's kv heads
+    (:func:`paged_cache_specs`); blocks, tables and positions are whole on
+    every rank, so every rank's allocator sees the same calls.
     """
     _require_paged_arch(cfg)
     bs = cfg.quant.block_k
+    kv = cfg.n_kv_heads
+    if rules is not None and getattr(rules.mesh, "size", 1) > 1:
+        sl = local_slices(
+            paged_cache_specs(cfg, slots, max_len, n_blocks, rules)["k"],
+            _paged_shapes(cfg, slots, max_len, n_blocks)["k"], rules.mesh)
+        kv = sl[2].stop - sl[2].start
     nb = -(-max_len // bs)
-    pool = init_paged_kv((cfg.n_layers,), n_blocks, cfg.n_kv_heads, bs,
-                         cfg.head_dim, device=device)
+    pool = init_paged_kv((cfg.n_layers,), n_blocks, kv, bs, cfg.head_dim,
+                         device=device)
     return {"k": pool.k_codes, "v": pool.v_codes,
             "k_scale": pool.k_scale, "v_scale": pool.v_scale,
             "block_table": torch.zeros((slots, nb), dtype=torch.int32,
@@ -858,17 +890,27 @@ def adopt_slot(cache, prefill_cache, slot: int, phys):
     is the slot's whole table row ``(nb,)``: the first ``S // bs``
     entries receive the prefill, the rest of the allocated entries are
     decode headroom, unallocated entries are the trash block.
+
+    On a mesh of ranks both hold this rank's kv heads; a prefill cache
+    whose sequence is cut (``prefill_cache["kv_seq"]``) is gathered whole
+    first (the pool has no sequence dim).
     """
     k = cache["k"]
     L, P, KV, bs, hd = k.shape
-    S = prefill_cache["k"].shape[3]
+    seq = prefill_cache.get("kv_seq")
+    planes = {name: (prefill_cache[name] if seq is None else
+                     seq.mesh.all_gather(prefill_cache[name], 3, seq.axes))
+              for name in ("k", "v", "k_scale", "v_scale")}
+    S = planes["k"].shape[3]
     if S % bs:
         raise ValueError(f"prefill length {S} not a multiple of block {bs}")
+    if planes["k"].shape[2] != KV:
+        raise ValueError(f"prefill cache of {planes['k'].shape[2]} kv heads "
+                         f"for a pool of {KV}")
     ns = S // bs
     phys = torch.as_tensor(phys, dtype=torch.int32, device=k.device)
     pb = phys[:ns].to(torch.int64)
-    for name in ("k", "v", "k_scale", "v_scale"):
-        plane = prefill_cache[name]
+    for name, plane in planes.items():
         tail = tuple(plane.shape[4:])
         cache[name][:, pb] = plane.reshape((L, KV, ns, bs) + tail
                                            ).transpose(1, 2)

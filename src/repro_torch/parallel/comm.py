@@ -12,7 +12,9 @@ per mesh position and writes those collectives out. This module owns:
   (:meth:`RankMesh.all_gather`, shards concatenated in the spec's
   row-major order), the same gather as a list of the ranks' tensors in
   shard order (:meth:`RankMesh.all_gather_parts`: what an ordered float
-  sum adds up) and a barrier (:meth:`RankMesh.barrier`);
+  sum adds up), a barrier (:meth:`RankMesh.barrier`) and an agreed int32
+  vector from the host (:meth:`RankMesh.agree`: the max over every rank,
+  what a host-side decision such as an admission count is taken from);
 * :data:`COMM_STATS` — calls, bytes and bytes staged through the host, per
   process;
 * :func:`launch` — starts N ranks (``torch.multiprocessing``, spawn) that
@@ -51,7 +53,7 @@ __all__ = ["RankMesh", "COMM_STATS", "reset_comm_stats", "launch",
 #: CUDA tensors: down and back up)
 COMM_STATS: Dict[str, int] = {"calls": 0, "bytes": 0, "host_bytes": 0,
                               "all_reduce_sum": 0, "all_reduce_max": 0,
-                              "all_gather": 0, "barrier": 0}
+                              "all_gather": 0, "barrier": 0, "agree": 0}
 _STATS_LOCK = threading.Lock()
 _RANK_DEVICE: Optional[torch.device] = None
 
@@ -229,6 +231,22 @@ class RankMesh:
             order = [p.to(x.device) for p in order]
         self._count_gather(x, len(order))
         return order
+
+    def agree(self, values: Sequence[int]) -> List[int]:
+        """The elementwise max over every rank of an int32 vector held on
+        the host: one all-reduce over the whole mesh, counted as
+        ``agree`` (gloo reduces it on the host, nothing staged; NCCL takes
+        it up to the card and back). ``values`` alone on one rank."""
+        vals = [int(v) for v in values]
+        g = self._group(self.axis_names)
+        if g is None:
+            return vals
+        dev = torch.device("cpu") if self.backend == "gloo" else self.device
+        t = torch.tensor(vals, dtype=torch.int32, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g[0])
+        nb = 4 * len(vals)
+        _count("agree", nb, 0 if dev.type == "cpu" else 2 * nb)
+        return [int(v) for v in t.tolist()]
 
     def barrier(self, axes: Optional[Sequence[str]] = None) -> None:
         """Wait until every rank along ``axes`` (default: all) is here."""

@@ -57,12 +57,14 @@ holds this rank's columns and / or K range. Cut along N only, it runs the
 call above on its columns (the output is this rank's columns). Cut along
 K, the output cannot be a sum of per-rank float32 results, so the exact
 sum is reduced as integers (:func:`_sharded_exact`): the activation's
-scale is maxed over the K group first, this rank's K range is encoded,
-B1's class partials over it (``mgs_matmul_exact_partials``) are summed by
-an int32 all-reduce over the K group, then flushed with the epilogue
-(``mgs_matmul_exact_flush``) — the one-device bits for any cut of K. That
-path is B1's (``use_kernel``, ``fused``, ``schedule="output"``); the other
-kernels on a K-sharded plane raise (ROADMAP A12.2c).
+scale is maxed over the K group first (per row under ``per_row_act``),
+this rank's K range is encoded, the class partials over it
+(``mgs_matmul_exact_partials``: B1's under ``schedule="output"``, B3's
+under a stationary schedule that the cut's stripe admits, else B1's) are
+summed by an int32 all-reduce over the K group, then flushed with the
+epilogue (``mgs_matmul_exact_flush``) — the one-device bits for any cut of
+K. That path is the fused kernels' (``use_kernel``, ``fused``); B4, B5 and
+raw weights on a K-sharded plane raise (ROADMAP A12.2c).
 
 ``site`` names the call site (``"ffn.wg"``, ``"attn.scores"``, ...) for
 calibration: under ``quant.calibrate.calibrating()`` the quantized
@@ -265,14 +267,12 @@ def _sharded_exact(x, w: PreparedWeight, cfg: QuantConfig, x_axis,
     docstring, steps (i)-(v)); ``x`` holds the whole K or this rank's
     range of it. Returns this rank's columns."""
     lay = w.layout
-    if not (cfg.accum == "mgs_exact" and cfg.use_kernel and cfg.fused
-            and cfg.schedule == "output"):
+    if not (cfg.accum == "mgs_exact" and cfg.use_kernel and cfg.fused):
         raise NotImplementedError(
-            f"a K-sharded plane runs B1's partials (mgs_exact, use_kernel, "
-            f"fused, schedule='output'); accum={cfg.accum} "
-            f"use_kernel={cfg.use_kernel} fused={cfg.fused} "
-            f"schedule={cfg.schedule} on a K-sharded plane is ROADMAP "
-            "A12.2c")
+            f"a K-sharded plane runs B1's or B3's partials (mgs_exact, "
+            f"use_kernel, fused); accum={cfg.accum} "
+            f"use_kernel={cfg.use_kernel} fused={cfg.fused} on a K-sharded "
+            "plane is ROADMAP A12.2c")
     if current_recorder() is not None:
         raise NotImplementedError("calibration on a mesh is ROADMAP A12.2c")
     fmt = cfg.fmt
@@ -300,14 +300,16 @@ def _sharded_exact(x, w: PreparedWeight, cfg: QuantConfig, x_axis,
     if flush_period is None:
         flush_period = _site_flush_period(cfg, w, site)
     in_kernel = not cfg.per_row_act
-    # (ii) encode this K range, (iii) B1's partials over it, (iv) the exact
-    # int32 sum over the K group, (v) the flush and the epilogue
+    # (ii) encode this K range, (iii) B1's or B3's partials over it, (iv)
+    # the exact int32 sum over the K group, (v) the flush and the epilogue
     xc = encode_bits(xq, fmt)
     lead = xc.shape[:-1]
     x3 = xc if batched else xc.reshape(-1, xc.shape[-1])
-    part = mgs_matmul_exact_partials(x3, w.codes, fmt, block_k=cfg.block_k,
-                                     flush_period=flush_period, k_offset=k0,
-                                     k_total=K)
+    part = mgs_matmul_exact_partials(
+        x3, w.codes, fmt, block_k=cfg.block_k, flush_period=flush_period,
+        k_offset=k0, k_total=K,
+        schedule=kops._fused_schedule(cfg.schedule, x3.shape[-2],
+                                      x3.shape[-1], cfg.block_k))
     part = lay.mesh.all_reduce(part, "sum", lay.k_axes)
     out = mgs_matmul_exact_flush(
         part, fmt, scale=scale if in_kernel else None,

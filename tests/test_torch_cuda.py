@@ -928,6 +928,51 @@ def test_b1_partials_and_flush_equal_b1_and_the_twin(dev, M, fmt):
             assert torch.equal(got, one) and torch.equal(one, twin), (fp, cut)
 
 
+@pytest.mark.parametrize("schedule", ["activation", "weight"])
+@pytest.mark.parametrize("M", [4, 16])
+def test_b3_partials_and_flush_equal_b3_and_the_twin(dev, M, schedule):
+    """B3's partials entry at a decode (4 rows) and a verify (16 rows)
+    shape, K cut at offsets off block_k: the pieces' summed partials,
+    flushed == one B3 call == the twins; a cut outside K and a stripe over
+    the budget raise."""
+    from repro_torch.kernels.mgs_matmul import (
+        mgs_matmul_exact_flush, mgs_matmul_exact_partials,
+        mgs_matmul_exact_partials_plain)
+    K, N = 1000, 600
+    xc, wc = _codes((1, M, K), E4M3, 4, dev), _codes((1, K, N), E4M3, 5, dev)
+    s = torch.rand(1, 1, N, device=dev) * 1e-2
+    for fp in (None, 1, 3):
+        kw = dict(block_k=64, flush_period=fp)
+        one = mgs_matmul_exact_fused(xc, wc, E4M3, scale=s, schedule=schedule,
+                                     activation="silu", **kw)
+        twin = mgs_matmul_stationary_plain(xc, wc, E4M3, schedule=schedule,
+                                           scale=s, activation="silu", **kw)
+        for cut in ((0, 37), (0, 333, 555), (0, 16, 48)):
+            edges = list(cut) + [K]
+            n0 = LAUNCHES["mgs_matmul_stationary_partials"]
+            parts = [mgs_matmul_exact_partials(
+                xc[..., a:b].contiguous(), wc[:, a:b].contiguous(), E4M3,
+                k_offset=a, k_total=K, schedule=schedule, **kw)
+                for a, b in zip(edges[:-1], edges[1:])]
+            assert LAUNCHES["mgs_matmul_stationary_partials"] == \
+                n0 + len(cut)
+            a, b = edges[1], edges[2]
+            assert torch.equal(parts[1].cpu(), mgs_matmul_exact_partials_plain(
+                xc[..., a:b].cpu(), wc[:, a:b].cpu(), E4M3, k_offset=a,
+                k_total=K, schedule=schedule, **kw))
+            got = mgs_matmul_exact_flush(sum(parts), E4M3, scale=s,
+                                         activation="silu")
+            torch.cuda.synchronize()
+            assert torch.equal(got, one) and torch.equal(one, twin), (fp, cut)
+    with pytest.raises(ValueError, match="outside"):
+        mgs_matmul_exact_partials(xc[..., :100], wc[:, :100], E4M3,
+                                  k_offset=950, k_total=K, schedule=schedule)
+    big = _codes((1, 80, 4000), E4M3, 6, dev)
+    with pytest.raises(ValueError, match="stripe"):
+        mgs_matmul_exact_partials(big, _codes((1, 4000, 8), E4M3, 7, dev),
+                                  E4M3, schedule=schedule)
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}

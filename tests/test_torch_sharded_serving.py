@@ -16,7 +16,8 @@ under a deadline, torch pinned to one thread in the parent and every rank.
 * reduced granite-moe-1b-a400m at top_k 3: bitwise on 1x2 (experts over
   model) and 1x4 (the kv heads replicated);
 * the CLI: ``--mesh 1x2 --device cpu`` serves the 1x1 tokens, and what
-  stays unported raises naming A12.2c.
+  stays unported raises naming A12.2c (the continuous engine on a mesh:
+  ``tests/test_torch_continuous_sharded.py``).
 """
 
 import dataclasses
@@ -434,13 +435,11 @@ def test_cli_mesh_serves_the_one_rank_tokens(capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "1x2", "--no-deterministic"],
-    ["--mesh", "1x2", "--continuous", "--quant", "fp8-mgs-serve-paged"],
     ["--mesh", "1x2", "--arch", "falcon-mamba-7b", "--quant",
      "fp8-mgs-serve-kv"],
     ["--mesh", "1x2"],                       # unquantized: raw weights
     ["--mesh", "1x2", "--replicas", "2", "--quant", "fp8-mgs-serve-kv"]],
-    ids=["no-deterministic", "continuous", "ssm", "unquantized",
-         "replicas"])
+    ids=["no-deterministic", "ssm", "unquantized", "replicas"])
 def test_cli_refusals_name_the_next_slice(capsys, flags):
     with pytest.raises(SystemExit):
         serve_main(["--reduced", "--device", "cpu"] + flags)
@@ -451,14 +450,18 @@ def test_engine_refusals_name_the_next_slice():
     from repro_torch.launch.mesh import carve_submeshes, virtual_devices
     from repro_torch.launch.serve import make_engine
     from repro_torch.parallel.sharding import MeshShape
+    from repro_torch.quant.calibrate import CalibrationTable
 
     class _Two(MeshShape):
         size = 2
         device = torch.device("cpu")
     mesh = _Two(("data", "model"), (1, 2))
+    paged = dataclasses.replace(_dense_cfg(),
+                                quant=_QC.replace(per_row_act=True))
     with pytest.raises(NotImplementedError, match="A12.2c"):
-        make_engine(_dense_cfg(), batch=2, max_len=16, device="cpu",
-                    mesh=mesh, continuous=True)
+        make_engine(paged, batch=2, max_len=16, device="cpu", mesh=mesh,
+                    continuous=True,
+                    calibration=CalibrationTable({"ffn.wd": 10.0}))
     ssm = dataclasses.replace(reduced_config("falcon-mamba-7b"), quant=_QC)
     with pytest.raises(NotImplementedError, match="A12.2c"):
         ServeEngine(ssm, batch=2, max_len=16, device="cpu", mesh=mesh)
