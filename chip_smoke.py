@@ -204,9 +204,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    printed; the one-card process runs both parts beside the meshes;
    every step's collectives (calls, bytes, host bytes) ==
    ``train_sharded_prediction``; it prints what a shared card cannot show
-   (NCCL, 2+ cards, any speed of data parallelism). Last, print the card's
-   name and power limit, a JSON line of kernel results, and ``{"ok":
-   true, "device": {...}}``.
+   (NCCL, 2+ cards, any speed of data parallelism);
+16. the dry run (``repro_torch.launch.dryrun``) against the card, reusing
+   what phases 4-6 built: the growth of ``torch.cuda.memory_allocated``
+   over phase 4's group engine (its weights; one cache) and phase 6's
+   continuous engine (weights and pool) == the dry run's resident bytes
+   within ``RESIDENT_TOL_*``; the group run's peak over its resident beside
+   the dry run's cache and transient; the kernels' bound of a group and a
+   paged decode step (``launch/roofline.py``) beside the profiled busy
+   time of phases 5 and 6; the dry run's records of deepseek-7b at all 30
+   layers for every shape on 1x1, 1x8 and 16x16 under FP8_MGS_SERVE_KV and
+   no quantization, in at most 30 s. The kernels' bounds and every launch
+   and collective prediction above come from ``launch/roofline.py`` and
+   ``launch/dryrun.py``. Last, print the card's name and power limit, a
+   JSON line of kernel results, and ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -228,9 +239,21 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 SRC = HERE / "src"
+if (SRC / "repro_torch").is_dir():
+    sys.path.insert(0, str(SRC))
+try:
+    # the kernels' bounds and the per-step launch and collective
+    # predictions live in the package
+    from repro_torch.launch.dryrun import (  # noqa: E402
+        continuous_sharded_prediction, eval_b1_shapes, eval_launches,
+        family_b1_shapes, fleet_group_launches, group_launches,
+        sharded_prediction, train_sharded_prediction)
+    from repro_torch.launch.roofline import (  # noqa: E402
+        b1_bound, b1_flush_bound, b1_partials_bound, b2_bound, b4_bound,
+        dmac_bound)
+except ImportError:     # outside a checkout: main() says so and stops
+    pass
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 SEED = 0
 # deepseek-7b layers the serving phases (4-8, 13) run by default, of 30:
 # depth is cut so that the script stays well inside its time limit
@@ -239,18 +262,6 @@ DEPTH = 12
 
 def log(*a):
     print(*a, flush=True)
-
-
-def bound(nbytes: float, ops: float):
-    t_mem, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
-    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
-
-
-def b1_bound(Bt, M, K, N):
-    """B1's and B3's bound: one byte per code in, a float32 out and a scale
-    per slice, or the 9 int8 limb products per multiply-add."""
-    return bound(Bt * M * K + Bt * K * N + Bt * M * N * 4 + Bt * 4,
-                 9 * 2 * Bt * M * N * K)
 
 
 # device cycles spun before a timed run (~10 ms at 1.98 GHz): longer than the
@@ -621,69 +632,15 @@ def check_b2_paged(torch, dev, gen):
 # ---------------------------------------------------------------------------
 
 
-def _chunks(cfg, keys: int) -> int:
-    """Score / value launch pairs of a prefill over ``keys`` keys: one a
-    key chunk (``attn_chunk``), one with dense scores."""
-    return -(-keys // cfg.attn_chunk) if cfg.attn_chunk else 1
-
-
-def group_launches(cfg, prompt: int = 32):
-    """Predicted kernel launches of phase 4's traffic under
-    FP8_MGS_SERVE_KV (2 groups, each a ``prompt``-token prefill and 15
-    decode steps), and (B1, B2) launches of one decode step."""
-    L = cfg.n_layers
-    ffn = 3 if cfg.act == "silu" else 2
-    if cfg.is_ssm_only:
-        # 7 projections a layer + the logits head, in prefill and decode
-        pre = dec = 7 * L + 1
-        b2 = 0
-    elif cfg.is_hybrid:
-        # a period: 4 attention projections, 7 Mamba projections a Mamba
-        # sublayer, the router and the expert contractions on a MoE
-        # sublayer, the FFN on the others; the prefill adds the attention's
-        # score / value pairs, decode runs B2 once a period
-        G, per = cfg.n_layers // cfg.attn_every, cfg.attn_every
-        n_moe = sum(1 for j in range(per)
-                    if j % cfg.moe_every == cfg.moe_offset)
-        dec = G * (4 + 7 * (per - 1) + n_moe * (1 + ffn)
-                   + (per - n_moe) * ffn) + 1
-        pre = dec + 2 * G * _chunks(cfg, prompt)
-        b2 = G
-    elif cfg.is_moe:
-        # 4 attention projections, the router, the 3 expert contractions
-        # (one launch over every expert each) + the head; the prefill adds
-        # the score / value contractions, decode runs B2 once a layer
-        pre, dec, b2 = 10 * L + 1, 8 * L + 1, L
-    elif cfg.encoder_layers:
-        # the encoder (prefill only): 4 projections, a score / value pair a
-        # key chunk, the FFN; a decoder layer: self-attention's 4
-        # projections, the cross-attention's query and output projections
-        # and the FFN, plus at prefill a self score / value pair a prompt
-        # chunk, the cross K / V projections of the encoder output and a
-        # cross score / value pair a key chunk; decode runs B2 twice a layer
-        # (self and cross over the packed cross planes)
-        nk = _chunks(cfg, cfg.encoder_len)
-        enc = cfg.encoder_layers * (4 + 2 * nk + ffn)
-        dec = (4 + 2 + ffn) * L + 1
-        pre = enc + (4 + 2 * _chunks(cfg, prompt) + 4 + 2 * nk + ffn) * L + 1
-        b2 = 2 * L
-    else:
-        # 4 projections + the FFN's + the head; the prefill (the vision
-        # prefix before the prompt) adds a score / value pair a key chunk,
-        # decode runs B2 once a layer
-        nk = _chunks(cfg, cfg.vision_prefix + prompt)
-        pre, dec, b2 = (4 + 2 * nk + ffn) * L + 1, (4 + ffn) * L + 1, L
-    return ({"mgs_matmul_exact_fused": 2 * (pre + 15 * dec),
-             "mgs_flash_attention": 2 * 15 * b2}, (dec, b2))
-
-
-def serve_full(torch, arch: str, layers: int):
+def serve_full(torch, arch: str, layers: int, mem=None):
     """``arch`` at full width (``layers`` of its depth) in bf16 under
     FP8_MGS_SERVE_KV through the group engine: 8 requests of 32 prompt
     tokens at batch 4, 16 new tokens each. Launch counts equal
     ``group_launches``, ``PREP_STATS`` and the builds stay flat, 8 x 16
     finite logits rows. Returns (launches, stats, engine, requests, the
-    logits rows behind each request's tokens)."""
+    logits rows behind each request's tokens); ``mem`` (a dict) receives
+    the growth of ``torch.cuda.memory_allocated`` over the engine's
+    construction (its weights) and over one of its caches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
     from repro_torch.launch.serve import Request, ServeEngine
@@ -698,19 +655,35 @@ def serve_full(torch, arch: str, layers: int):
         f"depth {cfg.n_layers} of {full.n_layers} layers, "
         f"{cfg.compute_dtype}, FP8_MGS_SERVE_KV; predicted launches {want}")
     t0 = time.time()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
     eng = ServeEngine(cfg, batch=4, max_len=cfg.vision_prefix + 32 + 16 + 1,
                       seed=SEED)
     torch.cuda.synchronize()
     log(f"serve: random weights + preparation {time.time() - t0:.1f} s, "
         f"PREP_STATS {PREP_STATS}")
+    if mem is not None:
+        m1 = torch.cuda.memory_allocated()
+        cache = eng._init_cache(eng.batch)
+        torch.cuda.synchronize()
+        mem.update(group_cfg=cfg, group_max_len=eng.max_len,
+                   group_weights=m1 - m0,
+                   group_cache=torch.cuda.memory_allocated() - m1)
+        del cache
     eng.warmup([32], max_new=1)
     rng = np.random.default_rng(SEED)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, 32).astype(
         np.int32), max_new_tokens=16) for i in range(8)]
     prep0, builds0 = dict(PREP_STATS), dict(BUILDS)
     reset_launch_counts()
+    if mem is not None:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     stats = eng.run(reqs, record_logits=True)
     launches = dict(LAUNCHES)
+    if mem is not None:
+        mem["group_run_peak"] = torch.cuda.max_memory_allocated() - base
     logits = stats.pop("logits")
     log(f"serve: stats {stats}")
     log(f"serve: launches during the run {launches}")
@@ -931,10 +904,7 @@ def time_b2(torch, a):
         q, k, v, attn_mask=mask), 50)
     live = a["live"].to(torch.int64)
     keys = int(((live + chunk - 1) // chunk * chunk).sum())
-    nbytes = (N * T * D + 2 * keys * D + 3 * keys * 4 + N * T * D * 4
-              + a["bt"].numel() * 4 + N * 4)
-    ops = 2 * 9 * 2 * T * D * keys
-    b_ms, b_by = bound(nbytes, ops)
+    b_ms, b_by = b2_bound(N, T, D, keys, a["bt"].numel())
     log(f"time B2 {N} slices x ({T} x {D}), {keys} live keys (chunk "
         f"{chunk}): kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, SDPA f32 "
         f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -973,10 +943,7 @@ def time_b2_paged(torch, p, label=""):
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qf, kg, v, attn_mask=mask), 50)
         keys = int(((live.to(torch.int64) + bs - 1) // bs * bs).sum())
-        nbytes = (N * t * D + 2 * keys * D + 3 * t * keys * 4
-                  + N * t * D * 4 + bt.numel() * 4 + N * 4)
-        ops = 2 * 9 * 2 * t * D * keys
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = b2_bound(N, t, D, keys, bt.numel(), scale_rows=t)
         log(f"time B2 {label}{entry:6s} {N} slices x ({t} x {D}), {keys} "
             f"live keys (block {bs}): kernel {ms:.4f} ms, twin "
             f"{plain_ms:.4f} ms, SDPA f32 {lib_ms:.4f} ms, bound "
@@ -1060,9 +1027,11 @@ def continuous_params(cfg, device):
     return params
 
 
-def serve_continuous(torch, layers: int):
+def serve_continuous(torch, layers: int, mem=None):
     """Phase 6 (a)-(e). Returns the engine, the launches of run (a), its
-    stats and the speculative run's stats."""
+    stats and the speculative run's stats; ``mem`` (a dict) receives the
+    growth of ``torch.cuda.memory_allocated`` over the first engine's
+    weights and pool (its raw weights freed, before its warm-up)."""
     from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
     from repro_torch.launch.serve import (ContinuousBatchingEngine, Request,
                                           bucket_for)
@@ -1070,6 +1039,8 @@ def serve_continuous(torch, layers: int):
     import numpy as np
     cfg = continuous_cfg(layers)
     quant = cfg.quant
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
     params = continuous_params(cfg, "cuda")
     buckets = CONT_BUCKETS
 
@@ -1085,8 +1056,15 @@ def serve_continuous(torch, layers: int):
         f"{cfg.compute_dtype}, FP8_MGS_SERVE_PAGED schedule=activation, "
         f"4 slots, max_len 256, block {quant.block_k}, buckets {buckets}")
     t0 = time.time()
-    eng = engine(quant, params)
+    eng = ContinuousBatchingEngine(cfg, slots=CONT_SLOTS,
+                                   max_len=CONT_MAX_LEN, params=params)
     del params                      # the engine holds the prepared tree
+    torch.cuda.synchronize()
+    if mem is not None:
+        mem.update(cont_cfg=cfg, cont_blocks=eng.n_blocks,
+                   continuous=torch.cuda.memory_allocated() - m0)
+    eng.warmup(buckets)
+    torch.cuda.synchronize()
     log(f"continuous: engine + warmup {time.time() - t0:.1f} s")
     rng = np.random.default_rng(SEED)
     plens = rng.integers(16, 161, 8)
@@ -1187,11 +1165,14 @@ def four_slots(eng):
 
 def profile_paged_step(torch, eng):
     """Four slots admitted, then the host-clock time of 5 paged decode
-    steps and one step under ``torch.profiler`` by kernel."""
+    steps and one step under ``torch.profiler`` by kernel; ``live`` is each
+    slot's key count at the profiled step."""
     cur = four_slots(eng)
-    return profile_step(torch, lambda: eng._decode_paged(cur),
-                        f"paged decode step ({eng.cfg.n_layers} layers, "
-                        "4 slots)")
+    row = profile_step(torch, lambda: eng._decode_paged(cur),
+                       f"paged decode step ({eng.cfg.n_layers} layers, "
+                       "4 slots)")
+    row["live"] = [int(p) for p in eng.cache["pos"].tolist()]
+    return row
 
 
 def time_b3(torch, dev, gen):
@@ -1252,13 +1233,6 @@ def time_b3(torch, dev, gen):
 # phase 7: the paper's numerics (B4, B5) on the group serving path
 # ---------------------------------------------------------------------------
 
-# H100 SXM CUDA-core int32 rate: 132 SMs x 64 int32 lanes x 1.98 GHz boost
-# (the 67 TFLOP/s float32 peak is 128 lanes x 2 flops at the same clock)
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# operations per product of the dMAC's minimal form: the product (its
-# mantissas multiplied, exponents added), one table lookup of the rounded
-# (sm, e), one add into bin e
-DMAC_OPS_PER_PRODUCT = 4
 # the group path's shapes for B4 and B5: decode (4 rows), prefill (4 x 32
 # rows), the score / value contractions over 32 heads x 4 requests against
 # the float cache (max_len 49) at decode and, padded to the 1024-key chunk,
@@ -1269,21 +1243,6 @@ B45_SHAPES = B1_SHAPES[:7] + [
     ("prefill scores", 128, 32, 128, 1024),
     ("prefill values", 128, 32, 1024, 128),
 ]
-
-
-def dmac_bound(Bt, M, K, N):
-    """B5's bound: one-byte codes in and f32 out once vs the minimal form's
-    operations at the CUDA-core int32 rate."""
-    t_mem = Bt * (M * K + K * N + 4 * M * N) / HBM_BYTES_PER_S * 1e3
-    t_ops = (Bt * M * N * K * DMAC_OPS_PER_PRODUCT / INT32_OPS_PER_S * 1e3)
-    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
-
-
-def b4_bound(Bt, M, K, N):
-    """B4's bound: 3 limb bytes per operand element, f32 out, vs 9 int8
-    limb products per MAC at the tensor-core int8 rate."""
-    return bound(3 * Bt * (M * K + K * N) + 4 * Bt * M * N,
-                 9 * 2 * Bt * M * N * K)
 
 
 def _margin_values(torch, shape, dev, gen, fmt=None):
@@ -1791,88 +1750,6 @@ FAMILY_ARCHS = ("granite-moe-1b-a400m", "falcon-mamba-7b")
 # check's settings cover: no bias, block_k 128, the worst-case flush and one
 # weight per slice
 B1_CHECKED = (False, 128, None, False)
-
-
-def family_b1_shapes(cfg, batch=4, prompt=32):
-    """Every B1 launch shape of phase 4's traffic on the MoE, SSM, hybrid,
-    encoder-decoder or VLM model ``cfg`` through the group engine, as
-    (name, Bt, M, K, N, epilogue activation): the projections at decode
-    (``batch`` rows) and at prefill (``batch`` x ``prompt`` rows, the
-    vision prefix's rows too), the prefill's score / value contractions
-    over (request, kv head) slices, one key chunk a launch, the experts in
-    one launch over all of them (``C`` rows each, one dispatch group), the
-    encoder's projections and contractions over its frames and the cross
-    K / V projections of its output, and the logits head on each request's
-    last row."""
-    from repro_torch.models.moe import _n_groups
-    d = cfg.d_model
-    out = {}
-
-    def add(prefix, short, *key):
-        out.setdefault(key, (prefix, []))[1].append(short)
-
-    def attention(pre, Bq, Tq, Tk):
-        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        add(pre, "wq", 1, Bq * Tq, d, H * hd, "none")
-        add(pre, "wk/wv", 1, Bq * Tq, d, KV * hd, "none")
-        add(pre, "wo", 1, Bq * Tq, H * hd, d, "none")
-        if Tk:
-            S = cfg.attn_chunk or Tk
-            add(pre, "scores", Bq * KV, H // KV * Tq, hd, S, "none")
-            add(pre, "values", Bq * KV, H // KV * Tq, S, hd, "none")
-
-    def ffn(pre, M):
-        if cfg.act == "silu":
-            add(pre, "wg", 1, M, d, cfg.d_ff, "silu")
-            add(pre, "wu", 1, M, d, cfg.d_ff, "none")
-        else:
-            add(pre, "wi", 1, M, d, cfg.d_ff, "gelu")
-        add(pre, "wd", 1, M, cfg.d_ff, d, "none")
-
-    fam = cfg.family
-    # a hybrid's Mamba and MoE weights beside its attention and FFN ones
-    st, mt = ("ssm ", "moe ") if cfg.is_hybrid else ("", "")
-    add(fam, "logits", 1, batch, d, cfg.vocab, "none")
-    if cfg.encoder_layers:
-        # the encoder's self-attention (keys: its frames) and FFN, and the
-        # cross K / V projections of its output (the wk / wv shape)
-        attention(f"{fam} encoder", batch, cfg.encoder_len, cfg.encoder_len)
-        ffn(f"{fam} encoder", batch * cfg.encoder_len)
-    for stage, T in (("decode", 1), ("prefill", prompt)):
-        M, pre = batch * T, f"{fam} {stage}"
-        if cfg.ssm_state:
-            di, r = cfg.d_inner, cfg.dt_rank
-            add(pre, st + "wx/wz", 1, M, d, di, "none")
-            add(pre, st + "wdt_down", 1, M, di, r, "none")
-            add(pre, st + "wdt_up", 1, M, r, di, "none")
-            add(pre, st + "wB/wC", 1, M, di, cfg.ssm_state, "none")
-            add(pre, st + "wo", 1, M, di, d, "none")
-        if cfg.is_ssm_only:
-            continue
-        Tq = T + (cfg.vision_prefix if T > 1 else 0)
-        attention(pre, batch, Tq, Tq if T > 1 else 0)
-        if cfg.encoder_layers and T > 1:
-            # the cross-attention's scores / values over the encoder keys
-            # (its projections share the self-attention's shapes)
-            attention(pre, batch, T, cfg.encoder_len)
-        if not cfg.is_moe or cfg.is_hybrid:
-            ffn(pre, batch * Tq)
-        if not cfg.is_moe:
-            continue
-        if _n_groups(M, cfg) != 1:
-            raise ValueError(f"{cfg.name}: {M} tokens dispatch in more than "
-                             "one group")
-        E = cfg.n_experts
-        C = max(1, math.ceil(cfg.top_k * M * cfg.capacity_factor / E))
-        add(pre, "router", 1, M, d, E, "none")
-        if cfg.act == "silu":
-            add(pre, mt + "wg", E, C, d, cfg.d_ff, "silu")
-            add(pre, mt + "wu", E, C, d, cfg.d_ff, "none")
-        else:
-            add(pre, mt + "wi", E, C, d, cfg.d_ff, "gelu")
-        add(pre, mt + "wd", E, C, cfg.d_ff, d, "none")
-    return [(f"{pre} {'/'.join(shorts)}",) + key
-            for key, (pre, shorts) in out.items()]
 
 
 def family_b1_checks():
@@ -2468,36 +2345,6 @@ def table1_modes():
                                   narrow_bits=5)}
 
 
-def eval_b1_shapes(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
-    """Every shape a teacher-forced forward of the dense model ``cfg`` over
-    ``batch`` x ``seq`` tokens launches B1 (``mgs_exact``) or B5
-    (``dmac_mgs``) at, as (name, Bt, M, K, N, B1's epilogue activation):
-    the projections over all ``batch * seq`` rows, the score / value
-    contractions batched over (batch, kv head), the tied logits head."""
-    M, d, hd = batch * seq, cfg.d_model, cfg.head_dim
-    H, KV = cfg.n_heads, cfg.n_kv_heads
-    rows = [("wq", 1, M, d, H * hd, "none"), ("wk/wv", 1, M, d, KV * hd,
-                                               "none"),
-            ("wo", 1, M, H * hd, d, "none"),
-            ("wg", 1, M, d, cfg.d_ff, "silu"),
-            ("wu", 1, M, d, cfg.d_ff, "none"),
-            ("wd", 1, M, cfg.d_ff, d, "none"),
-            ("scores", batch * KV, H // KV * seq, hd, seq, "none"),
-            ("values", batch * KV, H // KV * seq, seq, hd, "none"),
-            ("logits", 1, M, d, cfg.vocab, "none")]
-    names = {}
-    for name, *shape in rows:     # one row a distinct (shape, activation)
-        key = tuple(shape)
-        names[key] = f"{names[key]}/{name}" if key in names else name
-    return [(name, *key) for key, name in names.items()]
-
-
-def eval_launches(cfg):
-    """B1 (or B5) launches of one eval forward: 9 a layer (q, k, v, o, the
-    batched scores and values, gate, up, down) and the head."""
-    return 9 * cfg.n_layers + 1
-
-
 @contextlib.contextmanager
 def recording_b5():
     """Collects each B5 call (through ``qmatmul`` and ``kernels.ops``) as
@@ -2886,17 +2733,6 @@ def card_name(torch) -> str:
          "--format=csv,noheader"], capture_output=True, text=True)
     return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and \
         smi.stdout.strip() else f"{torch.cuda.get_device_name(0)}, n/a"
-
-
-def fleet_group_launches(cfg, new: int, full: int, partial: int):
-    """Predicted launches of ``full`` whole groups (a prefill and ``new -
-    1`` decode steps each) and ``partial`` runs of a prefill and one decode
-    step (an attempt cut at decode step 2, a rebuild's warmup)."""
-    want, (dec, b2) = group_launches(cfg)
-    pre = want["mgs_matmul_exact_fused"] // 2 - 15 * dec
-    return {"mgs_matmul_exact_fused": full * (pre + (new - 1) * dec)
-            + partial * (pre + dec),
-            "mgs_flash_attention": full * (new - 1) * b2 + partial * b2}
 
 
 def _launches_or_raise(what, got, want):
@@ -3457,11 +3293,10 @@ def time_partials(torch, dev, gen):
         torch, lambda: mgs_matmul_exact_flush_plain(part, E4M3, scale=sc), 5,
         warmup=1)
     row["library_ms"] = time_ms(torch, lib, 20)
-    pbytes = nseg * 5 * Bt * M * N * 4
-    row["partials_bound_ms"], row["partials_bound_by"] = bound(
-        Bt * M * Kl + Bt * Kl * N + pbytes, 9 * 2 * Bt * M * N * Kl)
-    row["flush_bound_ms"], row["flush_bound_by"] = bound(
-        pbytes + Bt * M * N * 4 + 4, 5 * nseg * 2 * Bt * M * N)
+    row["partials_bound_ms"], row["partials_bound_by"] = b1_partials_bound(
+        Bt, M, Kl, N, nseg)
+    row["flush_bound_ms"], row["flush_bound_by"] = b1_flush_bound(
+        Bt, M, N, nseg)
     log(f"time B1 partials decode wd {M}x({Kl} of {K}) @ {Kl}x{N}: "
         f"{row['partials_ms']:.4f} ms (twin {row['partials_plain_ms']:.3f}, "
         f"torch.matmul f32 {row['library_ms']:.4f}, bound "
@@ -3495,203 +3330,6 @@ def check_b2_heads(torch, dev, gen):
     if not torch.equal(whole, torch.cat(per)):
         raise AssertionError("B2 over half the slices != B2 over all")
     log(f"B2: {2 * half} slices in one launch == two launches of {half}")
-
-
-def sharded_prediction(cfg, model: int = 2, batch: int = 4,
-                       prompt: int = 32, new: int = 16, requests: int = 8,
-                       staged: bool = True) -> dict:
-    """Per rank of a ``1 x model`` mesh serving phase 4's traffic
-    (``requests`` of ``prompt`` tokens at ``batch``, ``new`` tokens each,
-    ``FP8_MGS_SERVE_KV``): kernel launches and collectives (calls by kind,
-    bytes sent, bytes staged through the host by gloo when ``staged``: an
-    all-reduce's payload down and back, an all-gather's down and the
-    ``model`` shards back) of one decode step and of the run. Heads / kv
-    heads, ffn, experts and vocab are cut where ``model`` divides them
-    (the serve rules); a K-sharded ``wd`` reduces a per-tensor activation
-    max and one flush segment of int32 partials."""
-    import torch
-    from repro_torch.kernels.mgs_matmul import partial_segments
-    from repro_torch.models.common import dtype_of
-    from repro_torch.models.moe import _n_groups
-    act = dtype_of(cfg.compute_dtype).itemsize
-    L, H, KV, hd, d = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim, cfg.d_model)
-    heads = H % model == 0 and KV % model == 0
-    experts = cfg.is_moe and cfg.n_experts % model == 0
-    ffn = cfg.d_ff % model == 0 and not experts
-    vocab = cfg.vocab % model == 0
-    _, nseg = partial_segments(cfg.d_ff, cfg.quant.block_k, None)
-    _, (dec_b1, _) = group_launches(cfg, prompt)
-    pre_b1 = group_launches(cfg, prompt)[0]["mgs_matmul_exact_fused"] // 2
-    pre_b1 = (pre_b1 - 15 * dec_b1)
-
-    def forward(T: int):
-        rows = batch * T
-        coll = []                       # (kind, bytes)
-        if heads:
-            coll.append(("all_gather", rows * (H // model) * hd * act))
-        if cfg.is_moe:
-            G = _n_groups(rows, cfg)
-            g = rows // G
-            E, k = cfg.n_experts, cfg.top_k
-            C = max(1, int(math.ceil(k * g * cfg.capacity_factor / E)))
-            if experts:
-                coll.append(("all_gather", G * g * (E // model) * 4))
-                coll.append(("all_gather",
-                             G * (E // model) * C * d * act))
-            elif ffn:
-                coll.append(("all_reduce_max", E * 4))
-                coll.append(("all_reduce_sum", nseg * 5 * E * G * C * d * 4))
-        elif ffn:
-            coll.append(("all_reduce_max", 4))
-            coll.append(("all_reduce_sum", nseg * 5 * rows * d * 4))
-        coll = coll * L
-        if vocab:
-            coll.append(("all_gather", batch * (cfg.vocab // model) * 4))
-        out = {"calls": len(coll), "bytes": sum(b for _, b in coll),
-               "host_bytes": staged * sum(
-                   b * (model + 1) if k == "all_gather" else 2 * b
-                   for k, b in coll),
-               "all_gather": 0, "all_reduce_max": 0, "all_reduce_sum": 0}
-        for kind, _ in coll:
-            out[kind] += 1
-        return out
-
-    part = L if ffn else 0
-    step = forward(1)
-    step_k = {"mgs_matmul_exact_fused": dec_b1 - part,
-              "mgs_matmul_exact_partials": part,
-              "mgs_matmul_exact_flush": part,
-              "mgs_flash_attention": L}
-    pre = forward(prompt)
-    groups = requests // batch
-    run = {k: groups * (pre[k] + (new - 1) * step[k]) for k in step}
-    run_k = {"mgs_matmul_exact_fused":
-             groups * (pre_b1 - part + (new - 1) * (dec_b1 - part)),
-             "mgs_matmul_exact_partials": groups * new * part,
-             "mgs_matmul_exact_flush": groups * new * part,
-             "mgs_flash_attention": groups * (new - 1) * L}
-    return {"step_launches": step_k, "step_comm": step,
-            "run_launches": run_k, "run_comm": run}
-
-
-def _stationary_ok(M: int, K: int, block_k: int) -> bool:
-    """An activation-stationary call of ``M`` rows over ``K`` runs B3 (its
-    stripe admitted), not B1 (``kernels.ops._fused_schedule``)."""
-    from repro_torch.kernels.mgs_matmul import (WS_STRIPE_BUDGET_BYTES,
-                                                stationary_block,
-                                                ws_stripe_bytes)
-    return ws_stripe_bytes(K, stationary_block("activation", M),
-                           block_k) <= WS_STRIPE_BUDGET_BYTES
-
-
-def continuous_sharded_prediction(cfg, ref_launches, ref_steps: int,
-                                  buckets, steps: int, rounds: int,
-                                  model: int = 2, slots: int = CONT_SLOTS,
-                                  spec_k: int = 0, staged: bool = True
-                                  ) -> dict:
-    """Per rank of a ``1 x model`` mesh serving phase 6's traffic on the
-    continuous engine (``continuous_cfg``, dense, heads / kv heads / ffn /
-    vocab cut over ``model``): launches and collectives of one decode step
-    of ``slots`` rows or, with ``spec_k``, one speculative round
-    (``spec_k - 1`` draft steps through ``cfg.quant.draft_layers`` layers,
-    one verify of ``slots x spec_k`` rows), and of a run of ``steps`` such
-    steps or rounds, ``rounds`` scheduling rounds (one agreement each) and
-    one prefill a prompt bucket of ``buckets``.
-
-    Launches of a forward of M rows: each of the six whole-K projections
-    (q, k, v, o, g, u) and the head is B3 where its stripe is admitted at
-    M rows (``_stationary_ok``), else B1; the K-cut ``wd`` is B3's
-    partials where the cut's stripe is admitted, else B1's, then the
-    flush; B2 once a layer at decode. A prefill's launches depend on its
-    bucket alone: they are phase 6's (``ref_launches`` of a one-card run of
-    ``ref_steps`` decode steps, less the steps': 7L + 1 B3 at 4 rows),
-    each prefill's ``wd`` moved to the partials and the flush.
-    Collectives of a forward: a layer all-gathers the attention heads
-    (bf16), all-reduces ``wd``'s per-row amax (max, float32) and its int32
-    partials (sum, the segments of the whole K); the head all-gathers the
-    vocab (float32 rows: M, one at a prefill's last position). gloo on one
-    card stages every payload through the host (``staged``): an all-reduce
-    down and back, an all-gather down and the ``model`` shards back."""
-    from repro_torch.kernels.mgs_matmul import partial_segments
-    L, H, hd, d = cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.d_model
-    bk = cfg.quant.block_k
-    kcut = cfg.d_ff // model
-    _, nseg = partial_segments(cfg.d_ff, bk, None)
-    keys = ("mgs_matmul_exact_fused", "mgs_matmul_exact_fused_stationary",
-            "mgs_matmul_exact_partials", "mgs_matmul_stationary_partials",
-            "mgs_matmul_exact_flush", "mgs_flash_attention")
-    kinds = ("all_gather", "all_reduce_max", "all_reduce_sum", "agree")
-
-    def blank():
-        return ({k: 0 for k in keys},
-                dict(calls=0, bytes=0, host_bytes=0, **dict.fromkeys(kinds,
-                                                                    0)))
-
-    def add(out, other, times=1):
-        for a, b in zip(out, other):
-            for k in a:
-                a[k] += times * b[k]
-
-    def coll(c, kind, nb):
-        c["calls"] += 1
-        c[kind] += 1
-        c["bytes"] += nb
-        c["host_bytes"] += staged * (nb * (model + 1) if kind == "all_gather"
-                                     else 2 * nb)
-
-    def forward(M: int, layers: int, head_rows: int, b2: bool):
-        k, c = blank()
-        projs = (d, d, d, H * hd, d, d)
-        stat = sum(_stationary_ok(M, K, bk) for K in projs)
-        head = _stationary_ok(head_rows, d, bk)
-        k["mgs_matmul_exact_fused_stationary"] = layers * stat + head
-        k["mgs_matmul_exact_fused"] = layers * (6 - stat) + 1 - head
-        part = ("mgs_matmul_stationary_partials" if _stationary_ok(M, kcut, bk)
-                else "mgs_matmul_exact_partials")
-        k[part] = k["mgs_matmul_exact_flush"] = layers
-        k["mgs_flash_attention"] = layers * b2
-        for _ in range(layers):
-            coll(c, "all_gather", M * (H // model) * hd * 2)
-            coll(c, "all_reduce_max", M * 4)
-            coll(c, "all_reduce_sum", nseg * 5 * M * d * 4)
-        coll(c, "all_gather", head_rows * (cfg.vocab // model) * 4)
-        return k, c
-
-    if spec_k:
-        Ld = min(cfg.quant.draft_layers or L, L)
-        step = blank()
-        add(step, forward(slots, Ld, slots, True), spec_k - 1)
-        add(step, forward(slots * spec_k, L, slots * spec_k, True))
-    else:
-        step = forward(slots, L, slots, True)
-    run = blank()
-    add(run, step, steps)
-    b3 = "mgs_matmul_exact_fused_stationary"
-    # the one-card decode step: the seven projections over their whole K
-    one = (L * sum(_stationary_ok(slots, K, bk)
-                   for K in (d, d, d, H * hd, d, d, cfg.d_ff))
-           + _stationary_ok(slots, d, bk))
-    run[0][b3] += ref_launches[b3] - ref_steps * one
-    run[0]["mgs_matmul_exact_fused"] += (ref_launches["mgs_matmul_exact_fused"]
-                                         - ref_steps * (7 * L + 1 - one))
-    for b in buckets:
-        pk, pc = forward(b, L, 1, False)
-        add(run, (blank()[0], pc))
-        # the one-card prefill's wd, B3 or B1 over the whole K, becomes
-        # the cut's partials and the flush
-        whole = b3 if _stationary_ok(b, cfg.d_ff, bk) else \
-            "mgs_matmul_exact_fused"
-        run[0][whole] -= L
-        for key in ("mgs_matmul_exact_partials",
-                    "mgs_matmul_stationary_partials",
-                    "mgs_matmul_exact_flush"):
-            run[0][key] += pk[key]
-    run[1]["calls"] += rounds
-    run[1]["agree"] += rounds
-    run[1]["bytes"] += 4 * rounds
-    return {"step_launches": step[0], "step_comm": step[1],
-            "run_launches": run[0], "run_comm": run[1]}
 
 
 def _continuous_rank(mesh, layers: int, traffic, record: bool):
@@ -4047,107 +3685,6 @@ MOE_MESH = (1, 2)
 # granite-moe's depth in phase 15, of 24 (full width): at 24 layers its
 # one-step part alone took 142.5 s of a 252.5 s phase on an H100
 MOE_TRAIN_LAYERS = 6
-
-
-def _spec_gathers(spec, shape, sizes, itemsize, staged):
-    """(calls, bytes, host bytes) of gathering a leaf of ``shape`` laid
-    out by ``spec`` whole: one all-gather per sharded dim, in dim order,
-    each sending what this rank holds by then."""
-    cur = [int(s) for s in shape]
-    for i, e in enumerate(spec):
-        if e is not None:
-            cur[i] //= math.prod(sizes[a] for a in
-                                 (e if isinstance(e, tuple) else (e,)))
-    calls = nbytes = host = 0
-    for i, e in enumerate(spec):
-        if e is None:
-            continue
-        n = math.prod(sizes[a] for a in (e if isinstance(e, tuple) else (e,)))
-        nb = math.prod(cur) * itemsize
-        calls, nbytes = calls + 1, nbytes + nb
-        host += staged * nb * (1 + n)
-        cur[i] *= n
-    return calls, nbytes, host
-
-
-def train_sharded_prediction(cfg, shape, batch: int, seq: int,
-                             grad_accum: int = 1, staged: bool = True):
-    """Per rank of a ``shape`` (data, model) mesh training ``cfg`` on
-    ``batch`` x ``seq`` tokens (``make_train_step(..., mesh=)`` in
-    ``train_loop``): the collectives (calls by kind, bytes sent, bytes
-    staged through the host by gloo when ``staged``: a gather's payload
-    down and the ``n`` parts back, an all-reduce's down and back) of a
-    step with its agreed stop flag (``step``), and of a checkpoint's
-    gathers (``save``). A step gathers every parameter whole (a gather a
-    sharded dim), gathers each gradient leaf over the ``D`` batch shards
-    (its dtype: the parameter's at ``grad_accum`` 1, the accumulator's
-    otherwise) and the (A, 3) float32 metrics, gathers a factored leaf's
-    row / column factors, and max-reduces one int32 stop flag."""
-    import torch
-    from repro_torch.models.common import dtype_of
-    from repro_torch.models.transformer import param_shapes
-    from repro_torch.parallel.sharding import MeshShape, train_rules
-    from repro_torch.train.train_step import batch_shards, train_state_specs
-    from repro_torch.tree import flatten_with_paths
-    mesh = MeshShape(("data", "model"), tuple(shape))
-    sizes = mesh.shape
-    rules = train_rules(mesh)
-    factored = cfg.opt_factored
-    specs = train_state_specs(cfg, rules, factored)
-    shapes = flatten_with_paths(param_shapes(cfg))
-    pspec = flatten_with_paths(specs["params"])
-    nu_specs = flatten_with_paths(specs["opt"]["nu"])
-    pdt = dtype_of(cfg.param_dtype)
-    _, D = batch_shards(rules, batch, seq)
-    kinds = ("all_gather", "all_reduce_max", "all_reduce_sum", "barrier")
-
-    def blank():
-        return dict(calls=0, bytes=0, host_bytes=0, **{k: 0 for k in kinds})
-
-    def add(out, kind, calls, nb, host):
-        out["calls"] += calls
-        out[kind] += calls
-        out["bytes"] += nb
-        out["host_bytes"] += host
-
-    step, save = blank(), blank()
-    f32 = 4
-    for k, s in shapes.items():
-        add(step, "all_gather", *_spec_gathers(pspec[k], s, sizes,
-                                                pdt.itemsize, staged))
-        if D > 1:
-            gdt = (torch.float32 if grad_accum > 1 and len(s) < 2 else pdt)
-            nb = math.prod(s) * gdt.itemsize
-            add(step, "all_gather", 1, nb, staged * nb * (1 + D))
-        if factored and len(s) >= 2:
-            for part, fs in (("row", s[:-1]), ("col", s[:-2] + s[-1:])):
-                add(step, "all_gather", *_spec_gathers(
-                    nu_specs[f"{k}/{part}"], fs, sizes, f32, staged))
-    if D > 1:
-        nb = grad_accum * 3 * f32
-        add(step, "all_gather", 1, nb, staged * nb * (1 + D))
-    add(step, "all_reduce_max", 1, 4, staged * 8)
-    # a checkpoint gathers every state leaf whole
-    flat_specs = flatten_with_paths(specs)
-    for k, spec in flat_specs.items():
-        if k.startswith("params/"):
-            s, isz = shapes[k[7:]], pdt.itemsize
-        elif k.startswith("opt/mu/"):
-            s = shapes[k[7:]]
-            isz = 2 if factored and len(s) >= 2 else f32
-        elif k.startswith("opt/nu/"):
-            name = k[7:]
-            if name in shapes:
-                s = shapes[name]
-            else:
-                base, part = name.rsplit("/", 1)
-                s = shapes[base][:-1] if part == "row" else \
-                    shapes[base][:-2] + shapes[base][-1:]
-            isz = f32
-        else:                       # opt/step: replicated
-            continue
-        add(save, "all_gather", *_spec_gathers(spec, s, sizes, isz, staged))
-    return {"step": step, "save": save, "D": D}
 
 
 class _CommRecorder:
@@ -4521,6 +4058,118 @@ def train_sharded_phase(torch, dev, moe_layers: int = MOE_TRAIN_LAYERS):
                 peak_gib=peak, seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry run against the card
+# ---------------------------------------------------------------------------
+
+# resident bytes are held to the dry run within the larger of 2 MiB and
+# 0.1% of the prediction: the caching allocator rounds each block up to a
+# multiple of 512 bytes, and an engine keeps a few small tensors of its own
+# that the dry run does not count
+RESIDENT_TOL_BYTES, RESIDENT_TOL_SHARE = 2 << 20, 1e-3
+# the dry run's full-depth records: deepseek-7b's 30 layers, every shape,
+# these meshes and configurations
+DRYRUN_MESHES = ("1x1", "1x8", "16x16")
+DRYRUN_QUANTS = ("fp8_mgs_serve_kv", "none")
+DRYRUN_SECONDS = 30.0
+
+
+def dryrun_phase(torch, mem, group_step, paged_step):
+    """Phase 16: ``launch.dryrun`` against what the card holds and does.
+    The resident bytes of phase 4's group engine (its weights; one cache)
+    and of phase 6's continuous engine (weights and pool) == the dry run's
+    within ``RESIDENT_TOL_*``; the group run's peak over the resident
+    beside the dry run's cache and transient estimate; the kernels' step
+    bound of a group and a paged decode step beside the profiled device
+    busy time of phases 5 and 6; the records of deepseek-7b at full depth
+    (``DRYRUN_MESHES`` x every shape x ``DRYRUN_QUANTS``), one line each,
+    the whole records under ``build/dryrun/``. Takes at most
+    ``DRYRUN_SECONDS``."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import H100_SXM
+    t0 = time.time()
+    props = torch.cuda.get_device_properties(0)
+    log(f"dry run: card total_memory {props.total_memory} B "
+        f"(H100_SXM.hbm_bytes {H100_SXM.hbm_bytes:.0f})")
+    g, c = mem["group_cfg"], mem["cont_cfg"]
+    gp, cp = dryrun.param_bytes(g), dryrun.param_bytes(c)
+    gcache = dryrun.cache_bytes(g, 4, mem["group_max_len"])
+    pool = dryrun.pool_bytes(c, CONT_SLOTS, CONT_MAX_LEN, mem["cont_blocks"])
+    out = {"resident": {}}
+    for name, got, want in (
+            ("group weights", mem["group_weights"], sum(gp.values())),
+            ("group cache", mem["group_cache"], gcache),
+            ("continuous weights + pool", mem["continuous"],
+             sum(cp.values()) + pool)):
+        tol = max(RESIDENT_TOL_BYTES, RESIDENT_TOL_SHARE * want)
+        log(f"dry run: {name}: memory_allocated grew {got} B, predicted "
+            f"{want} B (diff {got - want:+d} B, tolerance {tol:.0f} B)")
+        out["resident"][name] = dict(measured=got, predicted=want, tol=tol)
+        if abs(got - want) > tol:
+            raise AssertionError(f"dry run: {name} {got} B != predicted "
+                                 f"{want} B within {tol:.0f} B")
+    # the group run's peak over what was resident: its caches and one
+    # step's transients (the prefill of 4 x 32 tokens is the largest)
+    want = gcache + dryrun._transient_bytes(g, "prefill", 4, 32, 32)
+    out["group_run_peak"] = dict(measured=mem["group_run_peak"],
+                                 predicted=want)
+    log(f"dry run: group run peak over the resident "
+        f"{mem['group_run_peak']} B (max_memory_allocated), predicted "
+        f"cache + transient {want} B")
+    # the kernels' step bound beside the profiled device time
+    for name, cfg, rows, S, live, row in (
+            ("group decode step", g, 4, mem["group_max_len"], 39,
+             group_step),
+            ("paged decode step", c, CONT_SLOTS, CONT_MAX_LEN,
+             paged_step["live"], paged_step)):
+        dots = dryrun.step_dots(cfg, "decode", rows, 1, cache_len=S,
+                                live=live)
+        bound_ms = dryrun.kernel_bound_ms(dots)
+        kern = row["B1_ms"] + row["B3_ms"] + row["B2_ms"]
+        out[name] = dict(bound_ms=bound_ms, kernel_ms=kern,
+                         device_ms=row["device_ms"],
+                         launches=dryrun.launches(dots))
+        log(f"dry run: {name}: kernels' bound {bound_ms:.4f} ms "
+            f"({sum(dryrun.launches(dots).values())} launches) beside "
+            f"B1 / B3 / B2 busy {kern:.3f} ms ({bound_ms / kern:.1%}) and "
+            f"device busy {row['device_ms']:.3f} ms "
+            f"({bound_ms / row['device_ms']:.1%})")
+    recs = []
+    for quant in DRYRUN_QUANTS:
+        for shape in SHAPES:
+            for m in DRYRUN_MESHES:
+                rec = dryrun.run_cell("deepseek-7b", shape, m, quant)
+                recs.append(rec)
+                if rec.get("skipped"):
+                    log(f"dry run: deepseek-7b {shape} {m} {quant}: "
+                        f"skipped ({rec['reason']})")
+                    continue
+                mm = rec["memory_per_device"]
+                log(f"dry run: deepseek-7b {shape} {m} {quant}: compute "
+                    f"{rec['t_compute'] * 1e3:.3f} ms, memory "
+                    f"{rec['t_memory'] * 1e3:.3f} ms, collective "
+                    f"{rec['t_collective'] * 1e3:.3f} ms -> "
+                    f"{rec['bottleneck']}; live "
+                    f"{mm['live_bytes'] / 1e9:.2f} GB, fits "
+                    f"{rec['fits_hbm']}; launches "
+                    f"{sum(rec['launches'].values())}"
+                    + (f"; the port's engine refuses it today"
+                       if rec["port_refuses"] else ""))
+    path = HERE / "build" / "dryrun" / "deepseek-7b.json"
+    try:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(recs, indent=1))
+    except OSError as e:
+        log(f"dry run: records not written ({e})")
+    secs = time.time() - t0
+    out["seconds"] = secs
+    if secs > DRYRUN_SECONDS:
+        raise AssertionError(f"phase 16 took {secs:.1f} s > "
+                             f"{DRYRUN_SECONDS} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=DEPTH,
@@ -4535,7 +4184,6 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found (run from a "
               "checkout of the repository)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -4568,8 +4216,9 @@ def main() -> int:
         f"({time.time() - t0:.1f} s)")
 
     t0 = time.time()
+    mem = {}
     group_run, stats, eng, group_reqs, group_logits = serve_full(
-        torch, "deepseek-7b", args.layers)
+        torch, "deepseek-7b", args.layers, mem)
     serve_reduced_gpu_vs_cpu(torch)
     log(f"phase 4: served ({time.time() - t0:.1f} s)")
 
@@ -4584,7 +4233,7 @@ def main() -> int:
     log(f"phase 5: timed ({time.time() - t0:.1f} s)")
 
     t0 = time.time()
-    ceng, launches, run_a, run_c = serve_continuous(torch, args.layers)
+    ceng, launches, run_a, run_c = serve_continuous(torch, args.layers, mem)
     cont = dict(
         decode_step_ms_median=statistics.median(run_a["step_s"]) * 1e3,
         spec_round_ms_median=statistics.median(run_c["step_s"]) * 1e3,
@@ -4679,6 +4328,11 @@ def main() -> int:
     log(f"phase 15: {TRAIN_ARCH} trained on a 2x2 mesh, resharded onto an "
         f"elastic 1x2 and trained on, and {MOE_TRAIN_ARCH} trained on 1x2, "
         f"bitwise their one-card grad_accum runs ({time.time() - t0:.1f} s)")
+
+    t0 = time.time()
+    dry = dryrun_phase(torch, mem, step, paged_step)
+    log(f"phase 16: the dry run held to the card's resident bytes, beside "
+        f"its peak and busy time ({time.time() - t0:.1f} s)")
 
     log(f"card: {card_name(torch)}")
     main_b1 = next(r for r in b1_rows if r["shape"] == "decode wg/wu")
@@ -4796,6 +4450,7 @@ def main() -> int:
                     "sharded": {k: v for k, v in sharded.items()
                                 if not k.endswith("_err")},
                     "train_sharded": train_sharded,
+                    "dryrun": dry,
                     "layers": args.layers}))
     log(f"total {time.time() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

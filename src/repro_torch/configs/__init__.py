@@ -8,9 +8,10 @@ from __future__ import annotations
 
 import dataclasses
 
-from .base import ModelConfig
+from .base import SHAPES, MeshConfig, ModelConfig, ShapeConfig
 
-__all__ = ["ARCHS", "get_config", "reduced_config", "ModelConfig"]
+__all__ = ["ARCHS", "get_config", "reduced_config", "SHAPES", "ModelConfig",
+           "ShapeConfig", "MeshConfig", "shape_applicable"]
 
 
 ARCHS = {
@@ -111,3 +112,11 @@ def reduced_config(name: str) -> ModelConfig:
     if cfg.d_ff == 0:
         kw["d_ff"] = 0
     return dataclasses.replace(cfg, name=cfg.name + "-reduced", **kw)
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k only runs for sub-quadratic archs (pure full attention
+    cannot hold its cache); everything else runs everywhere."""
+    if shape.name == "long_500k" and cfg.full_attention_only:
+        return False
+    return True

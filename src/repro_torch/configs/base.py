@@ -11,10 +11,11 @@ a concrete instance in :mod:`repro.configs` — see the per-arch files.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 from repro_torch.quant.config import QuantConfig
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "MeshConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,3 +163,38 @@ class ModelConfig:
         per_layer_inactive = (self.n_experts - self.top_k) * glu * d * f
         n_moe_layers = sum(self.layer_is_moe(i) for i in range(self.n_layers))
         return self.n_params() - n_moe_layers * per_layer_inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell (``repro.configs.base.ShapeConfig``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n

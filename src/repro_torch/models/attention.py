@@ -45,7 +45,7 @@ from repro_torch.quant.calibrate import (current_calib_state, observe,
                                          observe_amax)
 from repro_torch.quant.quantize import (QTensor, quantize_fp8,
                                         quantize_fp8_static)
-from .common import apply_rope, pairwise_sum_last
+from .common import apply_rope, pairwise_sum_last, softmax_last
 from .linear import proj
 
 __all__ = ["attention_apply", "KVCache"]
@@ -111,7 +111,7 @@ def _sdpa_dense(q, k, v, bias, quant=None):
         scores = torch.einsum("btkgh,bskh->bkgts", q.to(torch.float32),
                               k.to(torch.float32)) * scale
         scores = scores + bias
-        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        w = softmax_last(scores).to(q.dtype)
         return torch.einsum("bkgts,bskh->btkgh", w, v)
     scores = qeinsum("btkgh,bskh->bkgts", q, k, quant, site="attn.scores",
                      out_dtype=torch.float32) * scale

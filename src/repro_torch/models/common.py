@@ -15,8 +15,19 @@ import torch.nn.functional as F
 from repro_torch.kernels.mgs_matmul import ACTIVATIONS
 from repro_torch.quant.quantize import recip
 
-__all__ = ["dtype_of", "normal_param", "pairwise_sum_last", "rms_norm",
-           "rope_freqs", "apply_rope", "gelu", "silu", "ACTIVATIONS"]
+__all__ = ["dtype_of", "normal_param", "pairwise_sum_last", "softmax_last",
+           "rms_norm", "rope_freqs", "apply_rope", "gelu", "silu",
+           "ACTIVATIONS"]
+
+# ATen's CPU kernels are compiled once per vector ISA (``default``, AVX2,
+# AVX512) and picked at run time; the vectorized ``softmax``, ``pow``,
+# ``log1p``, ``logaddexp``, ``sigmoid`` and ``tanh_backward`` change bits
+# between them. The port's CPU results stay the same on every host by
+# composing those functions from ops that do not (``exp``, ``log``,
+# ``tanh``, ``sqrt``, IEEE arithmetic and sums). Not so ``normal_param``:
+# float32 ``normal_`` is vectorized too, so the CPU weights that
+# ``init_params`` draws depend on the host (parity tests that need the same
+# weights everywhere draw them with numpy).
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -48,6 +59,13 @@ def pairwise_sum_last(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
+def softmax_last(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis, in its order: ``exp(x - max)``
+    over its sum (the pairwise row sum)."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / pairwise_sum_last(e)[..., None]
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
     """RMSNorm with the pairwise row sum (the mean is a multiply by the
     float32 reciprocal of the width, as the reference's compiled graph
@@ -58,10 +76,22 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
     return (x32 * torch.rsqrt(var + eps)).to(dt) * gamma.to(dt)
 
 
+_ROPE_FREQS: dict = {}
+
+
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
-    half = head_dim // 2
-    e = torch.arange(0, half, dtype=torch.float32, device=device) * recip(half)
-    return 1.0 / torch.pow(torch.full_like(e, theta), e)
+    """``1 / theta ** (arange(half) / half)`` in float32. The power is the
+    host's double ``pow`` rounded once (ATen's vectorized ``pow`` moves
+    bits by ISA), kept per device."""
+    key = (head_dim, float(theta), str(torch.device(device or "cpu")))
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        half = head_dim // 2
+        e = torch.arange(0, half, dtype=torch.float32) * recip(half)
+        pw = torch.tensor([float(theta) ** v for v in e.tolist()],
+                          dtype=torch.float32)
+        freqs = _ROPE_FREQS[key] = (1.0 / pw).to(device)
+    return freqs
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

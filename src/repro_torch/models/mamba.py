@@ -44,8 +44,14 @@ def _causal_conv(u, w, b):
 
 
 def _softplus(x):
-    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
-    return torch.logaddexp(x, torch.zeros_like(x))
+    """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``.
+    ATen's ``logaddexp`` and ``log1p`` move bits by CPU vector ISA; here
+    ``log1p(y)`` is ``log(u) * y / (u - 1)``, ``u = 1 + y``, in float64,
+    rounded once."""
+    y = torch.exp(-x.abs()).to(torch.float64)
+    u = 1.0 + y
+    lp = torch.where(u == 1.0, y, torch.log(u) * (y / (u - 1.0)))
+    return (torch.clamp_min(x, 0.0).to(torch.float64) + lp).to(x.dtype)
 
 
 def _ssm_inputs(p, u, cfg: ModelConfig):

@@ -35,6 +35,8 @@ from repro_torch.parallel.sharding import (constrain, current_rules,
                                            replicate)
 from repro_torch.quant import qeinsum
 
+from .common import softmax_last
+
 __all__ = ["moe_apply"]
 
 _GROUP_SIZE = 2048  # tokens per dispatch group
@@ -97,7 +99,7 @@ def moe_apply(p, x, cfg: ModelConfig):
     logits = constrain(
         qeinsum("gtd,de->gte", xg, p["wr"], cfg.quant, site="moe.wr",
                 out_dtype=torch.float32), ("batch", None, None))
-    probs = torch.softmax(logits, dim=-1)
+    probs = softmax_last(logits)
     gates, eidx, slot, sel, slot_token, claimed = _route(probs, k, C)
     density = F.one_hot(eidx[..., 0], E).to(torch.float32).mean(1)
     aux = E * torch.mean(torch.sum(density * probs.mean(1), dim=-1))

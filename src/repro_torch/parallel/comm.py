@@ -16,7 +16,8 @@ per mesh position and writes those collectives out. This module owns:
   vector from the host (:meth:`RankMesh.agree`: the max over every rank,
   what a host-side decision such as an admission count is taken from);
 * :data:`COMM_STATS` — calls, bytes and bytes staged through the host, per
-  process;
+  process; :func:`comm_listener` also hands each collective's kind,
+  payload and group size to a callback (``launch.step_cost``);
 * :func:`launch` — starts N ranks (``torch.multiprocessing``, spawn) that
   meet through a ``FileStore`` (no TCP port to pick), collects what each
   returns and stops them all past a deadline.
@@ -31,6 +32,7 @@ unless the caller asks to share a device.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import os
@@ -45,8 +47,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["RankMesh", "COMM_STATS", "reset_comm_stats", "launch",
-           "plan_ranks", "rank_device"]
+__all__ = ["RankMesh", "COMM_STATS", "reset_comm_stats", "comm_listener",
+           "launch", "plan_ranks", "rank_device"]
 
 #: collectives of this process: calls per kind, payload bytes (what this
 #: rank sends into each call) and bytes copied through the host (gloo with
@@ -56,6 +58,7 @@ COMM_STATS: Dict[str, int] = {"calls": 0, "bytes": 0, "host_bytes": 0,
                               "all_gather": 0, "barrier": 0, "agree": 0}
 _STATS_LOCK = threading.Lock()
 _RANK_DEVICE: Optional[torch.device] = None
+_LISTENERS: List[Callable[[str, int, int], None]] = []
 
 
 def reset_comm_stats() -> None:
@@ -64,12 +67,28 @@ def reset_comm_stats() -> None:
             COMM_STATS[k] = 0
 
 
-def _count(kind: str, nbytes: int, host: int) -> None:
+@contextlib.contextmanager
+def comm_listener(fn: Callable[[str, int, int], None]):
+    """Within the block, ``fn(kind, payload bytes, group size)`` for every
+    collective this process counts."""
+    with _STATS_LOCK:
+        _LISTENERS.append(fn)
+    try:
+        yield fn
+    finally:
+        with _STATS_LOCK:
+            _LISTENERS.remove(fn)
+
+
+def _count(kind: str, nbytes: int, host: int, group: int) -> None:
     with _STATS_LOCK:
         COMM_STATS["calls"] += 1
         COMM_STATS[kind] += 1
         COMM_STATS["bytes"] += nbytes
         COMM_STATS["host_bytes"] += host
+        listeners = list(_LISTENERS)
+    for fn in listeners:
+        fn(kind, nbytes, group)
 
 
 def rank_device() -> torch.device:
@@ -183,7 +202,8 @@ class RankMesh:
                         else dist.ReduceOp.MAX, group=g[0])
         out = h.to(x.device) if self.staged else h
         nb = x.numel() * x.element_size()
-        _count("all_reduce_" + op, nb, 2 * nb if self.staged else 0)
+        _count("all_reduce_" + op, nb, 2 * nb if self.staged else 0,
+               len(g[1]))
         return out
 
     def _gather(self, x: torch.Tensor, axes: Sequence[str]):
@@ -204,7 +224,7 @@ class RankMesh:
 
     def _count_gather(self, x: torch.Tensor, n: int) -> None:
         nb = x.numel() * x.element_size()
-        _count("all_gather", nb, nb * (1 + n) if self.staged else 0)
+        _count("all_gather", nb, nb * (1 + n) if self.staged else 0, n)
 
     def all_gather(self, x: torch.Tensor, dim: int,
                    axes: Sequence[str]) -> torch.Tensor:
@@ -245,7 +265,7 @@ class RankMesh:
         t = torch.tensor(vals, dtype=torch.int32, device=dev)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g[0])
         nb = 4 * len(vals)
-        _count("agree", nb, 0 if dev.type == "cpu" else 2 * nb)
+        _count("agree", nb, 0 if dev.type == "cpu" else 2 * nb, len(g[1]))
         return [int(v) for v in t.tolist()]
 
     def barrier(self, axes: Optional[Sequence[str]] = None) -> None:
@@ -254,7 +274,7 @@ class RankMesh:
         if g is None:
             return
         dist.barrier(group=g[0])
-        _count("barrier", 0, 0)
+        _count("barrier", 0, 0, len(g[1]))
 
     def __repr__(self):
         return (f"RankMesh(shape={self.shape}, rank={self.rank}, "

@@ -523,29 +523,20 @@ def test_a_skewed_clock_changes_no_admission_and_no_token(
     assert runs[0]["wall_s"] < _LATE
 
 
-def _chip_smoke():
-    import importlib.util
-    from pathlib import Path
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.parametrize("budget", [None, _SMALL_BUDGET],
                          ids=["stationary", "fallbacks"])
 @pytest.mark.parametrize("spec", [False, True], ids=["sequential", "spec"])
 def test_chip_smokes_prediction_counts_the_ranks_calls(spec, budget,
                                                        tmp_path_factory):
-    """``chip_smoke.continuous_sharded_prediction`` (phase 14) at the
+    """``launch.dryrun.continuous_sharded_prediction`` (``chip_smoke.py``
+    phase 14's) at the
     reduced width: the calls of each kernel entry and the collectives of
     a rank's run and of a step or round alone == the prediction from the
     one-rank run's prefill calls and the rank's own steps and rounds;
     under the small stripe budget too, where B1 and B1's partials take the
     calls that the full width's stripes do not admit."""
+    from repro_torch.launch.dryrun import continuous_sharded_prediction
     from repro_torch.launch.serve import bucket_for
-    cs = _chip_smoke()
     calls = {}
     restore = _count_calls(calls)       # in this process: the one-rank run
     try:
@@ -562,7 +553,7 @@ def test_chip_smokes_prediction_counts_the_ranks_calls(spec, budget,
         assert got["tokens"] == one["tokens"]
         ref = {n: one["run_launches"].get(n, 0) for n in LAUNCHES}
         with _budget(budget):
-            want = cs.continuous_sharded_prediction(
+            want = continuous_sharded_prediction(
                 cfg, ref, one["steps"], buckets, got["steps"],
                 got["rounds"], model=2, slots=3, spec_k=k if spec else 0,
                 staged=False)

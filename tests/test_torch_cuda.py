@@ -750,7 +750,7 @@ def test_qmatmul_swamp_and_int_on_the_card_equal_cpu(dev, kw):
 
 
 # the teacher-forced forward of full-width mgs-paper-eval over 8 x 64 tokens
-# (chip_smoke.eval_b1_shapes): projections over 512 rows, the score / value
+# (launch.dryrun.eval_b1_shapes): projections over 512 rows, the score / value
 # contractions over 8 x 6 (batch, kv head) slices, the tied 32768 head
 _EVAL_SHAPES = [(1, 512, 384, 384, "none"), (1, 512, 384, 1536, "silu"),
                 (1, 512, 1536, 384, "none"), (48, 64, 64, 64, "none"),

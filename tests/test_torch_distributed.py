@@ -17,7 +17,7 @@ the parent and in every rank.
   bitwise check; the compressed reduce on 8 ranks (the reference test's
   case, then per-rank gradients against the reference's quantizer); the
   first half of the elastic run on 4x2; each step's collectives ==
-  ``chip_smoke.train_sharded_prediction``.
+  ``launch.dryrun.train_sharded_prediction``.
 * Four ranks: reduced dbrx-132b (MoE, factored moments, bf16 parameters)
   on 2x2 bitwise ``grad_accum = 4``; the reference's MoE dispatch case
   with parameters held by the train specs and gathered; the elastic run's
@@ -31,7 +31,6 @@ the parent and in every rank.
 """
 
 import dataclasses
-import importlib.util
 import json
 import os
 from pathlib import Path
@@ -60,6 +59,7 @@ from repro.train import make_train_step as r_make_train_step  # noqa: E402
 from repro.train import opt_state_dims as ref_opt_state_dims  # noqa: E402
 from repro.train.compression import _quantize_int8 as r_q8  # noqa: E402
 
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, reduced_config  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch.train import TrainLoopConfig, main as train_main  # noqa: E402
@@ -122,14 +122,6 @@ def _ref_mesh(shape, axes):
     """As ``tests/test_torch_sharding.py::_ref_mesh`` builds it."""
     devs = np.array([jax.devices()[0]] * int(np.prod(shape))).reshape(shape)
     return Mesh(devs, axes)
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 # ---------------------------------------------------------------------------
@@ -613,11 +605,11 @@ def test_a_rank_that_updates_from_its_own_gradient_fails(eight):
 
 @pytest.mark.parametrize("name,B", [("d2", 4), ("d8", 8)])
 def test_step_collectives_equal_the_chip_smoke_prediction(eight, name, B):
-    """``chip_smoke.train_sharded_prediction`` (no host staging on the
+    """``launch.dryrun.train_sharded_prediction`` (no host staging on the
     CPU) == each rank's counted collectives of a step (the step's own: the
     loop's stop flag is not in a bare step)."""
     cfg = reduced_config("deepseek-7b")
-    pred = _chip_smoke().train_sharded_prediction(cfg, (2, 4), B, 16,
+    pred = dryrun.train_sharded_prediction(cfg, (2, 4), B, 16,
                                                   staged=False)["step"]
     pred = dict(pred, calls=pred["calls"] - 1, bytes=pred["bytes"] - 4,
                 all_reduce_max=pred["all_reduce_max"] - 1)
@@ -631,7 +623,7 @@ def test_loop_collectives_equal_the_chip_smoke_prediction(eight):
     collectives with the first's stop flag == a step and a checkpoint's
     gathers."""
     cfg = reduced_config("deepseek-7b")
-    p = _chip_smoke().train_sharded_prediction(cfg, (4, 2), 8, 16,
+    p = dryrun.train_sharded_prediction(cfg, (4, 2), 8, 16,
                                                staged=False)
     want = {k: p["step"][k] + p["save"][k] for k in p["step"]}
     for out in eight:

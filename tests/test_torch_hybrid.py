@@ -23,7 +23,7 @@ group ``ServeEngine``.
 * Inside the port: the group engine's logits are bitwise the model-level
   loop's; a prefill of T tokens and a decode step match a prefill of
   T + 1; the cache layout.
-* ``chip_smoke.family_b1_shapes`` / ``group_launches`` are the shapes and
+* ``launch.dryrun.family_b1_shapes`` / ``group_launches`` are the shapes and
   the count of the engine's B1 calls under the smoke's traffic.
 """
 

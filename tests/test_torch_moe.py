@@ -21,7 +21,7 @@
   bfloat16 MoE graphs do not run on XLA:CPU (ROADMAP queue C).
 * Calibration on a reduced MoE engine: ``calibrate()`` lists the
   ``moe.*`` sites and a request replays bitwise by table version.
-* ``chip_smoke.family_b1_shapes`` (the shapes at which the chip smoke
+* ``launch.dryrun.family_b1_shapes`` (the shapes at which the chip smoke
   checks B1 against its twin for the MoE and SSM models) is every shape
   the group engine launches B1 at under the smoke's traffic, and no other.
 """
@@ -43,6 +43,7 @@ from repro.models import moe as r_moe  # noqa: E402
 from repro.quant import config as rq  # noqa: E402
 
 from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.models import moe_apply  # noqa: E402
 from repro_torch.models.moe import _n_groups, _route  # noqa: E402
@@ -306,7 +307,7 @@ def _chip_smoke():
 def check_family_b1_shapes(cfg):
     """The chip smoke's traffic (batch 4, 32-token prompts) on ``cfg``
     through the group engine under ``FP8_MGS_SERVE_KV`` calls B1 at
-    exactly ``chip_smoke.family_b1_shapes(cfg)``, with the settings its
+    exactly ``launch.dryrun.family_b1_shapes(cfg)``, with the settings its
     checks use."""
     cs = _chip_smoke()
     cfg = dataclasses.replace(cfg, quant=tq.FP8_MGS_SERVE_KV)
@@ -318,7 +319,7 @@ def check_family_b1_shapes(cfg):
         np.int32), max_new_tokens=2) for i in range(4)]
     with cs.recording_b1() as seen:
         eng.run(reqs)
-    shapes = cs.family_b1_shapes(cfg)
+    shapes = dryrun.family_b1_shapes(cfg)
     assert cs.unchecked_b1(seen, shapes) == set()
     assert {c[:5] for c in seen} == {s[1:] for s in shapes}
 
@@ -326,11 +327,10 @@ def check_family_b1_shapes(cfg):
 def check_group_launches(cfg):
     """Phase 4's traffic (8 requests of 32 tokens at batch 4, 16 new
     tokens) on ``cfg`` through the group engine under ``FP8_MGS_SERVE_KV``
-    calls B1 and B2 as often as ``chip_smoke.group_launches(cfg)``
+    calls B1 and B2 as often as ``launch.dryrun.group_launches(cfg)``
     predicts the card launches them."""
     import importlib
     from repro_torch.models import attention
-    cs = _chip_smoke()
     cfg = dataclasses.replace(cfg, quant=tq.FP8_MGS_SERVE_KV)
     eng = ServeEngine(cfg, batch=4, max_len=cfg.vision_prefix + 49, seed=0,
                       device="cpu")
@@ -357,7 +357,7 @@ def check_group_launches(cfg):
         for name, ms in mods.items():
             for m in ms:
                 setattr(m, name, saved[name])
-    assert calls == cs.group_launches(cfg)[0]
+    assert calls == dryrun.group_launches(cfg)[0]
 
 
 @pytest.mark.parametrize("attn_chunk", [0, 16])

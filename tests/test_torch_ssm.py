@@ -15,7 +15,7 @@ against ``repro.models.mamba``, and falcon-mamba stacks on the group
   information. Greedy tokens equal, logits within the engine bar,
   ``PREP_STATS`` flat. Float32 compute, as the MoE file; the conv state is
   cached in bfloat16 and ``A_log`` stays float32 as in the reference.
-* ``chip_smoke.family_b1_shapes`` is every shape the group engine launches
+* ``launch.dryrun.family_b1_shapes`` is every shape the group engine launches
   B1 at for falcon-mamba under the smoke's traffic, and no other.
 """
 
