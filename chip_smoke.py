@@ -85,11 +85,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    projections at decode and prefill and its 65024-column head) and B2 ==
    twin at granite-moe's heads; reduced granite-moe and falcon-mamba on
    the card and the CPU give the same tokens; then granite-moe-1b-a400m
-   (24 layers) and falcon-mamba-7b (64 layers) at full width in bf16 under
-   ``FP8_MGS_SERVE_KV`` serve phase 4's traffic, launch counts equal the
-   prediction, every B1 launch is at a checked shape, ``PREP_STATS`` and
-   the builds stay flat, a decode step of each is profiled, each model is
-   freed before the next; B1 / B2 are timed at those shapes;
+   (24 layers) and falcon-mamba-7b (16 of its 64 layers) at full width in
+   bf16 under ``FP8_MGS_SERVE_KV`` serve phase 4's traffic, launch counts
+   equal the prediction, every B1 launch is at a checked shape,
+   ``PREP_STATS`` and the builds stay flat, a decode step of each is
+   profiled, each model is freed before the next; B1 / B2 are timed at
+   those shapes;
 10. the hybrid, encoder-decoder and VLM families on the group path: B1 ==
    twin at every shape whisper-tiny's and internvl2-2b's full-width runs
    launch it at (whisper's encoder over 1500 frames, the cross K / V
@@ -186,6 +187,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``continuous_sharded_prediction``; ``PREP_STATS`` and the builds flat;
    it prints what a shared card cannot show (NCCL, inter-GPU bandwidth,
    any speed of tensor parallelism);
+17. the paper's numerics on a mesh of ranks, after phase 14 (reusing phase
+   1's build and phase 7's runs): B5's partials entry over K cut into 2
+   and 3 pieces at offsets that are no multiple of its 128-code K tile,
+   the pieces' bins summed as int32, and its combine entry (with a scale)
+   == one B5 call == the twin at decode wd and prefill wg/wu, E4M3 and
+   E5M2, the gate on and off; B4's partials entry the same way, flushed by
+   B1's flush entry, == one B4 call == B1 == the twin at flush periods 1,
+   4 and none; the three entries timed at rank 0's half of decode wd
+   beside their bounds and an f32 ``torch.matmul`` of the cut; then
+   deepseek-7b at full width (``--layers``) on a 1x2 mesh of gloo ranks
+   sharing the card serves phase 7's first group (4 requests, 32-token
+   prompts, 16 new tokens, float cache) under the unquantized model and
+   (a)-(e): (a), (b), (d), (e) give phase 7's tokens and every logits row
+   bitwise, the unquantized model and (c) its greedy tokens with logits
+   within the whole-model bar (5% max, 1% mean of the scale; the largest
+   error printed), launches by entry and collectives a decode step and a
+   run == ``sharded_prediction(quant=...)``, ``PREP_STATS`` and the builds
+   flat;
 15. training on meshes of ranks sharing the card over gloo
    (``train_sharded_phase``), every compared run a process of its own
    under ``torch.use_deterministic_algorithms`` (``CUBLAS_WORKSPACE_CONFIG``
@@ -250,7 +269,8 @@ try:
         sharded_prediction, train_sharded_prediction)
     from repro_torch.launch.roofline import (  # noqa: E402
         b1_bound, b1_flush_bound, b1_partials_bound, b2_bound, b4_bound,
-        dmac_bound)
+        b4_partials_bound, dmac_bound, dmac_combine_bound,
+        dmac_partials_bound)
 except ImportError:     # outside a checkout: main() says so and stops
     pass
 
@@ -1364,9 +1384,7 @@ def serve_paper(torch, layers: int):
     base = dataclasses.replace(get_config("deepseek-7b"), n_layers=layers)
     params = cast_params(init_params(base, SEED, device="cuda"), base)
     torch.cuda.synchronize()
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(1, base.vocab, 32).astype(np.int32)
-               for _ in range(8)]
+    prompts = paper_prompts(base.vocab)
     # 2 groups x (prefill: 9 per layer + 1 logits head; 15 decode steps:
     # 9 per layer (7 projections + the score / value contractions against
     # the float cache) + 1 logits head)
@@ -1746,6 +1764,10 @@ def calibrate_continuous(torch, params, layers: int, dyn_step):
 # ---------------------------------------------------------------------------
 
 FAMILY_ARCHS = ("granite-moe-1b-a400m", "falcon-mamba-7b")
+# the families' served depth where it is cut (full width): falcon-mamba-7b
+# at 64 layers took 70.2 s of a 124.8 s phase, and the script 1130.4 s, on
+# an H100
+FAMILY_DEPTHS = {"falcon-mamba-7b": 16}
 # the B1 launches of phase 4's traffic (batch 4, 32-token prompts) that a
 # check's settings cover: no bias, block_k 128, the worst-case flush and one
 # weight per slice
@@ -1918,8 +1940,8 @@ def family_phase(torch, dev, gen):
     serve_reduced_gpu_vs_cpu(torch, arch="granite-moe-1b-a400m")
     serve_reduced_gpu_vs_cpu(torch, arch="falcon-mamba-7b",
                              edit=_scale_ssm_out)
-    runs = {arch: serve_family(torch, arch, get_config(arch).n_layers)
-            for arch in FAMILY_ARCHS}
+    runs = {arch: serve_family(torch, arch, FAMILY_DEPTHS.get(
+                arch, get_config(arch).n_layers)) for arch in FAMILY_ARCHS}
     b1_rows = time_b1(torch, dev, gen, family_b1_checks())
     b2_row = time_b2(torch, b2_args)
     del b2_args
@@ -3296,7 +3318,7 @@ def time_partials(torch, dev, gen):
     row["partials_bound_ms"], row["partials_bound_by"] = b1_partials_bound(
         Bt, M, Kl, N, nseg)
     row["flush_bound_ms"], row["flush_bound_by"] = b1_flush_bound(
-        Bt, M, N, nseg)
+        Bt, M, N, nseg, sc.numel())
     log(f"time B1 partials decode wd {M}x({Kl} of {K}) @ {Kl}x{N}: "
         f"{row['partials_ms']:.4f} ms (twin {row['partials_plain_ms']:.3f}, "
         f"torch.matmul f32 {row['library_ms']:.4f}, bound "
@@ -3669,6 +3691,456 @@ def sharded_phase(torch, dev, gen, layers: int, group_reqs, group_logits,
     return dict(b1_partials_err=err, b3_partials_err=stat_err,
                 b3_partials_pieces=stat_ran, timing=row, dense=dense,
                 moe=moe, seconds=secs)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the paper's numerics on a mesh of ranks (B4's and B5's partials)
+# ---------------------------------------------------------------------------
+
+# (name, Bt, M, K, N, the cuts of K into 2 and 3 pieces; offsets not
+# multiples of B5's 128-code K tile)
+PAPER_CUTS = [
+    ("decode wd", 1, 4, 11008, 4096, ((0, 5001), (0, 3001, 7777))),
+    ("prefill wg/wu", 1, 128, 4096, 11008, ((0, 2049), (0, 1111, 2900))),
+]
+# the keys of phase 7's configurations phase 17 serves on the mesh, and the
+# exact ones (the rest held to the whole-model bar)
+PAPER_MESH_KEYS = ("none", "a", "b", "c", "d", "e")
+PAPER_EXACT = ("a", "b", "d", "e")
+# the cached keys a slot at which phase 17 times a rank's padded float
+# decode attention: phase 7's (32 + 16 + 1) and a long context
+PAD_KEYS = (49, 4096)
+
+
+def _pieces(fn, x, w, cut, K, **kw):
+    """The int32 sum of ``fn``'s partials over the pieces of ``cut``
+    (``x``'s and ``w``'s K axes: -1 and -2)."""
+    edges = list(cut) + [K]
+    return sum(fn(x[..., a:b].contiguous(), w[..., a:b, :].contiguous(),
+                  k_offset=a, k_total=K, **kw)
+               for a, b in zip(edges[:-1], edges[1:]))
+
+
+def check_paper_partials(torch, dev, gen):
+    """B5's partials entry over each cut of ``PAPER_CUTS``, the pieces'
+    bins summed as int32 and its combine entry (with a per-column scale)
+    == one B5 call times the scale == the twin, in E4M3 and E5M2 with the
+    gate on and off (the combine == its twin on the same bins; at decode
+    each piece's bins == the twin's); B4's partials entry the same way,
+    flushed by B1's flush entry == one B4 call == B1 == the twin at flush
+    periods 1, 4 and none. Returns the largest errors (0.0, 0.0)."""
+    from repro_torch.core.formats import E4M3, E5M2, decode_bits, \
+        encode_bits
+    from repro_torch.kernels.mgs_matmul import (
+        limb_decompose, mgs_matmul_dmac_codes, mgs_matmul_dmac_codes_plain,
+        mgs_matmul_dmac_combine, mgs_matmul_dmac_combine_plain,
+        mgs_matmul_dmac_partials, mgs_matmul_dmac_partials_plain,
+        mgs_matmul_exact, mgs_matmul_exact_flush, mgs_matmul_exact_fused,
+        mgs_matmul_exact_limb_partials, mgs_matmul_exact_plain)
+    worst5 = worst4 = 0.0
+    for name, Bt, M, K, N, cuts in PAPER_CUTS:
+        sc = torch.rand((Bt, 1, N), generator=gen, device=dev) * 1e-3
+        for fmt in (E4M3, E5M2):
+            xc = encode_bits(_margin_values(torch, (Bt, M, K), dev, gen,
+                                            fmt), fmt)
+            wc = encode_bits(_margin_values(torch, (Bt, K, N), dev, gen,
+                                            fmt), fmt)
+            for gate in (True, False):
+                one = mgs_matmul_dmac_codes(xc, wc, fmt, gate)
+                twin = mgs_matmul_dmac_codes_plain(xc, wc, fmt, gate)
+                for cut in cuts:
+                    kw = dict(fmt=fmt, gate_subnormal=gate)
+                    part = _pieces(mgs_matmul_dmac_partials, xc, wc, cut, K,
+                                   **kw)
+                    same = True
+                    if M <= 16:     # the pieces' twins at decode
+                        same = torch.equal(part, _pieces(
+                            mgs_matmul_dmac_partials_plain, xc, wc, cut, K,
+                            **kw))
+                    got = mgs_matmul_dmac_combine(part, fmt, scale=sc)
+                    plain = mgs_matmul_dmac_combine_plain(part, fmt,
+                                                          scale=sc)
+                    torch.cuda.synchronize()
+                    want = one * sc
+                    worst5 = max(worst5, (got - want).abs().max().item())
+                    ok = (same and torch.equal(got, want)
+                          and torch.equal(got, plain)
+                          and torch.equal(one, twin))
+                    log(f"B5 partials {name} {Bt}x({M}x{K} @ {K}x{N}) "
+                        f"{fmt.name} gate={gate} cut at {list(cut[1:])}: "
+                        f"bins summed + combine == B5 == twin {ok}")
+                    if not ok or not torch.isfinite(got).all():
+                        raise AssertionError(
+                            f"B5 partials + combine at {name} {fmt.name} "
+                            f"gate {gate} cut {cut} != B5")
+            del xc, wc
+        xc = fp8_codes(torch, (Bt, M, K), dev, gen)
+        wc = fp8_codes(torch, (Bt, K, N), dev, gen)
+        xl = limb_decompose(decode_bits(xc, E4M3)).movedim(0, 1).contiguous()
+        wl = limb_decompose(decode_bits(wc, E4M3)).movedim(0, -3).contiguous()
+        for fp in (1, 4, None):
+            kw = dict(block_k=128, flush_period=fp)
+            one = mgs_matmul_exact(xl, wl, E4M3, **kw)
+            b1 = mgs_matmul_exact_fused(xc, wc, E4M3, **kw)
+            twin = mgs_matmul_exact_plain(xl, wl, E4M3, **kw)
+            for cut in cuts:
+                part = _pieces(mgs_matmul_exact_limb_partials, xl, wl, cut,
+                               K, fmt=E4M3, **kw)
+                got = mgs_matmul_exact_flush(part, E4M3)
+                torch.cuda.synchronize()
+                worst4 = max(worst4, (got - one).abs().max().item())
+                ok = (torch.equal(got, one) and torch.equal(got, b1)
+                      and torch.equal(one, twin))
+                log(f"B4 partials {name} {Bt}x({M}x{K} @ {K}x{N}) cut at "
+                    f"{list(cut[1:])}, flush_period={fp}: {part.shape[0]} "
+                    f"segments, flushed == B4 == B1 == twin {ok}")
+                if not ok or not torch.isfinite(got).all():
+                    raise AssertionError(f"B4 partials + flush at {name}, "
+                                         f"cut {cut}, fp {fp} != B4")
+        del xc, wc, xl, wl
+    return worst5, worst4
+
+
+def time_paper_partials(torch, dev, gen):
+    """B5's partials and combine entries and B4's partials entry at decode
+    wd, rank 0's cut of a 1x2 mesh (the first half of K: 4 x 5504 @ 5504 x
+    4096), weights cycled past L2, beside their twins, bounds, one B5 / B4
+    call over the whole K and a PyTorch yardstick (the f32 product of the
+    cut)."""
+    from repro_torch.core.formats import E4M3, decode_bits, encode_bits
+    from repro_torch.kernels.mgs_matmul import (
+        limb_decompose, mgs_matmul_dmac_codes, mgs_matmul_dmac_combine,
+        mgs_matmul_dmac_combine_plain, mgs_matmul_dmac_partials,
+        mgs_matmul_dmac_partials_plain, mgs_matmul_exact,
+        mgs_matmul_exact_limb_partials, mgs_matmul_exact_limb_partials_plain,
+        partial_segments)
+    Bt, M, K, N = 1, 4, 11008, 4096
+    Kl = K // 2
+    copies = 8
+    x = _margin_values(torch, (Bt, M, K), dev, gen)
+    ws = [_margin_values(torch, (Bt, K, N), dev, gen) for _ in range(copies)]
+    xc = encode_bits(x, E4M3)
+    wcs = [encode_bits(w, E4M3) for w in ws]
+    xcl = xc[..., :Kl].contiguous()
+    wcl = [w[:, :Kl].contiguous() for w in wcs]
+    xll = limb_decompose(x[..., :Kl]).movedim(0, 1).contiguous()
+    wll = [limb_decompose(w[:, :Kl]).movedim(0, 1).contiguous() for w in ws]
+    wlf = [limb_decompose(w).movedim(0, 1).contiguous() for w in ws[:2]]
+    xlf = limb_decompose(x).movedim(0, 1).contiguous()
+    del ws
+    sc = torch.full((Bt, 1, 1), 1e-4, device=dev)
+    it = iter(range(10**9))
+
+    def nxt():
+        return next(it) % copies
+    bins = mgs_matmul_dmac_partials(xcl, wcl[0], E4M3, k_total=K)
+    _, nseg = partial_segments(K, 128, None)
+    xv = decode_bits(xcl, E4M3)
+    wv = [decode_bits(w, E4M3) for w in wcl]
+    row = dict(shape="decode wd, half K", Bt=Bt, M=M, K=K, K_cut=Kl, N=N,
+               n_bins=E4M3.n_bins, segments=nseg)
+    row["b5_partials_ms"] = time_ms(torch, lambda: mgs_matmul_dmac_partials(
+        xcl, wcl[nxt()], E4M3, k_total=K), 20)
+    row["b5_partials_plain_ms"] = time_ms(
+        torch, lambda: mgs_matmul_dmac_partials_plain(xcl, wcl[0], E4M3,
+                                                      k_total=K), 3,
+        warmup=1)
+    row["b5_combine_ms"] = time_ms(
+        torch, lambda: mgs_matmul_dmac_combine(bins, E4M3, scale=sc), 20)
+    row["b5_combine_plain_ms"] = time_ms(
+        torch, lambda: mgs_matmul_dmac_combine_plain(bins, E4M3, scale=sc),
+        5, warmup=1)
+    row["b5_ms"] = time_ms(torch, lambda: mgs_matmul_dmac_codes(
+        xc, wcs[nxt()], E4M3), 20)
+    row["b4_partials_ms"] = time_ms(
+        torch, lambda: mgs_matmul_exact_limb_partials(
+            xll, wll[nxt()], E4M3, k_total=K), 20)
+    row["b4_partials_plain_ms"] = time_ms(
+        torch, lambda: mgs_matmul_exact_limb_partials_plain(
+            xll, wll[0], E4M3, k_total=K), 3, warmup=1)
+    row["b4_ms"] = time_ms(torch, lambda: mgs_matmul_exact(
+        xlf, wlf[next(it) % 2], E4M3), 20)
+    row["library_ms"] = time_ms(torch, lambda: torch.matmul(xv, wv[nxt()]),
+                                20)
+    for key, (ms, by) in (
+            ("b5_partials", dmac_partials_bound(Bt, M, Kl, N, E4M3.n_bins)),
+            ("b5_combine", dmac_combine_bound(Bt, M, N, E4M3.n_bins,
+                                              sc.numel())),
+            ("b4_partials", b4_partials_bound(Bt, M, Kl, N, nseg))):
+        row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = ms, by
+    log(f"time B5 partials decode wd {M}x({Kl} of {K}) @ {Kl}x{N}: "
+        f"{row['b5_partials_ms']:.4f} ms (twin "
+        f"{row['b5_partials_plain_ms']:.3f}, torch.matmul f32 "
+        f"{row['library_ms']:.4f}, bound {row['b5_partials_bound_ms']:.4f} "
+        f"{row['b5_partials_bound_by']}); combine {E4M3.n_bins} bins -> "
+        f"{M}x{N}: {row['b5_combine_ms']:.4f} ms (twin "
+        f"{row['b5_combine_plain_ms']:.3f}, bound "
+        f"{row['b5_combine_bound_ms']:.5f} {row['b5_combine_bound_by']}); "
+        f"B5's one call over all K {row['b5_ms']:.4f} ms")
+    log(f"time B4 partials, the same cut: {row['b4_partials_ms']:.4f} ms "
+        f"(twin {row['b4_partials_plain_ms']:.3f}, bound "
+        f"{row['b4_partials_bound_ms']:.4f} {row['b4_partials_bound_by']}); "
+        f"B4's one call over all K {row['b4_ms']:.4f} ms")
+    return row
+
+
+def time_head_padding(torch, dev, gen, layers: int) -> dict:
+    """A rank's float decode attention (``models.attention._sdpa_dense``)
+    on ``SHARD_MESH`` at deepseek-7b's widths, phase 7's batch of 4 and
+    ``PAD_KEYS`` keys: at the model's kv heads, the rank's share and zeros
+    (as a rank runs it) against its share alone and one card's whole
+    count; per layer, and times ``layers`` for a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import _sdpa_dense
+    cfg = get_config("deepseek-7b")
+    KV, hd, B = cfg.n_kv_heads, cfg.head_dim, 4
+    G, KVl = cfg.n_heads // KV, KV // SHARD_MESH[1]
+    dt = getattr(torch, cfg.compute_dtype)
+    out = {}
+    for S in PAD_KEYS:
+        q = torch.randn((B, 1, KV, G, hd), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((B, S, KV, hd), generator=gen,
+                            device=dev).to(dt) for _ in range(2))
+        bias = torch.zeros((B, 1, 1, 1, S), device=dev)
+        ql, kl, vl = (t[:, :, :KVl].contiguous() for t in (q, k, v))
+        row = dict(
+            padded_ms=time_ms(torch, lambda: _sdpa_dense(
+                ql, kl, vl, bias, kv_heads=KV), 20),
+            share_ms=time_ms(torch, lambda: _sdpa_dense(ql, kl, vl, bias),
+                             20),
+            one_card_ms=time_ms(torch, lambda: _sdpa_dense(q, k, v, bias),
+                                20))
+        row["step_extra_ms"] = (row["padded_ms"] - row["share_ms"]) * layers
+        out[S] = row
+        log(f"time a rank's float decode attention, deepseek-7b B={B} "
+            f"{S} keys on {SHARD_MESH}: at the model's {KV} kv heads "
+            f"(padded) {row['padded_ms']:.4f} ms, its {KVl} alone "
+            f"{row['share_ms']:.4f} ms, one card's {KV} "
+            f"{row['one_card_ms']:.4f} ms a layer; the padding adds "
+            f"{row['step_extra_ms']:.3f} ms to a {layers}-layer decode step")
+    return out
+
+
+def probe_head_share_bits(torch, dev, gen) -> dict:
+    """Whether the float attention contractions keep their bits when a
+    rank takes a share of the kv heads: deepseek-7b's 32 kv heads against
+    the first ``KV / SHARD_MESH[1]`` alone and that share padded back to
+    32 by zeros (``_sdpa_dense(kv_heads=)``), at a decode step (phase 7's
+    batch of 4, 49 keys) and a prefill chunk (32 queries, 1024 keys).
+    cuBLAS may pick a batched product's algorithm by its batch count."""
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-7b")
+    KV, hd, B = cfg.n_kv_heads, cfg.head_dim, 4
+    G, KVl = cfg.n_heads // KV, KV // SHARD_MESH[1]
+    dt = getattr(torch, cfg.compute_dtype)
+
+    def pad(t, dim):
+        shape = list(t.shape)
+        shape[dim] = KV - t.shape[dim]
+        return torch.cat([t, t.new_zeros(shape)], dim)
+    out = {}
+    for name, T, S in (("decode", 1, 49), ("prefill", 32, 1024)):
+        q = torch.randn((B, T, KV, G, hd), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((B, S, KV, hd), generator=gen,
+                            device=dev).to(dt) for _ in range(2))
+        ql, kl, vl = q[:, :, :KVl], k[:, :, :KVl], v[:, :, :KVl]
+        sc = "btkgh,bskh->bkgts"
+        s_all = torch.einsum(sc, q.float(), k.float())
+        s_share = torch.einsum(sc, ql.float(), kl.float())
+        s_pad = torch.einsum(sc, pad(ql.float(), 2), pad(kl.float(), 2))
+        w = torch.softmax(s_all, -1).to(dt)
+        wl = w[:, :KVl]
+        vc = "bkgts,bskh->btkgh"
+        o_all = torch.einsum(vc, w, v)[:, :, :KVl]
+        o_share = torch.einsum(vc, wl, vl)
+        o_pad = torch.einsum(vc, pad(wl, 1), pad(vl, 2))[:, :, :KVl]
+        out[name] = dict(
+            scores_share=torch.equal(s_all[:, :KVl], s_share),
+            scores_padded=torch.equal(s_all[:, :KVl], s_pad[:, :KVl]),
+            values_share=torch.equal(o_all, o_share),
+            values_padded=torch.equal(o_all, o_pad))
+    log(f"float attention bits of a {KVl}-head share against {KV} heads "
+        f"(True: equal): {out}")
+    return out
+
+
+def paper_prompts(vocab: int):
+    """Phase 7's eight 32-token prompts (seed ``SEED``)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(1, vocab, 32).astype(np.int32) for _ in range(8)]
+
+
+def _paper_mesh_rank(rank: int, layers: int, prompts, keys):
+    """One rank of phase 17: deepseek-7b at full width (``layers`` deep) on
+    the world's ``1 x world`` serve mesh, one bf16 parameter set (phase
+    7's), serving ``prompts`` (one group) under each of ``keys``, counted:
+    the run's launches and collectives, and its first decode step's."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import BUILDS, LAUNCHES, reset_launch_counts
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models import cast_params, init_params
+    from repro_torch.parallel.comm import (COMM_STATS, rank_device,
+                                           reset_comm_stats)
+    from repro_torch.quant import PREP_STATS, clear_prepared_cache
+    dev = rank_device()
+    base = dataclasses.replace(get_config("deepseek-7b"), n_layers=layers)
+    params = cast_params(init_params(base, SEED, device=dev), base)
+    mesh = make_serve_mesh()
+    out = {}
+    for key in keys:
+        name, quant = paper_configs()[key]
+        cfg = dataclasses.replace(base, quant=quant)
+        t0 = time.time()
+        eng = ServeEngine(cfg, batch=4, max_len=32 + 16 + 1, params=params,
+                          device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        t_build = time.time() - t0
+        reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+        prep0, builds0 = dict(PREP_STATS), dict(BUILDS)
+        # the run's first decode step, counted inside the run
+        step = {}
+        decode = eng._decode
+
+        def counted(*a, **kw):
+            if step:
+                return decode(*a, **kw)
+            n0, c0 = dict(LAUNCHES), dict(COMM_STATS)
+            res = decode(*a, **kw)
+            step["launches"] = {k: LAUNCHES[k] - n0[k] for k in n0}
+            step["comm"] = {k: COMM_STATS[k] - c0[k] for k in c0}
+            return res
+        eng._decode = counted
+        reset_launch_counts()
+        reset_comm_stats()
+        stats = eng.run(reqs, record_logits=rank == 0)
+        run_launches, run_comm = dict(LAUNCHES), dict(COMM_STATS)
+        logits = stats.pop("logits", None)
+        flat = dict(PREP_STATS) == prep0 and dict(BUILDS) == builds0
+        out[key] = dict(stats=stats, run_launches=run_launches,
+                        run_comm=run_comm, step_launches=step["launches"],
+                        step_comm=step["comm"], flat=flat,
+                        tokens=[r.out_tokens for r in reqs], build_s=t_build)
+        if logits is not None:
+            out[key]["logits"] = {k: np.stack(v) for k, v in logits.items()}
+        del eng
+        clear_prepared_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def serve_paper_sharded(torch, layers: int, runs) -> dict:
+    """Phase 7's first group (4 requests, 32-token prompts, 16 new tokens)
+    under the unquantized model and (a)-(e), float cache, on a
+    ``SHARD_MESH`` of ranks sharing the card: (a), (b), (d), (e) give phase
+    7's tokens and every logits row bitwise; the unquantized model and (c)
+    its greedy tokens with logits within the whole-model bar (the largest
+    error printed); launches by entry and collectives a decode step and a
+    run == ``sharded_prediction(quant=...)``; every entry of the path
+    launched; ``PREP_STATS`` and the builds flat."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.comm import launch
+    base = dataclasses.replace(get_config("deepseek-7b"), n_layers=layers)
+    prompts = paper_prompts(base.vocab)[:4]
+    world = SHARD_MESH[0] * SHARD_MESH[1]
+    t0 = time.time()
+    res = launch(_paper_mesh_rank, world,
+                 args=(layers, prompts, PAPER_MESH_KEYS), device="cuda",
+                 share_device=True, timeout=600.0)
+    wall = time.time() - t0
+    names = {k: v[0] for k, v in paper_configs().items()}
+    out = {"wall_s": wall, "peak_gib": max(o["peak_gib"] for o in res)}
+    for key in PAPER_MESH_KEYS:
+        quant = paper_configs()[key][1]
+        want = sharded_prediction(base, model=SHARD_MESH[1], batch=4,
+                                  prompt=32, new=16, requests=4, quant=quant)
+        ref = runs[key]
+        for r, o in enumerate(res):
+            got = o[key]
+            if got["tokens"] != [ref["tokens"][i] for i in range(4)]:
+                raise AssertionError(f"paper ({key}) on {SHARD_MESH}: rank "
+                                     f"{r} tokens differ from phase 7's")
+            if not got["flat"]:
+                raise AssertionError(f"paper ({key}): rank {r} prepared or "
+                                     "built while serving")
+            for part in ("run", "step"):
+                got_k = _nonzero(got[f"{part}_launches"])
+                got_c = {k: got[f"{part}_comm"][k]
+                         for k in want[f"{part}_comm"]}
+                if got_k != _nonzero(want[f"{part}_launches"]) or \
+                        got_c != want[f"{part}_comm"]:
+                    raise AssertionError(
+                        f"paper ({key}) rank {r} {part}: launches {got_k} "
+                        f"collectives {got_c} != predicted "
+                        f"{_nonzero(want[f'{part}_launches'])} "
+                        f"{want[f'{part}_comm']}")
+        r0 = res[0][key]
+        rows = r0["logits"]
+        scale = max(np.abs(ref["logits"][i]).max() for i in range(4))
+        err = [np.abs(rows[i].astype(np.float64) - ref["logits"][i]) for i in
+               range(4)]
+        worst = max(e.max() for e in err) / scale
+        mean = float(np.mean([e.mean() for e in err])) / scale
+        same = all(np.array_equal(rows[i], ref["logits"][i])
+                   for i in range(4))
+        if key in PAPER_EXACT and not same:
+            raise AssertionError(f"paper ({key}) on {SHARD_MESH}: logits "
+                                 f"differ from phase 7's (max {worst:.3g} "
+                                 "of the scale)")
+        if key not in PAPER_EXACT and (worst > 5e-2 or mean > 1e-2):
+            raise AssertionError(f"paper ({key}) on {SHARD_MESH}: logits "
+                                 f"beyond the whole-model bar ({worst:.3g}, "
+                                 f"mean {mean:.3g} of the scale)")
+        used = [k for k, v in want["run_launches"].items() if v]
+        if any(r0["run_launches"].get(k, 0) == 0 for k in used):
+            raise AssertionError(f"paper ({key}): a kernel of the path "
+                                 "never launched")
+        log(f"paper sharded ({key}) {names[key]} on {SHARD_MESH[0]}x"
+            f"{SHARD_MESH[1]}: tokens == phase 7's on every rank; logits "
+            + ("bitwise" if same else
+               f"within the bar: largest error {worst:.4g}, mean {mean:.4g} "
+               "of the logit scale")
+            + f"; run launches {_nonzero(r0['run_launches'])}, collectives "
+            f"{r0['run_comm']} == prediction; a decode step "
+            f"{_nonzero(r0['step_launches'])}, {r0['step_comm']} == "
+            f"prediction; engine {r0['build_s']:.1f} s, run "
+            f"{r0['stats']['wall_s']:.2f} s")
+        out[key] = dict(run_launches=_nonzero(r0["run_launches"]),
+                        step_launches=_nonzero(r0["step_launches"]),
+                        run_comm=r0["run_comm"], step_comm=r0["step_comm"],
+                        max_logit_err=float(worst),
+                        mean_logit_err=float(mean), bitwise=bool(same),
+                        wall_s=r0["stats"]["wall_s"], build_s=r0["build_s"])
+    log(f"paper sharded: launch + join {wall:.1f} s, peak device memory "
+        f"{out['peak_gib']:.1f} GiB a rank")
+    return out
+
+
+def paper_sharded_phase(torch, dev, gen, layers: int, runs) -> dict:
+    """Phase 17: B5's partials / combine and B4's partials entries checked
+    and timed, then phase 7's first group under (a)-(e) and the
+    unquantized model on a 1x2 mesh of ranks sharing the card."""
+    t0 = time.time()
+    b5_err, b4_err = check_paper_partials(torch, dev, gen)
+    row = time_paper_partials(torch, dev, gen)
+    pad = time_head_padding(torch, dev, gen, layers)
+    pad["bits"] = probe_head_share_bits(torch, dev, gen)
+    secs = {"kernels": time.time() - t0}
+    t0 = time.time()
+    served = serve_paper_sharded(torch, layers, runs)
+    secs["serve"] = time.time() - t0
+    log(f"paper sharded: card {card_name(torch)}; phase 17 seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return dict(b5_partials_err=b5_err, b4_partials_err=b4_err, timing=row,
+                head_padding=pad, served=served, seconds=secs)
 
 
 # ---------------------------------------------------------------------------
@@ -4324,6 +4796,13 @@ def main() -> int:
         f"ranks bitwise their one-card runs ({time.time() - t0:.1f} s)")
 
     t0 = time.time()
+    paper_sharded = paper_sharded_phase(torch, dev, gen, args.layers, runs)
+    log(f"phase 17: B5's partials and combine entries and B4's partials "
+        f"checked and timed; phase 7's first group under the unquantized "
+        f"model and (a)-(e) served on a 1x2 mesh of ranks, its one-card "
+        f"bits where the sums are exact ({time.time() - t0:.1f} s)")
+
+    t0 = time.time()
     train_sharded = train_sharded_phase(torch, dev)
     log(f"phase 15: {TRAIN_ARCH} trained on a 2x2 mesh, resharded onto an "
         f"elastic 1x2 and trained on, and {MOE_TRAIN_ARCH} trained on 1x2, "
@@ -4427,6 +4906,32 @@ def main() -> int:
                     name, 0),
                 "sharded_spec": shard_cont["spec"]["run_launches"].get(
                     name, 0)}))
+    # phase 17's entries: the main path of this slice, phase 7's group on
+    # the mesh; launches of its run under (a) (B5) and (b) (B4)
+    pt, served = paper_sharded["timing"], paper_sharded["served"]
+    for name, key, source, replaces, err, cfg_key, lib in (
+            ("mgs_matmul_dmac_partials", "b5_partials", "mgs_dmac.cu", 595,
+             paper_sharded["b5_partials_err"], "a", pt["library_ms"]),
+            ("mgs_matmul_dmac_combine", "b5_combine", "mgs_dmac.cu", 595,
+             paper_sharded["b5_partials_err"], "a", None),
+            ("mgs_matmul_exact_limb_partials", "b4_partials",
+             "mgs_matmul.cu", 162, paper_sharded["b4_partials_err"], "b",
+             pt["library_ms"])):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/csrc/{source}",
+            replaces=f"src/repro/kernels/mgs_matmul.py:{replaces}",
+            launches=served[cfg_key]["run_launches"].get(name, 0),
+            max_abs_err=err, ms=pt[f"{key}_ms"],
+            plain_ms=pt[f"{key}_plain_ms"], bound_ms=pt[f"{key}_bound_ms"],
+            bound_by=pt[f"{key}_bound_by"], library_ms=lib,
+            launches_by_path={f"paper_sharded_{k}": served[k][
+                "run_launches"].get(name, 0) for k in PAPER_MESH_KEYS}))
+    for k in kernels:               # B1's flush closes B4's partials too
+        if k["name"] == "mgs_matmul_exact_flush":
+            k["launches_by_path"].update(
+                {f"paper_sharded_{c}": served[c]["run_launches"].get(
+                    k["name"], 0) for c in PAPER_MESH_KEYS})
     for k in kernels[:3]:           # B1, B3, B2 on this slice's main path
         k["launches_by_path"].update(
             sharded_continuous=shard_cont["seq"]["run_launches"].get(
@@ -4449,6 +4954,8 @@ def main() -> int:
                     "fleet": fleet,
                     "sharded": {k: v for k, v in sharded.items()
                                 if not k.endswith("_err")},
+                    "paper_sharded": {k: v for k, v in paper_sharded.items()
+                                      if not k.endswith("_err")},
                     "train_sharded": train_sharded,
                     "dryrun": dry,
                     "layers": args.layers}))

@@ -115,6 +115,21 @@ __device__ __forceinline__ float combine_classes(const int* acc) {
   return tot;
 }
 
+// ACTIVATIONS of the twins (kernels/mgs_matmul.py), op for op: 0 none,
+// 1 relu, 2 tanh-approximate gelu, 3 silu.
+__device__ __forceinline__ float activate(float r, int act) {
+  if (act == 1) return r > 0.f ? r : 0.f;  // relu
+  if (act == 2) {                           // tanh-approximate gelu
+    const float c = 0.7978845834732056f;    // float32(sqrt(2 / pi))
+    const float r3 = __fmul_rn(__fmul_rn(r, r), r);
+    const float inner = __fmul_rn(c, __fadd_rn(r, __fmul_rn(0.044715f, r3)));
+    return __fmul_rn(r, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(inner))));
+  }
+  if (act == 3)                             // silu: r * (1 / (1 + exp(-r)))
+    return __fmul_rn(r, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-r))));
+  return r;
+}
+
 // 2^-2(bias+mbits): the fixed-point scale of an ix * ix product.
 template <int EB, int MB>
 __device__ __forceinline__ float out_scale() {

@@ -51,6 +51,18 @@
 // (RG = 1) keeps 8 warps busy on a 4-row tile. At the end the block adds
 // the K-split warps' bins (unsigned, exact mod 2^32 in any order) and
 // combines each output once.
+//
+// Sharded serving cuts K across ranks, and a float32 output per rank cannot
+// be added back into these bits. So B5 has a second pair of entries, as B1
+// has: the partials entry (dmac_kernel with PART) runs the same kernel over
+// one cut of K and writes each output's summed bins, [slice][M][N][bin]
+// int32, where the one-call kernel would combine them; the ranks sum the
+// bins (an integer all-reduce, exact mod 2^32 in any order), and the
+// combine entry (dmac_combine_kernel) runs the one-call kernel's combine on
+// them, then the dMAC path's epilogue: out * scale, + bias, activation, each
+// one rounding. A cut's bins do not depend on where it starts in K (each
+// product's bin depends on its two codes alone), so any cut of K gives the
+// one call's bits.
 #include "mgs_common.cuh"
 
 using namespace mgs;
@@ -102,11 +114,14 @@ __device__ __forceinline__ uint32_t w_key(uint32_t c) {
   return (c & 0x7fu) | ((c & 0x80u) << 24);
 }
 
-template <class F, int RG>
+// PART: write each output's summed bins to part ([slice][M][N][bin] int32)
+// in place of its combine.
+template <class F, int RG, bool PART = false>
 __global__ void __launch_bounds__(kThreads, 2)
 dmac_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
-            const uint8_t* __restrict__ table, float* __restrict__ out, int M,
-            int K, int N, long long x_bs, long long w_bs) {
+            const uint8_t* __restrict__ table, float* __restrict__ out,
+            int* __restrict__ part, int M, int K, int N, long long x_bs,
+            long long w_bs) {
   constexpr int NB = F::n_bins;
   constexpr int TM = tile_rows<F>();
   constexpr int BM = TM * RG;
@@ -204,6 +219,7 @@ dmac_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
     const int m = m0 + r, n = n0 + c;
     if (m >= M || n >= N) continue;
     const int g = r / TM, i = r % TM;
+    const long long o_idx = (long long)blockIdx.z * M * N + (long long)m * N + n;
     float tot = 0.f;
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
@@ -211,19 +227,53 @@ dmac_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
       for (int s = 0; s < KS; ++s)
         sum += bins[(i * NB + b) * kThreads + (s * RG + g) * 32 + c];
-      tot = __fadd_rn(tot, __fmul_rn(__int2float_rn(int(sum)),
-                                     pow2f((b > 1 ? b : 1)
-                                           - (F::bias + F::MB))));
+      if constexpr (PART) {
+        part[o_idx * NB + b] = int(sum);
+      } else {
+        tot = __fadd_rn(tot, __fmul_rn(__int2float_rn(int(sum)),
+                                       pow2f((b > 1 ? b : 1)
+                                             - (F::bias + F::MB))));
+      }
     }
-    out[(long long)blockIdx.z * M * N + (long long)m * N + n] = tot;
+    if constexpr (!PART) out[o_idx] = tot;
   }
 }
 
-template <class F, int RG>
+// The combine entry: output o combines its summed bins ([o][bin] int32) as
+// dmac_kernel does, then out * scale, + bias, activation (each element of
+// scale / bias at b * *_bs + m * *_ms + n * *_ns; null skips the step).
+template <class F>
+__global__ void __launch_bounds__(256)
+dmac_combine_kernel(const int* __restrict__ part,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int M, int N, long long total, long long s_bs,
+                    long long s_ms, long long s_ns, long long b_bs,
+                    long long b_ms, long long b_ns, int act) {
+  constexpr int NB = F::n_bins;
+  const long long mn = (long long)M * N;
+  for (long long o = blockIdx.x * 256LL + threadIdx.x; o < total;
+       o += (long long)gridDim.x * 256) {
+    const long long bz = o / mn, rem = o - bz * mn;
+    const long long m = rem / N, n = rem - m * N;
+    const int* p = part + o * NB;
+    float tot = 0.f;
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      tot = __fadd_rn(tot, __fmul_rn(__int2float_rn(p[b]),
+                                     pow2f((b > 1 ? b : 1)
+                                           - (F::bias + F::MB))));
+    if (scale) tot = __fmul_rn(tot, scale[bz * s_bs + m * s_ms + n * s_ns]);
+    if (bias) tot = __fadd_rn(tot, bias[bz * b_bs + m * b_ms + n * b_ns]);
+    out[o] = activate(tot, act);
+  }
+}
+
+template <class F, int RG, bool PART>
 int run(const uint8_t* x, const uint8_t* w, const uint8_t* tbl, float* out,
-        int Bt, int M, int K, int N, long long x_bs, long long w_bs,
+        int* part, int Bt, int M, int K, int N, long long x_bs, long long w_bs,
         cudaStream_t stream) {
-  auto kern = dmac_kernel<F, RG>;
+  auto kern = dmac_kernel<F, RG, PART>;
   constexpr int smem = smem_bytes<F, RG>();
   // beyond the 48 KB default: set once per instantiation and device
   static std::atomic<bool> attr_set[kMaxDevices];
@@ -234,23 +284,43 @@ int run(const uint8_t* x, const uint8_t* w, const uint8_t* tbl, float* out,
   const long long gy = (M + tile_rows<F>() * RG - 1) / (tile_rows<F>() * RG);
   if (gy > 65535 || Bt > 65535) return int(cudaErrorInvalidConfiguration);
   const dim3 grid((N + kCols - 1) / kCols, unsigned(gy), unsigned(Bt));
-  kern<<<grid, kThreads, smem, stream>>>(x, w, tbl, out, M, K, N, x_bs, w_bs);
+  kern<<<grid, kThreads, smem, stream>>>(x, w, tbl, out, part, M, K, N, x_bs,
+                                         w_bs);
   return int(cudaGetLastError());
 }
 
-template <class F>
+template <class F, bool PART = false>
 int launch(const uint8_t* x, const uint8_t* w, const uint8_t* tbl, float* out,
-           int Bt, int M, int K, int N, long long x_bs, long long w_bs,
-           cudaStream_t stream) {
+           int* part, int Bt, int M, int K, int N, long long x_bs,
+           long long w_bs, cudaStream_t stream) {
   // row groups per block: the fewest that cover M, at most 8
   constexpr int TM = tile_rows<F>();
   const int rg = M <= TM ? 1 : M <= 2 * TM ? 2 : M <= 4 * TM ? 4 : 8;
   switch (rg) {
-    case 1: return run<F, 1>(x, w, tbl, out, Bt, M, K, N, x_bs, w_bs, stream);
-    case 2: return run<F, 2>(x, w, tbl, out, Bt, M, K, N, x_bs, w_bs, stream);
-    case 4: return run<F, 4>(x, w, tbl, out, Bt, M, K, N, x_bs, w_bs, stream);
-    default: return run<F, 8>(x, w, tbl, out, Bt, M, K, N, x_bs, w_bs, stream);
+    case 1: return run<F, 1, PART>(x, w, tbl, out, part, Bt, M, K, N, x_bs,
+                                   w_bs, stream);
+    case 2: return run<F, 2, PART>(x, w, tbl, out, part, Bt, M, K, N, x_bs,
+                                   w_bs, stream);
+    case 4: return run<F, 4, PART>(x, w, tbl, out, part, Bt, M, K, N, x_bs,
+                                   w_bs, stream);
+    default: return run<F, 8, PART>(x, w, tbl, out, part, Bt, M, K, N, x_bs,
+                                    w_bs, stream);
   }
+}
+
+template <class F>
+int launch_combine(const int* part, const float* scale, const float* bias,
+                   float* out, int Bt, int M, int N, long long s_bs,
+                   long long s_ms, long long s_ns, long long b_bs,
+                   long long b_ms, long long b_ns, int act,
+                   cudaStream_t stream) {
+  const long long total = (long long)Bt * M * N;
+  long long blocks = (total + 255) / 256;
+  if (blocks > 16 * 132) blocks = 16 * 132;
+  dmac_combine_kernel<F><<<unsigned(blocks), 256, 0, stream>>>(
+      part, scale, bias, out, M, N, total, s_bs, s_ms, s_ns, b_bs, b_ms, b_ns,
+      act);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -291,12 +361,66 @@ extern "C" int mgs_matmul_dmac_codes(const void* x, const void* w,
   auto* op = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (fmt) {
-    case 0: return launch<Fmt<4, 3>>(xp, wp, tp, op, Bt, M, K, N, x_bs, w_bs,
-                                     st);
-    case 1: return launch<Fmt<5, 2, true>>(xp, wp, tp, op, Bt, M, K, N, x_bs,
-                                           w_bs, st);
-    case 2: return launch<Fmt<3, 4>>(xp, wp, tp, op, Bt, M, K, N, x_bs, w_bs,
-                                     st);
+    case 0: return launch<Fmt<4, 3>>(xp, wp, tp, op, nullptr, Bt, M, K, N,
+                                     x_bs, w_bs, st);
+    case 1: return launch<Fmt<5, 2, true>>(xp, wp, tp, op, nullptr, Bt, M, K,
+                                           N, x_bs, w_bs, st);
+    case 2: return launch<Fmt<3, 4>>(xp, wp, tp, op, nullptr, Bt, M, K, N,
+                                     x_bs, w_bs, st);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// The partials entry: the arguments of mgs_matmul_dmac_codes over one cut
+// of K, with part: (Bt, M, N, n_bins) int32, each output's summed bins
+// (written whole: no zeroing needed).
+extern "C" int mgs_matmul_dmac_partials(const void* x, const void* w,
+                                        const void* tbl, void* part, int Bt,
+                                        int M, int K, int N, long long x_bs,
+                                        long long w_bs, int fmt,
+                                        void* stream) {
+  const auto* xp = static_cast<const uint8_t*>(x);
+  const auto* wp = static_cast<const uint8_t*>(w);
+  const auto* tp = static_cast<const uint8_t*>(tbl);
+  auto* pp = static_cast<int*>(part);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (fmt) {
+    case 0: return launch<Fmt<4, 3>, true>(xp, wp, tp, nullptr, pp, Bt, M, K,
+                                           N, x_bs, w_bs, st);
+    case 1: return launch<Fmt<5, 2, true>, true>(xp, wp, tp, nullptr, pp, Bt,
+                                                 M, K, N, x_bs, w_bs, st);
+    case 2: return launch<Fmt<3, 4>, true>(xp, wp, tp, nullptr, pp, Bt, M, K,
+                                           N, x_bs, w_bs, st);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// The combine entry. part: (Bt, M, N, n_bins) int32 summed bins; out: (Bt,
+// M, N) f32 = act(combine * scale + bias); scale / bias element [b, m, n]
+// at b * *_bs + m * *_ms + n * *_ns (a stride of 0 broadcasts; null skips
+// the step). act: 0 none, 1 relu, 2 gelu, 3 silu.
+extern "C" int mgs_matmul_dmac_combine(const void* part, const void* scale,
+                                       const void* bias, void* out, int Bt,
+                                       int M, int N, long long s_bs,
+                                       long long s_ms, long long s_ns,
+                                       long long b_bs, long long b_ms,
+                                       long long b_ns, int fmt, int act,
+                                       void* stream) {
+  const auto* pp = static_cast<const int*>(part);
+  const auto* sp = static_cast<const float*>(scale);
+  const auto* bp = static_cast<const float*>(bias);
+  auto* op = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (fmt) {
+    case 0: return launch_combine<Fmt<4, 3>>(pp, sp, bp, op, Bt, M, N, s_bs,
+                                             s_ms, s_ns, b_bs, b_ms, b_ns, act,
+                                             st);
+    case 1: return launch_combine<Fmt<5, 2, true>>(pp, sp, bp, op, Bt, M, N,
+                                                   s_bs, s_ms, s_ns, b_bs,
+                                                   b_ms, b_ns, act, st);
+    case 2: return launch_combine<Fmt<3, 4>>(pp, sp, bp, op, Bt, M, N, s_bs,
+                                             s_ms, s_ns, b_bs, b_ms, b_ns, act,
+                                             st);
     default: return int(cudaErrorInvalidValue);
   }
 }

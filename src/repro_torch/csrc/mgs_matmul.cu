@@ -79,6 +79,8 @@
 // exact in any order), and the flush entry (flush_kernel) adds the segments
 // in ascending order and the classes in ascending order with flush_classes,
 // then runs B1's epilogue. Any cut of K then gives the one call's bits.
+// B4 has the same partials entry (exact_body with LIMBS and PART), over
+// the cut's limb planes; its class sums are B1's, so B1's flush closes them.
 // B3 has the same partials entry (exact_body with CACHE and PART): each block
 // keeps the cached operand's stripe over its run of the rank's K range only,
 // and writes its piece of a segment of the whole K as B1's partials do. It is
@@ -117,20 +119,6 @@ struct Args {
   // the partials entry: where this cut of K starts in the whole K
   int k_off = 0;
 };
-
-// ACTIVATIONS of the twin (kernels/mgs_matmul.py), op for op.
-__device__ __forceinline__ float activate(float r, int act) {
-  if (act == 1) return r > 0.f ? r : 0.f;  // relu
-  if (act == 2) {                           // tanh-approximate gelu
-    const float c = 0.7978845834732056f;    // float32(sqrt(2 / pi))
-    const float r3 = __fmul_rn(__fmul_rn(r, r), r);
-    const float inner = __fmul_rn(c, __fadd_rn(r, __fmul_rn(0.044715f, r3)));
-    return __fmul_rn(r, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(inner))));
-  }
-  if (act == 3)                             // silu: r * (1 / (1 + exp(-r)))
-    return __fmul_rn(r, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-r))));
-  return r;
-}
 
 // The epilogue of one output: act(acc * out_scale * scale + bias).
 template <int EB, int MB>
@@ -1028,7 +1016,7 @@ Plan part_plan(int Bt, int M, int K, int N, int block_k, int fp, int k_off) {
   return {int(nseg * per), int(per), int(run), seg};
 }
 
-template <int EB, int MB>
+template <bool LIMBS, int EB, int MB>
 int launch_part_fmt(Args g, int Bt, cudaStream_t stream) {
   const Plan p = part_plan(Bt, g.M, g.K, g.N, g.block_k, g.flush_period,
                            g.k_off);
@@ -1038,10 +1026,10 @@ int launch_part_fmt(Args g, int Bt, cudaStream_t stream) {
   g.seg = p.seg;
   take_async(g);
   if (g.M <= 8)
-    return launch_exact<false, EB, MB, Decode8, true>(g, Bt, stream);
+    return launch_exact<LIMBS, EB, MB, Decode8, true>(g, Bt, stream);
   if (g.M <= kDecodeRows)
-    return launch_exact<false, EB, MB, Decode16, true>(g, Bt, stream);
-  return launch_exact<false, EB, MB, Prefill, true>(g, Bt, stream);
+    return launch_exact<LIMBS, EB, MB, Decode16, true>(g, Bt, stream);
+  return launch_exact<LIMBS, EB, MB, Prefill, true>(g, Bt, stream);
 }
 
 template <int EB, int MB>
@@ -1269,8 +1257,30 @@ extern "C" int mgs_matmul_exact_partials(const void* x, const void* w,
   g.ws = static_cast<int*>(part);
   g.k_off = k_off;
   auto st = static_cast<cudaStream_t>(stream);
-  return fmt == 0 ? launch_part_fmt<4, 3>(g, Bt, st)
-                  : launch_part_fmt<3, 4>(g, Bt, st);
+  return fmt == 0 ? launch_part_fmt<false, 4, 3>(g, Bt, st)
+                  : launch_part_fmt<false, 3, 4>(g, Bt, st);
+}
+
+// B4's partials entry: B1's partials entry over limb planes. x: (Bt, 3, M,
+// K) int8 limb planes (x_bs = 3 * M * K), w: (Bt, 3, K, N) (or one shared
+// (3, K, N) with w_bs = 0), both holding K elements [k_off, k_off + K) of
+// the whole K; the rest as for mgs_matmul_exact_partials. Its partials are
+// B1's class sums, so mgs_matmul_exact_flush closes them.
+extern "C" int mgs_matmul_exact_limb_partials(const void* x, const void* w,
+                                              void* part, int Bt, int M,
+                                              int K, int N, long long x_bs,
+                                              long long w_bs, int fmt,
+                                              int block_k, int flush_period,
+                                              int k_off, void* stream) {
+  Args g = codes_args(x, w, nullptr, nullptr, nullptr, M, K, N, x_bs, w_bs, 0,
+                      0, 0, 0, 0, block_k, flush_period);
+  g.x_plane = (long long)M * K;
+  g.w_plane = (long long)K * N;
+  g.ws = static_cast<int*>(part);
+  g.k_off = k_off;
+  auto st = static_cast<cudaStream_t>(stream);
+  return fmt == 0 ? launch_part_fmt<true, 4, 3>(g, Bt, st)
+                  : launch_part_fmt<true, 3, 4>(g, Bt, st);
 }
 
 // B3's partials entry: the arguments of B1's plus cache_weight (as for B3).

@@ -12,6 +12,12 @@ PyTorch twin that CPU tensors run.
   packed codes; ``mgs_matmul_dmac`` over float values) —
   ``csrc/mgs_dmac.cu``
 
+B1, B3, B4 and B5 each have entries over one cut of K for a weight sharded
+along K over a mesh of ranks (``mgs_matmul_exact_partials``,
+``mgs_matmul_exact_limb_partials``, ``mgs_matmul_dmac_partials``), whose
+integer results the ranks sum, and an entry that closes them
+(``mgs_matmul_exact_flush``, ``mgs_matmul_dmac_combine``).
+
 ``LAUNCHES`` counts the launches of each wrapper, ``BUILDS`` the ``nvcc``
 runs of the process.
 """

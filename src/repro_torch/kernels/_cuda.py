@@ -44,7 +44,10 @@ LAUNCHES: Dict[str, int] = {"mgs_matmul_exact_fused": 0,
                             "mgs_matmul_exact_partials": 0,
                             "mgs_matmul_stationary_partials": 0,
                             "mgs_matmul_exact_flush": 0,
+                            "mgs_matmul_exact_limb_partials": 0,
                             "mgs_matmul_dmac": 0,
+                            "mgs_matmul_dmac_partials": 0,
+                            "mgs_matmul_dmac_combine": 0,
                             "mgs_flash_attention": 0}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

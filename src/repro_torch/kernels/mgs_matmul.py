@@ -89,7 +89,10 @@ __all__ = ["ACTIVATIONS", "SCHEDULES", "WS_STRIPE_BUDGET_BYTES",
            "mgs_matmul_dmac_codes_plain", "dmac_table", "dmac_table_plain",
            "out_scale", "partial_segments", "mgs_matmul_exact_partials",
            "mgs_matmul_exact_partials_plain", "mgs_matmul_exact_flush",
-           "mgs_matmul_exact_flush_plain"]
+           "mgs_matmul_exact_flush_plain", "mgs_matmul_exact_limb_partials",
+           "mgs_matmul_exact_limb_partials_plain", "mgs_matmul_dmac_partials",
+           "mgs_matmul_dmac_partials_plain", "mgs_matmul_dmac_combine",
+           "mgs_matmul_dmac_combine_plain"]
 
 _LIMB_BASE = 7
 _N_LIMBS = 3
@@ -738,6 +741,20 @@ def _check_cut(K: int, k_offset: int, k_total: Optional[int]) -> int:
     return k_total
 
 
+def _fill_segments(out, lx, lw, k_offset: int, K: int, seg_len: int,
+                   m0: int = 0, n0: int = 0):
+    """Each flush segment's class sums over the float64 limb lists ``lx``
+    ``(Bt, M', K)`` / ``lw`` ``(Bt, K, N')``, a cut of K elements ``[k_offset,
+    k_offset + K)`` of the whole, into ``out[s, c, :, m0:m0 + M', n0:n0 +
+    N']`` (the segments the cut touches)."""
+    m1, n1 = m0 + lx[0].shape[-2], n0 + lw[0].shape[-1]
+    for s in range(k_offset // seg_len, (k_offset + K - 1) // seg_len + 1):
+        acc = _segment_classes(lx, lw, max(s * seg_len - k_offset, 0),
+                               min((s + 1) * seg_len - k_offset, K))
+        for c in range(_N_CLASSES):
+            out[s, c, :, m0:m1, n0:n1] = _class_int32(acc[c])
+
+
 def mgs_matmul_exact_partials_plain(x_codes, w_codes, fmt: FPFormat = E4M3,
                                     *, block_k: int = 128,
                                     flush_period: Optional[int] = None,
@@ -762,16 +779,9 @@ def mgs_matmul_exact_partials_plain(x_codes, w_codes, fmt: FPFormat = E4M3,
                       device=xc.device)
     if K == 0:
         return out
-    first, last = k_offset // seg_len, (k_offset + K - 1) // seg_len
 
     def fill(lx, lw, m0, n0):
-        m1, n1 = m0 + lx[0].shape[-2], n0 + lw[0].shape[-1]
-        for s in range(first, last + 1):
-            k0 = max(s * seg_len - k_offset, 0)
-            k1 = min((s + 1) * seg_len - k_offset, K)
-            acc = _segment_classes(lx, lw, k0, k1)
-            for c in range(_N_CLASSES):
-                out[s, c, :, m0:m1, n0:n1] = _class_int32(acc[c])
+        _fill_segments(out, lx, lw, k_offset, K, seg_len, m0, n0)
 
     C = _PLAIN_N_CHUNK
     if schedule == "weight":        # w's chunks cached, x's sweep past
@@ -1052,6 +1062,83 @@ def mgs_matmul_exact(x_limbs, w_limbs, fmt: FPFormat = E4M3, *,
     return out[0] if squeeze else out
 
 
+def mgs_matmul_exact_limb_partials_plain(x_limbs, w_limbs,
+                                         fmt: FPFormat = E4M3, *,
+                                         block_k: int = 128,
+                                         flush_period: Optional[int] = None,
+                                         k_offset: int = 0,
+                                         k_total: Optional[int] = None):
+    """Plain twin of :func:`mgs_matmul_exact_limb_partials` (same bits):
+    :func:`mgs_matmul_exact_partials_plain`'s segments over limb planes
+    given instead of decoded."""
+    xl, wl = _check_limbs(x_limbs, w_limbs, block_k)
+    Bt = max(xl.shape[0], wl.shape[0])
+    M, K = xl.shape[-2:]
+    N = wl.shape[-1]
+    Kg = _check_cut(K, k_offset, k_total)
+    seg_len, nseg = partial_segments(Kg, block_k, flush_period)
+    out = torch.zeros((nseg, _N_CLASSES, Bt, M, N), dtype=torch.int32,
+                      device=xl.device)
+    if K == 0:
+        return out
+    lx = [xl[:, a].to(torch.float64) for a in range(_N_LIMBS)]
+    for n0 in range(0, N, _PLAIN_N_CHUNK):
+        lw = [wl[:, a, :, n0:n0 + _PLAIN_N_CHUNK].to(torch.float64)
+              for a in range(_N_LIMBS)]
+        _fill_segments(out, lx, lw, k_offset, K, seg_len, n0=n0)
+    return out
+
+
+def mgs_matmul_exact_limb_partials(x_limbs, w_limbs, fmt: FPFormat = E4M3, *,
+                                   block_k: int = 128,
+                                   flush_period: Optional[int] = None,
+                                   k_offset: int = 0,
+                                   k_total: Optional[int] = None):
+    """B4's exact class sums over one cut of K, unflushed: the limb-plane
+    form of :func:`mgs_matmul_exact_partials` (same cut arguments, same
+    ``(segments, 5, Bt, M, N)`` int32 result). ``x_limbs`` ``(3, M, K)`` /
+    ``(Bt, 3, M, K)`` and ``w_limbs`` ``(3, K, N)`` / ``(Bt, 3, K, N)``
+    hold K elements ``[k_offset, k_offset + K)``. Its partials are B1's
+    class sums, so :func:`mgs_matmul_exact_flush` closes them: any cut of K
+    gives one B4 call's bits.
+
+    A CPU tensor runs the twin; a CUDA tensor launches
+    ``csrc/mgs_matmul.cu::mgs_matmul_exact_limb_partials`` or raises.
+    """
+    if x_limbs.device.type == "cpu":
+        return mgs_matmul_exact_limb_partials_plain(
+            x_limbs, w_limbs, fmt, block_k=block_k,
+            flush_period=flush_period, k_offset=k_offset, k_total=k_total)
+    if x_limbs.device.type != "cuda" or w_limbs.device != x_limbs.device:
+        raise ValueError(f"limbs on {x_limbs.device} / {w_limbs.device}: "
+                         "the kernel runs on one CUDA device")
+    xl, wl = _check_limbs(x_limbs, w_limbs, block_k)
+    if fmt.name not in _KERNEL_FMTS:
+        raise ValueError(f"the exact kernel takes E4M3/E3M4, got {fmt.name}")
+    if block_k % 32:
+        raise ValueError(f"block_k={block_k} must be a multiple of 32 on "
+                         "the card (the kernels step through K 32 deep)")
+    xl, wl = xl.contiguous(), wl.contiguous()
+    if wl.shape[0] not in (1, xl.shape[0]):
+        raise ValueError(f"slice counts {xl.shape[0]} vs {wl.shape[0]}")
+    Bt, _, M, K = xl.shape
+    N = wl.shape[-1]
+    Kg = _check_cut(K, k_offset, k_total)
+    seg_len, nseg = partial_segments(Kg, block_k, flush_period)
+    out = torch.zeros((nseg, _N_CLASSES, Bt, M, N), dtype=torch.int32,
+                      device=xl.device)
+    if Bt and M and N and K:
+        name = "mgs_matmul_exact_limb_partials"
+        err = _lib_fn(name, _PART_ARGTYPES)(
+            xl.data_ptr(), wl.data_ptr(), out.data_ptr(), Bt, M, K, N,
+            _N_LIMBS * M * K, _N_LIMBS * K * N if wl.shape[0] == Bt else 0,
+            _KERNEL_FMTS[fmt.name], block_k, seg_len // block_k, k_offset,
+            _cuda.stream_ptr(xl.device))
+        _cuda.check(err, name)
+        _cuda.count_launch(name)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # B5: the paper's dMAC numerics
 # ---------------------------------------------------------------------------
@@ -1074,19 +1161,16 @@ def _check_dmac(x, w, fmt: FPFormat, codes: bool = False):
                          f"{fmt.name}")
 
 
-def mgs_matmul_dmac_plain(x, w, fmt: FPFormat = E4M3,
-                          gate_subnormal: bool = True):
-    """Plain PyTorch dMAC matmul over format-exact values (the B5 twin's
-    arithmetic).
+def _dmac_bins(x, w, fmt: FPFormat, gate_subnormal: bool) -> torch.Tensor:
+    """The dMAC bin sums of format-exact ``x`` ``(Bt?, M, K)`` and ``w``
+    ``(Bt?, K, N)``: ``(Bt, M, N, n_bins)`` int32, wrapped like the
+    kernel's bins.
 
     Walks N in chunks of ``_DMAC_N_CHUNK`` columns and K in chunks of at
     most ``_DMAC_PRODUCTS`` products: each chunk's exact products are
     rounded and decomposed by :func:`_round_decompose_e4m3` and scattered
     into int64 bin sums (integers: the chunking cannot change them), which
-    wrap to int32 like the kernel's bins before the one combine.
-    """
-    _check_dmac(x, w, fmt)
-    squeeze = x.dim() == 2 and w.dim() == 2
+    wrap to int32 as the kernel's do."""
     x3 = _as_3d(x).to(torch.float32)
     w3 = _as_3d(w).to(torch.float32)
     Bt = max(x3.shape[0], w3.shape[0])
@@ -1103,7 +1187,17 @@ def mgs_matmul_dmac_plain(x, w, fmt: FPFormat = E4M3,
                  * w3[:, None, k0:k0 + kc, n0:n1])      # (Bt, M, kc, nc)
             sm, e = _round_decompose_e4m3(p, fmt, gate_subnormal)
             part.scatter_add_(2, e.to(torch.int64), sm.to(torch.int64))
-    out = combine_bins(bins.to(torch.int32).movedim(-2, -1), fmt)
+    return bins.to(torch.int32).movedim(-2, -1)
+
+
+def mgs_matmul_dmac_plain(x, w, fmt: FPFormat = E4M3,
+                          gate_subnormal: bool = True):
+    """Plain PyTorch dMAC matmul over format-exact values (the B5 twin's
+    arithmetic): the bin sums of :func:`_dmac_bins`, then one combine per
+    output from zero in ascending bin order."""
+    _check_dmac(x, w, fmt)
+    squeeze = x.dim() == 2 and w.dim() == 2
+    out = combine_bins(_dmac_bins(x, w, fmt, gate_subnormal), fmt)
     return out[0] if squeeze else out
 
 
@@ -1240,3 +1334,146 @@ def mgs_matmul_dmac(x, w, fmt: FPFormat = E4M3, gate_subnormal: bool = True):
     _check_dmac(x, w, fmt)
     return _dmac_launch(encode_bits(x, fmt), encode_bits(w, fmt), fmt,
                         gate_subnormal)
+
+
+# ---------------------------------------------------------------------------
+# B5 over a cut of K: summed bins, then the combine
+# ---------------------------------------------------------------------------
+
+
+def mgs_matmul_dmac_partials_plain(xc, wc, fmt: FPFormat = E4M3,
+                                   gate_subnormal: bool = True, *,
+                                   k_offset: int = 0,
+                                   k_total: Optional[int] = None):
+    """Plain twin of :func:`mgs_matmul_dmac_partials` (same bits)."""
+    _check_dmac(xc, wc, fmt, codes=True)
+    _check_cut(xc.shape[-1], k_offset, k_total)
+    return _dmac_bins(decode_bits(xc, fmt), decode_bits(wc, fmt), fmt,
+                      gate_subnormal)
+
+
+def _bmn(v, Bt: int, M: int, N: int, device) -> Optional[torch.Tensor]:
+    """A scale or bias broadcastable to (Bt, M, N), as a float32 view."""
+    if v is None:
+        return None
+    t = torch.as_tensor(v, dtype=torch.float32, device=device)
+    if t.dim() > 3:
+        raise ValueError(f"scale/bias rank {t.dim()} > 3")
+    t = t.contiguous().reshape((1,) * (3 - t.dim()) + tuple(t.shape))
+    return t.expand(Bt, M, N)
+
+
+def _check_bins(bins, fmt: FPFormat, activation: str):
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"activation {activation!r} not in "
+                         f"{sorted(ACTIVATIONS)}")
+    if fmt.name not in _DMAC_FMTS:
+        raise ValueError(f"the dmac kernel takes {sorted(_DMAC_FMTS)}, got "
+                         f"{fmt.name}")
+    if bins.dtype != torch.int32 or bins.dim() != 4 or \
+            bins.shape[-1] != fmt.n_bins:
+        raise ValueError(f"(Bt, M, N, {fmt.n_bins}) int32 bins expected, "
+                         f"got {tuple(bins.shape)} {bins.dtype}")
+
+
+def mgs_matmul_dmac_combine_plain(bins, fmt: FPFormat = E4M3, *, scale=None,
+                                  bias=None, activation: str = "none"):
+    """Plain twin of :func:`mgs_matmul_dmac_combine` (same bits)."""
+    _check_bins(bins, fmt, activation)
+    Bt, M, N, _ = bins.shape
+    dev = bins.device
+    return _epilogue(combine_bins(bins, fmt), _bmn(scale, Bt, M, N, dev),
+                     _bmn(bias, Bt, M, N, dev), activation)
+
+
+def mgs_matmul_dmac_partials(xc, wc, fmt: FPFormat = E4M3,
+                             gate_subnormal: bool = True, *,
+                             k_offset: int = 0,
+                             k_total: Optional[int] = None):
+    """B5's summed bins over one cut of K, not combined.
+
+    ``xc`` ``(M, K)`` / ``(Bt, M, K)`` and ``wc`` ``(K, N)`` / ``(Bt, K,
+    N)`` uint8 codes hold K elements ``[k_offset, k_offset + K)`` of a
+    product whose whole K is ``k_total`` (default ``K``; checked, as for
+    :func:`mgs_matmul_exact_partials`). Returns ``(Bt, M, N, n_bins)``
+    int32: each output's bin sums over this cut (16 bins in E4M3, 32 in
+    E5M2, 8 in E3M4), wrapping mod 2^32 as the kernel's bins do. A
+    product's bin depends on its two codes alone, so the int32 sum of the
+    bins of any cut of K, combined by :func:`mgs_matmul_dmac_combine`, is
+    one B5 call's bits.
+
+    A CPU tensor runs the twin; a CUDA tensor launches
+    ``csrc/mgs_dmac.cu::mgs_matmul_dmac_partials`` or raises.
+    """
+    if xc.device.type == "cpu":
+        return mgs_matmul_dmac_partials_plain(xc, wc, fmt, gate_subnormal,
+                                              k_offset=k_offset,
+                                              k_total=k_total)
+    _on_one_cuda_device(xc, wc)
+    _check_dmac(xc, wc, fmt, codes=True)
+    _check_cut(xc.shape[-1], k_offset, k_total)
+    x3 = _as_3d(xc).contiguous()
+    w3 = _as_3d(wc).contiguous()
+    Bt = max(x3.shape[0], w3.shape[0])
+    if x3.shape[0] not in (1, Bt) or w3.shape[0] not in (1, Bt):
+        raise ValueError(f"slice counts {x3.shape[0]} vs {w3.shape[0]}")
+    M, K = x3.shape[1:]
+    N = w3.shape[-1]
+    out = torch.empty((Bt, M, N, fmt.n_bins), dtype=torch.int32,
+                      device=x3.device)
+    if Bt and M and N:
+        tbl = dmac_table(x3.device, fmt, gate_subnormal)
+        name = "mgs_matmul_dmac_partials"
+        fn = _dmac_lib(name, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p])
+        err = fn(x3.data_ptr(), w3.data_ptr(), tbl.data_ptr(),
+                 out.data_ptr(), Bt, M, K, N,
+                 M * K if x3.shape[0] == Bt else 0,
+                 K * N if w3.shape[0] == Bt else 0, _DMAC_FMTS[fmt.name],
+                 _cuda.stream_ptr(x3.device))
+        _cuda.check(err, name)
+        _cuda.count_launch(name)
+    return out
+
+
+def mgs_matmul_dmac_combine(bins, fmt: FPFormat = E4M3, *, scale=None,
+                            bias=None, activation: str = "none"):
+    """B5's combine and the dMAC path's epilogue over summed bins.
+
+    ``bins``: ``(Bt, M, N, n_bins)`` int32, the sum over every cut of K of
+    :func:`mgs_matmul_dmac_partials`. Each output adds its bins from zero
+    in ascending order (B5's combine), then ``* scale``, ``+ bias`` and
+    ``activation`` (``scale`` / ``bias`` broadcastable to ``(Bt, M, N)``),
+    each step one rounding: ``quant.qmatmul``'s dMAC epilogue. Returns
+    float32 ``(Bt, M, N)``.
+
+    A CPU tensor runs the twin; a CUDA tensor launches
+    ``csrc/mgs_dmac.cu::mgs_matmul_dmac_combine`` or raises.
+    """
+    if bins.device.type == "cpu":
+        return mgs_matmul_dmac_combine_plain(bins, fmt, scale=scale,
+                                             bias=bias, activation=activation)
+    if bins.device.type != "cuda":
+        raise ValueError(f"bins on {bins.device}: the kernel runs on one "
+                         "CUDA device")
+    _check_bins(bins, fmt, activation)
+    part = bins.contiguous()
+    Bt, M, N, _ = part.shape
+    dev = part.device
+    out = torch.empty((Bt, M, N), dtype=torch.float32, device=dev)
+    if Bt and M and N:
+        sc, bi = _bmn(scale, Bt, M, N, dev), _bmn(bias, Bt, M, N, dev)
+        name = "mgs_matmul_dmac_combine"
+        fn = _dmac_lib(name, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        err = fn(part.data_ptr(), None if sc is None else sc.data_ptr(),
+                 None if bi is None else bi.data_ptr(), out.data_ptr(), Bt,
+                 M, N, *(sc.stride() if sc is not None else (0, 0, 0)),
+                 *(bi.stride() if bi is not None else (0, 0, 0)),
+                 _DMAC_FMTS[fmt.name], _ACT_CODES[activation],
+                 _cuda.stream_ptr(dev))
+        _cuda.check(err, name)
+        _cuda.count_launch(name)
+    return out

@@ -25,10 +25,10 @@ dry run computes the same record from the cell's shapes:
 * the three roofline terms and the bottleneck (:mod:`.roofline`).
 
 The mesh is a :class:`repro_torch.parallel.sharding.MeshShape`: no world
-of ranks, no card and no JAX. A cell the port cannot run is recorded as
-skipped with the port's own reason (serving on a mesh takes the fused
-exact kernels, dense and MoE stacks; ``long_500k`` needs sub-quadratic
-attention). Training cells are costed under the float path.
+of ranks, no card and no JAX. A cell the port cannot run is recorded with
+the port's own reason (serving on a mesh takes dense and MoE stacks, under
+any ``QuantConfig``; ``long_500k`` needs sub-quadratic attention).
+Training cells are costed under the float path.
 
 This module also owns the per-step launch and collective predictions that
 ``chip_smoke.py`` holds its counted launches and collectives to
@@ -229,14 +229,38 @@ def _plane_bytes(shape, dims, rules, sizes, cfg: ModelConfig,
     return codes + limbs + _nbytes(_local(sspec, sshape, sizes), 4)
 
 
+def _raw_slice_bytes(shape, dims, rules, sizes, cfg: ModelConfig,
+                     stack_ndim: int, k_ndim: int, itemsize: int) -> int:
+    """A raw projection weight as this rank holds it on a mesh: its
+    :class:`~repro_torch.quant.prepared.RawSlice` (the values' slice and
+    the whole weight's absmax, per stack slice, per column under
+    ``per_channel``), or the whole weight where the rules leave it whole
+    (``quant.prepared.shard_raw_params``)."""
+    cspec, _, _ = prepared_specs(dims, shape, rules, stack_ndim=stack_ndim,
+                                 k_ndim=k_ndim)
+    if not any(cspec):
+        return _nbytes(shape, itemsize)
+    stack = tuple(shape[:stack_ndim])
+    K = math.prod(shape[stack_ndim:stack_ndim + k_ndim])
+    n = math.prod(shape[stack_ndim + k_ndim:])
+    local = _local(cspec, stack + (K, n), sizes)
+    amax = local[:-2] + (1, local[-1] if cfg.quant.per_channel else 1)
+    return _nbytes(local, itemsize) + _nbytes(amax, 4)
+
+
 def param_bytes(cfg: ModelConfig, rules=None) -> Dict[str, int]:
     """This rank's parameter bytes as a serving engine holds them:
     ``prepared`` planes of every projection and the logits head under an
     MGS preset (``prepare_params`` + ``prepare_logits_head``), ``raw``
     leaves at the dtype ``cast_params`` gives them (rank >= 2 at the
-    compute dtype, norms at the parameter dtype), whole on every rank."""
+    compute dtype, norms at the parameter dtype): whole on every rank,
+    except the projection weights (and an untied ``unembed``) of the
+    configurations that keep them raw, which a mesh cuts as it cuts the
+    planes (``shard_raw_params``)."""
     from repro_torch.models.transformer import (_KEEP_F32, param_dims,
                                                 param_shapes)
+    from repro_torch.quant.prepared import _K_NDIM, _PROJ_WEIGHTS, \
+        _stack_ndim_of
     sizes = rules.mesh.shape if rules is not None else {}
     dims = dict(_walk(param_dims(cfg)))
     cdt, pdt = dtype_of(cfg.compute_dtype), dtype_of(cfg.param_dtype)
@@ -249,7 +273,20 @@ def param_bytes(cfg: ModelConfig, rules=None) -> Dict[str, int]:
                                             cfg, *site)
             continue
         dt = cdt if len(shape) >= 2 and path[-1] not in _KEEP_F32 else pdt
-        out["raw"] += _nbytes(shape, dt.itemsize)
+        cut = None
+        if rules is not None and len(shape) >= 2:
+            if path == ("unembed",):
+                cut = (0, 1)
+            elif len(path) >= 2 and path[-1] in _PROJ_WEIGHTS.get(
+                    path[-2], ()):
+                k_ndim = _K_NDIM.get((path[-2], path[-1]), 1)
+                cut = (_stack_ndim_of(path, len(shape), k_ndim,
+                                      cfg.is_hybrid), k_ndim)
+        if cut is not None:
+            out["raw"] += _raw_slice_bytes(shape, dims[path], rules, sizes,
+                                           cfg, *cut, dt.itemsize)
+        else:
+            out["raw"] += _nbytes(shape, dt.itemsize)
     if prep:
         shape = (cfg.d_model, cfg.vocab)
         out["prepared"] += _plane_bytes(shape, ("embed", "vocab"), rules,
@@ -337,31 +374,38 @@ class Dot:
     segments: int = 1
     table: int = 0
     scale_rows: int = 1
+    scale_elems: int = 1
     activation: str = "none"
 
     @property
     def flops(self) -> float:
         if self.entry == "mgs_flash_attention":
             return self.calls * 2.0 * 2 * self.M * self.K * self.N
-        if self.entry == "mgs_matmul_exact_flush":
+        if self.entry in _CLOSING:
             return 0.0
         return self.calls * 2.0 * self.Bt * self.M * self.K * self.N
 
     def bound(self) -> Tuple[float, str]:
         return rl.kernel_bound(self.entry, self._shape(),
                                segments=self.segments,
-                               scale_rows=self.scale_rows)
+                               scale_rows=self.scale_rows,
+                               scale_elems=self.scale_elems)
 
     def nbytes(self) -> float:
         """The bytes a launch must move (:func:`roofline.kernel_work`)."""
         return rl.kernel_work(self.entry, self._shape(),
                               segments=self.segments,
-                              scale_rows=self.scale_rows)[0]
+                              scale_rows=self.scale_rows,
+                              scale_elems=self.scale_elems)[0]
 
     def _shape(self):
         if self.entry == "mgs_flash_attention":
             return (self.Bt, self.M, self.K, self.N, self.table)
         return (self.Bt, self.M, self.K, self.N)
+
+
+#: the entries that close a cut K's exact sums: no product of their own
+_CLOSING = ("mgs_matmul_exact_flush", "mgs_matmul_dmac_combine")
 
 
 def _chunks(cfg, keys: int) -> int:
@@ -398,13 +442,30 @@ class _Layout:
              cfg.head_dim))
         return math.prod(self.sizes[a] for a in spec_axes(spec, 3))
 
+    def float_cache_gather(self, batch: int, keys: int) -> Tuple[int, int]:
+        """(payload bytes, group) of gathering one layer's K (or V) of a
+        float cache of ``keys`` positions whole along its sequence cut
+        (group 1: not cut)."""
+        if self.rules is None:
+            return 0, 1
+        cfg = self.cfg
+        spec = self.rules.resolve(
+            ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+            (cfg.n_layers, batch, keys, cfg.n_kv_heads, cfg.head_dim))
+        local = _local(spec, (1, batch, keys, cfg.n_kv_heads, cfg.head_dim),
+                       self.sizes)
+        return (_nbytes(local, dtype_of(cfg.kv_cache_dtype).itemsize),
+                math.prod(self.sizes[a] for a in spec_axes(spec, 2)))
+
     def cut(self, module: str, name: str):
         """(stack div, K div, N div, K axes, N axes) of ``module.name``
         (``head``: the logits head)."""
-        if self.rules is None:
+        cfg = self.cfg
+        if self.rules is None or (module == "head" and cfg.tie_embeddings
+                                  and not _prepared(cfg)):
+            # a raw tied table stays whole: the head is every rank's
             return 1, 1, 1, (), ()
         from repro_torch.models.transformer import param_dims, param_shapes
-        cfg = self.cfg
         if module == "head":
             shape, dims, stack, k_ndim = ((cfg.d_model, cfg.vocab),
                                           ("embed", "vocab"), 0, 1)
@@ -426,41 +487,114 @@ class _Layout:
                 axes(stack + 1))
 
 
+def _path(q: QuantConfig) -> str:
+    """The kernel a config's projections launch: ``"b1"`` (the fused
+    exact kernels, B3 under a stationary schedule), ``"b4"``, ``"b5"``, or
+    ``"float"`` (no kernel: float dots, the integer sums and the twins)."""
+    if q.is_fp8 and q.use_kernel and q.accum == "mgs_exact":
+        return "b1" if q.fused else "b4"
+    if q.is_fp8 and q.use_kernel and q.accum == "mgs_dmac":
+        return "b5"
+    return "float"
+
+
+#: each path's one-call entry, and its entries over a cut of K
+_ENTRY = {"b1": "mgs_matmul_exact_fused", "b4": "mgs_matmul_exact",
+          "b5": "mgs_matmul_dmac", "float": None}
+_CUT_ENTRIES = {"b1": ("mgs_matmul_exact_partials", "mgs_matmul_exact_flush"),
+                "b4": ("mgs_matmul_exact_limb_partials",
+                       "mgs_matmul_exact_flush"),
+                "b5": ("mgs_matmul_dmac_partials", "mgs_matmul_dmac_combine")}
+
+
+def _k_cut_collectives(lay: _Layout, shape, K: int, Bt: int, M: int,
+                       calls: int, k_local: bool) -> bool:
+    """The collectives of one projection whose K the rules cut
+    (``quant.qmatmul._sharded_k``): ``True`` where it gathers both
+    operands whole along K (an order-dependent sum) and runs the whole K.
+    """
+    q = lay.cfg.quant
+    kd = K // shape[2]
+    rows, n = shape[0] * M, shape[3]
+    if q.accum == "swamp" or (q.is_int and q.accum in ("clip", "wrap")):
+        if k_local:
+            lay.collective("all_gather", rows * shape[2] * lay.act, kd,
+                           calls)
+        lay.collective("all_gather", shape[0] * shape[2] * n * lay.act, kd,
+                       calls)
+        return True
+    if k_local and q.dtype != "none":
+        per = rows if q.per_row_act else shape[0]
+        lay.collective("all_reduce_max", per * 4, kd, calls)
+    if q.dtype == "none" or (q.is_fp8 and q.accum == "wide"):
+        # the float32 partials, gathered and added in rank order
+        lay.collective("all_gather", rows * n * 4, kd, calls)
+    elif q.is_int:
+        lay.collective("all_reduce_sum", rows * n * 4, kd, calls)
+    elif q.accum == "mgs_dmac":
+        lay.collective("all_reduce_sum", q.fmt.n_bins * rows * n * 4, kd,
+                       calls)
+    else:
+        from repro_torch.kernels.mgs_matmul import partial_segments
+        _, nseg = partial_segments(K, q.block_k, None)
+        lay.collective("all_reduce_sum", nseg * 5 * rows * n * 4, kd, calls)
+    return False
+
+
+def _scale_elems(q: QuantConfig, shape, path: str) -> int:
+    """The scale elements a cut K's closing entry reads as stored
+    (``quant.qmatmul._sharded_k``): the activation's scale (a row's under
+    ``per_row_act``, else a slice's) times the weight's (a column's under
+    ``per_channel``, else a slice's). B1's flush takes it only without
+    ``per_row_act``; the models pass no bias."""
+    if path != "b5" and q.per_row_act:
+        return 0
+    Bt, M, _, N = shape
+    return Bt * (M if q.per_row_act else 1) * (N if q.per_channel else 1)
+
+
 def _proj(out: List[Dot], lay: _Layout, module: str, name: str, label: str,
           M: int, K: int, N: int, kernels: bool, Bt: int = 1,
           calls: int = 1, gather: bool = True, k_local: bool = False,
           out_bytes: Optional[int] = None, activation: str = "none"):
     """One projection's dot(s) on this rank, and its collectives.
 
-    Under the kernel preset a fused B1 launch, or, where the rules cut its
-    K, B1's partials and flush: the activation's amax max-reduced over the
-    K group when ``x`` arrives cut along K (``k_local``: the hidden of an
-    up-projection left local), then the int32 class partials sum-reduced
-    (``quant.qmatmul._sharded_exact``). A float dot whose K is cut
-    sum-reduces its float32 output. An output cut along N is all-gathered
-    unless ``gather=False`` (``out_bytes`` a value; default the compute
-    dtype's)."""
+    Under a kernel path a launch of its entry (B1 fused, B4, B5) or, where
+    the rules cut its K, the entries over a cut and their closing one
+    (B1's or B4's partials and B1's flush; B5's partials and combine); a
+    float dot otherwise. A cut K reduces as ``quant.qmatmul._sharded_k``
+    does (:func:`_k_cut_collectives`): the activation's amax max-reduced
+    over the K group when ``x`` arrives cut along K (``k_local``: the
+    hidden of an up-projection left local), then the exact sums
+    sum-reduced (B1 / B4 class partials, B5 bins, integer sums), the float
+    partials gathered, or both operands gathered whole along K. An output
+    cut along N is all-gathered unless ``gather=False`` (``out_bytes`` a
+    value; default the compute dtype's)."""
     sdiv, kd, nd, _, _ = lay.cut(module, name)
     shape = (Bt // sdiv, M, K // kd, N // nd)
     rows = shape[0] * M
-    kw = dict(calls=calls, activation=activation)
-    if not kernels:
-        out.append(Dot(label, *shape, calls=calls))
-        lay.collective("all_reduce_sum", rows * shape[3] * 4, kd, calls)
-    elif kd > 1:
-        from repro_torch.kernels.mgs_matmul import partial_segments
-        _, nseg = partial_segments(K, lay.cfg.quant.block_k, None)
-        out.append(Dot(label, *shape, calls=calls,
-                       entry="mgs_matmul_exact_partials", segments=nseg))
-        out.append(Dot(label + " flush", shape[0], M, 0, shape[3],
-                       entry="mgs_matmul_exact_flush", segments=nseg, **kw))
-        if k_local:
-            per = rows if lay.cfg.quant.per_row_act else shape[0]
-            lay.collective("all_reduce_max", per * 4, kd, calls)
-        lay.collective("all_reduce_sum", nseg * 5 * rows * shape[3] * 4, kd,
-                       calls)
+    path = _path(lay.cfg.quant) if kernels else "float"
+    kw = dict(calls=calls,
+              activation=activation if path == "b1" else "none")
+    if kd > 1 and _k_cut_collectives(lay, shape, K, Bt, M, calls, k_local):
+        shape = (shape[0], M, K, shape[3])      # the whole K, gathered
+        kd = 1
+    if kd > 1 and path != "float":
+        part, close = _CUT_ENTRIES[path]
+        q = lay.cfg.quant
+        if path == "b5":
+            nseg = q.fmt.n_bins
+        else:
+            from repro_torch.kernels.mgs_matmul import partial_segments
+            _, nseg = partial_segments(K, q.block_k, None)
+        out.append(Dot(label, *shape, calls=calls, entry=part,
+                       segments=nseg))
+        out.append(Dot(label + (" combine" if path == "b5" else " flush"),
+                       shape[0], M, 0, shape[3], entry=close,
+                       segments=nseg,
+                       scale_elems=_scale_elems(q, shape, path), **kw))
     else:
-        out.append(Dot(label, *shape, entry="mgs_matmul_exact_fused", **kw))
+        out.append(Dot(label, *shape, entry=_ENTRY[path], **kw))
     if gather:
         item = lay.act if out_bytes is None else out_bytes
         lay.collective("all_gather", rows * shape[3] * item, nd, calls)
@@ -477,12 +611,13 @@ def _heads(lay: _Layout) -> int:
 
 def _attention(out, lay, cfg, pre: str, B: int, Tq: int, keys: int, *,
                kernels: bool, decode: bool, kv_rows: Optional[int] = None,
-               calls: int = 1, live=None):
+               calls: int = 1, live=None, float_cache: bool = False):
     """One attention sublayer: its projections (K / V over ``kv_rows`` rows:
     default the queries', the encoder's frames for cross-attention, 0 for
     the stored cross planes at decode), then the score / value contractions
-    over ``keys`` keys (B2 at a packed decode, over ``live`` keys a slice),
-    then the out-projection."""
+    over ``keys`` keys (B2 at a packed decode, over ``live`` keys a slice;
+    a ``float_cache`` of ``keys`` positions gathered whole along its
+    sequence cut first, K and V), then the out-projection."""
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     h = _heads(lay)
     Hl, KVl, G = H // h, KV // h, H // KV
@@ -509,12 +644,19 @@ def _attention(out, lay, cfg, pre: str, B: int, Tq: int, keys: int, *,
                        live_keys, calls=calls,
                        entry="mgs_flash_attention", table=B * KVl * nb))
     else:
+        if float_cache:
+            nbytes, seq = lay.float_cache_gather(B, keys)
+            for _ in ("k", "v"):
+                lay.collective("all_gather", nbytes, seq, calls)
         S = cfg.attn_chunk if (cfg.attn_chunk and Tq > 1) else keys
         n = _chunks(cfg, keys) if (cfg.attn_chunk and Tq > 1) else 1
-        entry = "mgs_matmul_exact_fused" if kernels else None
-        out.append(Dot(f"{pre} scores", B * KVl, G * Tq, hd, S,
+        entry = _ENTRY[_path(cfg.quant)] if kernels else None
+        # a float decode step contracts at the model's kv heads, a rank's
+        # share and zeros (``models.attention._sdpa_dense``)
+        kv = KV if (Tq == 1 and not cfg.quant.is_fp8) else KVl
+        out.append(Dot(f"{pre} scores", B * kv, G * Tq, hd, S,
                        calls=calls * n, entry=entry))
-        out.append(Dot(f"{pre} values", B * KVl, G * Tq, S, hd,
+        out.append(Dot(f"{pre} values", B * kv, G * Tq, S, hd,
                        calls=calls * n, entry=entry))
     lay.collective("all_gather", M * Hl * hd * lay.act, h, calls)
     _proj(out, lay, "attn", "wo", f"{pre} wo", M, H * hd, d, kernels,
@@ -590,20 +732,19 @@ def step_dots(cfg: ModelConfig, kind: str, batch: int, seq: int,
     ``"train"`` (a forward
     and its backward: two dots per forward dot, the layers' forward again
     under ``remat == "layer"``, the streamed cross entropy's chunks again
-    past 65536 tied entries). Under a kernel preset (``use_kernel`` and
-    ``fused`` over the packed cache) each projection and prefill
-    contraction is a B1 launch (the partials and the flush where ``rules``
-    cut its K), decode attention a B2 launch; otherwise every dot is a
-    float one (over a float cache, decode attention's contractions are B1
-    launches too). A VLM's prefix rides before the tokens; an
+    past 65536 tied entries). Under a kernel config (``use_kernel``: B1
+    under ``fused``, B4 without, B5 under ``mgs_dmac``) each projection and
+    each fp8 score / value contraction is a launch of that kernel (its
+    entries over a cut and the closing one where ``rules`` cut its K), and
+    decode attention over the packed cache a B2 launch; otherwise every
+    dot is a float one. A VLM's prefix rides before the tokens; an
     encoder-decoder's encoder runs at ``forward``, ``prefill`` and
     ``train`` over ``encoder_len`` frames. With ``rules`` (the serving
     rules of a mesh, every rank on every row) each dot is this rank's
     part, and ``coll`` (a list) receives the step's collectives as
     ``(kind, payload bytes, group size)``, as ``RankMesh`` counts them."""
     q = cfg.quant
-    kernels = bool(q.is_fp8 and q.accum == "mgs_exact" and q.use_kernel
-                   and q.fused and kind != "train")
+    kernels = _path(q) != "float" and kind != "train"
     if kind == "train":
         fwd = step_dots(cfg, "forward", batch, seq, rules=rules)
         return _train_dots(cfg, fwd, batch, seq)
@@ -616,8 +757,9 @@ def step_dots(cfg: ModelConfig, kind: str, batch: int, seq: int,
     Tq = T if decode else T + (cfg.vision_prefix or 0)
     # a float cache is attended whole (its ``cache_len`` keys), a packed
     # prefill over the prompt's own keys
-    keys = cache_len if decode or (kind == "prefill" and cache_len
-                                   and not q.quantized_kv) else Tq
+    float_cache = bool(kind != "forward" and cache_len
+                       and not q.quantized_kv)
+    keys = cache_len if decode or float_cache else Tq
     M = B * Tq
     out: List[Dot] = []
     if cfg.encoder_layers and not decode:
@@ -642,7 +784,8 @@ def step_dots(cfg: ModelConfig, kind: str, batch: int, seq: int,
     else:
         L = cfg.n_layers
         _attention(out, lay, cfg, "attn", B, Tq, keys, kernels=kernels,
-                   decode=decode, calls=L, live=live)
+                   decode=decode, calls=L, live=live,
+                   float_cache=float_cache)
         if cfg.encoder_layers:
             F = cfg.encoder_len
             if decode:
@@ -1020,22 +1163,31 @@ def _comm_totals(coll, staged: bool, kinds: Sequence[str]) -> dict:
     return out
 
 
+#: the serving path's ``LAUNCHES`` entries (every kernel path)
+_SERVE_KEYS = ("mgs_matmul_exact_fused", "mgs_matmul_exact_partials",
+               "mgs_matmul_exact_flush", "mgs_flash_attention",
+               "mgs_matmul_exact", "mgs_matmul_exact_limb_partials",
+               "mgs_matmul_dmac", "mgs_matmul_dmac_partials",
+               "mgs_matmul_dmac_combine")
+
+
 def sharded_prediction(cfg, model: int = 2, batch: int = 4,
                        prompt: int = 32, new: int = 16, requests: int = 8,
-                       staged: bool = True) -> dict:
-    """Per rank of a ``1 x model`` mesh serving phase 4's traffic
-    (``requests`` of ``prompt`` tokens at ``batch``, ``new`` tokens each,
-    ``FP8_MGS_SERVE_KV``): kernel launches and collectives (calls by kind,
-    bytes sent, bytes staged through the host by gloo when ``staged``) of
-    one decode step and of the run, from :func:`step_dots` under the
-    serving rules (heads, ffn, experts and vocab cut over ``model`` where
-    it divides them)."""
-    cfg = dataclasses.replace(cfg, quant=FP8_MGS_SERVE_KV)
+                       staged: bool = True,
+                       quant: QuantConfig = FP8_MGS_SERVE_KV) -> dict:
+    """Per rank of a ``1 x model`` mesh serving ``requests`` of ``prompt``
+    tokens at ``batch``, ``new`` tokens each, under ``quant`` (phase 4's
+    traffic under ``FP8_MGS_SERVE_KV``, the default; phase 17's first group
+    of phase 7's under its configurations): kernel launches by entry and
+    collectives (calls by kind, bytes sent, bytes staged through the host
+    by gloo when ``staged``) of one decode step and of the run, from
+    :func:`step_dots` under the serving rules (heads, ffn, experts and
+    vocab cut over ``model`` where it divides them)."""
+    cfg = dataclasses.replace(cfg, quant=quant)
     rules = make_rules(_rank0(MeshShape(("data", "model"), (1, model))),
                        "serve", shard_batch=False)
     max_len = cfg.vision_prefix + prompt + new + 1
-    keys = ("mgs_matmul_exact_fused", "mgs_matmul_exact_partials",
-            "mgs_matmul_exact_flush", "mgs_flash_attention")
+    keys = _SERVE_KEYS
     kinds = ("all_gather", "all_reduce_max", "all_reduce_sum")
 
     def step(kind, seq):

@@ -37,7 +37,8 @@ __all__ = ["Hardware", "H100_SXM", "CollectiveStats", "collective_traffic",
            "RING_FACTORS", "RooflineReport", "analyze", "model_flops",
            "bound", "kernel_work", "kernel_bound", "b1_bound",
            "b1_partials_bound", "b1_flush_bound", "b2_bound", "b4_bound",
-           "dmac_bound", "DMAC_OPS_PER_PRODUCT"]
+           "dmac_bound", "b4_partials_bound", "dmac_partials_bound",
+           "dmac_combine_bound", "DMAC_OPS_PER_PRODUCT"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +47,7 @@ class Hardware:
     peak_flops: float        # per card, bf16 dense tensor-core FLOP/s
     int8_ops: float          # per card, int8 dense tensor-core op/s
     int32_ops: float         # per card, CUDA-core int32 op/s
+    fp32_flops: float        # per card, CUDA-core float32 FLOP/s
     hbm_bw: float            # bytes/s per card
     link_bw: float           # NVLink bytes/s per card, one direction
     hbm_bytes: float         # capacity per card
@@ -59,13 +61,15 @@ class Hardware:
 #: One NVIDIA H100 SXM5 (NVIDIA's H100 data sheet, dense rates without
 #: sparsity, at the full 700 W power limit): 989 TFLOP/s bf16 and 1,979
 #: TOP/s int8 on the tensor cores; the CUDA-core int32 rate is 132 SMs x 64
-#: int32 lanes x the 1.98 GHz boost clock (the 67 TFLOP/s float32 peak is
-#: 128 lanes x 2 at that clock); HBM3 at 3.35 TB/s; fourth-generation
-#: NVLink, 18 links of 25 GB/s each way (900 GB/s both ways); the capacity
-#: is ``torch.cuda.get_device_properties(0).total_memory`` of an "NVIDIA
-#: H100 80GB HBM3" card at 700.00 W (``chip_smoke.py`` phase 16 prints it).
+#: int32 lanes x the 1.98 GHz boost clock; 67 TFLOP/s float32 outside the
+#: tensor cores (128 lanes x 2 at that clock); HBM3 at 3.35 TB/s;
+#: fourth-generation NVLink, 18 links of 25 GB/s each way (900 GB/s both
+#: ways); the capacity is ``torch.cuda.get_device_properties(0)
+#: .total_memory`` of an "NVIDIA H100 80GB HBM3" card at 700.00 W
+#: (``chip_smoke.py`` phase 16 prints it).
 H100_SXM = Hardware(name="nvidia_h100_sxm", peak_flops=989e12,
                     int8_ops=1979e12, int32_ops=132 * 64 * 1.98e9,
+                    fp32_flops=67e12,
                     hbm_bw=3.35e12, link_bw=450e9,
                     hbm_bytes=85017493504)
 
@@ -201,7 +205,7 @@ def bound(nbytes: float, ops: float, rate: Optional[float] = None,
 
 
 def kernel_work(entry: str, shape: Sequence[int], *, segments: int = 1,
-                scale_rows: int = 1,
+                scale_rows: int = 1, scale_elems: int = 1,
                 hw: Hardware = H100_SXM) -> Tuple[float, float, float]:
     """``(bytes, operations, operations/s)`` of one launch of ``LAUNCHES``
     entry ``entry`` at ``shape``: ``(Bt, M, K, N)``; B2 ``(N slices, T
@@ -211,12 +215,23 @@ def kernel_work(entry: str, shape: Sequence[int], *, segments: int = 1,
       out and a scale per slice; 9 int8 limb products per multiply-add.
     * their partials entries over a cut of K: the cut's codes in, the
       ``segments x 5`` int32 class planes out; the same products.
-    * the flush: the class planes in, float32 out (and a scale); one
-      multiply-add a class a segment.
+    * the flush: the class planes in, float32 out, and ``scale_elems``
+      float32 scale and bias elements, counted as stored (a broadcast dim
+      once); one multiply-add a class a segment, at the float32 rate.
     * B4 (``exact``): 3 limb bytes an operand element, float32 out.
+    * B4's partials entry over a cut of K: the cut's limb bytes in (3 an
+      operand element), the ``segments x 5`` int32 class planes out; the
+      same products.
     * B5 (``dmac``): codes in, float32 out; the minimal form's
       ``DMAC_OPS_PER_PRODUCT`` operations a product at the CUDA-core int32
       rate.
+    * its partials entry over a cut of K: the cut's codes in, the
+      ``segments`` int32 bins of every output out (``segments``: the
+      format's bins); the same operations over the cut.
+    * its combine entry: the bins in, float32 out, and ``scale_elems``
+      scale and bias elements as the flush; a multiply and an add a bin,
+      at the float32 rate (the bytes bind: 16 bins are 64 bytes an
+      output).
     * B2 (``flash_attention``): query codes, K and V codes, the scale and
       bias rows of every key (``scale_rows`` a slice: 1, or ``T`` at the
       verify entry), float32 out, the block table and live counts; 9 limb
@@ -237,11 +252,21 @@ def kernel_work(entry: str, shape: Sequence[int], *, segments: int = 1,
         return (Bt * M * K + Bt * K * N + segments * 5 * Bt * M * N * 4,
                 9 * 2 * Bt * M * N * K, hw.int8_ops)
     if entry == "mgs_matmul_exact_flush":
-        return (segments * 5 * Bt * M * N * 4 + Bt * M * N * 4 + 4,
-                5 * segments * 2 * Bt * M * N, hw.int8_ops)
+        return (segments * 5 * Bt * M * N * 4 + Bt * M * N * 4
+                + 4 * scale_elems,
+                5 * segments * 2 * Bt * M * N, hw.fp32_flops)
     if entry == "mgs_matmul_exact":
         return (3 * Bt * (M * K + K * N) + 4 * Bt * M * N,
                 9 * 2 * Bt * M * N * K, hw.int8_ops)
+    if entry == "mgs_matmul_exact_limb_partials":
+        return (3 * Bt * (M * K + K * N) + segments * 5 * Bt * M * N * 4,
+                9 * 2 * Bt * M * N * K, hw.int8_ops)
+    if entry == "mgs_matmul_dmac_partials":
+        return (Bt * (M * K + K * N + segments * 4 * M * N),
+                Bt * M * N * K * DMAC_OPS_PER_PRODUCT, hw.int32_ops)
+    if entry == "mgs_matmul_dmac_combine":
+        return (Bt * M * N * (segments * 4 + 4) + 4 * scale_elems,
+                2 * segments * Bt * M * N, hw.fp32_flops)
     if entry == "mgs_matmul_dmac":
         return (Bt * (M * K + K * N + 4 * M * N),
                 Bt * M * N * K * DMAC_OPS_PER_PRODUCT, hw.int32_ops)
@@ -249,11 +274,12 @@ def kernel_work(entry: str, shape: Sequence[int], *, segments: int = 1,
 
 
 def kernel_bound(entry: str, shape: Sequence[int], *, segments: int = 1,
-                 scale_rows: int = 1,
+                 scale_rows: int = 1, scale_elems: int = 1,
                  hw: Hardware = H100_SXM) -> Tuple[float, str]:
     """The bound of one launch (:func:`kernel_work`)."""
     nbytes, ops, rate = kernel_work(entry, shape, segments=segments,
-                                    scale_rows=scale_rows, hw=hw)
+                                    scale_rows=scale_rows,
+                                    scale_elems=scale_elems, hw=hw)
     return bound(nbytes, ops, rate, hw=hw)
 
 
@@ -268,10 +294,11 @@ def b1_partials_bound(Bt, M, K, N, segments: int, hw: Hardware = H100_SXM):
                         segments=segments, hw=hw)
 
 
-def b1_flush_bound(Bt, M, N, segments: int, hw: Hardware = H100_SXM):
+def b1_flush_bound(Bt, M, N, segments: int, scale_elems: int = 1,
+                   hw: Hardware = H100_SXM):
     """B1's flush entry over ``segments`` segments of class planes."""
     return kernel_bound("mgs_matmul_exact_flush", (Bt, M, 0, N),
-                        segments=segments, hw=hw)
+                        segments=segments, scale_elems=scale_elems, hw=hw)
 
 
 def b2_bound(N, T, D, keys, table_entries, scale_rows: int = 1,
@@ -289,3 +316,23 @@ def b4_bound(Bt, M, K, N, hw: Hardware = H100_SXM):
 def dmac_bound(Bt, M, K, N, hw: Hardware = H100_SXM):
     """B5's bound."""
     return kernel_bound("mgs_matmul_dmac", (Bt, M, K, N), hw=hw)
+
+
+def b4_partials_bound(Bt, M, K, N, segments: int,
+                      hw: Hardware = H100_SXM):
+    """B4's partials entry over a cut of ``K``."""
+    return kernel_bound("mgs_matmul_exact_limb_partials", (Bt, M, K, N),
+                        segments=segments, hw=hw)
+
+
+def dmac_partials_bound(Bt, M, K, N, n_bins: int, hw: Hardware = H100_SXM):
+    """B5's partials entry over a cut of ``K`` (``n_bins`` a output)."""
+    return kernel_bound("mgs_matmul_dmac_partials", (Bt, M, K, N),
+                        segments=n_bins, hw=hw)
+
+
+def dmac_combine_bound(Bt, M, N, n_bins: int, scale_elems: int = 1,
+                       hw: Hardware = H100_SXM):
+    """B5's combine entry over ``n_bins`` bins an output."""
+    return kernel_bound("mgs_matmul_dmac_combine", (Bt, M, 0, N),
+                        segments=n_bins, scale_elems=scale_elems, hw=hw)

@@ -35,17 +35,23 @@ Sharded serving: ``ServeEngine(..., mesh=)`` on a
 :class:`~repro_torch.parallel.comm.RankMesh` (one ``torch.distributed``
 rank per mesh position, each constructing the engine) serves dense and MoE
 stacks under the reference's ``make_rules(mesh, "serve",
-shard_batch=False)``: every rank builds its slice of the prepared planes,
-batch-indexed activations are replicated, and each request's logits and
-tokens are bitwise the one-device engine's.
+shard_batch=False)`` under every ``QuantConfig``: every rank builds its
+slice of the prepared planes (or holds its slice of the raw weights, for
+the configurations that quantize them at every call), batch-indexed
+activations are replicated, and each request's logits and tokens are
+bitwise the one-device engine's wherever the config's sums are exact (B1,
+B3, B4, B5, the exact integer sums, the order-dependent sums computed over
+gathered operands); under ``none`` and fp8 ``wide`` the float32 partials of
+a cut K are added in rank order, within the whole-model bar of the
+one-device engine with its greedy tokens.
 ``ContinuousBatchingEngine(..., mesh=)`` does the same for the paged
 engine (dense stacks, speculation included): the pool holds the rank's kv
 heads, and the ranks agree once a scheduling round on how many waiting
 requests to admit. ``--mesh DxM`` starts the ranks
 (``parallel.comm.launch``; ``--share-device`` puts them all on one card
-over gloo) and rank 0's result is printed. The other families, numerics
-other than the fused exact kernels (B1 / B3), calibration, ``feed=`` and
-``--no-deterministic`` on a mesh are ROADMAP A12.2c.
+over gloo) and rank 0's result is printed, under any ``--quant``. The
+other families (SSM, hybrid, encoder-decoder, VLM), calibration, ``feed=``
+and ``--no-deterministic`` on a mesh are ROADMAP A12.2c.
 
   python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
       --batch 4 --prompt-len 32 --max-new 16 --quant fp8-mgs-serve-kv
@@ -55,6 +61,7 @@ other than the fused exact kernels (B1 / B3), calibration, ``feed=`` and
       --replicas 2 --device cpu
   python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
       --mesh 1x2 --quant fp8-mgs-serve-kv --device cpu
+  python -m repro_torch.launch.serve --reduced --mesh 1x2 --device cpu
   python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
       --mesh 1x2 --continuous --spec-k 2 --quant fp8-mgs-serve-paged \\
       --device cpu
@@ -84,7 +91,8 @@ from repro_torch.models import (adopt_slot, cast_params, decode_step,
 from repro_torch.models.transformer import _require_paged_arch, param_dims
 from repro_torch.parallel.sharding import make_rules, use_rules
 from repro_torch.quant import (BlockAllocator, PreparedWeight, calibrating,
-                               prepare_logits_head, prepare_params)
+                               prepare_logits_head, prepare_params,
+                               shard_raw_params)
 from repro_torch.quant.calibrate import CalibrationTable, applied_calib_state
 from repro_torch.quant.streaming import StreamingCalibrator, sample_gate
 from repro_torch.runtime.fault_tolerance import DeadlineExceeded
@@ -142,19 +150,13 @@ def _stamp_act_sigmas(params, table: CalibrationTable):
 
 def mesh_refusal(cfg: ModelConfig) -> Optional[str]:
     """Why ``cfg`` cannot be served on a mesh of ranks in this slice
-    (``None``: it can)."""
-    q = cfg.quant
+    (``None``: it can). Any ``QuantConfig`` is served; the family
+    decides."""
     if (cfg.is_hybrid or cfg.is_ssm_only or cfg.encoder_layers
             or cfg.vision_prefix):
         return (f"{cfg.name}: sharded serving covers dense and MoE stacks; "
                 "SSM / hybrid / encoder-decoder / VLM on a mesh is ROADMAP "
                 "A12.2c")
-    if not (q.is_fp8 and q.accum == "mgs_exact" and q.use_kernel
-            and q.fused):
-        return ("sharded serving runs the fused exact kernels, B1 or B3 "
-                "(fp8, mgs_exact, use_kernel, fused; --quant fp8-mgs-serve"
-                "[-kv|-paged]): raw float weights, B4 / B5 and the integer "
-                "configs on a mesh are ROADMAP A12.2c")
     return None
 
 
@@ -190,11 +192,13 @@ class ServeEngine:
         process's rank (``launch.mesh.make_mesh`` / ``make_serve_mesh``);
         every rank constructs the engine on the same ``params`` (or
         ``seed``) and serves the same requests. Dense and MoE stacks under
-        the fused exact kernels (``use_kernel``, ``fused``, ``mgs_exact``;
-        B1, or B3 under a stationary ``schedule``); the rest raises
-        (ROADMAP A12.2c). Raw leaves (embedding table, norms) stay
-        whole on every rank: the lookup is a gather, and a table cut over
-        vocab would need a masked sum that turns -0.0 into +0.0.
+        any ``QuantConfig``; the other families raise (ROADMAP A12.2c).
+        Projection weights are this rank's prepared planes
+        (``prepare_params``) or, for the configurations that quantize raw
+        weights, its raw slices (``shard_raw_params``). The embedding
+        table and norms stay whole on every rank: the lookup is a gather,
+        and a table cut over vocab would need a masked sum that turns -0.0
+        into +0.0.
     """
 
     def __init__(self, cfg: ModelConfig, *, batch: int, max_len: int,
@@ -234,7 +238,8 @@ class ServeEngine:
                                      rules=self.rules)
         if calibration is not None:
             params = _stamp_act_sigmas(params, calibration)
-        self.params = cast_params(params, cfg)
+        self.params = shard_raw_params(cast_params(params, cfg), cfg.quant,
+                                       dims=dims, rules=self.rules)
         self._init_calib_runtime(calibration)
 
     # -- versioned runtime calibration state ---------------------------

@@ -8,8 +8,10 @@ port runs eagerly, so it records the step instead (:func:`record`):
   ``addmm``, ``baddbmm``, ``dot``, ``mv``) contributes 2 x result
   elements x contracting size, as ``hlo_cost`` counts an HLO ``dot``;
   element-wise FLOPs are ignored. A call of a hand-written kernel's
-  wrapper counts its own product, ``2 x Bt x M x N x K`` (B1-B5; B2 its
-  two contractions over the live keys), and nothing inside it: on the
+  wrapper counts its own product, ``2 x Bt x M x N x K`` (B1-B5 and
+  their partials entries over a cut of K; the entries that close a cut,
+  B1's flush and B5's combine, none; B2 its two contractions over the
+  live keys), and nothing inside it: on the
   CPU the wrapper runs its plain twin, whose limb products are the
   kernel's arithmetic, not the model's.
 * **Dot bytes**: the two operands and the result of each of those dots.
@@ -142,12 +144,17 @@ def _partials(x_codes, w_codes, *a, block_k=128, flush_period=None,
     return entry, shape, rl.b1_partials_bound(*shape, nseg)
 
 
-def _flush(partials, *a, **kw):
+def _stored(*vs) -> int:
+    """The elements a closing entry's scale and bias hold as stored."""
+    return sum(torch.as_tensor(v).numel() for v in vs if v is not None)
+
+
+def _flush(partials, *a, scale=None, bias=None, **kw):
     nseg, _, Bt, M, N = partials.shape
     if not (Bt and M and N):
         return None
     return ("mgs_matmul_exact_flush", (Bt, M, 0, N),
-            rl.b1_flush_bound(Bt, M, N, nseg))
+            rl.b1_flush_bound(Bt, M, N, nseg, _stored(scale, bias)))
 
 
 def _b4(x_limbs, w_limbs, *a, **kw):
@@ -159,11 +166,41 @@ def _b4(x_limbs, w_limbs, *a, **kw):
     return "mgs_matmul_exact", shape, rl.b4_bound(*shape)
 
 
+def _b4_partials(x_limbs, w_limbs, fmt=None, *a, block_k=128,
+                 flush_period=None, k_total=None, **kw):
+    from repro_torch.kernels.mgs_matmul import partial_segments
+    Bt, M, K = ((x_limbs.shape[0],) + tuple(x_limbs.shape[2:])
+                if x_limbs.dim() == 4 else (1, *x_limbs.shape[1:]))
+    shape = (Bt, M, K, w_limbs.shape[-1])
+    if not (Bt and M and shape[3] and K):
+        return None
+    _, nseg = partial_segments(K if k_total is None else k_total, block_k,
+                               flush_period)
+    return ("mgs_matmul_exact_limb_partials", shape,
+            rl.b4_partials_bound(*shape, nseg))
+
+
 def _b5(x, w, *a, **kw):
     shape = _mm_shape(x, w)
     if not all(shape):
         return None
     return "mgs_matmul_dmac", shape, rl.dmac_bound(*shape)
+
+
+def _b5_partials(xc, wc, fmt, *a, **kw):
+    shape = _mm_shape(xc, wc)
+    if not (shape[0] and shape[1] and shape[3]):
+        return None
+    return ("mgs_matmul_dmac_partials", shape,
+            rl.dmac_partials_bound(*shape, fmt.n_bins))
+
+
+def _b5_combine(bins, *a, scale=None, bias=None, **kw):
+    Bt, M, N, nb = bins.shape
+    if not (Bt and M and N):
+        return None
+    return ("mgs_matmul_dmac_combine", (Bt, M, 0, N),
+            rl.dmac_combine_bound(Bt, M, N, nb, _stored(scale, bias)))
 
 
 def _b2(q_codes, k_pool, v_pool, bt, live, qk_scale, *a, **kw):
@@ -184,6 +221,12 @@ _ENTRIES = (("repro_torch.kernels.mgs_matmul", "mgs_matmul_exact_fused", _b1),
             ("repro_torch.kernels.mgs_matmul", "mgs_matmul_exact_flush",
              _flush),
             ("repro_torch.kernels.mgs_matmul", "mgs_matmul_exact", _b4),
+            ("repro_torch.kernels.mgs_matmul",
+             "mgs_matmul_exact_limb_partials", _b4_partials),
+            ("repro_torch.kernels.mgs_matmul", "mgs_matmul_dmac_partials",
+             _b5_partials),
+            ("repro_torch.kernels.mgs_matmul", "mgs_matmul_dmac_combine",
+             _b5_combine),
             ("repro_torch.kernels.mgs_matmul", "mgs_matmul_dmac_codes", _b5),
             ("repro_torch.kernels.mgs_matmul", "mgs_matmul_dmac", _b5),
             ("repro_torch.kernels.mgs_attention", "mgs_flash_blocks", _b2))
@@ -193,7 +236,7 @@ def _kernel_flops(entry: str, shape) -> float:
     if entry == "mgs_flash_attention":
         N, T, D, keys, _ = shape
         return 2 * 2.0 * T * D * keys
-    if entry == "mgs_matmul_exact_flush":
+    if entry in ("mgs_matmul_exact_flush", "mgs_matmul_dmac_combine"):
         return 0.0
     Bt, M, K, N = shape
     return 2.0 * Bt * M * N * K

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.quant.prepared import PreparedWeight
+from repro_torch.quant.prepared import LaidOutWeight
 from repro_torch.kernels.mgs_attention import (mgs_flash_attention,
                                                mgs_paged_flash_attention,
                                                mgs_paged_verify_attention)
@@ -72,7 +72,7 @@ def _heads_axes(p) -> tuple:
     """The mesh axes this rank's heads are cut over: those of ``wq``'s
     output when ``wk`` and ``wv`` cut theirs alike, else ``()`` (every
     rank takes every head)."""
-    lays = [w.layout if isinstance(w, PreparedWeight) else None
+    lays = [w.layout if isinstance(w, LaidOutWeight) else None
             for w in (p["wq"], p.get("wk"), p.get("wv"))]
     if any(l is None for l in lays):
         return ()
@@ -104,15 +104,37 @@ def _mask(q_pos, k_pos, *, causal: bool, window: int, is_global):
     return torch.where(ok, zero, torch.full_like(zero, _NEG_INF))
 
 
-def _sdpa_dense(q, k, v, bias, quant=None):
-    """q: (B,T,KV,G,hd)  k/v: (B,S,KV,hd)  bias: (B,1,1,T,S)."""
+def _pad_heads(t, dim: int, n: int):
+    """``t`` with zero kv heads appended along ``dim`` up to ``n``."""
+    pad = n - t.shape[dim]
+    if pad <= 0:
+        return t
+    shape = list(t.shape)
+    shape[dim] = pad
+    return torch.cat([t, t.new_zeros(shape)], dim)
+
+
+def _sdpa_dense(q, k, v, bias, quant=None, kv_heads=None):
+    """q: (B,T,KV,G,hd)  k/v: (B,S,KV,hd)  bias: (B,1,1,T,S).
+
+    ``kv_heads``: the model's kv heads, where ``q`` holds a rank's share of
+    them. A decode step (T = 1) of the float path then contracts at the
+    model's head count, the other heads zero, and keeps the rank's: on the
+    card the two contractions are batched GEMVs whose algorithm follows
+    the batch count (heads x batch), so a rank's share alone would not get
+    the one-device bits."""
     scale = q.shape[-1] ** -0.5
     if quant is None or not quant.is_fp8:
-        scores = torch.einsum("btkgh,bskh->bkgts", q.to(torch.float32),
-                              k.to(torch.float32)) * scale
-        scores = scores + bias
+        KV = q.shape[2]
+        n = kv_heads if (kv_heads and q.shape[1] == 1) else KV
+        scores = torch.einsum(
+            "btkgh,bskh->bkgts", _pad_heads(q.to(torch.float32), 2, n),
+            _pad_heads(k.to(torch.float32), 2, n)) * scale
+        scores = scores[:, :KV] + bias
         w = softmax_last(scores).to(q.dtype)
-        return torch.einsum("bkgts,bskh->btkgh", w, v)
+        out = torch.einsum("bkgts,bskh->btkgh", _pad_heads(w, 1, n),
+                           _pad_heads(v, 2, n))
+        return out[:, :, :KV]
     scores = qeinsum("btkgh,bskh->bkgts", q, k, quant, site="attn.scores",
                      out_dtype=torch.float32) * scale
     scores = scores + bias
@@ -485,7 +507,7 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, is_global=True,
         bias = _mask(positions, k_pos, causal=causal, window=cfg.window,
                      is_global=is_global)[:, None, None]
         out = _sdpa_dense(q, k.to(q.dtype), v.to(q.dtype), bias,
-                          quant=cfg.quant)
+                          quant=cfg.quant, kv_heads=cfg.n_kv_heads)
 
     out = out.reshape(B, T, H_l, hd)
     if local:

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.quant import PreparedWeight, QuantConfig, qeinsum
+from repro_torch.quant import LaidOutWeight, QuantConfig, qeinsum
 
 __all__ = ["proj"]
 
@@ -18,7 +18,8 @@ _TAIL_LETTERS = "nopqrstu"
 def proj(x, w, quant: QuantConfig, *, activation: str = "none", bias=None,
          site: Optional[str] = None, gather: bool = True):
     """x: (..., K) @ w: (K, *tail) -> (..., *tail); ``w`` raw or prepared."""
-    tail = w.tail if isinstance(w, PreparedWeight) else tuple(w.shape[1:])
+    tail = (w.tail if isinstance(w, LaidOutWeight)
+            else tuple(w.shape[1:]))
     t = _TAIL_LETTERS[:len(tail)]
     K = x.shape[-1]
     out = qeinsum(f"mk,k{t}->m{t}", x.reshape(-1, K), w, quant, bias=bias,

@@ -39,7 +39,7 @@ from repro_torch.parallel.sharding import (constrain, current_rules,
                                            local_slices, replicate,
                                            resolve_spec, spec_axes,
                                            spec_entry)
-from repro_torch.quant import (PagedKVCache, PreparedWeight,
+from repro_torch.quant import (LaidOutWeight, PagedKVCache,
                                QuantizedKVCache, qeinsum)
 from repro_torch.quant.kvcache import (init_paged_kv, init_quantized_kv,
                                        paged_rollback_kv, quantize_kv)
@@ -251,7 +251,7 @@ def layer_params(tree, i: int):
     """Layer ``i`` of a stacked parameter (sub)tree."""
     if isinstance(tree, dict):
         return {k: layer_params(v, i) for k, v in tree.items()}
-    if isinstance(tree, PreparedWeight):
+    if isinstance(tree, LaidOutWeight):
         return tree.slice(i)
     return tree[i]
 
@@ -297,7 +297,7 @@ _LOGIT_DIMS = ("batch", "seq", "vocab_act")
 
 def _logits(params, cfg: ModelConfig, x):
     pw = params.get("unembed_prepared")
-    if pw is None and isinstance(params.get("unembed"), PreparedWeight):
+    if pw is None and isinstance(params.get("unembed"), LaidOutWeight):
         pw = params["unembed"]
     if pw is not None and pw.layout is not None:
         # this rank's vocab columns, at the reference's constraint site,

@@ -12,9 +12,10 @@ from .kvcache import (TRASH_BLOCK, BlockAllocator, PagedKVCache,
                       QuantizedKVCache, append_kv, gather_paged_kv,
                       init_paged_kv, init_quantized_kv, kv_cache_bytes,
                       paged_append_kv, paged_rollback_kv, quantize_kv)
-from .prepared import (PREP_STATS, PreparedWeight, clear_prepared_cache,
-                       prepare_logits_head, prepare_params, prepare_unembed,
-                       prepare_weight)
+from .prepared import (PREP_STATS, LaidOutWeight, PreparedWeight, RawSlice,
+                       clear_prepared_cache, prepare_logits_head,
+                       prepare_params, prepare_unembed, prepare_weight,
+                       shard_raw_params)
 from .qeinsum import plan_qeinsum, qeinsum
 from .qmatmul import qmatmul
 from .quantize import (QTensor, dequantize_int, fake_quant_fp8,
@@ -28,7 +29,8 @@ __all__ = ["QuantConfig", "NONE", "FP8_MGS", "FP8_MGS_EXACT",
            "FP8_WIDE", "INT8_DMAC", "QTensor",
            "quantize_fp8", "quantize_fp8_static", "quantize_int",
            "dequantize_int", "fake_quant_fp8", "fake_quant_int",
-           "PreparedWeight",
+           "LaidOutWeight", "PreparedWeight", "RawSlice",
+           "shard_raw_params",
            "prepare_weight", "prepare_params", "prepare_unembed",
            "prepare_logits_head", "PREP_STATS", "clear_prepared_cache",
            "qmatmul", "qeinsum", "plan_qeinsum", "QuantizedKVCache",

@@ -28,6 +28,15 @@ channel), taken by a max all-reduce over the ranks holding the other
 pieces, and ``limb_sigma`` comes from the code counts summed over every
 piece (an int64 all-reduce: exact), so the flush planner sees the one-device
 number. The cache key includes the layout.
+
+The configurations that take raw weights (the integer ones, ``none`` and
+fp8 ``wide`` / ``swamp``) keep them raw on a mesh too, each rank holding
+its slice of the same ``(*stack, K, N)`` view as a :class:`RawSlice`
+(:func:`shard_raw_params`), laid out and recorded as the planes are. A
+raw weight is quantized at every call, so its slice carries the one
+whole-weight quantity the call needs: the absmax the weight quantizer takes
+(per tensor over the whole slice, per channel over the whole K), maxed once
+over the ranks holding the other pieces.
 """
 
 from __future__ import annotations
@@ -50,9 +59,10 @@ from repro_torch.parallel.sharding import (local_slices, prepared_specs,
 from .config import QuantConfig
 from .quantize import TINY, quantize_fp8, recip
 
-__all__ = ["PreparedWeight", "PlaneLayout", "prepare_weight", "prepare_params",
-           "prepare_unembed", "prepare_logits_head", "PREP_STATS",
-           "clear_prepared_cache"]
+__all__ = ["LaidOutWeight", "PreparedWeight", "PlaneLayout", "RawSlice",
+           "prepare_weight",
+           "prepare_params", "prepare_unembed", "prepare_logits_head",
+           "shard_raw_params", "PREP_STATS", "clear_prepared_cache"]
 
 PREP_STATS = {"prepared": 0, "cache_hits": 0}
 
@@ -108,7 +118,41 @@ class PlaneLayout:
                 tuple(self.shape))
 
 
-class PreparedWeight:
+class LaidOutWeight:
+    """What a weight held apart from a raw tensor shares, prepared planes
+    or a rank's raw slice: ``tail``, the logical shape of the flattened
+    ``N``; ``layout``, its :class:`PlaneLayout` on a mesh (``None``: whole
+    on one device); ``shape``, that of its ``(*stack, K, N)`` plane; and
+    :meth:`slice`, one index of the stack."""
+
+    tail: Tuple[int, ...]
+    layout: Optional[PlaneLayout]
+
+    def _plane(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    @property
+    def shape(self):
+        return self._plane().shape
+
+    @property
+    def local_tail(self) -> Tuple[int, ...]:
+        """The logical shape of this rank's part of the flattened ``N``: a
+        shard of ``N`` covers whole trailing slices of the leading tail
+        dim."""
+        if self.layout is None or not self.layout.n_axes or not self.tail:
+            return self.tail
+        n = self.shape[-1]
+        return (n // math.prod(self.tail[1:]),) + self.tail[1:]
+
+    def _sub_layout(self) -> Optional[PlaneLayout]:
+        return None if self.layout is None else self.layout.drop_leading()
+
+    def slice(self, i: int) -> "LaidOutWeight":
+        raise NotImplementedError
+
+
+class PreparedWeight(LaidOutWeight):
     """A weight quantized once, in kernel-ready planes.
 
     * ``codes``: uint8 ``(*stack, K, N)`` packed FP8 codes.
@@ -139,23 +183,12 @@ class PreparedWeight:
         self.act_sigma = act_sigma
         self.layout = layout
 
-    @property
-    def local_tail(self) -> Tuple[int, ...]:
-        """The logical shape of this rank's part of the flattened ``N``: a
-        shard of ``N`` covers whole trailing slices of the leading tail
-        dim."""
-        if self.layout is None or not self.layout.n_axes or not self.tail:
-            return self.tail
-        n = self.codes.shape[-1]
-        return (n // math.prod(self.tail[1:]),) + self.tail[1:]
+    def _plane(self):
+        return self.codes
 
     @property
     def fmt(self) -> FPFormat:
         return get_format(self.fmt_name)
-
-    @property
-    def shape(self):
-        return self.codes.shape
 
     def values(self, dtype=torch.float32):
         """Format-exact weight values (for the plain path)."""
@@ -166,8 +199,7 @@ class PreparedWeight:
         return PreparedWeight(
             self.codes[i], self.scale[i], self.fmt_name, self.tail,
             None if self.limbs is None else self.limbs[i], self.limb_sigma,
-            self.act_sigma,
-            None if self.layout is None else self.layout.drop_leading())
+            self.act_sigma, self._sub_layout())
 
     def with_act_sigma(self, act_sigma: Optional[float]) -> "PreparedWeight":
         """Copy sharing the same planes, with a calibrated act sigma."""
@@ -182,6 +214,107 @@ class PreparedWeight:
                 f"limb_sigma={self.limb_sigma}, act_sigma={self.act_sigma}"
                 + ("" if self.layout is None else
                    f", spec={self.layout.spec}") + ")")
+
+
+class RawSlice(LaidOutWeight):
+    """A raw weight's slice on a mesh of ranks: this rank's part of the
+    weight's ``(*stack, K, N)`` view, for the configurations that quantize
+    raw weights at every call (module docstring).
+
+    * ``values``: ``(*stack, K, N)`` at the weight's dtype, this rank's
+      slice by ``layout`` (a :class:`PlaneLayout`, as a prepared weight's);
+    * ``amax``: float32, the whole weight's absmax (clamped at ``TINY``) as
+      the weight quantizer takes it, kept over the last two dims: per
+      tensor ``(*stack, 1, 1)``, per channel (``per_channel``) over the
+      whole K, ``(*stack, 1, N)`` for this rank's columns.
+
+    ``tail`` / ``layout`` / ``local_tail`` / ``shape`` / ``slice``: those
+    of :class:`LaidOutWeight`."""
+
+    def __init__(self, values, amax, tail: Tuple[int, ...],
+                 layout: Optional[PlaneLayout], per_channel: bool):
+        self.values = values
+        self.amax = amax
+        self.tail = tuple(tail)
+        self.layout = layout
+        self.per_channel = bool(per_channel)
+
+    def _plane(self):
+        return self.values
+
+    def slice(self, i: int) -> "RawSlice":
+        """Leading stack index ``i`` (one layer)."""
+        return RawSlice(self.values[i], self.amax[i], self.tail,
+                        self._sub_layout(), self.per_channel)
+
+    def flat_stack(self, B: int) -> "RawSlice":
+        """The stack axes flattened into one of ``B`` slices."""
+        return RawSlice(self.values.reshape((B,) + tuple(self.shape[-2:])),
+                        self.amax.reshape((B,) + tuple(self.amax.shape[-2:])),
+                        self.tail, self.layout, self.per_channel)
+
+    def __repr__(self):
+        return (f"RawSlice(shape={tuple(self.shape)}, tail={self.tail}, "
+                f"per_channel={self.per_channel}"
+                + ("" if self.layout is None else
+                   f", spec={self.layout.spec}") + ")")
+
+
+def _raw_slice(w, cfg: QuantConfig, stack_ndim: int, k_ndim: int,
+               layout: PlaneLayout) -> RawSlice:
+    """This rank's :class:`RawSlice` of ``w`` (``(*stack, *kdims,
+    *tail)``)."""
+    tail = tuple(int(s) for s in w.shape[stack_ndim + k_ndim:])
+    wg = w.reshape(tuple(layout.shape))[local_slices(
+        layout.spec, layout.shape, layout.mesh)].clone()
+    a = wg.to(torch.float32).abs()
+    if cfg.per_channel:
+        amax = a.amax(dim=-2, keepdim=True)
+        over = layout.k_axes
+    else:
+        amax = a.amax(dim=(-2, -1), keepdim=True)
+        over = layout.k_axes + layout.n_axes
+    amax = torch.clamp_min(layout.mesh.all_reduce(amax, "max", over), TINY)
+    return RawSlice(wg, amax, tail, layout, cfg.per_channel)
+
+
+def shard_raw_params(params, cfg: QuantConfig, *, dims, rules):
+    """``params`` with every raw projection weight that the serving rules
+    cut (and an untied ``unembed``, by ``("embed", "vocab")``) replaced by
+    this rank's :class:`RawSlice`, laid out as :func:`prepare_params` lays
+    out the planes; prepared weights, the weights the rules leave whole and
+    the rest of the tree pass through. For the configurations that keep raw
+    weights (not ``mgs_exact`` / ``mgs_dmac`` fp8), dense and MoE trees
+    (the families a mesh serves); ``rules=None`` or one rank: ``params``
+    itself."""
+    if rules is None or getattr(rules.mesh, "size", 1) == 1 or (
+            cfg.is_fp8 and cfg.accum in ("mgs_exact", "mgs_dmac")):
+        return params
+
+    def one(node, dnode, stack_ndim, k_ndim):
+        layout = _layout(node.shape, dnode, rules, cfg, stack_ndim, k_ndim)
+        if layout is None:
+            return node
+        return _raw_slice(node, cfg, stack_ndim, k_ndim, layout)
+
+    def walk(node, dnode, path):
+        if isinstance(node, dict):
+            return {k: walk(v, dnode.get(k) if isinstance(dnode, dict)
+                            else None, path + (k,))
+                    for k, v in node.items()}
+        if not (isinstance(node, torch.Tensor) and node.dim() >= 2
+                and isinstance(dnode, tuple)):
+            return node
+        if path == ("unembed",):
+            return one(node, dnode, 0, 1)
+        if len(path) >= 2 and path[-1] in _PROJ_WEIGHTS.get(path[-2], ()):
+            k_ndim = _K_NDIM.get((path[-2], path[-1]), 1)
+            return one(node, dnode,
+                       _stack_ndim_of(path, node.dim(), k_ndim, False),
+                       k_ndim)
+        return node
+
+    return walk(params, dims, ())
 
 
 def _keep_limbs(cfg: QuantConfig, keep_limbs: Optional[bool]) -> bool:

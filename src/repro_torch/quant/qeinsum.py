@@ -15,10 +15,12 @@ A :class:`PreparedWeight` ``w`` must already be in canonical
 ``torch.einsum``. ``site`` names the call site for calibration
 statistics and per-site flush planning (``quant.calibrate``).
 
-A prepared weight sharded over a mesh of ranks (``w.layout``) contracts
-this rank's part: an x whose batch dim the weight shards is sliced to this
-rank's slices (an x already holding them is taken as is), an x holding
-this rank's K range goes to ``qmatmul``'s K-sharded path, and the output
+A weight sharded over a mesh of ranks (a :class:`PreparedWeight` or a raw
+weight's :class:`RawSlice`, in canonical order, with ``w.layout``)
+contracts this rank's part: an x whose batch dim the weight shards is
+sliced to this rank's slices (an x already holding them is taken as is),
+an x holding this rank's K range goes to ``qmatmul``'s K-sharded path
+(under every config, ``none`` included), and the output
 holds this rank's batch slices and columns. ``gather=True`` (default)
 all-gathers the columns; ``gather=False`` leaves them this rank's (the
 attention heads and the FFN hidden of tensor parallelism).
@@ -34,7 +36,7 @@ import torch
 
 from repro_torch.kernels.mgs_matmul import ACTIVATIONS
 from .config import QuantConfig
-from .prepared import PreparedWeight
+from .prepared import LaidOutWeight, PreparedWeight, RawSlice
 from .qmatmul import qmatmul
 
 __all__ = ["qeinsum", "plan_qeinsum", "QeinsumPlan"]
@@ -118,32 +120,32 @@ def _sizes_of(plan: QeinsumPlan, x, w) -> Dict[str, int]:
                                  f"{sizes[i]} vs {s}")
 
     assign(plan.x_ix, x.shape, "x")
-    if isinstance(w, PreparedWeight):
+    if isinstance(w, LaidOutWeight):
         if not plan.canonical_w:
             raise ValueError(
-                f"PreparedWeight requires the w term in (batch, k, n) "
+                f"{type(w).__name__} requires the w term in (batch, k, n) "
                 f"order; got {plan.w_ix!r} (canonical: "
                 f"{plan.batch + plan.k + plan.n!r})")
-        stack = tuple(int(s) for s in w.codes.shape[:-2])
+        stack = tuple(int(s) for s in w.shape[:-2])
         if len(stack) != len(plan.batch):
             raise ValueError(
                 f"PreparedWeight stack rank {len(stack)} != batch indices "
                 f"{plan.batch!r}")
-        assign(plan.batch, stack, "w.codes stack")
+        assign(plan.batch, stack, "w stack")
         k_flat = math.prod(sizes[i] for i in plan.k)
-        k_ok = {int(w.codes.shape[-2])}
+        k_ok = {int(w.shape[-2])}
         if w.layout is not None:
             k_ok.add(int(w.layout.shape[-2]))
         if k_flat not in k_ok:
-            raise ValueError(f"contracted size {k_flat} != prepared K "
-                             f"{int(w.codes.shape[-2])}")
+            raise ValueError(f"contracted size {k_flat} != the weight's K "
+                             f"{int(w.shape[-2])}")
         assign(plan.n, w.local_tail, "w.tail")
     else:
         assign(plan.w_ix, w.shape, "w")
     return sizes
 
 
-def _local_batch(plan: QeinsumPlan, x, w: PreparedWeight):
+def _local_batch(plan: QeinsumPlan, x, w):
     """``x`` with every batch dim the weight shards cut to this rank's
     slices (an x already holding them is returned as is)."""
     lay = w.layout
@@ -175,7 +177,8 @@ def qeinsum(spec: str, x, w, cfg: QuantConfig, *, bias=None,
     """
     plan = plan_qeinsum(spec)
     prepared = isinstance(w, PreparedWeight)
-    lay = w.layout if prepared else None
+    sliced = isinstance(w, RawSlice)
+    lay = w.layout if isinstance(w, LaidOutWeight) else None
     if lay is not None:
         x = _local_batch(plan, x, w)
         if bias is not None and lay.n_axes:
@@ -190,7 +193,7 @@ def qeinsum(spec: str, x, w, cfg: QuantConfig, *, bias=None,
         raise ValueError(f"bias/activation epilogue requires the output to "
                          f"end with the n indices {plan.n!r}: {spec!r}")
 
-    if cfg.dtype == "none":
+    if cfg.dtype == "none" and not sliced:
         if prepared:
             raise ValueError("PreparedWeight requires an fp8 QuantConfig")
         out = torch.einsum(f"{plan.x_ix},{plan.w_ix}->{plan.out_ix}",
@@ -213,7 +216,8 @@ def qeinsum(spec: str, x, w, cfg: QuantConfig, *, bias=None,
     act_in = activation if fuse else "none"
 
     if not plan.batch:
-        w2 = w if prepared else w.permute(plan.w_perm).reshape(K, N)
+        w2 = (w if prepared or sliced
+              else w.permute(plan.w_perm).reshape(K, N))
         out2 = qmatmul(xt.reshape(M, K), w2, cfg, out_dtype=out_dtype,
                        bias=bias, activation=act_in,
                        flush_period=flush_period, site=site)
@@ -229,6 +233,11 @@ def qeinsum(spec: str, x, w, cfg: QuantConfig, *, bias=None,
                 None if w.limbs is None else
                 w.limbs.reshape((B,) + tuple(w.limbs.shape[-3:])),
                 w.limb_sigma, w.act_sigma, lay)
+        elif sliced:
+            if lay is not None and len(batch_shape) != 1:
+                raise NotImplementedError(
+                    "a sharded raw slice takes one batch index")
+            wb = w.flat_stack(B)
         else:
             wb = w.permute(plan.w_perm).reshape(B, K, N)
         out2 = qmatmul(xt.reshape(B, M, K), wb, cfg, out_dtype=out_dtype,

@@ -52,19 +52,34 @@ applied after it (the same float32 ops).
 An integer config takes raw weights only (a ``PreparedWeight`` raises
 ``ValueError``, as in the reference).
 
-A prepared weight sharded over a mesh of ranks (``PreparedWeight.layout``)
-holds this rank's columns and / or K range. Cut along N only, it runs the
-call above on its columns (the output is this rank's columns). Cut along
-K, the output cannot be a sum of per-rank float32 results, so the exact
-sum is reduced as integers (:func:`_sharded_exact`): the activation's
-scale is maxed over the K group first (per row under ``per_row_act``),
-this rank's K range is encoded, the class partials over it
-(``mgs_matmul_exact_partials``: B1's under ``schedule="output"``, B3's
-under a stationary schedule that the cut's stripe admits, else B1's) are
-summed by an int32 all-reduce over the K group, then flushed with the
-epilogue (``mgs_matmul_exact_flush``) — the one-device bits for any cut of
-K. That path is the fused kernels' (``use_kernel``, ``fused``); B4, B5 and
-raw weights on a K-sharded plane raise (ROADMAP A12.2c).
+A weight sharded over a mesh of ranks (a ``PreparedWeight`` or a raw
+weight's ``RawSlice``, each with its ``layout``) holds this rank's columns
+and / or K range. Cut along N only, it runs the call above on its columns
+(a raw slice quantized by the whole weight's absmax, which it carries);
+the output is this rank's columns. Cut along K, the output cannot be a sum
+of per-rank float32 results wherever the sum is exact, so each path reduces
+what it can add exactly (:func:`_sharded_k`): the activation's scale is
+maxed over the K group first (per row under ``per_row_act``; ``x`` holds
+the whole K or this rank's range of it), this rank's K range is quantized,
+then
+
+* fp8 ``mgs_exact``: the class partials over the range (B1's under
+  ``use_kernel`` and ``fused``, or B3's under a stationary schedule that
+  the cut's stripe admits; B4's over limb planes otherwise, its twin
+  without ``use_kernel``) are summed by an int32 all-reduce over the K
+  group and flushed with the epilogue (``mgs_matmul_exact_flush``);
+* fp8 ``mgs_dmac``: B5's summed bins over the range (``mgs_matmul_dmac_
+  partials``; its twin without ``use_kernel``), an int32 all-reduce, then
+  B5's combine and the epilogue (``mgs_matmul_dmac_combine``);
+* integer ``wide`` / ``mgs_exact`` / ``mgs_dmac``: the range's exact int32
+  sum, an int32 all-reduce (the wrap guard on the whole K);
+
+each the one-device bits for any cut of K. The order-dependent sums (fp8
+``swamp``, integer ``clip`` / ``wrap``) all-gather both operands' cuts
+along K and run the whole K on this rank's columns: the one-device bits.
+The float ones (``none``, fp8 ``wide``) gather the ranks' float32 partials
+and add them in rank order (no float all-reduce): not the one-device bits,
+and the same on every rank.
 
 ``site`` names the call site (``"ffn.wg"``, ``"attn.scores"``, ...) for
 calibration: under ``quant.calibrate.calibrating()`` the quantized
@@ -83,21 +98,22 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.formats import encode_bits, round_to_format
+from repro_torch.core.formats import encode_bits
 from repro_torch.core.int_dmac import int_dot_clip, int_dot_wrap
 from repro_torch.core.markov import plan_flush_period
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.mgs_matmul import (limb_decompose,
-                                            mgs_matmul_dmac_codes,
-                                            mgs_matmul_exact,
-                                            mgs_matmul_exact_flush,
-                                            mgs_matmul_exact_fused,
-                                            mgs_matmul_exact_partials)
+from repro_torch.kernels.mgs_matmul import (
+    limb_decompose, mgs_matmul_dmac_codes, mgs_matmul_dmac_combine,
+    mgs_matmul_dmac_combine_plain, mgs_matmul_dmac_partials,
+    mgs_matmul_dmac_partials_plain, mgs_matmul_exact,
+    mgs_matmul_exact_flush, mgs_matmul_exact_flush_plain,
+    mgs_matmul_exact_fused, mgs_matmul_exact_limb_partials,
+    mgs_matmul_exact_limb_partials_plain, mgs_matmul_exact_partials)
 from .calibrate import current_calib_state, current_recorder, observe
 from .config import QuantConfig
-from .prepared import PreparedWeight
-from .quantize import TINY, quantize_fp8, quantize_int, recip
+from .prepared import PreparedWeight, RawSlice
+from .quantize import TINY, quantize_fp8, quantize_int
 
 __all__ = ["qmatmul"]
 
@@ -152,6 +168,19 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
     if out_dtype is None:
         out_dtype = x.dtype
     prepared = isinstance(w, PreparedWeight)
+    w_amax = None
+    if isinstance(w, RawSlice):
+        if cfg.is_fp8 and cfg.accum in ("mgs_exact", "mgs_dmac"):
+            raise ValueError(f"accum={cfg.accum} takes a PreparedWeight, "
+                             "not a raw slice")
+        if w.per_channel != cfg.per_channel:
+            raise ValueError(f"the slice's absmax is per_channel="
+                             f"{w.per_channel}, the config's "
+                             f"{cfg.per_channel}")
+        if w.layout is not None and w.layout.k_axes:
+            return _sharded_k(x, w, cfg, out_dtype, bias, activation,
+                              batched, flush_period, site)
+        w, w_amax = w.values, w.amax
     if cfg.dtype == "none":
         if prepared:
             raise ValueError("PreparedWeight requires an fp8 QuantConfig")
@@ -161,7 +190,8 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
     if cfg.is_int:
         if prepared:
             raise ValueError("PreparedWeight requires an fp8 QuantConfig")
-        return _int_qmatmul(x, w, cfg, out_dtype, bias, activation, batched)
+        return _int_qmatmul(x, w, cfg, out_dtype, bias, activation, batched,
+                            w_amax)
     if cfg.accum not in ("mgs_exact", "mgs_dmac", "wide", "swamp"):
         raise NotImplementedError(
             f"accum={cfg.accum} for fp8 (use wide/mgs_*/swamp)")
@@ -170,13 +200,10 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
         raise ValueError(f"PreparedWeight format {w.fmt_name!r} != "
                          f"config format {fmt.name!r}")
     margin = cfg.fp8_margin
-    if cfg.per_row_act:
-        x_axis = -1
-    else:
-        x_axis = tuple(range(1, x.dim())) if batched else None
+    x_axis = _x_axis(cfg, x, batched)
     if prepared and w.layout is not None and w.layout.k_axes:
-        return _sharded_exact(x, w, cfg, x_axis, out_dtype, bias,
-                              activation, batched, flush_period, site)
+        return _sharded_k(x, w, cfg, out_dtype, bias, activation, batched,
+                          flush_period, site)
     qx = quantize_fp8(x, fmt, axis=x_axis, margin=margin)
     if cfg.accum in ("mgs_exact", "mgs_dmac"):
         observe(site, qx.q, fmt, batched=batched)
@@ -185,9 +212,8 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
         if batched and w_scale.dim() == 1:      # per-slice scalars
             w_scale = w_scale.reshape(-1, 1, 1)
     else:
-        w_axis = (1 if batched else 0) if cfg.per_channel else (
-            (1, 2) if batched else None)
-        qw = quantize_fp8(w, fmt, axis=w_axis, margin=margin)
+        qw = quantize_fp8(w, fmt, axis=_w_axis(cfg, batched), margin=margin,
+                          amax=w_amax)
         w_scale = qw.scale
     scale = qx.scale * w_scale
     if cfg.accum != "mgs_exact":
@@ -260,66 +286,178 @@ def qmatmul(x, w, cfg: QuantConfig, out_dtype=None, *, bias=None,
     return out.to(out_dtype)
 
 
-def _sharded_exact(x, w: PreparedWeight, cfg: QuantConfig, x_axis,
-                   out_dtype, bias, activation: str, batched: bool,
-                   flush_period: Optional[int], site: Optional[str]):
-    """``x @ w`` for a plane cut along K over a mesh of ranks (module
-    docstring, steps (i)-(v)); ``x`` holds the whole K or this rank's
-    range of it. Returns this rank's columns."""
+def _x_axis(cfg: QuantConfig, x, batched: bool):
+    """The activation quantizer's reduction axes."""
+    if cfg.per_row_act:
+        return -1
+    return tuple(range(1, x.dim())) if batched else None
+
+
+def _w_axis(cfg: QuantConfig, batched: bool):
+    """The weight quantizer's reduction axes."""
+    if cfg.per_channel:
+        return 1 if batched else 0
+    return (1, 2) if batched else None
+
+
+def _order_dependent(cfg: QuantConfig) -> bool:
+    """A sum whose bits follow its order: fp8 ``swamp``, int ``clip`` /
+    ``wrap``."""
+    return cfg.accum == "swamp" or (cfg.is_int
+                                    and cfg.accum in ("clip", "wrap"))
+
+
+def _sharded_k(x, w, cfg: QuantConfig, out_dtype, bias, activation: str,
+               batched: bool, flush_period: Optional[int],
+               site: Optional[str]):
+    """``x @ w`` for a weight cut along K over a mesh of ranks (module
+    docstring); ``x`` holds the whole K or this rank's range of it.
+    Returns this rank's columns."""
     lay = w.layout
-    if not (cfg.accum == "mgs_exact" and cfg.use_kernel and cfg.fused):
-        raise NotImplementedError(
-            f"a K-sharded plane runs B1's or B3's partials (mgs_exact, "
-            f"use_kernel, fused); accum={cfg.accum} "
-            f"use_kernel={cfg.use_kernel} fused={cfg.fused} on a K-sharded "
-            "plane is ROADMAP A12.2c")
     if current_recorder() is not None:
         raise NotImplementedError("calibration on a mesh is ROADMAP A12.2c")
-    fmt = cfg.fmt
+    mesh, kax = lay.mesh, lay.k_axes
     K = lay.shape[-2]
     k0, k1 = lay.range(-2)
-    xf = x.to(torch.float32)
-    if xf.shape[-1] == K:                  # replicated: take this K range
-        q = quantize_fp8(xf, fmt, axis=x_axis, margin=cfg.fp8_margin)
-        xq, x_scale = q.q[..., k0:k1], q.scale
-    elif xf.shape[-1] == k1 - k0:          # already this rank's K range
-        # (i) the scale is a max over the whole K: the K group's
+    whole = x.shape[-1] == K
+    if not whole and x.shape[-1] != k1 - k0:
+        raise ValueError(f"x's K {x.shape[-1]} is neither the weight's {K} "
+                         f"nor this rank's {k1 - k0}")
+    prepared = isinstance(w, PreparedWeight)
+    if _order_dependent(cfg):
+        # both operands whole along K, this rank's columns: one device's
+        # sequential sums
+        xw = x if whole else mesh.all_gather(x, x.dim() - 1, kax)
+        if prepared:
+            ww = PreparedWeight(mesh.all_gather(w.codes, w.codes.dim() - 2,
+                                                kax), w.scale, w.fmt_name,
+                                w.tail)
+        else:
+            ww = RawSlice(mesh.all_gather(w.values, w.values.dim() - 2, kax),
+                          w.amax, w.tail, None, w.per_channel)
+        return qmatmul(xw, ww, cfg, out_dtype, bias=bias,
+                       activation=activation, batched=batched,
+                       flush_period=flush_period, site=site)
+    lead = x.shape[:-1]
+    if cfg.dtype == "none":
+        xl = x if not whole else x[..., k0:k1]
+        part = torch.matmul(xl.to(torch.float32),
+                            w.values.to(torch.float32))
+        out = _ordered_sum(mesh.all_gather_parts(part, kax))
+        out = kops.apply_epilogue(out, None, bias, activation)
+        return out.to(out_dtype)
+    # (i) the activation's scale over the whole K (the K group's max)
+    x_axis = _x_axis(cfg, x, batched)
+    if cfg.is_int:
+        bits = cfg.int_bits
+        bx, bw = min(bits, cfg.act_bits), min(bits, cfg.weight_bits)
+
+        def quant_x(t, amax=None):
+            return quantize_int(t, bx, axis=x_axis, amax=amax)
+    else:
+        fmt = cfg.fmt
+
+        def quant_x(t, amax=None):
+            return quantize_fp8(t, fmt, axis=x_axis, margin=cfg.fp8_margin,
+                                amax=amax)
+    if whole:
+        qx = quant_x(x)
+        xq, x_scale = qx.q[..., k0:k1], qx.scale
+    else:
+        xf = x.to(torch.float32)
         amax = (xf.abs().amax() if x_axis is None
                 else xf.abs().amax(dim=x_axis, keepdim=True))
-        amax = torch.clamp_min(lay.mesh.all_reduce(amax, "max", lay.k_axes),
-                               TINY)
-        x_scale = amax * recip(fmt.max_finite * cfg.fp8_margin)
-        xq = round_to_format(xf / x_scale, fmt)
+        amax = torch.clamp_min(mesh.all_reduce(amax, "max", kax), TINY)
+        qx = quant_x(xf, amax)
+        xq, x_scale = qx.q, qx.scale
+    # (ii) this rank's K range of the weight, quantized as the whole
+    if prepared:
+        w_scale = w.scale
+        if batched and w_scale.dim() == 1:     # per-slice scalars
+            w_scale = w_scale.reshape(-1, 1, 1)
+    elif cfg.is_int:
+        qw = quantize_int(w.values, bw, axis=_w_axis(cfg, batched),
+                          amax=w.amax)
+        w_scale = qw.scale
     else:
-        raise ValueError(f"x's K {xf.shape[-1]} is neither the plane's "
-                         f"{K} nor this rank's {k1 - k0}")
-    w_scale = w.scale
-    if batched and w_scale.dim() == 1:     # per-slice scalars
-        w_scale = w_scale.reshape(-1, 1, 1)
+        qw = quantize_fp8(w.values, fmt, axis=_w_axis(cfg, batched),
+                          margin=cfg.fp8_margin, amax=w.amax)
+        w_scale = qw.scale
     scale = x_scale * w_scale
-    if flush_period is None:
-        flush_period = _site_flush_period(cfg, w, site)
-    in_kernel = not cfg.per_row_act
-    # (ii) encode this K range, (iii) B1's or B3's partials over it, (iv)
-    # the exact int32 sum over the K group, (v) the flush and the epilogue
-    xc = encode_bits(xq, fmt)
-    lead = xc.shape[:-1]
-    x3 = xc if batched else xc.reshape(-1, xc.shape[-1])
-    part = mgs_matmul_exact_partials(
-        x3, w.codes, fmt, block_k=cfg.block_k, flush_period=flush_period,
-        k_offset=k0, k_total=K,
-        schedule=kops._fused_schedule(cfg.schedule, x3.shape[-2],
-                                      x3.shape[-1], cfg.block_k))
-    part = lay.mesh.all_reduce(part, "sum", lay.k_axes)
-    out = mgs_matmul_exact_flush(
-        part, fmt, scale=scale if in_kernel else None,
-        bias=bias if in_kernel else None,
-        activation=activation if in_kernel else "none")
+    if cfg.is_int:
+        # (iii) the range's exact int32 sum, (iv) summed over the K group
+        part = _int_matmul(xq, qw.q, bx, bw, k_total=K)
+        out = mesh.all_reduce(part, "sum", kax)
+        out = kops.apply_epilogue(out.to(torch.float32) * scale, None, bias,
+                                  activation)
+        return out.to(out_dtype)
+    if cfg.accum == "wide":
+        part = kref.wide_matmul_ref(xq, w.values() if prepared else qw.q)
+        out = _ordered_sum(mesh.all_gather_parts(part, kax))
+        out = kops.apply_epilogue(out * scale, None, bias, activation)
+        return out.to(out_dtype)
+    x3 = xq if batched else xq.reshape(-1, xq.shape[-1])
+    if cfg.accum == "mgs_dmac":
+        # (iii) B5's bins over the range, (iv) their int32 sum, (v) the
+        # combine and the epilogue
+        xc = encode_bits(x3, fmt)
+        wc = w.codes if prepared else encode_bits(qw.q, fmt)
+        partials, combine = (
+            (mgs_matmul_dmac_partials, mgs_matmul_dmac_combine)
+            if cfg.use_kernel else
+            (mgs_matmul_dmac_partials_plain, mgs_matmul_dmac_combine_plain))
+        part = partials(xc, wc, fmt, cfg.gate_subnormal, k_offset=k0,
+                        k_total=K)
+        part = mesh.all_reduce(part, "sum", kax)
+        sc = scale if batched or scale.dim() < 2 else scale.reshape(
+            -1, scale.shape[-1])
+        out = combine(part, fmt, scale=sc, bias=bias, activation=activation)
+    else:
+        if not prepared:
+            raise ValueError(f"accum={cfg.accum} takes a PreparedWeight")
+        # (iii) the class partials over the range: B1's or B3's over codes,
+        # B4's over limb planes; (iv) their int32 sum; (v) the flush and
+        # the epilogue
+        if flush_period is None:
+            flush_period = _site_flush_period(cfg, w, site)
+        kw = dict(block_k=cfg.block_k, flush_period=flush_period,
+                  k_offset=k0, k_total=K)
+        if cfg.use_kernel and cfg.fused:
+            part = mgs_matmul_exact_partials(
+                encode_bits(x3, fmt), w.codes, fmt,
+                schedule=kops._fused_schedule(cfg.schedule, x3.shape[-2],
+                                              x3.shape[-1], cfg.block_k),
+                **kw)
+        else:
+            xl = limb_decompose(x3, fmt)
+            xl = xl.movedim(0, 1) if batched else xl
+            part = (mgs_matmul_exact_limb_partials if cfg.use_kernel
+                    else mgs_matmul_exact_limb_partials_plain)(
+                xl, kops.weight_limbs(w, fmt), fmt, **kw)
+        part = mesh.all_reduce(part, "sum", kax)
+        in_kernel = not cfg.per_row_act
+        flush = (mgs_matmul_exact_flush if cfg.use_kernel
+                 else mgs_matmul_exact_flush_plain)
+        out = flush(part, fmt, scale=scale if in_kernel else None,
+                    bias=bias if in_kernel else None,
+                    activation=activation if in_kernel else "none")
+        if not in_kernel:
+            out = out if batched else out[0]
+            out = kops.apply_epilogue(
+                out.reshape(tuple(lead) + (out.shape[-1],)) if not batched
+                else out, scale, bias, activation)
+            return out.to(out_dtype)
     if not batched:
         out = out[0].reshape(tuple(lead) + (out.shape[-1],))
-    if not in_kernel:
-        out = kops.apply_epilogue(out, scale, bias, activation)
     return out.to(out_dtype)
+
+
+def _ordered_sum(parts):
+    """The ranks' float32 partials added in rank order."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
 
 
 def _swamp(xq, w_vals, fmt, acc_mantissa_bits: int, batched: bool):
@@ -334,13 +472,13 @@ def _swamp(xq, w_vals, fmt, acc_mantissa_bits: int, batched: bool):
 
 
 def _int_matmul(xq: torch.Tensor, wq: torch.Tensor, bx: int,
-                     bw: int) -> torch.Tensor:
+                bw: int, k_total: Optional[int] = None) -> torch.Tensor:
     """``xq @ wq`` of integer values as an exact int32 sum: a float64
     matmul (exact: every partial sum is an integer below ``2**53``), cast
     to int32. ``bx`` / ``bw`` bound the operands' magnitudes by
     ``2**(b-1)``; a depth at which the reference's int32 sum could wrap
-    raises."""
-    K = xq.shape[-1]
+    raises (``k_total``: the whole K of which this is one cut)."""
+    K = xq.shape[-1] if k_total is None else k_total
     if K * 2 ** (bx - 1) * 2 ** (bw - 1) >= 2**31:
         raise ValueError(
             f"integer matmul of depth K={K} with {bx}-bit x {bw}-bit "
@@ -351,20 +489,15 @@ def _int_matmul(xq: torch.Tensor, wq: torch.Tensor, bx: int,
 
 
 def _int_qmatmul(x, w, cfg: QuantConfig, out_dtype, bias, activation: str,
-                 batched: bool):
+                 batched: bool, w_amax=None):
     """The integer configs: symmetric int quantization of both operands
-    (per slice under ``batched``), one of the accumulations, then
-    ``out * scale`` and the epilogue in float32."""
+    (per slice under ``batched``; ``w_amax``: a raw slice's whole-weight
+    absmax), one of the accumulations, then ``out * scale`` and the
+    epilogue in float32."""
     bits = cfg.int_bits
     bx, bw = min(bits, cfg.act_bits), min(bits, cfg.weight_bits)
-    if cfg.per_row_act:
-        x_axis = -1
-    else:
-        x_axis = tuple(range(1, x.dim())) if batched else None
-    w_axis = (1 if batched else 0) if cfg.per_channel else (
-        (1, 2) if batched else None)
-    qx = quantize_int(x, bx, axis=x_axis)
-    qw = quantize_int(w, bw, axis=w_axis)
+    qx = quantize_int(x, bx, axis=_x_axis(cfg, x, batched))
+    qw = quantize_int(w, bw, axis=_w_axis(cfg, batched), amax=w_amax)
     scale = qx.scale * qw.scale
     if cfg.accum in ("wide", "mgs_exact", "mgs_dmac"):
         out = _int_matmul(qx.q, qw.q, bx, bw)

@@ -56,16 +56,19 @@ def _absmax(x: torch.Tensor, axis):
 
 def quantize_fp8(x: torch.Tensor, fmt: FPFormat,
                  axis: Union[None, int, Sequence[int]] = None,
-                 margin: float = 1.0) -> QTensor:
+                 margin: float = 1.0, amax=None) -> QTensor:
     """Scale ``x`` into ``fmt``'s range (absmax) and RNE-round.
 
     ``axis``: reduction axis (or axes) for the scale, kept as size-1 dims;
     ``None`` = one per-tensor scalar. A tuple of all non-leading axes gives
     one scale per leading slice — the reference's ``vmap`` of the
-    per-tensor quantizer.
+    per-tensor quantizer. ``amax``: the absmax to scale by, already taken
+    (and clamped at ``TINY``) over more than ``x``: a slice of a tensor
+    sharded over a mesh of ranks quantizes as the whole tensor would.
     """
     x = x.to(torch.float32)
-    amax = _absmax(x, axis)
+    if amax is None:
+        amax = _absmax(x, axis)
     scale = amax * recip(fmt.max_finite * margin)
     q = round_to_format(x / scale, fmt)
     return QTensor(q=q, scale=scale)
@@ -95,19 +98,21 @@ def quantize_fp8_static(x: torch.Tensor, fmt: FPFormat, amax, *,
 
 def quantize_int(x: torch.Tensor, bits: int = 8,
                  axis: Union[None, int, Sequence[int]] = None,
-                 symmetric: bool = True) -> QTensor:
+                 symmetric: bool = True, amax=None) -> QTensor:
     """Uniform b-bit quantization (paper §2.1).
 
     Symmetric: ``q = round(x / s)``, ``s = absmax / (2**(b-1) - 1)``, no
     offset. Asymmetric: ``s = range / (2**b - 1)`` and the offset
     ``o = -2**(b-1) - round(min / s)``, so that real zero maps to an
-    integer. ``round`` is half to even; ``axis`` as in
-    :func:`quantize_fp8`.
+    integer. ``round`` is half to even; ``axis`` and (symmetric only)
+    ``amax`` as in :func:`quantize_fp8`.
     """
     x = x.to(torch.float32)
     lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
     if symmetric:
-        scale = _absmax(x, axis) * recip(2 ** (bits - 1) - 1)
+        if amax is None:
+            amax = _absmax(x, axis)
+        scale = amax * recip(2 ** (bits - 1) - 1)
         q = torch.clamp(torch.round(x / scale), lo, hi).to(torch.int32)
         return QTensor(q=q, scale=scale)
     if axis is None:

@@ -973,6 +973,106 @@ def test_b3_partials_and_flush_equal_b3_and_the_twin(dev, M, schedule):
                                   E4M3, schedule=schedule)
 
 
+@pytest.mark.parametrize("M", [1, 4, 16, 70])
+@pytest.mark.parametrize("fmt", [E4M3, E3M4])
+def test_b4_partials_flushed_equal_b4_b1_and_the_twin(dev, M, fmt):
+    """B4's partials entry over cuts of K off block_k (and off 16: the
+    plain-load staging path), the pieces' partials summed and B1's flush ==
+    one B4 call == B1 == the twins."""
+    from repro_torch.kernels.mgs_matmul import (
+        mgs_matmul_exact_flush, mgs_matmul_exact_limb_partials,
+        mgs_matmul_exact_limb_partials_plain)
+    K, N = 1000, 208
+    xc, wc = _codes((2, M, K), fmt, 8, dev), _codes((2, K, N), fmt, 9, dev)
+    xl = limb_decompose(decode_bits(xc, fmt), fmt).movedim(0, 1).contiguous()
+    wl = limb_decompose(decode_bits(wc, fmt), fmt).movedim(0, -3).contiguous()
+    for fp in (None, 1, 3):
+        kw = dict(block_k=64, flush_period=fp)
+        one = mgs_matmul_exact(xl, wl, fmt, **kw)
+        b1 = mgs_matmul_exact_fused(xc, wc, fmt, **kw)
+        for cut in ((0, 37), (0, 333, 555), (0, 16, 48)):
+            edges = list(cut) + [K]
+            n0 = LAUNCHES["mgs_matmul_exact_limb_partials"]
+            parts = [mgs_matmul_exact_limb_partials(
+                xl[..., a:b].contiguous(), wl[..., a:b, :].contiguous(), fmt,
+                k_offset=a, k_total=K, **kw)
+                for a, b in zip(edges[:-1], edges[1:])]
+            assert LAUNCHES["mgs_matmul_exact_limb_partials"] == \
+                n0 + len(cut)
+            a, b = edges[1], edges[2]
+            assert torch.equal(parts[1].cpu(),
+                               mgs_matmul_exact_limb_partials_plain(
+                                   xl[..., a:b].cpu(), wl[..., a:b, :].cpu(),
+                                   fmt, k_offset=a, k_total=K, **kw))
+            got = mgs_matmul_exact_flush(sum(parts), fmt)
+            torch.cuda.synchronize()
+            assert torch.equal(got, one) and torch.equal(one, b1), (fp, cut)
+
+
+@pytest.mark.parametrize("M", [1, 4, 13, 70])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "e3m4"])
+def test_b5_partials_and_combine_equal_b5_and_the_twin(dev, M, fmt):
+    """B5's partials entry over cuts of K off its 128-code tile, the
+    pieces' bins summed and its combine (scale, bias, silu) == one B5 call
+    with the dMAC epilogue == the twins, the gate on and off."""
+    from repro_torch.kernels.mgs_matmul import (
+        ACTIVATIONS, mgs_matmul_dmac_combine, mgs_matmul_dmac_combine_plain,
+        mgs_matmul_dmac_partials, mgs_matmul_dmac_partials_plain)
+    fmt = get_format(fmt)
+    K, N = 700, 197
+    xc, wc = _codes((2, M, K), fmt, 10, dev), _codes((2, K, N), fmt, 11, dev)
+    s = torch.rand(2, M, 1, device=dev) * 1e-2
+    bias = torch.randn(N, device=dev)
+    for gate in (True, False):
+        one = mgs_matmul_dmac_codes(xc, wc, fmt, gate)
+        want = ACTIVATIONS["silu"](one * s + bias)
+        for cut in ((0, 37), (0, 129, 300), (0, 16, 48)):
+            edges = list(cut) + [K]
+            n0 = LAUNCHES["mgs_matmul_dmac_partials"]
+            parts = [mgs_matmul_dmac_partials(
+                xc[..., a:b].contiguous(), wc[:, a:b].contiguous(), fmt,
+                gate, k_offset=a, k_total=K)
+                for a, b in zip(edges[:-1], edges[1:])]
+            assert LAUNCHES["mgs_matmul_dmac_partials"] == n0 + len(cut)
+            a, b = edges[1], edges[2]
+            assert torch.equal(parts[1].cpu(), mgs_matmul_dmac_partials_plain(
+                xc[..., a:b].cpu(), wc[:, a:b].cpu(), fmt, gate, k_offset=a,
+                k_total=K))
+            bins = sum(parts)
+            n0 = LAUNCHES["mgs_matmul_dmac_combine"]
+            got = mgs_matmul_dmac_combine(bins, fmt, scale=s, bias=bias,
+                                          activation="silu")
+            assert LAUNCHES["mgs_matmul_dmac_combine"] == n0 + 1
+            plain = mgs_matmul_dmac_combine_plain(bins, fmt, scale=s,
+                                                  bias=bias,
+                                                  activation="silu")
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and torch.equal(got, plain), (
+                gate, cut)
+
+
+def test_float_decode_attention_of_a_head_share_is_the_whole_ones(dev):
+    """The float path's decode attention over a rank's share of the kv
+    heads (``kv_heads=`` the model's: contracted at the whole count, the
+    rest zero) == those heads of the whole, bitwise; a share contracted
+    alone is the batched GEMV whose bits the card lets follow the batch
+    count."""
+    from repro_torch.models.attention import _sdpa_dense
+    g = torch.Generator().manual_seed(12)
+    B, KV, hd, S = 4, 32, 128, 49
+    q = (torch.randn(B, 1, KV, 1, hd, generator=g)).to(torch.bfloat16)
+    k = (torch.randn(B, S, KV, hd, generator=g)).to(torch.bfloat16)
+    v = (torch.randn(B, S, KV, hd, generator=g)).to(torch.bfloat16)
+    bias = torch.zeros(B, 1, 1, 1, S)
+    q, k, v, bias = (t.to(dev) for t in (q, k, v, bias))
+    whole = _sdpa_dense(q, k, v, bias, kv_heads=KV)
+    for lo, hi in ((0, 16), (16, 32), (0, 8)):
+        share = _sdpa_dense(q[:, :, lo:hi], k[:, :, lo:hi], v[:, :, lo:hi],
+                            bias, kv_heads=KV)
+        torch.cuda.synchronize()
+        assert torch.equal(share, whole[:, :, lo:hi]), (lo, hi)
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}

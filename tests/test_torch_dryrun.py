@@ -17,7 +17,10 @@ itself (``repro_torch.launch.step_cost`` / ``dryrun``).
   planes, the packed cache built on the ``meta`` device for each rank,
   the train state) equal the sum of the shards ``local_slices`` gives
   every rank; on a real 2x2 world of gloo ranks the engine's own tensors,
-  its launches and its collectives equal the dry run's for a served run.
+  its launches and its collectives equal the dry run's for a served run,
+  under the serving preset and configurations (a) (B5's partials and
+  combine), (b) (B4's partials and B1's flush) and (e) (``INT8_DMAC``: raw
+  slices, the integer sums' all-reduce).
 * At 1x2 the dry run's serving collectives and launches equal
   ``dryrun.sharded_prediction`` (the prediction ``chip_smoke.py`` phase 14
   holds the card's counts to).
@@ -50,7 +53,8 @@ from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
 from repro_torch.parallel import comm  # noqa: E402
 from repro_torch.parallel.sharding import (local_slices,  # noqa: E402
                                            make_rules, prepared_specs)
-from repro_torch.quant import FP8_MGS_SERVE_KV  # noqa: E402
+from repro_torch.quant import (FP8_MGS, FP8_MGS_EXACT,  # noqa: E402
+                               FP8_MGS_SERVE_KV, INT8_DMAC, QuantConfig)
 
 FAMILIES = ["mgs-paper-eval", "gemma3-27b", "granite-moe-1b-a400m",
             "falcon-mamba-7b", "jamba-1.5-large-398b", "whisper-tiny",
@@ -311,19 +315,22 @@ def test_serve_collectives_equal_sharded_prediction(arch):
 
 
 _NEW = 3
+#: the served 2x2 runs: the serving preset and configurations (a), (b), (e)
+#: of ``chip_smoke.paper_configs``
+SERVED = {"none": QuantConfig(), "fp8_mgs_serve_kv": FP8_MGS_SERVE_KV,
+          "a": FP8_MGS.replace(use_kernel=True),
+          "b": FP8_MGS_EXACT.replace(use_kernel=True),
+          "e": INT8_DMAC}
 
 
 def _served_rank(rank, shape):
     """A rank of a ``shape`` mesh serving one group of 2 requests under
-    the serving preset, recorded: the engine's own parameter and cache
+    each of ``SERVED``, recorded: the engine's own parameter and cache
     bytes, the run's launches and collectives."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import Request, ServeEngine
-    from repro_torch.quant import PreparedWeight
+    from repro_torch.quant import PreparedWeight, RawSlice
     mesh = make_mesh(shape, ("data", "model"))
-    cfg = dataclasses.replace(reduced_config("deepseek-7b"),
-                              quant=FP8_MGS_SERVE_KV)
-    eng = ServeEngine(cfg, batch=2, max_len=16, device="cpu", mesh=mesh)
 
     def nbytes(tree):
         if isinstance(tree, dict):
@@ -331,43 +338,67 @@ def _served_rank(rank, shape):
         if isinstance(tree, PreparedWeight):
             return sum(t.numel() * t.element_size() for t in
                        (tree.codes, tree.scale, tree.limbs) if t is not None)
+        if isinstance(tree, RawSlice):
+            return sum(t.numel() * t.element_size() for t in
+                       (tree.values, tree.amax))
         return tree.numel() * tree.element_size()
-    cache = eng._init_cache(2)
-    cb = sum(t.numel() * t.element_size() for t in cache.values()
-             if isinstance(t, torch.Tensor))
-    reqs = [Request(rid=i, prompt=np.arange(1, 9, dtype=np.int32) + i,
-                    max_new_tokens=_NEW) for i in range(2)]
-    with step_cost.record() as c:
-        eng.run(reqs)
-    return {"params": nbytes(eng.params), "cache": cb,
-            "launches": c.launches, "collectives": sorted(c.collectives)}
+    out = {}
+    for key, quant in SERVED.items():
+        cfg = dataclasses.replace(reduced_config("deepseek-7b"), quant=quant)
+        eng = ServeEngine(cfg, batch=2, max_len=16, device="cpu", mesh=mesh)
+        cache = eng._init_cache(2)
+        cb = sum(t.numel() * t.element_size() for t in cache.values()
+                 if isinstance(t, torch.Tensor))
+        reqs = [Request(rid=i, prompt=np.arange(1, 9, dtype=np.int32) + i,
+                        max_new_tokens=_NEW) for i in range(2)]
+        with step_cost.record() as c:
+            eng.run(reqs)
+        out[key] = {"params": nbytes(eng.params), "cache": cb,
+                    "flops": c.flops, "launches": c.launches,
+                    "collectives": sorted(c.collectives)}
+    return out
 
 
-def test_a_served_2x2_run_equals_the_dry_run(tmp_path):
+_SERVED_RUNS: dict = {}
+
+
+def _served(tmp_path_factory):
+    if not _SERVED_RUNS:
+        _SERVED_RUNS["2x2"] = comm.launch(
+            _served_rank, 4, args=((2, 2),), timeout=300, threads=1,
+            store_dir=str(tmp_path_factory.mktemp("store")))
+    return _SERVED_RUNS["2x2"]
+
+
+@pytest.mark.parametrize("key", list(SERVED))
+def test_a_served_2x2_run_equals_the_dry_run(key, tmp_path_factory):
     """Reduced deepseek-7b on a 2x2 world of gloo ranks (wq / wk / wv / wg /
-    wu cut along K over data, heads and ffn over model): every rank's
-    prepared and raw parameter bytes, its cache bytes, and the launches
-    and collectives of a prefill of 8 tokens and 2 decode steps equal the
-    dry run's."""
-    shape = (2, 2)
-    outs = comm.launch(_served_rank, 4, args=(shape,), timeout=300,
-                       threads=1, store_dir=str(tmp_path))
+    wu cut along K over data, heads and ffn over model), under the serving
+    preset and configurations (a) (B5), (b) (B4) and (e) (``INT8_DMAC``):
+    every rank's prepared and raw parameter bytes, its cache bytes, and
+    the launches and collectives of a prefill of 8 tokens and 2 decode
+    steps equal the dry run's."""
+    outs = _served(tmp_path_factory)
     cfg = dataclasses.replace(reduced_config("deepseek-7b"),
-                              quant=FP8_MGS_SERVE_KV)
+                              quant=SERVED[key])
     rules = make_rules(dryrun._rank0(dryrun.parse_mesh("2x2")), "serve",
                        shard_batch=False)
     pb = dryrun.param_bytes(cfg, rules)
-    coll, launches = [], {}
+    coll, launches, flops = [], {}, 0.0
     for kind, seq in [("prefill", 8)] + [("decode", 1)] * (_NEW - 1):
         dots = dryrun.step_dots(cfg, kind, 2, seq, cache_len=16,
                                 rules=rules, coll=coll)
+        flops += sum(d.flops for d in dots)
         for k, v in dryrun.launches(dots).items():
             launches[k] = launches.get(k, 0) + v
     for out in outs:
-        assert out["params"] == pb["prepared"] + pb["raw"]
-        assert out["cache"] == dryrun.cache_bytes(cfg, 2, 16, rules)
-        assert out["launches"] == launches
-        assert out["collectives"] == sorted(coll)
+        got = out[key]
+        assert got["params"] == pb["prepared"] + pb["raw"]
+        assert got["cache"] == dryrun.cache_bytes(cfg, 2, 16, rules)
+        assert got["flops"] == flops
+        assert got["launches"] == launches
+        assert got["collectives"] == sorted(coll)
+    assert bool(launches) == (key not in ("none", "e"))
 
 
 def test_whisper_train_on_two_pods():

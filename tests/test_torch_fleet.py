@@ -813,6 +813,18 @@ def test_cli_replicas_serve_on_cpu_slots(capsys):
     (["--replicas", "2", "--continuous", "--quant", "fp8-mgs-serve-paged"],
      "single-engine")])
 def test_cli_refuses_what_the_fleet_does_not_serve(capsys, flags, reason):
+    """What the fleet does not serve is refused; a mesh of ranks under the
+    default unquantized model (raw weights) is served now, with the 1x1
+    engine's tokens."""
+    args = ["--reduced", "--device", "cpu"]
+    if flags == ["--mesh", "2x1"]:
+        serve_main(args)
+        one = capsys.readouterr().out.splitlines()
+        serve_main(args + flags)
+        two = capsys.readouterr().out.splitlines()
+        assert "'mesh': '2x1'" in two[0]
+        assert two[1:] == one[1:]
+        return
     with pytest.raises(SystemExit):
-        serve_main(["--reduced", "--device", "cpu"] + flags)
+        serve_main(args + flags)
     assert reason in capsys.readouterr().err

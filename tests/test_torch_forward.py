@@ -34,7 +34,10 @@
   the flipped product moves a sum across the wrap, and the rest follows
   through the layers (88% of the tokens agree). A planted fault (the
   port's layers one narrow bit wider than the reference's) fails the
-  per-layer bar. The port runs ``dmac_mgs`` on B5's twin and
+  per-layer bar. Under ``int8_wrap_12`` every quantized contraction of
+  every layer and the head, given the reference's own operands, is the
+  reference's bit for bit (the epilogue's ``silu`` aside, one ``exp``
+  ulp): the per-layer miss is upstream of the sums. The port runs ``dmac_mgs`` on B5's twin and
   ``mgs_exact`` on B1's (``use_kernel=True``), the reference its default
   emulation.
 * ``launch.dryrun.eval_b1_shapes`` / ``eval_launches`` are the shapes and
@@ -392,6 +395,74 @@ def test_table1_fig9_per_layer_matches_reference(eval_model, name):
     bars = _per_layer_bars(eval_model, name)
     assert all(_holds(b) for b in bars), bars
     assert _port_chain_equals_forward(eval_model, name)
+
+
+def _reference_sites(eval_model, name, monkeypatch):
+    """Every quantized contraction of the reference's layers and head on
+    its own residual stream: ``(site, spec, x, w, activation, sum, out)``
+    with the reference's own operands, its contraction before the epilogue
+    activation and its result, as numpy."""
+    from repro.models import attention as r_attn
+    from repro.models import linear as r_linear
+    _, rcfg, np_params, tokens = eval_model
+    rcfg = _quant(name, rcfg, False)
+    calls = []
+
+    def recorder(fn):
+        def qeinsum(spec, x, w, cfg, **kw):
+            out = fn(spec, x, w, cfg, **kw)
+            act = kw.pop("activation", "none")
+            calls.append((kw.get("site"), spec, np.asarray(x), np.asarray(w),
+                          act, np.asarray(fn(spec, x, w, cfg, **kw)),
+                          np.asarray(out)))
+            return out
+        return qeinsum
+
+    for mod in (r_linear, r_attn, rt):
+        monkeypatch.setattr(mod, "qeinsum", recorder(mod.qeinsum))
+    rp = jax.tree.map(jnp.asarray, np_params)
+    B, T = tokens.shape
+    pos = jnp.broadcast_to(jnp.arange(T, dtype=jnp.int32)[None], (B, T))
+    x = rt._embed_tokens(rp, rcfg, jnp.asarray(tokens))
+    for i in range(rcfg.n_layers):
+        pl = jax.tree.map(lambda a: a[i], rp["layers"])
+        x, _, _ = rt._dense_body(pl, x, pos, rcfg, True, None, None, None,
+                                 None)
+    rt._logits(rp, rcfg, r_rms_norm(x, rp["final_norm"], rcfg.norm_eps))
+    return calls
+
+
+def test_int8_wrap_12_every_site_is_bitwise_the_reference(eval_model,
+                                                          monkeypatch):
+    """Each quantized contraction of every layer (and the head) under
+    ``int8_wrap_12``, given the reference's own operands (its norm output,
+    its ``silu(wg) * wu`` product, its attention output), equals the
+    reference's contraction bit for bit: the sums are integers. The
+    ``ffn.wg`` epilogue's ``silu`` is the one op apart (a last-ulp
+    ``exp``): the reference's ``jax.nn.silu`` of the port's contraction is
+    the reference's output. So the per-layer case's miss comes from the
+    operands' last-ulp ``rsqrt`` / ``exp`` upstream, not from the port's
+    arithmetic."""
+    from repro.kernels.mgs_matmul import ACTIVATIONS as R_ACTIVATIONS
+    from repro_torch.quant import qeinsum
+    tq = _quant("int8_wrap_12", eval_model[0], True).quant
+    calls = _reference_sites(eval_model, "int8_wrap_12", monkeypatch)
+    sites = [c[0] for c in calls]
+    L = eval_model[1].n_layers
+    for s in ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "ffn.wg",
+              "ffn.wu", "ffn.wd"):
+        assert sites.count(s) == L, (s, sites)
+    assert "logits" in sites
+    for i, (site, spec, x, w, act, want, out) in enumerate(calls):
+        with torch.no_grad():
+            got = qeinsum(spec, torch.tensor(x), torch.tensor(w), tq,
+                          site=site)
+        msg = f"call {i}: {site} {spec}"
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=msg)
+        if act != "none":
+            np.testing.assert_array_equal(
+                np.asarray(R_ACTIVATIONS[act](jnp.asarray(got.numpy()))),
+                out, err_msg=msg)
 
 
 @pytest.mark.parametrize("name", ["int8_wrap_12", "int8_clip_14"])

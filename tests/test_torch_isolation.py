@@ -30,7 +30,8 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.quant",
            "repro_torch.runtime.fault_tolerance", "repro_torch.parallel",
            "repro_torch.parallel.sharding", "repro_torch.parallel.comm",
            "repro_torch.launch.roofline", "repro_torch.launch.step_cost",
-           "repro_torch.launch.dryrun"]
+           "repro_torch.launch.dryrun", "repro_torch.models.linear",
+           "repro_torch.quant.quantize"]
 
 
 def test_import_leaves_jax_and_repro_unloaded():

@@ -224,6 +224,31 @@ def test_partials_and_flush_bounds_equal_chip_smokes():
     assert round(rl.b1_flush_bound(Bt, M, N, nseg)[0], 5) == 0.00012
 
 
+def test_closing_entries_count_scales_as_stored_at_the_float32_rate():
+    """B5's combine and B1's flush read their scale and bias as stored (a
+    broadcast dim once) and do float32 arithmetic: rank 0's half of
+    decode wd under a slice's scale, 16 E4M3 bins an output."""
+    hw = rl.H100_SXM
+    assert hw.fp32_flops == 67e12
+    Bt, M, N, nb = 1, 4, 4096, 16
+    nbytes, ops, rate = rl.kernel_work("mgs_matmul_dmac_combine",
+                                       (Bt, M, 0, N), segments=nb)
+    assert (nbytes, ops, rate) == (Bt * M * N * (4 * nb + 4) + 4,
+                                   2 * nb * Bt * M * N, hw.fp32_flops)
+    assert rl.dmac_combine_bound(Bt, M, N, nb) == (nbytes / hw.hbm_bw * 1e3,
+                                                   "bytes")
+    assert round(rl.dmac_combine_bound(Bt, M, N, nb)[0], 6) == 0.000333
+    # a row's scale times a column's is stored whole
+    assert rl.kernel_work("mgs_matmul_dmac_combine", (Bt, M, 0, N),
+                          segments=nb, scale_elems=M * N)[0] == \
+        nbytes + 4 * (M * N - 1)
+    nbytes, ops, rate = rl.kernel_work("mgs_matmul_exact_flush",
+                                       (Bt, M, 0, N), segments=2,
+                                       scale_elems=0)
+    assert (nbytes, rate) == (2 * 5 * Bt * M * N * 4 + Bt * M * N * 4,
+                              hw.fp32_flops)
+
+
 # B2: the dense entry (scale rows shared by the slice's rows) at 128 slices
 # of head dim 128 and granite-moe's 2 rows; the paged / verify entries at
 # 4 slots x 32 heads and 256 / 1024 / 4096 live keys a slot (a row each)

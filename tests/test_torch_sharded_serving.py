@@ -15,8 +15,12 @@ under a deadline, torch pinned to one thread in the parent and every rank.
   a rebuild;
 * reduced granite-moe-1b-a400m at top_k 3: bitwise on 1x2 (experts over
   model) and 1x4 (the kv heads replicated);
-* the CLI: ``--mesh 1x2 --device cpu`` serves the 1x1 tokens, and what
-  stays unported raises naming A12.2c (the continuous engine on a mesh:
+* a K-sharded plane off B1 (B4, B5) runs its partials entry: bitwise the
+  one-rank product (every config on a mesh:
+  ``tests/test_torch_sharded_quant.py``);
+* the CLI: ``--mesh 1x2 --device cpu`` serves the 1x1 tokens, under the
+  serving preset and unquantized, and what stays unported raises naming
+  A12.2c (the continuous engine on a mesh:
   ``tests/test_torch_continuous_sharded.py``).
 """
 
@@ -149,15 +153,17 @@ def _matmuls(mesh):
             out["mm"][("k_local", fp)] = qeinsum(
                 "mk,kn->mn", x[:, a:b], pws["k"], _QC,
                 flush_period=fp).numpy()
-    # B4 (limb planes, no fused epilogue) on a K-sharded plane: refused
-    from repro_torch.quant import FP8_MGS_EXACT
-    b4 = FP8_MGS_EXACT.replace(use_kernel=True, block_k=32)
-    try:
-        qeinsum("mk,kn->mn", x, prepare_weight(
-            kdim, b4, dims=("ffn", "embed"), rules=rules), b4)
-        out["refusal"] = None
-    except NotImplementedError as e:
-        out["refusal"] = str(e)
+    # B4 (limb planes, no fused epilogue) and B5 on a K-sharded plane:
+    # their partials entries (tests/test_torch_sharded_quant.py)
+    from repro_torch.quant import FP8_MGS, FP8_MGS_EXACT
+    out["off_b1"] = {}
+    for name, q in (("b4", FP8_MGS_EXACT.replace(use_kernel=True,
+                                                 block_k=32)),
+                    ("b5", FP8_MGS.replace(use_kernel=True))):
+        pw = prepare_weight(kdim, q, dims=("ffn", "embed"), rules=rules)
+        out["off_b1"][name] = (
+            qeinsum("mk,kn->mn", x, pw, q).numpy(),
+            pw.layout is not None and bool(pw.layout.k_axes))
     # the planted fault: each rank flushes its own K range, the float32
     # outputs are added
     lay = pws["k"].layout
@@ -325,10 +331,17 @@ def test_flushing_per_rank_then_adding_floats_is_caught(
 
 @pytest.mark.parametrize("shape", MATMUL_MESHES,
                          ids=["x".join(map(str, m)) for m in MATMUL_MESHES])
-def test_a_k_sharded_plane_off_b1_names_the_next_slice(shape,
+def test_a_k_sharded_plane_off_b1_names_the_next_slice(shape, one_rank,
                                                        tmp_path_factory):
-    for out in _run(shape, tmp_path_factory):
-        assert "A12.2c" in out["matmul"]["refusal"]
+    """A K-sharded plane off B1 (B4's limb planes, B5's codes) no longer
+    names the next slice: it runs that kernel's partials entry, and the
+    product is the one-rank product, bitwise."""
+    want = one_rank["matmul"]["off_b1"]
+    for r, out in enumerate(_run(shape, tmp_path_factory)):
+        for name, (got, cut) in out["matmul"]["off_b1"].items():
+            assert cut, (r, name)
+            np.testing.assert_array_equal(got, want[name][0],
+                                          err_msg=f"rank {r} {name}")
 
 
 ENGINE_MESHES = [(1, 2), (2, 2), (1, 8)]
@@ -441,6 +454,19 @@ def test_cli_mesh_serves_the_one_rank_tokens(capsys):
     ["--mesh", "1x2", "--replicas", "2", "--quant", "fp8-mgs-serve-kv"]],
     ids=["no-deterministic", "ssm", "unquantized", "replicas"])
 def test_cli_refusals_name_the_next_slice(capsys, flags):
+    """What stays unported names A12.2c; the unquantized model (raw
+    weights, the CLI's default ``--quant none``) is served on the mesh now,
+    with the 1x1 tokens."""
+    if flags == ["--mesh", "1x2"]:
+        args = ["--reduced", "--device", "cpu", "--batch", "2",
+                "--n-requests", "3", "--prompt-len", "8", "--max-new", "3"]
+        serve_main(args)
+        one = capsys.readouterr().out.splitlines()
+        serve_main(args + flags)
+        two = capsys.readouterr().out.splitlines()
+        assert "'mesh': '1x2'" in two[0]
+        assert two[1:] == one[1:]
+        return
     with pytest.raises(SystemExit):
         serve_main(["--reduced", "--device", "cpu"] + flags)
     assert "A12.2c" in capsys.readouterr().err
